@@ -1,0 +1,285 @@
+"""Query engine: the counterpart of ``mlvectordb_tpu/engine/query_processor.py``.
+
+The ported slice: insert / upsert_many / bulk_load / delete / delete_namespace and exact
+batched search with hydration and the result cache.  Reference behaviors kept:
+  * k clamped to the live count (index.py:103-107)
+  * search of a missing namespace returns [] (index.py:98-99)
+  * result dicts {id, values, metadata, score}, silently dropping hits that vanished from
+    storage between select and hydrate (query_processor.py:38-49)
+  * score convention: l2/ip -> raw distance (lower better), cosine -> similarity = 1 - dist
+    (index.py:121-128)
+
+Not ported yet: metadata filters and hybrid search (ROADMAP A19), IVF (A13), the WAL and
+snapshots (A20), the certificate counters (A5).  ``filter=`` and ``nprobe=`` raise.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import threading
+import uuid as uuid_mod
+from collections import OrderedDict
+from typing import Any, Dict, Iterable, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..config import DEFAULT_CONFIG, HIGHER_IS_BETTER, EngineConfig, canonical_metric
+from ..interfaces.vector import VectorDTO
+from ..ops.backend import knn_backend
+from ..ops.distances import MASKED
+from ..store.storage import StorageEngine
+from ..store.vector import Vector
+from ..utils.tracing import trace_span
+
+
+class QueryProcessor:
+    """Composes the device store with the fused search kernels."""
+
+    def __init__(
+        self,
+        config: EngineConfig = DEFAULT_CONFIG,
+        *,
+        device,
+    ):
+        self.config = config
+        self.device = torch.device(device)
+        self.storage = StorageEngine(config, device=self.device)
+        self._write_lock = threading.RLock()  # single-writer discipline
+        # query-result cache, keyed by namespace VERSION (any mutation invalidates
+        # implicitly); stores the final hydrated result lists, LRU-evicted
+        self._result_cache: "OrderedDict[Any, List[List[Dict[str, Any]]]]" = OrderedDict()
+        self._result_cache_hits = 0
+        self._result_cache_lock = threading.Lock()
+        # host<->device transfer audit counters: the serving path does exactly ONE
+        # host->device (the query batch) and ONE device->host ((dist, idx) fetched
+        # together) per search
+        self.transfer_counts = {"h2d": 0, "d2h": 0}
+
+    def _result_cache_key(self, q_np, top_k, namespace, metric):
+        ns = self.storage.namespace(namespace)
+        if ns is None or self.config.result_cache_size <= 0:
+            return None
+        h = hashlib.blake2b(q_np.tobytes(), digest_size=16).hexdigest()
+        # ns.incarnation: version counters restart at 0 when a namespace is GC'd and
+        # recreated, so (name, version) alone can resurrect a dead incarnation's results
+        return (namespace, ns.incarnation, ns.version, h, top_k, metric)
+
+    # ------------------------------------------------------------------ writes
+
+    def insert(self, vector: VectorDTO, namespace: str = "default") -> Vector:
+        with self._write_lock:
+            v = Vector(vector.values, vector.metadata, id=vector.id)
+            self.storage.write(v, namespace)
+            return v
+
+    def upsert_many(
+        self, vectors: Sequence[VectorDTO], namespace: str = "default"
+    ) -> List[Vector]:
+        """True upsert: DTOs carrying an id overwrite in place; id-less DTOs mint uuid4."""
+        with self._write_lock, trace_span("upsert", namespace=namespace, count=len(vectors)):
+            vs = [Vector(d.values, d.metadata, id=d.id) for d in vectors]
+            self.storage.write_vectors(vs, namespace)
+            return vs
+
+    def delete(
+        self, vector_ids: Iterable[uuid_mod.UUID], namespace: str = "default"
+    ) -> List[uuid_mod.UUID]:
+        with self._write_lock, trace_span("delete", namespace=namespace):
+            return self.storage.delete_vectors(list(vector_ids), namespace)
+
+    def delete_namespace(self, namespace: str) -> bool:
+        with self._write_lock:
+            return self.storage.delete_namespace(namespace)
+
+    def bulk_load(
+        self,
+        values,                              # [n, dim] array-like
+        namespace: str = "default",
+        ids=None,
+        metadatas=None,
+        batch_rows: int = 65536,
+    ):
+        """High-throughput vectorized ingestion (no per-vector Python objects).
+
+        Returns the list of uuids.  Batches bound peak host memory and the size of each
+        device scatter.
+        """
+        values = np.ascontiguousarray(values, np.float32)
+        n = values.shape[0]
+        out = []
+        with self._write_lock, trace_span("bulk_load", namespace=namespace, count=n):
+            ns = self.storage.namespace(namespace, create=True)
+            for lo in range(0, n, batch_rows):
+                hi = min(lo + batch_rows, n)
+                out.extend(ns.bulk_upsert(
+                    values[lo:hi],
+                    ids[lo:hi] if ids is not None else None,
+                    metadatas[lo:hi] if metadatas is not None else None,
+                ))
+        return out
+
+    # ------------------------------------------------------------------ search core
+
+    def _raw_search(self, q_np: np.ndarray, namespace: str, k: int, metric: str):
+        """Returns (dist [B, k'] np, slots [B, k'] np, ns_store, tables) with
+        k' = min(k, live); tables is the snapshot's host slot tables (one generation,
+        for torn-free hydration).  Empty namespace / k<=0 -> (None, None, None, None)."""
+        ns = self.storage.namespace(namespace)
+        if ns is None or ns.live_count == 0 or k <= 0:
+            return None, None, None, None
+        if q_np.shape[1] != ns.dim:
+            raise ValueError(
+                f"query dim {q_np.shape[1]} != namespace {namespace!r} dim {ns.dim}"
+            )
+        return self._search_snapshot(q_np, ns, namespace, k, metric)
+
+    def _search_snapshot(self, q_np, ns, namespace, k, metric):
+        state = ns.device_state()  # snapshot: writers replace tensors, never mutate them
+        # counters come from the SNAPSHOT, never the live store attributes: a concurrent
+        # upsert bumps host tables before publishing the scattered arrays, and pairing
+        # old data with the new high-water would admit never-written all-zero rows
+        k_eff = min(k, state.live_count)
+        B = q_np.shape[0]
+        if k_eff <= 0:
+            empty = np.zeros((B, 0))
+            return empty, empty.astype(np.int32), ns, state.host_tables
+        kb = min(self.config.bucket_k(k_eff), state.valid.shape[0])
+        Bb = self.config.bucket_batch(B)
+        q_pad = np.zeros((Bb, ns.dpad), np.float32)
+        q_pad[:B, : ns.dim] = q_np
+
+        self.transfer_counts["h2d"] += 1
+        q_dev = torch.from_numpy(q_pad).to(self.device)
+        # rows [0, high_water) are exactly the live rows iff no slot below the
+        # high-water mark is dead => the fast kernel can skip all mask traffic
+        live_prefix = None
+        if state.live_count == state.high_water:
+            live_prefix = state.high_water
+        backend = knn_backend(self.config)
+        with trace_span("knn_kernel", namespace=namespace, k=kb, batch=Bb):
+            dist, idx = backend(
+                q_dev, state.data, state.valid, state.sq_norms,
+                k=kb, metric=metric, db_tile=self.config.db_tile, live_prefix=live_prefix,
+            )
+            # ONE device->host transfer for both arrays: the int32 ids travel bit-cast
+            # beside the f32 distances
+            packed = torch.stack([dist, idx.view(torch.float32)])
+        self.transfer_counts["d2h"] += 1
+        packed = packed.cpu().numpy()
+        dist, idx = packed[0], packed[1].view(np.int32)
+        return dist[:B, :k_eff], idx[:B, :k_eff], ns, state.host_tables
+
+    def _to_user_score(self, dist: np.ndarray, metric: str) -> np.ndarray:
+        # reference convention (index.py:121-128): cosine -> 1 - dist; else raw distance
+        return 1.0 - dist if HIGHER_IS_BETTER[metric] else dist
+
+    # ------------------------------------------------------------------ public queries
+
+    def find_similar(
+        self,
+        query: VectorDTO,
+        top_k: int = 10,
+        namespace: str = "default",
+        metric: Optional[str] = None,
+        filter: Optional[Dict[str, Any]] = None,
+        nprobe: Optional[int] = None,
+    ) -> List[Dict[str, Any]]:
+        return self.find_similar_batch([query], top_k, namespace, metric, filter, nprobe)[0]
+
+    def find_similar_batch(
+        self,
+        queries: Sequence[VectorDTO],
+        top_k: int = 10,
+        namespace: str = "default",
+        metric: Optional[str] = None,
+        filter: Optional[Dict[str, Any]] = None,
+        nprobe: Optional[int] = None,
+    ) -> List[List[Dict[str, Any]]]:
+        """Batched exact kNN — the QPS path; recall is 1.0."""
+        if filter is not None:
+            raise NotImplementedError("filter= is not ported yet (ROADMAP A19: filters/hybrid)")
+        if nprobe is not None:
+            raise NotImplementedError("nprobe= is not ported yet (ROADMAP A13: IVF)")
+        m = canonical_metric(metric or self.config.default_metric)
+        q_np = np.stack([np.asarray(q.values, np.float32).reshape(-1) for q in queries])
+
+        cache_key = self._result_cache_key(q_np, top_k, namespace, m)
+        if cache_key is not None:
+            with self._result_cache_lock:
+                hit = self._result_cache.get(cache_key)
+                if hit is not None:
+                    self._result_cache.move_to_end(cache_key)  # LRU touch
+                    self._result_cache_hits += 1
+            if hit is not None:
+                # shallow-copy the result dicts so a caller mutating a hit can't
+                # poison later cache reads
+                return [[dict(r) for r in rs] for rs in hit]
+
+        dist, slots, ns, tables = self._raw_search(q_np, namespace, top_k, m)
+        if ns is None:
+            results: List[List[Dict[str, Any]]] = [[] for _ in queries]
+        else:
+            user = self._to_user_score(dist, m)
+            with trace_span("hydrate", namespace=namespace, batch=len(queries)):
+                results = self._hydrate_batch(user, dist, slots, tables)
+        if cache_key is not None:
+            # store a private copy: the caller owns the returned dicts
+            with self._result_cache_lock:
+                while len(self._result_cache) >= self.config.result_cache_size:
+                    self._result_cache.popitem(last=False)  # evict least-recently-used
+                self._result_cache[cache_key] = [[dict(r) for r in rs] for rs in results]
+        return results
+
+    def _hydrate_batch(self, user, dist, slots, tables) -> List[List[Dict[str, Any]]]:
+        """Hydrate a whole [B, k] result block of store slots into per-query result lists.
+
+        One vectorized numpy mask prefilters the block, then a single flat pass reads the
+        snapshot's slot tables (one atomic capture, so a racing compaction cannot pair
+        one generation's ids with another's values).  Metadata dicts are copied; values
+        alias the host mirror.
+        """
+        ids, metas, vals = tables
+        n_slots = len(ids)
+        keep = (dist < float(MASKED) / 2) & (slots >= 0) & (slots < n_slots)
+        counts = keep.sum(axis=1).tolist()
+        fs = slots[keep].tolist()
+        fu = user[keep].tolist()
+        rows = [
+            {
+                "id": ids[slot],
+                "values": vals[slot],
+                "metadata": dict(m) if (m := metas[slot]) else {},
+                "score": sc,
+            }
+            for slot, sc in zip(fs, fu)
+        ]
+        # a hit can reference a slot deleted AFTER the snapshot published (the shared
+        # host lists are nulled in place): drop those, mirroring the reference's
+        # silently-dropping hydration (query_processor.py:38-49)
+        dropping = any(r["id"] is None or r["values"] is None for r in rows)
+        out, pos = [], 0
+        for c in counts:
+            chunk = rows[pos : pos + c]
+            pos += c
+            if dropping:
+                chunk = [r for r in chunk if r["id"] is not None and r["values"] is not None]
+            out.append(chunk)
+        return out
+
+    # ------------------------------------------------------------------ helpers
+    # (parity with reference query_processor.py:64-82)
+
+    def list_namespaces(self) -> List[str]:
+        return self.storage.list_namespaces()
+
+    def get_namespace_vectors(self, namespace: str = "default") -> List[Vector]:
+        ns = self.storage.namespace(namespace)
+        return ns.all_vectors() if ns else []
+
+    def get_namespace_count(self, namespace: str = "default") -> int:
+        ns = self.storage.namespace(namespace)
+        return ns.live_count if ns else 0
+
+    def get_storage_info(self) -> Dict[str, Any]:
+        return self.storage.get_storage_info()

@@ -1,0 +1,7 @@
+"""State layer: vectors in device memory, namespaced, exactly searchable."""
+
+from .vector import Vector
+from .namespace import DeviceState, NamespaceStore
+from .storage import StorageEngine
+
+__all__ = ["Vector", "DeviceState", "NamespaceStore", "StorageEngine"]

@@ -1,0 +1,391 @@
+"""Per-namespace device store: the row-major part of ``mlvectordb_tpu/store/namespace.py``.
+
+Device state (capacity grows in powers of two):
+  data     [capacity, dim_padded]  float32, rows lane-padded with zeros
+  valid    [capacity]              bool — False = never-written, tombstoned, or freed slot
+  sq_norms [capacity]              f32  — precomputed squared norms (L2/cosine need them)
+
+Host state: slot -> uuid / metadata / float32 values, uuid -> slot map, free-slot stack.
+Writes scatter into free slots (upsert by id overwrites in place); deletes clear the
+mask.  Compaction repacks live rows and is strictly per-namespace.
+
+Not ported yet: the transposed sweep mirror and its certificate arrays (``sweep_dtype``),
+bf16 storage, host offload and the native metadata columns.
+"""
+
+from __future__ import annotations
+
+import threading
+import uuid as uuid_mod
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..config import DEFAULT_CONFIG, EngineConfig
+from .vector import Vector
+
+
+def check_supported(config: EngineConfig) -> None:
+    """Raise for configurations whose store or kernels are not ported yet."""
+    if config.dtype != "float32":
+        raise NotImplementedError(
+            f"dtype={config.dtype!r} is not ported yet (ROADMAP A18: bf16 storage); "
+            "the torch store holds float32"
+        )
+    if config.sweep_dtype is not None:
+        raise NotImplementedError(
+            f"sweep_dtype={config.sweep_dtype!r} is not ported yet (ROADMAP A3-A7: the "
+            "certified sweep); the torch store runs the row-major path only"
+        )
+
+
+class DeviceState(NamedTuple):
+    """Snapshot of the searchable device arrays.  Writers replace the tensors (copy on
+    write) instead of updating them, so a search holding this tuple is isolated from
+    concurrent writers."""
+
+    data: torch.Tensor      # [cap, dpad]
+    valid: torch.Tensor     # [cap] bool
+    sq_norms: torch.Tensor  # [cap] f32
+    # Host counters captured at publish time.  Readers deriving the live-prefix fast
+    # path MUST use these, not the store's live attributes: an upsert bumps
+    # _high_water before the device scatter publishes, so pairing an old data
+    # snapshot with the live _high_water would admit never-written all-zero rows
+    # into top-k.
+    high_water: int
+    live_count: int
+    # Host slot tables (ids, metadata, values) captured at publish time: hydration
+    # reads all three from here, one atomic tuple, because compact() replaces the
+    # lists wholesale.
+    host_tables: Optional[tuple] = None
+
+
+# Copy-on-write (clone + index_put_), as the JAX package does: a search dispatched a
+# moment earlier may still read the old tensors.  Writing in place under CUDA streams
+# is a later, tested decision.
+def _scatter_rows(data, valid, sq_norms, slots, vals):
+    """Device-side upsert: scatter rows + norms, set liveness (copy-on-write)."""
+    vals32 = vals.float()
+    data = data.clone().index_put_((slots,), vals32.to(data.dtype))
+    sq_norms = sq_norms.clone().index_put_((slots,), (vals32 * vals32).sum(-1))
+    valid = valid.clone().index_put_((slots,), torch.ones_like(slots, dtype=torch.bool))
+    return data, valid, sq_norms
+
+
+def _clear_slots(valid, slots):
+    """Device-side delete: tombstone = mask clear (copy-on-write)."""
+    return valid.clone().index_put_((slots,), torch.zeros_like(slots, dtype=torch.bool))
+
+
+def _grow(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """``t`` with ``rows`` zero rows appended along the first axis."""
+    return torch.cat([t, t.new_zeros((rows, *t.shape[1:]))])
+
+
+class NamespaceStore:
+    """One namespace's vectors, device-resident and exactly searchable."""
+
+    def __init__(self, name: str, config: EngineConfig = DEFAULT_CONFIG, *, device):
+        check_supported(config)
+        self.name = name
+        self.config = config
+        self.device = torch.device(device)
+        self._lock = threading.RLock()
+        # Incarnation token: version numbers restart at 0 when a namespace is GC'd and
+        # recreated under the same name, so (name, version) cache keys must include this.
+        self.incarnation = uuid_mod.uuid4().hex
+
+        self.dim: Optional[int] = None   # logical dim, fixed at first write
+        self.dpad: int = 0
+        self.capacity: int = 0
+
+        self._data: Optional[torch.Tensor] = None
+        self._valid: Optional[torch.Tensor] = None
+        self._sq_norms: Optional[torch.Tensor] = None
+        # atomically-published snapshot tuple: readers never assemble a state from the
+        # individual attributes
+        self._state: Optional[DeviceState] = None
+
+        # slot-indexed host tables
+        self._slot_ids: List[Optional[uuid_mod.UUID]] = []
+        self._slot_meta: List[Optional[Dict[str, Any]]] = []
+        self._slot_values: List[Optional[np.ndarray]] = []   # float32, unpadded
+        self._id_to_slot: Dict[uuid_mod.UUID, int] = {}
+        self._free: List[int] = []
+        self._high_water = 0          # slots ever used (never reused slots beyond this)
+        self._tombstones = 0          # deletes since last compaction
+        self.version = 0              # bumped on every mutation (result-cache key)
+
+    # ------------------------------------------------------------------ properties
+
+    @property
+    def live_count(self) -> int:
+        return len(self._id_to_slot)
+
+    @property
+    def nbytes(self) -> int:
+        """Exact device-array byte accounting: data + valid + sq_norms."""
+        if self._data is None:
+            return 0
+        return self.capacity * self.dpad * 4 + self.capacity * (1 + 4)
+
+    def device_state(self) -> DeviceState:
+        state = self._state  # single attribute read = atomic under the GIL
+        if state is None:
+            raise ValueError(f"namespace {self.name!r} is empty")
+        return state
+
+    def _publish(self) -> None:
+        """Swap in a new consistent (data, valid, sq_norms, counters) generation."""
+        self._state = DeviceState(
+            self._data, self._valid, self._sq_norms,
+            self._high_water, len(self._id_to_slot),
+            host_tables=(self._slot_ids, self._slot_meta, self._slot_values),
+        )
+
+    # ------------------------------------------------------------------ allocation
+
+    def _ensure_dim(self, dim: int) -> None:
+        if self.dim is None:
+            self.dim = dim
+            self.dpad = self.config.pad_dim(dim)
+        elif dim != self.dim:
+            raise ValueError(
+                f"dimension mismatch in namespace {self.name!r}: store is {self.dim}-d, got {dim}-d"
+            )
+
+    def _alloc_arrays(self, new_cap: int) -> None:
+        """Create or grow the device arrays to new_cap rows."""
+        if self._data is None:
+            self._data = torch.zeros((new_cap, self.dpad), dtype=torch.float32, device=self.device)
+            self._valid = torch.zeros((new_cap,), dtype=torch.bool, device=self.device)
+            self._sq_norms = torch.zeros((new_cap,), dtype=torch.float32, device=self.device)
+        else:
+            grow = new_cap - self.capacity
+            self._data = _grow(self._data, grow)
+            self._valid = _grow(self._valid, grow)
+            self._sq_norms = _grow(self._sq_norms, grow)
+
+    def _grow_host_tables(self, new_cap: int) -> None:
+        self._slot_ids.extend([None] * (new_cap - len(self._slot_ids)))
+        self._slot_meta.extend([None] * (new_cap - len(self._slot_meta)))
+        self._slot_values.extend([None] * (new_cap - len(self._slot_values)))
+
+    def _alloc_slot(self) -> int:
+        if self._free:
+            return self._free.pop()
+        slot = self._high_water
+        self._high_water += 1
+        return slot
+
+    def _ensure_capacity(self, extra: int) -> None:
+        new_slots = max(0, extra - len(self._free))
+        needed = self._high_water + new_slots
+        if needed <= self.capacity and self._data is not None:
+            return
+        new_cap = self.config.round_capacity(needed)
+        if new_cap > self.config.max_capacity:
+            raise MemoryError(
+                f"namespace {self.name!r} would exceed max_capacity={self.config.max_capacity}"
+            )
+        self._alloc_arrays(new_cap)
+        self.capacity = new_cap
+        self._grow_host_tables(new_cap)
+
+    # ------------------------------------------------------------------ mutation
+
+    def _scatter_write(self, slots: np.ndarray, vals: np.ndarray) -> None:
+        """Apply one write batch to the device arrays: one host->device copy each for
+        the slots and the padded rows.  No padding of the batch width is needed: eager
+        torch compiles nothing per shape."""
+        slots_t = torch.from_numpy(slots).to(self.device, torch.int64)
+        vals_t = torch.from_numpy(vals).to(self.device)
+        self._data, self._valid, self._sq_norms = _scatter_rows(
+            self._data, self._valid, self._sq_norms, slots_t, vals_t
+        )
+
+    def upsert(self, vectors: Sequence[Vector]) -> None:
+        """Insert or overwrite-by-id a batch of vectors (one device scatter)."""
+        if not vectors:
+            return
+        with self._lock:
+            self._ensure_dim(vectors[0].dim)
+            for v in vectors:
+                if v.dim != self.dim:
+                    raise ValueError(
+                        f"dimension mismatch in namespace {self.name!r}: store is "
+                        f"{self.dim}-d, got {v.dim}-d"
+                    )
+            fresh = sum(1 for v in vectors if v.id not in self._id_to_slot)
+            self._ensure_capacity(fresh)
+
+            slots = np.empty(len(vectors), np.int64)
+            for i, v in enumerate(vectors):
+                slot = self._id_to_slot.get(v.id)
+                if slot is None:
+                    slot = self._alloc_slot()
+                    self._id_to_slot[v.id] = slot
+                slots[i] = slot
+                self._slot_ids[slot] = v.id
+                self._slot_meta[slot] = v.metadata
+                self._slot_values[slot] = v.values
+
+            vals = np.zeros((len(vectors), self.dpad), np.float32)
+            for i, v in enumerate(vectors):
+                vals[i, : self.dim] = v.values
+            slots, vals = _last_write_wins(slots, vals)
+            self._scatter_write(slots, vals)
+            self.version += 1
+            self._publish()
+
+    def bulk_upsert(
+        self,
+        values: np.ndarray,                 # [n, dim] float32
+        ids: Optional[Sequence[uuid_mod.UUID]] = None,
+        metadatas: Optional[Sequence[Optional[Dict[str, Any]]]] = None,
+    ) -> List[uuid_mod.UUID]:
+        """Vectorized ingestion: no per-vector Python objects on the hot path —
+        slots are allocated in bulk, padded once and scattered once."""
+        values = np.ascontiguousarray(values, np.float32)
+        n = values.shape[0]
+        if n == 0:
+            return []
+        with self._lock:
+            self._ensure_dim(int(values.shape[1]))
+            if ids is None:
+                ids = [uuid_mod.uuid4() for _ in range(n)]
+            fresh = sum(1 for vid in ids if vid not in self._id_to_slot)
+            self._ensure_capacity(fresh)
+
+            slots = np.empty(n, np.int64)
+            metas = metadatas if metadatas is not None else [None] * n
+            for i, vid in enumerate(ids):
+                slot = self._id_to_slot.get(vid)
+                if slot is None:
+                    slot = self._alloc_slot()
+                    self._id_to_slot[vid] = slot
+                slots[i] = slot
+                self._slot_ids[slot] = vid
+                self._slot_meta[slot] = dict(metas[i]) if metas[i] else {}
+                self._slot_values[slot] = values[i]
+
+            vals = np.zeros((n, self.dpad), np.float32)
+            vals[:, : self.dim] = values
+            slots, vals = _last_write_wins(slots, vals)
+            self._scatter_write(slots, vals)
+            self.version += 1
+            self._publish()
+            return list(ids)
+
+    def delete(self, ids: Sequence[uuid_mod.UUID]) -> List[uuid_mod.UUID]:
+        """Tombstone-delete; returns the ids actually removed."""
+        with self._lock:
+            slots, removed = [], []
+            for vid in ids:
+                slot = self._id_to_slot.pop(vid, None)
+                if slot is None:
+                    continue
+                slots.append(slot)
+                removed.append(vid)
+                self._slot_ids[slot] = None
+                self._slot_meta[slot] = None
+                self._slot_values[slot] = None
+                self._free.append(slot)
+                self._tombstones += 1
+            if not slots:
+                return []
+            slots_t = torch.as_tensor(slots, dtype=torch.int64).to(self.device)
+            self._valid = _clear_slots(self._valid, slots_t)
+            self.version += 1
+            self._publish()
+
+            if self.rebuild_required():
+                self.compact()
+            return removed
+
+    def rebuild_required(self) -> bool:
+        """Tombstone-ratio trigger, evaluated against slots ever used."""
+        if self._high_water == 0:
+            return False
+        return self._tombstones / self._high_water >= self.config.rebuild_threshold
+
+    def compact(self) -> None:
+        """Repack live rows to the front and shrink capacity.  Per-namespace only."""
+        with self._lock:
+            live = sorted(self._id_to_slot.items(), key=lambda kv: kv[1])
+            n = len(live)
+            new_ids = [vid for vid, _ in live]
+            new_meta = [self._slot_meta[s] for _, s in live]
+            new_vals = [self._slot_values[s] for _, s in live]
+            self._id_to_slot = {vid: i for i, vid in enumerate(new_ids)}
+            self._free = []
+            self._high_water = n
+            self._tombstones = 0
+            self.version += 1
+
+            if self.dim is None:
+                return
+            new_cap = self.config.round_capacity(max(n, 1))
+            data = torch.zeros((new_cap, self.dpad), dtype=torch.float32, device=self.device)
+            sq_norms = torch.zeros((new_cap,), dtype=torch.float32, device=self.device)
+            if self._data is not None and n:
+                old = torch.as_tensor([s for _, s in live], dtype=torch.int64).to(self.device)
+                data[:n] = self._data.index_select(0, old)        # gathered on the device
+                sq_norms[:n] = self._sq_norms.index_select(0, old)
+            valid = torch.zeros((new_cap,), dtype=torch.bool, device=self.device)
+            valid[:n] = True
+            self._data, self._valid, self._sq_norms = data, valid, sq_norms
+            self.capacity = new_cap
+            self._slot_ids = new_ids + [None] * (new_cap - n)
+            self._slot_meta = new_meta + [None] * (new_cap - n)
+            self._slot_values = new_vals + [None] * (new_cap - n)
+            self._publish()  # new generation visible only after everything is rebuilt
+
+    # ------------------------------------------------------------------ reads
+
+    def contains(self, vid: uuid_mod.UUID) -> bool:
+        return vid in self._id_to_slot
+
+    def get(self, vid: uuid_mod.UUID) -> Optional[Vector]:
+        slot = self._id_to_slot.get(vid)
+        if slot is None:
+            return None
+        return self._vector_at(slot, vid)
+
+    def _vector_at(self, slot: int, vid: uuid_mod.UUID) -> Vector:
+        return Vector(self._slot_values[slot], self._slot_meta[slot] or {}, id=vid)
+
+    def all_vectors(self) -> List[Vector]:
+        with self._lock:
+            return [self._vector_at(s, vid) for vid, s in self._id_to_slot.items()]
+
+    # ------------------------------------------------------------------ persistence
+
+    def snapshot_arrays(self) -> Dict[str, Any]:
+        """Host-side snapshot in the JAX package's format (live rows in slot order,
+        string ids, metadata): one device->host copy of the live rows."""
+        with self._lock:
+            live = sorted(self._id_to_slot.items(), key=lambda kv: kv[1])
+            if self._data is not None and live:
+                slots = torch.as_tensor([s for _, s in live], dtype=torch.int64).to(self.device)
+                rows = self._data.index_select(0, slots)[:, : self.dim].cpu().numpy()
+            else:
+                rows = np.zeros((0, self.dim or 0), np.float32)
+            return {
+                "name": self.name,
+                "dim": self.dim,
+                "ids": [str(vid) for vid, _ in live],
+                "values": rows,
+                "metadata": [self._slot_meta[s] for _, s in live],
+            }
+
+
+def _last_write_wins(slots: np.ndarray, vals: np.ndarray):
+    """Drop all but the last write to each slot, so the device scatter (whose order
+    among duplicate indices is unspecified) lands the same rows as the host tables."""
+    if len(np.unique(slots)) == len(slots):
+        return slots, vals
+    _, last_rev = np.unique(slots[::-1], return_index=True)
+    keep = np.sort(len(slots) - 1 - last_rev)
+    return slots[keep], vals[keep]
