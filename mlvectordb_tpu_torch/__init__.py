@@ -1,8 +1,11 @@
 """mlvectordb_tpu_torch — the PyTorch + CUDA port of mlvectordb_tpu.
 
-The default exact k-NN serving path (row-major f32 store, fused window-min kernels
-hand-written in CUDA for Hopper, window selection and exact f32 rescan, hydration) runs
-on a CUDA device; the same code runs on the CPU with the kernels' plain torch versions.
+Two exact k-NN serving paths run on a CUDA device with kernels hand-written in CUDA for
+Hopper: the default one (row-major f32 store, fused window-min kernels, window selection
+and exact f32 rescan, hydration) and, with ``sweep_dtype="bfloat16"``, the certified
+sweep (a bf16 mirror and int8 residual codes beside the f32 rows, window-min kernel,
+gather-score rescan kernel, per-query exactness certificate with escalation).  The same
+code runs on the CPU with the kernels' plain torch versions.
 Every tensor lives on the ``torch.device`` the caller passes.  This package never imports
 JAX.
 """

@@ -2,8 +2,8 @@
 
 A copy of ``mlvectordb_tpu/config.py`` (importing that module pulls in JAX through
 ``mlvectordb_tpu/__init__.py``).  Every field is kept, so a config compares one to one
-with the JAX package's; fields of parts not yet ported (the sweep mirror, the
-certificate) are accepted here and rejected by the store when set.
+with the JAX package's; values of parts not yet ported (bf16 storage, int8 and f32
+sweep mirrors) are accepted here and rejected by the store.
 """
 
 from __future__ import annotations
@@ -59,10 +59,10 @@ class EngineConfig:
     # accumulation is always float32 on the MXU (preferred_element_type).
     dtype: str = "float32"  # "float32" | "bfloat16"
 
-    # Optional TRANSPOSED sweep mirror ([dpad, capacity], kept in sync with the store):
-    # the bandwidth-bound phase-1 window ranking reads this layout at HBM roofline
-    # (ops/pallas_knn_t.py) while the exact rescan + hydration read the primary
-    # row-major matrix.  "bfloat16" = recommended serving config (+50% HBM for ~2-3x
+    # Optional sweep mirror (kept in sync with the store; the port's is row-major
+    # [capacity, dpad], the JAX package's transposed): the phase-1 window ranking reads
+    # it (ops/fused_knn_t.py) while the exact rescan + hydration read the primary
+    # row-major matrix.  The port takes None and "bfloat16".  "bfloat16" = recommended serving config (+50% HBM for ~2-3x
     # QPS; candidate scoring stays exact f32 — the bench recall gate and oracle tests
     # pin set-exactness); "float32" = +100% HBM, HIGHEST-precision ranking; "int8" =
     # per-row-scaled codes at 1 byte/element (phase 1 at ~2x the bf16 bandwidth
@@ -128,9 +128,9 @@ class EngineConfig:
     # stream; the certificate carries the uncompensated query-rounding term per
     # window — and switch the namespace to the heavy residual-corrected program
     # permanently once an escalation shows its corpus gaps sit under the light
-    # band.  Escalations are proof-gated (exact results, just slower), and the
-    # heavy program compiles in a background thread before the switch so no query
-    # stalls on it.  False = always dispatch the heavy program (round-4 behavior).
+    # band.  Escalations are proof-gated (exact results, just slower); eager torch
+    # compiles nothing, so the port switches at once after the escalating batch.
+    # False = always dispatch the heavy program (round-4 behavior).
     adaptive_certify: bool = True
 
     # Query-result cache entries (0 disables).  Keyed by namespace version, so any

@@ -2,18 +2,26 @@
 
 ``store_from_jax_snapshot`` builds a torch ``NamespaceStore`` from the dict that the JAX
 ``NamespaceStore.snapshot_arrays()`` returns (numpy values, string ids, metadata), through
-``bulk_upsert`` as the JAX ``load_snapshot`` does.  Data plays the role of weights here:
-a namespace served by the JAX package can be served by this one with the same ids.
+``bulk_upsert`` as the JAX ``load_snapshot`` does; under ``sweep_dtype="bfloat16"`` that
+builds the bf16 mirror and the residual arrays from the rows.  Data plays the role of
+weights here: a namespace served by the JAX package can be served by this one with the
+same ids.
+
+``sweep_arrays_from_jax`` turns a JAX namespace's sweep arrays (numpy copies of its
+window-major ``_data_t`` and ``_sweep_resid`` and its per-row vectors) into the port's
+row-major ones, so the two stores can be shown to hold the same codes.
 """
 
 from __future__ import annotations
 
 import uuid as uuid_mod
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
 from .config import EngineConfig
+from .ops.fused_knn_t import R1MAX, SWEEP_TILE, WLANE
 from .store.namespace import NamespaceStore
 
 
@@ -28,3 +36,29 @@ def store_from_jax_snapshot(snap: Dict[str, Any], config: EngineConfig, device) 
     elif snap.get("dim"):
         ns._ensure_dim(int(snap["dim"]))
     return ns
+
+
+def rows_from_sweep_layout(arr_t: np.ndarray) -> np.ndarray:
+    """Invert the JAX package's ``to_sweep_layout`` (unsharded): column
+    t*4096 + r*128 + j of the window-major ``[Dp, cap]`` array holds store row
+    (t*128 + j)*32 + r, so a reshape-transpose gives back the ``[cap, Dp]`` rows."""
+    Dp, cap = arr_t.shape
+    return arr_t.reshape(Dp, cap // SWEEP_TILE, R1MAX, WLANE).transpose(1, 3, 2, 0).reshape(
+        cap, Dp)
+
+
+def sweep_arrays_from_jax(data_t: np.ndarray, sweep_resid: Optional[np.ndarray] = None,
+                          sweep_err=None, sweep_rscale=None, sweep_err1=None, *,
+                          device) -> Dict[str, Optional[torch.Tensor]]:
+    """The port's row-major sweep arrays from a JAX namespace's: ``data_t`` is its bf16
+    window-major mirror (numpy, ml_dtypes bfloat16), ``sweep_resid`` its int8 codes in
+    the same layout; the per-row vectors are in store-row order on both sides."""
+    mirror_bits = rows_from_sweep_layout(np.asarray(data_t).view(np.int16))
+    out = {"mirror": torch.from_numpy(np.ascontiguousarray(mirror_bits)).view(
+        torch.bfloat16).to(device)}
+    out["sweep_resid"] = None if sweep_resid is None else torch.from_numpy(
+        np.ascontiguousarray(rows_from_sweep_layout(np.asarray(sweep_resid, np.int8)))).to(device)
+    for name, v in (("sweep_err", sweep_err), ("sweep_rscale", sweep_rscale),
+                    ("sweep_err1", sweep_err1)):
+        out[name] = None if v is None else torch.from_numpy(np.array(v, np.float32)).to(device)
+    return out

@@ -1,7 +1,9 @@
 """Query engine: the counterpart of ``mlvectordb_tpu/engine/query_processor.py``.
 
 The ported slice: insert / upsert_many / bulk_load / delete / delete_namespace and exact
-batched search with hydration and the result cache.  Reference behaviors kept:
+batched search with hydration and the result cache, on the row-major path or, with
+``sweep_dtype="bfloat16"``, the certified sweep with its per-namespace light -> heavy
+dispatch and certificate-tier counters.  Reference behaviors kept:
   * k clamped to the live count (index.py:103-107)
   * search of a missing namespace returns [] (index.py:98-99)
   * result dicts {id, values, metadata, score}, silently dropping hits that vanished from
@@ -10,7 +12,7 @@ batched search with hydration and the result cache.  Reference behaviors kept:
     (index.py:121-128)
 
 Not ported yet: metadata filters and hybrid search (ROADMAP A19), IVF (A13), the WAL and
-snapshots (A20), the certificate counters (A5).  ``filter=`` and ``nprobe=`` raise.
+snapshots (A20).  ``filter=`` and ``nprobe=`` raise.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from ..config import DEFAULT_CONFIG, HIGHER_IS_BETTER, EngineConfig, canonical_m
 from ..interfaces.vector import VectorDTO
 from ..ops.backend import knn_backend
 from ..ops.distances import MASKED
+from ..ops.fused_knn_t import SweepResult, fetch
 from ..store.storage import StorageEngine
 from ..store.vector import Vector
 from ..utils.tracing import trace_span
@@ -53,8 +56,14 @@ class QueryProcessor:
         self._result_cache_lock = threading.Lock()
         # host<->device transfer audit counters: the serving path does exactly ONE
         # host->device (the query batch) and ONE device->host ((dist, idx) fetched
-        # together) per search
+        # together, with the per-query proof on the certified sweep) per search; an
+        # escalation after a failed proof adds its own counted copies
         self.transfer_counts = {"h2d": 0, "d2h": 0}
+        # certified sweep: tier counts per namespace, and the light/heavy dispatch mode
+        # per (namespace, metric, masked variant)
+        self._cert_lock = threading.Lock()
+        self._cert_tiers: Dict[str, Dict[str, int]] = {}
+        self._cert_mode: Dict[Any, str] = {}
 
     def _result_cache_key(self, q_np, top_k, namespace, metric):
         ns = self.storage.namespace(namespace)
@@ -157,18 +166,75 @@ class QueryProcessor:
         if state.live_count == state.high_water:
             live_prefix = state.high_water
         backend = knn_backend(self.config)
+        # request the certificate tier on certified configs: it rides in the SAME copy
+        want_tier = bool(self.config.certify_exact) and state.mirror is not None
+        masked = live_prefix is None
+        use_light = self._use_light(namespace, state, metric, masked=masked)
         with trace_span("knn_kernel", namespace=namespace, k=kb, batch=Bb):
-            dist, idx = backend(
+            out = backend(
                 q_dev, state.data, state.valid, state.sq_norms,
                 k=kb, metric=metric, db_tile=self.config.db_tile, live_prefix=live_prefix,
+                report_tier=want_tier, mirror=state.mirror, sweep_err=state.sweep_err,
+                sweep_resid=state.sweep_resid, sweep_rscale=state.sweep_rscale,
+                sweep_err1=state.sweep_err1, sweep_light=use_light,
+                sweep_prep=state.prep_cache, sweep_defer=True,
             )
-            # ONE device->host transfer for both arrays: the int32 ids travel bit-cast
-            # beside the f32 distances
-            packed = torch.stack([dist, idx.view(torch.float32)])
-        self.transfer_counts["d2h"] += 1
-        packed = packed.cpu().numpy()
-        dist, idx = packed[0], packed[1].view(np.int32)
+            if isinstance(out, SweepResult):
+                # ONE device->host transfer: the int32 ids travel bit-cast beside the
+                # f32 distances, and the per-query proof beside them
+                parts = (out.dist, out.idx) + (() if out.okq is None else (out.okq,))
+            else:
+                parts = out[:2]
+            self.transfer_counts["d2h"] += 1
+            host = fetch(*parts)
+        dist, idx = host[0], host[1]
+        if isinstance(out, SweepResult):
+            tier = out.tier
+            if out.okq is not None and not host[2].all():
+                # a proof failed: the escalation's own copies are counted through fetch
+                dist, idx, tier = out.escalate(host[2], self._counted_fetch)
+            self._record_cert_tier(namespace, tier, light=use_light)
+            if use_light and tier == 2:
+                # the light band is too wide for this corpus: switch this (namespace,
+                # metric, variant) to the heavy program.  Eager torch compiles nothing,
+                # so the switch is synchronous (the JAX package warms the heavy program
+                # in a background thread first).  Results stayed exact: escalation costs
+                # speed, never correctness.
+                with self._cert_lock:
+                    self._cert_mode[(namespace, metric, masked)] = "heavy"
         return dist[:B, :k_eff], idx[:B, :k_eff], ns, state.host_tables
+
+    def _counted_fetch(self, *tensors):
+        self.transfer_counts["d2h"] += 1
+        return fetch(*tensors)
+
+    # certificate-tier names, indexed by the tier the sweep reports (ops/fused_knn_t)
+    _TIER_NAMES = {0: "fast", 1: "widened", 2: "exact_scan", -1: "disengaged"}
+
+    def _record_cert_tier(self, namespace: str, tier: int, light: bool = False) -> None:
+        """Count which certificate tier served each batch, per namespace."""
+        name = self._TIER_NAMES.get(tier, str(tier))
+        if light:
+            name = f"light_{name}"
+        with self._cert_lock:
+            d = self._cert_tiers.setdefault(namespace, {})
+            d[name] = d.get(name, 0) + 1
+
+    def cert_tier_counts(self, namespace: str) -> Dict[str, int]:
+        with self._cert_lock:
+            return dict(self._cert_tiers.get(namespace, {}))
+
+    def _use_light(self, namespace: str, state, metric: str = "l2",
+                   masked: bool = False) -> bool:
+        """Adaptive certified dispatch (config.adaptive_certify): serve a namespace with
+        the light single-pass program until an escalation to the exact scan shows that
+        its corpus needs the heavy residual-corrected one.  Only stores that keep the
+        residual codes have both programs."""
+        if not (self.config.certify_exact and self.config.adaptive_certify):
+            return False
+        if state.sweep_resid is None or state.mirror is None:
+            return False
+        return self._cert_mode.get((namespace, metric, masked), "light") == "light"
 
     def _to_user_score(self, dist: np.ndarray, metric: str) -> np.ndarray:
         # reference convention (index.py:121-128): cosine -> 1 - dist; else raw distance

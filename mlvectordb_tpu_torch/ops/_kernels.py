@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels of ``mlvectordb_tpu_torch/csrc``.
 
-At first use, nvcc compiles ``csrc/window_min.cu`` for ``sm_90a`` into a shared library
-with a plain C interface under ``build/kernels/`` at the repository root; the file name
-carries a hash of the source, so an edited source is rebuilt.  The library is loaded with
-ctypes.  A failed build raises with nvcc's output: there is no fallback.
+At first use, nvcc compiles every ``csrc/*.cu`` for ``sm_90a`` (one nvcc per source, all
+started together) and links them into one shared library with a plain C interface under
+``build/kernels/`` at the repository root; the file name carries a hash over all the
+sources, so an edited source is rebuilt.  The library is loaded with ctypes.  A failed
+build raises with nvcc's output: there is no fallback.
 """
 
 from __future__ import annotations
@@ -12,14 +13,20 @@ import ctypes
 import functools
 import hashlib
 import os
+import shutil
 import subprocess
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCE = _PKG / "csrc" / "window_min.cu"
+_CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
+
+
+def _sources() -> list:
+    return sorted(_CSRC.glob("*.cu"))
 
 
 def _nvcc() -> str:
@@ -32,24 +39,40 @@ def _nvcc() -> str:
     return str(path)
 
 
-def build() -> Path:
-    """Compile the kernels (when not yet built for this source) and return the library."""
-    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"window_min_{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(_SOURCE),
-    ]
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
+def _check(cmd, res) -> None:
     if res.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stdout}\n{res.stderr}"
-        )
-    os.replace(tmp, lib)  # atomic: another process never loads a partial file
+            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+
+
+def build() -> Path:
+    """Compile the kernels (when not yet built for these sources) and return the library."""
+    sources = _sources()
+    digest = hashlib.sha256()
+    for src in sources:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    lib = BUILD_DIR / f"kernels_{digest.hexdigest()[:16]}.so"
+    if lib.exists():
+        return lib
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = BUILD_DIR / f"tmp.{os.getpid()}"
+    work.mkdir(exist_ok=True)
+    try:
+        objs = [work / f"{src.stem}.o" for src in sources]
+        cmds = [[nvcc, *_ARCH, "-Xcompiler", "-fPIC", "-c", "-o", str(o), str(src)]
+                for src, o in zip(sources, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for c in cmds]
+        for cmd, proc in zip(cmds, procs):
+            out, err = proc.communicate()
+            _check(cmd, subprocess.CompletedProcess(cmd, proc.returncode, out, err))
+        tmp = work / lib.name
+        cmd = [nvcc, *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+        _check(cmd, subprocess.run(cmd, capture_output=True, text=True, check=False))
+        os.replace(tmp, lib)  # atomic: another process never loads a partial file
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return lib
 
 
@@ -58,7 +81,11 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, with every entry point's argument types declared."""
     lib = ctypes.CDLL(str(build()))
     lib.mlvdb_window_min_fast.argtypes = [_P, _P, _P, _I, _P, _LL, _I, _I, _I, _I, _I, _P]
-    lib.mlvdb_window_min_fast.restype = _I
     lib.mlvdb_window_min_masked.argtypes = [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P]
-    lib.mlvdb_window_min_masked.restype = _I
+    lib.mlvdb_sweep_min.argtypes = [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P]
+    lib.mlvdb_gather_score.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    for fn in (lib.mlvdb_window_min_fast, lib.mlvdb_window_min_masked, lib.mlvdb_sweep_min,
+               lib.mlvdb_gather_score):
+        fn.restype = _I
     return lib

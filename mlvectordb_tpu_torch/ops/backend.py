@@ -3,37 +3,59 @@
 Both backends share one signature and produce identical (exact) results:
     backend(q, data, valid, sq_norms, *, k, metric, db_tile, live_prefix) -> (dist, idx)
 
-``use_pallas`` selects the fused path (ops/fused_knn.exact_knn_fused): its window-min
-kernels run as CUDA kernels on CUDA tensors and as their plain torch versions on CPU
-tensors, so the selection and rescan code runs on both.  ``use_pallas=False`` selects
-the tiled scan.  There is no silent fallback between the two: a kernel that cannot
-build or launch raises.
+``use_pallas`` selects the fused paths.  With a bf16 sweep ``mirror`` (the store keeps one
+under ``sweep_dtype="bfloat16"``) that is the certified sweep (ops/fused_knn_t.exact_knn_t,
+kernels B1 and B2); without one, the row-major window-min path (ops/fused_knn,
+kernels B4 and B5).  Their kernels run as CUDA kernels on CUDA tensors and as their plain
+torch versions on CPU tensors, so the selection and rescan code runs on both.
+``use_pallas=False`` selects the tiled scan.  There is no silent fallback between them: a
+kernel that cannot build or launch raises.
+
+``report_tier`` adds the certificate tier that served the batch (-1: no certificate ran).
+``sweep_defer`` (sweep path only) returns the device-side ``fused_knn_t.SweepResult``, so
+the caller can bring the tier-1 result and its proof down in one copy.
 """
 
 from __future__ import annotations
 
 from ..config import EngineConfig
 from .fused_knn import exact_knn_fused
+from .fused_knn_t import exact_knn_t
 from .topk import exact_knn
 
 
 def _scan_backend(q, data, valid, sq_norms, *, k, metric, db_tile, live_prefix=None,
-                  report_tier=False):
+                  report_tier=False, **_sweep):
     d, i = exact_knn(q, data, valid, sq_norms, k=k, metric=metric, db_tile=db_tile)
     if report_tier:
         return d, i, -1  # no certificate ran: the scan IS the exact path
     return d, i
 
 
-def _fused_backend(q, data, valid, sq_norms, *, k, metric, db_tile, live_prefix=None,
-                   report_tier=False):
-    d, i = exact_knn_fused(
-        q, data, valid, sq_norms, k=k, metric=metric, db_tile=db_tile, live_prefix=live_prefix,
-    )
-    if report_tier:
-        return d, i, -1  # row-major margin kernel: no certificate
-    return d, i
+def _make_fused_backend(certify: bool):
+    def fused_backend(q, data, valid, sq_norms, *, k, metric, db_tile, live_prefix=None,
+                      report_tier=False, mirror=None, sweep_err=None, sweep_resid=None,
+                      sweep_rscale=None, sweep_err1=None, sweep_light=False,
+                      sweep_prep=None, sweep_defer=False):
+        if mirror is not None:
+            # the certified sweep: phase 1 reads the bf16 mirror, the rescan the f32 rows
+            return exact_knn_t(
+                q, mirror, data, valid, sq_norms, k=k, metric=metric,
+                live_prefix=live_prefix, sweep_err=sweep_err, resid=sweep_resid,
+                rscale=sweep_rscale, err1=sweep_err1, certify=certify,
+                report_tier=report_tier, light=sweep_light, prep_cache=sweep_prep,
+                defer=sweep_defer,
+            )
+        d, i = exact_knn_fused(
+            q, data, valid, sq_norms, k=k, metric=metric, db_tile=db_tile,
+            live_prefix=live_prefix,
+        )
+        if report_tier:
+            return d, i, -1  # row-major margin kernel: no certificate
+        return d, i
+
+    return fused_backend
 
 
 def knn_backend(config: EngineConfig):
-    return _fused_backend if config.use_pallas else _scan_backend
+    return _make_fused_backend(config.certify_exact) if config.use_pallas else _scan_backend

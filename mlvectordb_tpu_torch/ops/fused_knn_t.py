@@ -1,0 +1,777 @@
+"""Certified bf16-sweep exact k-NN in torch + CUDA: the counterpart of
+``mlvectordb_tpu/ops/pallas_knn_t.py``.
+
+The store keeps f32 rows for the rescan and, beside them, a bf16 mirror and int8 codes of
+each row's bf16 rounding residual (``quantize_resid_rows``).  A search runs:
+
+  phase 1  — kernel B1 (``csrc/sweep_min.cu``, ``_window_mins_t``): one pass over the
+             mirror ranks every row against every folded query and writes only the min
+             over each window of r1 consecutive rows, lowered by the row's own error
+             bound (the certificate's optimistic bound).  Light: one pass.  Heavy: plus
+             the query's bf16 residual and the int8 residual codes.
+  phase 2  — two-level window selection (torch, small tensors), then the exact f32 rescan
+             of the selected windows through kernel B2 (``csrc/gather_score.cu``,
+             ``_gather_score``), then the per-query certificate ``okq``.
+  escalate — only after a proof failed: the contained or widened selection (tier 1), then
+             the exact scan (tier 2).
+
+Layout.  The mirror is ROW-major ``[cap, Dp]``: window f is rows ``[f*r1, (f+1)*r1)``,
+the same window set as the JAX package's window-major ``[Dp, cap]`` layout, which exists
+only because Mosaic reduces over lane slices.  Per-row vectors stay in store-row order.
+The window mins come out tile-major ``[nt, B, g*128]`` with the JAX package's position
+map (``_pos_to_window``), so the selection code and the element-by-element tests carry
+over unchanged.
+
+Each kernel wrapper launches its CUDA kernel for a CUDA tensor and runs its plain torch
+version (``*_ref``) for a CPU tensor; there is no fallback between the two.
+
+Control flow.  ``jax.lax.cond`` has no eager counterpart: choosing the tier means reading
+the per-query proof on the host.  ``exact_knn_t(..., defer=True)`` therefore returns a
+``SweepResult`` holding the tier-1 ``(dist, idx)`` and ``okq`` on the device, so the engine
+brings all three down in its one packed copy; ``SweepResult.escalate`` runs only after a
+proof has failed and reports each further copy through the caller's ``fetch``.
+
+The JAX package's ``MLVDB_*`` environment globals are the fields of ``Tuning``, passed
+explicitly, with the JAX defaults.  The per-tile top-m pool (``n_top``/``skip_wm``) is not
+ported: every program here is the JAX package's ``TOPM_ENABLE=False`` program.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from . import _kernels
+from .distances import MASKED, require_f32_matmul
+from .topk import exact_knn
+
+SWEEP_TILE = 4096           # rows per tile of the tile-major window-min output
+R1MAX = 32                  # widest window
+WLANE = SWEEP_TILE // R1MAX  # 128 windows per output block
+Q_TILE = 256                # query tile of the JAX shape gate (B % min(256, B) == 0)
+R2 = 32                     # fine windows per level-2 selection block
+FQ_CONTAIN = 8              # queries re-proved by the contained escalation
+
+
+class Tuning(NamedTuple):
+    """The selection knobs the JAX package reads from ``MLVDB_*`` variables, as explicit
+    arguments with its defaults (pallas_knn_t.py:532-558)."""
+
+    sort_topk_from: int = 257   # kk at or above which selections sort instead of top-k
+    blocktop: bool = True       # block-top refine for wide certified selections
+    mb_blocktop: int = 8        # windows each selected block yields in that refine
+    contain: bool = True        # per-query contained escalation
+
+
+DEFAULT_TUNING = Tuning()
+
+
+# ------------------------------------------------------------------ mirror upkeep
+
+def sweep_err_norms(data: torch.Tensor) -> torch.Tensor:
+    """Per-row ``||row - bf16(row)||`` (pallas_knn_t.py:106-111)."""
+    d32 = data.float()
+    delta = d32 - d32.to(torch.bfloat16).float()
+    return torch.sqrt((delta * delta).sum(-1))
+
+
+def quantize_resid_rows(vals: torch.Tensor):
+    """Row-wise int8 codes of the bf16 rounding residual (pallas_knn_t.py:170-186):
+    ``(z [n, Dp] int8, scale [n] f32, err2 [n] f32, err1 [n] f32)`` with
+    delta = row - bf16(row) ~ scale * z, err2 = ||delta - scale*z|| and err1 = ||delta||.
+    ``torch.round`` rounds half to even, as ``jnp.round`` does, so the codes are the
+    JAX package's bit for bit."""
+    v32 = vals.float()
+    delta = v32 - v32.to(torch.bfloat16).float()
+    e1 = torch.sqrt((delta * delta).sum(-1))
+    scale = delta.abs().amax(-1) / 127.0
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))[:, None]
+    z = torch.clamp(torch.round(delta / safe), -127.0, 127.0)
+    z = torch.where(scale[:, None] > 0, z, torch.zeros_like(z))
+    rem = delta - scale[:, None] * z
+    e2 = torch.sqrt((rem * rem).sum(-1))
+    return z.to(torch.int8), scale, e2, e1
+
+
+def _pick_r1(batch: int, n_rows: int, k: int) -> int:
+    """Window width of the sweep path (pallas_knn_t.py:1352-1374): wide windows for small
+    k, narrow ones for large k, widened until the window-min matrix fits in 2 GB."""
+    if k <= 16:
+        r1 = 32
+    elif k <= 128:
+        r1 = 16
+    elif k <= 256:
+        r1 = 8
+    else:
+        r1 = 4
+    while r1 < R1MAX and batch * n_rows * 4 // r1 > (1 << 31):
+        r1 *= 2
+    return r1
+
+
+# ------------------------------------------------------------------ kernel B1
+
+# rows per chunk of the plain version's [rows, B] rank block
+_REF_CHUNK_ELEMS = 1 << 25
+
+
+def _window_mins_t_ref(qh, qres, mirror, resid, rscale, scale, bias, *, r1,
+                       emit_block_mins=False, qe=None, eb_rows=()):
+    """Plain torch version of kernel B1: f32 matmuls of the bf16-converted operands per
+    chunk of whole tiles, the kernel's formula, then the min over each r1-row window,
+    written tile-major."""
+    require_f32_matmul()
+    cap, Dp = mirror.shape
+    B = qh.shape[0]
+    g = R1MAX // r1
+    nt = cap // SWEEP_TILE
+    qh32 = qh.float().T
+    qr32 = None if qres is None else qres.float().T
+    out = torch.empty((nt, B, g * WLANE), dtype=torch.float32, device=mirror.device)
+    tiles = max(1, _REF_CHUNK_ELEMS // max(B, 1) // SWEEP_TILE)
+    for t0 in range(0, nt, tiles):
+        t1 = min(nt, t0 + tiles)
+        rows = slice(t0 * SWEEP_TILE, t1 * SWEEP_TILE)
+        m = mirror[rows].float()
+        dots = m @ qh32                                           # [n, B]
+        if qr32 is not None:
+            dots = dots + m @ qr32
+        if resid is not None:
+            dots = dots + (resid[rows].float() @ qh32) * rscale[rows, None]
+        rank = dots
+        if scale is not None:
+            rank = rank * scale[rows, None]
+        rank = rank + bias[rows, None]
+        for t, eb in enumerate(eb_rows):
+            rank = rank - qe[:, t][None, :] * eb[rows, None]
+        wm = rank.reshape(-1, r1, B).amin(1)                      # [windows, B]
+        # local window lf = j*g + a of tile t -> output lane a*128 + j
+        out[t0:t1] = wm.reshape(t1 - t0, WLANE, g, B).permute(0, 3, 2, 1).reshape(
+            t1 - t0, B, g * WLANE)
+    bm = out.amin(-1) if emit_block_mins else None                # [nt, B]
+    return out, bm
+
+
+def _check_sweep_operands(qh, qres, mirror, resid, rscale, scale, bias, qe, eb_rows, r1,
+                          emit_block_mins):
+    """Raise on anything kernel B1 does not take."""
+    cap, Dp = mirror.shape
+    B = qh.shape[0]
+    dev = mirror.device
+    want = {"qh": (qh, torch.bfloat16, (B, Dp)), "mirror": (mirror, torch.bfloat16, (cap, Dp)),
+            "bias": (bias, torch.float32, (cap,))}
+    if qres is not None:
+        want["qres"] = (qres, torch.bfloat16, (B, Dp))
+    if resid is not None:
+        want["resid"] = (resid, torch.int8, (cap, Dp))
+        want["rscale"] = (rscale, torch.float32, (cap,))
+    if scale is not None:
+        want["scale"] = (scale, torch.float32, (cap,))
+    for t, eb in enumerate(eb_rows):
+        want[f"eb{t + 1}"] = (eb, torch.float32, (cap,))
+    if eb_rows:
+        want["qe"] = (qe, torch.float32, (B, len(eb_rows)))
+    for name, (t, dtype, shape) in want.items():
+        if t is None or t.device != dev or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor on {dev}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
+    if (r1 not in (1, 2, 4, 8, 16, 32) or cap % SWEEP_TILE or cap == 0 or Dp % 128
+            or len(eb_rows) > 2 or B == 0 or (emit_block_mins and r1 != R1MAX)):
+        raise ValueError(
+            f"kernel needs r1 in 1..32 (powers of two), cap % {SWEEP_TILE} == 0, Dp % 128 "
+            f"== 0, at most 2 bound rows and block mins only at r1 = 32; got cap={cap} "
+            f"Dp={Dp} B={B} r1={r1} n_eb={len(eb_rows)} block_mins={emit_block_mins}")
+
+
+def _window_mins_t(qh, qres, mirror, resid, rscale, scale, bias, *, r1,
+                   emit_block_mins=False, qe=None, eb_rows=()):
+    """Phase 1 (pallas_knn_t._window_mins, tile-major form).
+
+    qh / qres [B, Dp] bf16 (metric factor folded in; qres = compensation residual or
+    None), mirror [cap, Dp] bf16, resid [cap, Dp] int8 + rscale [cap] (or None),
+    scale [cap] (cosine, or None), bias [cap], qe [B, n_eb] + eb_rows (n_eb [cap] rows).
+    rank = (qh.m [+ qres.m] [+ (qh.resid)*rscale]) [*scale] + bias - sum_t qe_t*eb_t.
+    Returns ``(wmin_t [nt, B, g*128], block_mins [nt, B] or None)``.  The CUDA kernel for
+    a CUDA tensor, the plain version for a CPU tensor."""
+    if mirror.device.type == "cpu":
+        return _window_mins_t_ref(qh, qres, mirror, resid, rscale, scale, bias, r1=r1,
+                                  emit_block_mins=emit_block_mins, qe=qe, eb_rows=eb_rows)
+    _check_sweep_operands(qh, qres, mirror, resid, rscale, scale, bias, qe, eb_rows, r1,
+                          emit_block_mins)
+    cap, Dp = mirror.shape
+    B = qh.shape[0]
+    g = R1MAX // r1
+    nt = cap // SWEEP_TILE
+    heavy = qres is not None or resid is not None
+    # the kernel reads queries as f32 [Dp, Bp], Bp a multiple of its query tile; bf16
+    # values are exact in f32, so this changes no product
+    bn = 64 if heavy else 128
+    bp = -(-B // bn) * bn
+
+    def qt(x):
+        t = torch.zeros((Dp, bp), dtype=torch.float32, device=mirror.device)
+        t[:, :B] = x.float().T
+        return t
+
+    qh_t = qt(qh)
+    qres_t = qt(qres) if qres is not None else None
+    qe_p = torch.zeros((bp, 2), dtype=torch.float32, device=mirror.device)
+    if eb_rows:
+        qe_p[:B, : len(eb_rows)] = qe
+    out = torch.empty((nt, B, g * WLANE), dtype=torch.float32, device=mirror.device)
+    bm = (torch.empty((nt, B), dtype=torch.float32, device=mirror.device)
+          if emit_block_mins else None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(mirror.device):  # the C launch uses the runtime's current device
+        rc = _kernels.library().mlvdb_sweep_min(
+            ptr(qh_t), ptr(qres_t), mirror.data_ptr(), ptr(resid), ptr(rscale), ptr(scale),
+            bias.data_ptr(), qe_p.data_ptr(), ptr(eb_rows[0] if eb_rows else None),
+            ptr(eb_rows[1] if len(eb_rows) > 1 else None), out.data_ptr(), ptr(bm),
+            cap, Dp, B, bp, r1, len(eb_rows),
+            torch.cuda.current_stream(mirror.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"sweep_min launch failed: cudaError {rc}")
+    _window_mins_t.launches += 1
+    if heavy:
+        _window_mins_t.launches_heavy += 1
+    return out, bm
+
+
+# kernel launches so far, all variants and the heavy ones (a run resets and reads these)
+_window_mins_t.launches = 0
+_window_mins_t.launches_heavy = 0
+
+
+# ------------------------------------------------------------------ kernel B2
+
+def _gather_score_ref(q32, data, f, *, r1):
+    """Plain torch version of kernel B2 (pallas_knn_t._rescan_windows._score): gather
+    the r1 rows of each candidate window ``f`` [B, s1] and return per-row
+    ``(q . row, ||row||^2)`` [B, s1*r1] in f32."""
+    require_f32_matmul()
+    B, s1 = f.shape
+    w = torch.clamp(f.long(), 0, data.shape[0] // r1 - 1)   # as XLA's gather clamps
+    rows = (w[:, :, None] * r1 + torch.arange(r1, device=f.device)).reshape(-1)
+    sub = data.index_select(0, rows).float().reshape(B, s1 * r1, -1)
+    dots = (sub * q32[:, None, :]).sum(-1)
+    sqn = (sub * sub).sum(-1)
+    return dots, sqn
+
+
+def _check_gather_operands(q32, data, f, r1):
+    """Raise on anything kernel B2 does not take."""
+    cap, Dp = data.shape
+    B, s1 = f.shape
+    for name, t, dtype in (("q32", q32, torch.float32), ("data", data, torch.float32),
+                           ("f", f, torch.int32)):
+        if t.device != data.device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor on {data.device}")
+    if tuple(q32.shape) != (B, Dp) or Dp % 128 or r1 <= 0 or cap % r1 or B == 0 or s1 == 0:
+        raise ValueError(f"gather_score needs q32 [B, Dp] with Dp % 128 == 0 and cap % r1 "
+                         f"== 0; got q32 {tuple(q32.shape)}, data {tuple(data.shape)}, "
+                         f"f {tuple(f.shape)}, r1={r1}")
+
+
+def _gather_score(q32, data, f, *, r1):
+    """Kernel B2 (the port of pallas_gather.gather_score): ``(dots, sqn)`` [B, s1*r1],
+    column j*r1 + i = row i of window f[:, j].  The CUDA kernel for a CUDA tensor, the
+    plain version for a CPU tensor."""
+    if data.device.type == "cpu":
+        return _gather_score_ref(q32, data, f, r1=r1)
+    _check_gather_operands(q32, data, f, r1)
+    cap, Dp = data.shape
+    B, s1 = f.shape
+    dots = torch.empty((B, s1 * r1), dtype=torch.float32, device=data.device)
+    sqn = torch.empty_like(dots)
+    with torch.cuda.device(data.device):
+        rc = _kernels.library().mlvdb_gather_score(
+            q32.data_ptr(), data.data_ptr(), f.data_ptr(), dots.data_ptr(), sqn.data_ptr(),
+            B, s1, r1, Dp, cap // r1, torch.cuda.current_stream(data.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"gather_score launch failed: cudaError {rc}")
+    _gather_score.launches += 1
+    return dots, sqn
+
+
+_gather_score.launches = 0
+
+
+# ------------------------------------------------------------------ phase 2 selection
+
+def _pos_to_window(p, g: int):
+    """Output position -> fine window id (pallas_knn_t.py:507-514)."""
+    gw = g * WLANE
+    t = p // gw
+    rem = p - t * gw
+    a = rem // WLANE
+    j = rem - a * WLANE
+    return (t * WLANE + j) * g + a
+
+
+def _sorted_topk(x, kk: int):
+    """(values, positions) of the kk smallest per row by one stable sort."""
+    sv, si = torch.sort(x, dim=-1, stable=True)
+    return sv[:, :kk], si[:, :kk]
+
+
+def _topk_min(x, kk: int, tuning: Tuning):
+    """Smallest-kk (values, positions): top-k for small kk, a sort for large."""
+    if kk >= tuning.sort_topk_from and x.shape[1] > kk:
+        return _sorted_topk(x, kk)
+    return torch.topk(x, kk, dim=1, largest=False)
+
+
+def _topk_spec(x, kk: int, tuning: Tuning):
+    """(values, idx, floor) of the kk smallest entries per row of x [B, W]
+    (pallas_knn_t.py:569-610): wide rows run chunked with a speculative per-chunk width;
+    every element not returned is >= min(floor, values[:, -1])."""
+    B, W = x.shape
+    CH = 2048
+    inf = torch.full((B,), float("inf"), dtype=torch.float32, device=x.device)
+    if W <= max(kk, 4096):
+        v, i = _topk_min(x, min(kk, W), tuning)
+        return v, i, inf
+    Wp = -(-W // CH) * CH
+    pad = Wp - W
+    if pad:
+        x = torch.cat([x, x.new_full((B, pad), float("inf"))], dim=1)
+    nch = Wp // CH
+    if kk <= 64:
+        kc = min(kk, CH)   # exact per chunk: no chunk can hold >kk of the top-kk
+    else:
+        occupancy = kk // nch + 4 * math.isqrt(max(kk // nch, 1)) + 16
+        guarantee = (kk + pad + nch - 1) // nch
+        kc = min(CH, max(occupancy, guarantee))
+    v, i = torch.topk(x.reshape(B * nch, CH), kc, dim=1, largest=False)
+    vch = v.reshape(B, nch, kc)
+    iglob = (i.reshape(B, nch, kc)
+             + (torch.arange(nch, device=x.device) * CH)[None, :, None]).reshape(B, nch * kc)
+    v2, p = _topk_min(vch.reshape(B, nch * kc), kk, tuning)
+    idx = torch.clamp_max(torch.gather(iglob, 1, p), W - 1)
+    floor = vch[:, :, -1].amin(1) if kc < kk else inf
+    return v2, idx, floor
+
+
+def _select_and_rescan(q32, qn_row, rescan, maskadd, hw, wmin_t, *, k, metric, r1, masked,
+                       s_sel=None, r2=R2, spec_l2=False, wmin2=None, tuning=DEFAULT_TUNING):
+    """Hierarchical window selection on the tile-major window mins + exact rescan
+    (pallas_knn_t.py:624-789).  Returns ``(best_d, best_i, thresh)``: every window not
+    rescanned has (optimistic) window-min >= thresh; +inf when every window was."""
+    nt, B, out_w = wmin_t.shape
+    P = nt * out_w
+    dev = q32.device
+    g = R1MAX // r1
+    s = min(s_sel if s_sel is not None else min(2 * k, k + 16), P)
+    two_level = P % r2 == 0 and P // r2 > 1
+    inf = torch.full((B,), float("inf"), dtype=torch.float32, device=dev)
+
+    if two_level:
+        W2 = P // r2
+        gb = out_w // r2                                  # blocks per tile
+        if wmin2 is None:                                 # else: the kernel's block mins
+            wmin2 = wmin_t.reshape(nt, B, gb, r2).amin(-1).permute(1, 0, 2).reshape(B, W2)
+        s2 = min(s, W2)
+        if spec_l2:
+            v2, w2i, fl2 = _topk_spec(wmin2, s2, tuning)
+        else:
+            v2, w2i = _topk_min(wmin2, s2, tuning)
+            fl2 = inf
+        w2i = torch.sort(w2i, dim=1).values
+        # one gathered row = one tile's out_w mins; take block w2i % gb of it
+        flat = wmin_t.reshape(nt * B, out_w)
+        gidx = (w2i // gb) * B + torch.arange(B, device=dev)[:, None]
+        rows4 = flat.index_select(0, gidx.reshape(-1)).reshape(B, s2, gb, r2)
+        if gb > 1:
+            sel = (w2i % gb)[:, :, None, None].expand(B, s2, 1, r2)
+            l1_blk = torch.gather(rows4, 2, sel).reshape(B, s2, r2)
+        else:
+            l1_blk = rows4.reshape(B, s2, r2)
+        MB = tuning.mb_blocktop
+        use_bt = tuning.blocktop and spec_l2 and s >= 512 and MB < r2 and W2 >= 4 * s
+        if use_bt:
+            # block-top refine: each selected block yields its MB smallest windows by MB
+            # rounds of min / first-argmin / mask
+            iota_r = torch.arange(r2, device=dev)
+            work = l1_blk
+            vals, poss = [], []
+            for _ in range(MB):
+                m1 = work.amin(2)                         # [B, s2]
+                pm = torch.where(work == m1[..., None], iota_r, r2).amin(2)
+                pm = torch.clamp_max(pm, r2 - 1)          # NaN rows match no lane
+                vals.append(m1)
+                poss.append(pm)
+                work = torch.where(iota_r[None, None, :] == pm[..., None],
+                                   torch.full_like(work, float("inf")), work)
+            cand_v = torch.stack(vals, -1).reshape(B, s2 * MB)
+            cand_p = (w2i[:, :, None] * r2 + torch.stack(poss, -1)).reshape(B, s2 * MB)
+            s1 = min(s, s2 * MB)
+            v1, sel = _topk_min(cand_v, s1, tuning)
+            p = torch.gather(cand_p, 1, sel)
+            thresh = torch.minimum(fl2, vals[-1].amin(1))
+            if s2 < W2:
+                thresh = torch.minimum(thresh, v2[:, -1])
+            if s1 < s2 * MB:
+                thresh = torch.minimum(thresh, v1[:, -1])
+        else:
+            s1 = min(s, s2 * r2)
+            v1, pos, floor = _topk_spec(l1_blk.reshape(B, s2 * r2), s1, tuning)
+            p = torch.gather(w2i, 1, pos // r2) * r2 + pos % r2   # output positions
+            thresh = fl2
+            if s2 < W2:
+                thresh = torch.minimum(thresh, v2[:, -1])
+            if s1 < s2 * r2:
+                thresh = torch.minimum(thresh, v1[:, -1])
+            thresh = torch.minimum(thresh, floor)
+    else:
+        wmin = wmin_t.permute(1, 0, 2).reshape(B, P)
+        s1 = min(s, P)
+        v1, p, floor = _topk_spec(wmin, s1, tuning)
+        thresh = floor if s1 >= P else torch.minimum(v1[:, -1], floor)
+
+    f = _pos_to_window(p, g)                              # [B, s1] fine windows
+    best_d, best_i = _rescan_windows(q32, qn_row, rescan, maskadd, hw, f, k=k,
+                                     metric=metric, r1=r1, masked=masked, tuning=tuning)
+    return best_d, best_i, thresh
+
+
+def _rescan_windows(q32, qn_row, rescan, maskadd, hw, f, *, k, metric, r1, masked,
+                    tuning=DEFAULT_TUNING):
+    """Exact f32 rescan of the selected windows ``f`` [B, s1] (pallas_knn_t.py:792-861)
+    through kernel B2, then the metric formula, the mask and the final top-k.  The
+    kernel writes only (dots, sqn) per row, so nothing is chunked."""
+    B, s1 = f.shape
+    f = torch.sort(f, dim=1).values.to(torch.int32).contiguous()
+    dots, sqn_c = _gather_score(q32, rescan, f, r1=r1)
+    rws = (f[:, :, None] * r1 + torch.arange(r1, dtype=torch.int32, device=f.device)).reshape(
+        B, s1 * r1)
+    if metric == "l2":
+        dd = torch.clamp_min(qn_row + sqn_c - 2.0 * dots, 0.0)
+    elif metric == "ip":
+        dd = 1.0 - dots
+    else:
+        dd = 1.0 - dots * torch.rsqrt(torch.clamp_min(qn_row * sqn_c, 1e-30))
+    if masked:
+        dd = dd + maskadd[rws.long()]
+    else:
+        dd = torch.where(rws < hw, dd, torch.full_like(dd, float(MASKED)))
+    kk = min(k, dd.shape[1])
+    best_d, pk = _topk_min(dd, kk, tuning)
+    best_i = torch.gather(rws, 1, pk)
+    if kk < k:
+        best_d = torch.cat([best_d, best_d.new_full((B, k - kk), float(MASKED))], dim=1)
+        best_i = torch.cat([best_i, best_i.new_zeros((B, k - kk))], dim=1)
+    return best_d, best_i
+
+
+# ------------------------------------------------------------------ certificate prep
+
+def _cert_plan(*, certify, light, mixed, lossy_sweep, int8_sweep, use_resid,
+               has_sweep_err, has_err1, metric):
+    """Static certificate plan (pallas_knn_t.py:911-955): ``(wb_sources, q_tags,
+    err_tags)`` — the per-row bound arrays the kernel folds in, the per-query scale of
+    each, and the scalar error terms beyond the f32 accumulation slack."""
+    if not certify:
+        return (), (), ()
+    if not mixed:
+        if lossy_sweep:
+            if metric == "cosine":
+                return (), (), ("qres",)
+            return ("sqn_sqrt",), ("qres",), ()
+        return (), (), ()
+    if light and (has_err1 or has_sweep_err):
+        band = "err1" if has_err1 else "sweep_err"
+        if metric == "cosine":
+            return (band,), ("qh",), ("qres",)
+        return (band, "sqn_sqrt"), ("qh", "qres"), ()
+    if use_resid and has_sweep_err:
+        return ("sweep_err", "err1"), ("qh", "qres"), ()
+    if has_sweep_err:
+        return ("sweep_err",), ("qh",), ()
+    rel = 2.0 ** -7 if int8_sweep else 2.0 ** -9
+    if light:
+        rel *= 2.0
+    return (), (), (("rel", rel),)
+
+
+def _prep_terms(valid, sq_norms, hw, rscale, sweep_err, err1, *, cap, metric, masked,
+                use_resid, wb_sources):
+    """Query-independent prep (pallas_knn_t.py:958-1012) in store-row order: the bias
+    and scale rows, the residual multiplier row, the live-max norm and the
+    certificate's per-row bound rows."""
+    dev = sq_norms.device
+    sqn = sq_norms.float()
+    if masked:
+        maskadd = torch.where(valid, 0.0, float(MASKED)).to(torch.float32)
+    else:
+        maskadd = torch.where(torch.arange(cap, device=dev) < hw, 0.0,
+                              float(MASKED)).to(torch.float32)
+    bias = (sqn + maskadd) if metric == "l2" else maskadd
+    inv_norm = torch.rsqrt(torch.clamp_min(sqn, 1e-30)) if metric == "cosine" else None
+    live = maskadd < 1.0
+    maxd = torch.sqrt(torch.where(live, sqn, torch.zeros_like(sqn)).amax())
+
+    def eb_row(row_norms):
+        e = row_norms.float()
+        if inv_norm is not None:
+            e = e * inv_norm
+        return torch.where(live, e, torch.zeros_like(e)).contiguous()
+
+    srcs = {"sqn_sqrt": lambda: torch.sqrt(sqn), "sweep_err": lambda: sweep_err,
+            "err1": lambda: err1}
+    return {"bias_row": bias.contiguous(), "scale_row": inv_norm,
+            "rscale_row": rscale if use_resid else None, "maxd": maxd,
+            "eb_rows": tuple(eb_row(srcs[s]()) for s in wb_sources)}
+
+
+def _plan(*, certify, light, metric, sweep_err, resid, rscale, err1):
+    """(use_resid, wb_sources, q_tags, err_tags) of a bf16 mirror over f32 rows."""
+    use_resid = (certify and not light and resid is not None and rscale is not None
+                 and err1 is not None)
+    plan = _cert_plan(certify=certify, light=light, mixed=True, lossy_sweep=True,
+                      int8_sweep=False, use_resid=use_resid,
+                      has_sweep_err=sweep_err is not None, has_err1=err1 is not None,
+                      metric=metric)
+    return (use_resid, *plan)
+
+
+def search_prep(mirror, valid, sq_norms, *, metric, live_prefix, certify=True, light=False,
+                sweep_err=None, resid=None, rscale=None, err1=None):
+    """The query-independent prep dict of one search (pallas_knn_t.py:1377-1427), as
+    ``exact_knn_t`` caches it per snapshot; pass it back through ``prep=``."""
+    cap = mirror.shape[0]
+    use_resid, wb_sources, _, _ = _plan(certify=certify, light=light, metric=metric,
+                                        sweep_err=sweep_err, resid=resid, rscale=rscale,
+                                        err1=err1)
+    masked = live_prefix is None
+    return _prep_terms(valid, sq_norms, cap if masked else live_prefix, rscale, sweep_err,
+                       err1, cap=cap, metric=metric, masked=masked, use_resid=use_resid,
+                       wb_sources=wb_sources)
+
+
+# ------------------------------------------------------------------ the search
+
+def fetch(*tensors):
+    """Bring device tensors to the host in ONE copy: they travel packed as f32 (int32
+    bit-cast, bool as 0/1) and are unpacked to numpy arrays of their own dtypes."""
+    flat = []
+    for t in tensors:
+        if t.dtype == torch.int32:
+            flat.append(t.reshape(-1).view(torch.float32))
+        else:
+            flat.append(t.reshape(-1).to(torch.float32))
+    host = torch.cat(flat).cpu().numpy()
+    out, pos = [], 0
+    for t in tensors:
+        n = t.numel()
+        part = host[pos : pos + n].reshape(tuple(t.shape))
+        pos += n
+        if t.dtype == torch.int32:
+            part = part.view(np.int32)
+        elif t.dtype == torch.bool:
+            part = part != 0
+        out.append(part)
+    return out
+
+
+class SweepResult:
+    """Tier-1 result of one certified search, still on the device.
+
+    ``dist``/``idx`` [B, k] and the per-query proof ``okq`` [B] bool (None when no proof
+    is needed: margin mode, or the shape gate sent the search to the scan, ``tier`` -1).
+    A caller brings the three down together; if any proof failed it calls
+    ``escalate(okq_host, fetch)``, which returns host ``(dist, idx, tier)`` and makes
+    each of its own copies through ``fetch`` (so the caller can count them)."""
+
+    def __init__(self, dist, idx, okq, tier, escalate=None):
+        self.dist, self.idx, self.okq, self.tier = dist, idx, okq, tier
+        self._escalate = escalate
+
+    def escalate(self, okq_host: np.ndarray, fetch: Callable = fetch):
+        return self._escalate(okq_host, fetch)
+
+    def resolve(self):
+        """Device ``(dist, idx, tier)``: the proof read here, escalation if it failed."""
+        if self.okq is None:
+            return self.dist, self.idx, self.tier
+        okq = self.okq.cpu().numpy()
+        if okq.all():
+            return self.dist, self.idx, self.tier
+        d, i, tier = self.escalate(okq)
+        dev = self.dist.device
+        return torch.from_numpy(d).to(dev), torch.from_numpy(i).to(dev), tier
+
+
+def _fold_query(q32, metric, light):
+    """The kernel's query operands: the metric factor folded in (l2 ranks by -2q.x, ip and
+    cosine by -q.x), rounded to bf16 as ``qh``, and the rounding residual ``qres_f32``;
+    ``qres`` is its bf16 compensation operand, None for the light program."""
+    q_fold = -2.0 * q32 if metric == "l2" else -q32
+    qh = q_fold.to(torch.bfloat16)
+    qres_f32 = q_fold - qh.float()
+    return qh, (None if light else qres_f32.to(torch.bfloat16)), qres_f32
+
+
+def _fused_t(q, mirror, rescan, valid, sq_norms, hw, resid, prep, *, k, metric, r1,
+             masked, certify, light, use_resid, q_tags, err_tags, tuning):
+    """Phase 1, tier-1 selection and rescan, and the per-query certificate
+    (pallas_knn_t._fused_t, :1022-1347), with the escalation packed into the result."""
+    cap, Dp = mirror.shape
+    B = q.shape[0]
+    g = R1MAX // r1
+    q32 = q.float()
+    qn_row = (q32 * q32).sum(-1)
+    # compensated query: qh + qres represents the folded query to ~2^-18; light skips it
+    qh, qres, qres_f32 = _fold_query(q32, metric, light)
+
+    P_all = cap // r1
+    if not certify:
+        s1_w = min(2 * k, k + 16)
+    elif any(isinstance(t, tuple) for t in err_tags):
+        s1_w = max(64, 2 * k + 48)
+    else:
+        s1_w = min(2 * k, k + 16 + k // 8)
+    s1_w = min(s1_w, P_all)
+    # the per-tile top-m pool is not ported (every program is JAX's pool-off one); the
+    # output is always tile-major, and the JAX package's level-2 width follows its own
+    # layout choice: 128-window blocks for k <= 32
+    r2 = WLANE if k <= 32 else R2
+    emit_bm = r2 == WLANE and g == 1
+    s2_w = min(8 * s1_w, P_all)
+    tier2_exists = s2_w > s1_w and B * s2_w * r1 <= cap
+
+    q_l2 = torch.sqrt(qn_row)
+    qh_l2 = q_l2 * (2.0 if metric == "l2" else 1.0)
+    maxd = prep["maxd"]
+    slack = (Dp * 2.0 ** -22) * qh_l2 * (1.0 if metric == "cosine" else maxd)
+    qres_l2 = torch.sqrt((qres_f32 * qres_f32).sum(-1))
+    q_scales = {"qh": qh_l2, "qres": qres_l2}
+    eb_rows = tuple(prep["eb_rows"])
+    qe = torch.stack([q_scales[t] for t in q_tags], dim=1).contiguous() if eb_rows else None
+    err = slack
+    for t in err_tags:
+        if t == "qres":
+            err = err + qres_l2
+        else:
+            err = err + t[1] * qh_l2 * (1.0 if metric == "cosine" else maxd)
+
+    def check_exact(best_d, thresh, sel=None):
+        qn = qn_row if sel is None else qn_row[sel]
+        ql = q_l2 if sel is None else q_l2[sel]
+        e = err if sel is None else err[sel]
+        kth = best_d[:, k - 1]
+        if metric == "l2":
+            kth_rank = kth - qn
+        elif metric == "ip":
+            kth_rank = kth - 1.0
+        else:
+            kth_rank = (kth - 1.0) * ql
+        kth_real = kth < float(MASKED) / 2
+        return torch.where(kth_real, thresh - e >= kth_rank, torch.isinf(thresh))
+
+    wmin_t, bm = _window_mins_t(
+        qh, qres, mirror, resid if use_resid else None, prep["rscale_row"],
+        prep["scale_row"], prep["bias_row"], r1=r1, emit_block_mins=emit_bm, qe=qe,
+        eb_rows=eb_rows,
+    )
+    wmin2_pre = None if bm is None else bm.T.contiguous()    # [B, nt] block mins
+    maskadd = torch.where(valid, 0.0, float(MASKED)).to(torch.float32) if masked else None
+    qn_col = qn_row[:, None]
+
+    def select(s_sel, sub=slice(None)):
+        """Selection and rescan at width s_sel for the queries ``sub``."""
+        return _select_and_rescan(
+            q32[sub], qn_col[sub], rescan, maskadd, hw, wmin_t[:, sub, :], k=k,
+            metric=metric, r1=r1, masked=masked, s_sel=s_sel, r2=r2, spec_l2=certify,
+            wmin2=None if wmin2_pre is None else wmin2_pre[sub], tuning=tuning)
+
+    d1, i1, th1 = select(s1_w)
+    if not certify:
+        return SweepResult(d1, i1, None, 0)
+    okq = check_exact(d1, th1)                            # [B] per-query proof
+
+    def exact_fallback(fetch_):
+        d, i = exact_knn(q32, rescan, valid, sq_norms.float(), k=k, metric=metric,
+                         db_tile=8 * SWEEP_TILE)
+        d, i = fetch_(d, i)
+        return d, i, 2
+
+    def escalate(okq_host, fetch_):
+        if not tier2_exists:
+            return exact_fallback(fetch_)
+        nfail = int((~okq_host).sum())
+        if tuning.contain and B > FQ_CONTAIN and nfail <= FQ_CONTAIN:
+            # contained: re-prove the failing queries (stable order, padded with passing
+            # ones, as lax.top_k pads) at tier-2 width; the rest keep tier 1
+            fidx = torch.sort((~okq).to(torch.float32), descending=True,
+                              stable=True).indices[:FQ_CONTAIN]
+            d_f, i_f, th_f = select(s2_w, sub=fidx)
+            ok_f = check_exact(d_f, th_f, sel=fidx).all()
+            d_m = d1.index_copy(0, fidx, d_f)
+            i_m = i1.index_copy(0, fidx, i_f)
+            d, i, ok = fetch_(d_m, i_m, ok_f)
+        else:
+            d2, i2, th2 = select(s2_w)
+            d, i, ok = fetch_(d2, i2, check_exact(d2, th2).all())
+        if bool(ok):
+            return d, i, 1
+        return exact_fallback(fetch_)
+
+    return SweepResult(d1, i1, okq, 0, escalate)
+
+
+def exact_knn_t(q, mirror, rescan_data, valid, sq_norms, *, k, metric, live_prefix=None,
+                r1_override=None, sweep_err=None, resid=None, rscale=None, err1=None,
+                certify=True, report_tier=False, light=False, prep_cache=None, prep=None,
+                tuning=DEFAULT_TUNING, defer=False):
+    """Certified bf16-sweep exact k-NN (pallas_knn_t.exact_knn_pallas_t); same results
+    contract as ops.topk.exact_knn.
+
+    ``mirror`` [cap, Dp] bf16 row-major, ``rescan_data`` [cap, Dp] f32.  ``sweep_err``,
+    ``resid``/``rscale``/``err1``: the store's certificate arrays (see
+    ``quantize_resid_rows``).  ``light``: the single-pass program.  ``prep_cache``: the
+    snapshot's dict of query-independent prep.  ``report_tier`` adds the tier that served
+    the batch: 0 certified tier 1 selection, 1 contained or widened selection, 2 exact
+    scan, -1 the shape gate sent the search to the scan (no certificate ran).
+    ``defer``: return the device-side ``SweepResult`` instead (see its docstring)."""
+    cap, Dp = mirror.shape
+    B = q.shape[0]
+    qt_w = min(Q_TILE, B)
+    r1 = r1_override or _pick_r1(B, cap, k)
+    if (cap < 2 * SWEEP_TILE or cap % SWEEP_TILE != 0 or B % qt_w != 0 or Dp % 128 != 0
+            or k * r1 > cap or r1 not in (1, 2, 4, 8, 16, 32)):
+        d, i = exact_knn(q, rescan_data, valid, sq_norms, k=k, metric=metric,
+                         db_tile=SWEEP_TILE)
+        res = SweepResult(d, i, None, -1)
+    else:
+        masked = live_prefix is None
+        hw = cap if masked else int(live_prefix)
+        use_resid, wb_sources, q_tags, err_tags = _plan(
+            certify=certify, light=light, metric=metric, sweep_err=sweep_err,
+            resid=resid, rscale=rscale, err1=err1)
+        if prep is None:
+            key = (metric, -1 if masked else hw, masked, certify, light, use_resid,
+                   wb_sources)
+            prep = prep_cache.get(key) if prep_cache is not None else None
+            if prep is None:
+                prep = _prep_terms(valid, sq_norms, hw, rscale, sweep_err, err1, cap=cap,
+                                   metric=metric, masked=masked, use_resid=use_resid,
+                                   wb_sources=wb_sources)
+                if prep_cache is not None:
+                    prep_cache[key] = prep  # GIL-atomic; a racing reader recomputes
+        res = _fused_t(q, mirror, rescan_data, valid, sq_norms, hw, resid, prep, k=k,
+                       metric=metric, r1=r1, masked=masked, certify=certify, light=light,
+                       use_resid=use_resid, q_tags=q_tags, err_tags=err_tags,
+                       tuning=tuning)
+    if defer:
+        return res
+    d, i, tier = res.resolve()
+    return (d, i, tier) if report_tier else (d, i)

@@ -1,16 +1,23 @@
-"""Per-namespace device store: the row-major part of ``mlvectordb_tpu/store/namespace.py``.
+"""Per-namespace device store: the counterpart of ``mlvectordb_tpu/store/namespace.py``.
 
 Device state (capacity grows in powers of two):
   data     [capacity, dim_padded]  float32, rows lane-padded with zeros
   valid    [capacity]              bool — False = never-written, tombstoned, or freed slot
   sq_norms [capacity]              f32  — precomputed squared norms (L2/cosine need them)
+With ``sweep_dtype="bfloat16"`` (the certified sweep, ops/fused_knn_t), beside them:
+  mirror       [capacity, dim_padded] bf16 — ROW-major sweep mirror (the JAX package's is
+                                             window-major [dpad, cap]; see fused_knn_t)
+  sweep_err    [capacity] f32  — the certificate's data-side bound per row
+  sweep_resid  [capacity, dim_padded] int8 — codes of row - bf16(row) (config.sweep_resid)
+  sweep_rscale [capacity] f32  — their per-row scales
+  sweep_err1   [capacity] f32  — raw ||row - bf16(row)||
 
 Host state: slot -> uuid / metadata / float32 values, uuid -> slot map, free-slot stack.
 Writes scatter into free slots (upsert by id overwrites in place); deletes clear the
 mask.  Compaction repacks live rows and is strictly per-namespace.
 
-Not ported yet: the transposed sweep mirror and its certificate arrays (``sweep_dtype``),
-bf16 storage, host offload and the native metadata columns.
+Not ported yet: int8 and f32 mirrors, bf16 storage, host offload and the native metadata
+columns.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_CONFIG, EngineConfig
+from ..ops.fused_knn_t import SWEEP_TILE, quantize_resid_rows, sweep_err_norms
 from .vector import Vector
 
 
@@ -33,10 +41,10 @@ def check_supported(config: EngineConfig) -> None:
             f"dtype={config.dtype!r} is not ported yet (ROADMAP A18: bf16 storage); "
             "the torch store holds float32"
         )
-    if config.sweep_dtype is not None:
+    if config.sweep_dtype not in (None, "bfloat16"):
         raise NotImplementedError(
-            f"sweep_dtype={config.sweep_dtype!r} is not ported yet (ROADMAP A3-A7: the "
-            "certified sweep); the torch store runs the row-major path only"
+            f"sweep_dtype={config.sweep_dtype!r} is not ported yet (ROADMAP A10: int8 and "
+            "f32 sweep mirrors); the torch store takes sweep_dtype=None or 'bfloat16'"
         )
 
 
@@ -55,10 +63,21 @@ class DeviceState(NamedTuple):
     # into top-k.
     high_water: int
     live_count: int
+    # Row-major bf16 sweep mirror and the certificate's per-row arrays
+    # (config.sweep_dtype="bfloat16"; see the module docstring), or None.
+    mirror: Optional[torch.Tensor] = None
+    sweep_err: Optional[torch.Tensor] = None
+    sweep_resid: Optional[torch.Tensor] = None
+    sweep_rscale: Optional[torch.Tensor] = None
+    sweep_err1: Optional[torch.Tensor] = None
     # Host slot tables (ids, metadata, values) captured at publish time: hydration
     # reads all three from here, one atomic tuple, because compact() replaces the
     # lists wholesale.
     host_tables: Optional[tuple] = None
+    # Per-snapshot cache of query-independent search prep (fused_knn_t._prep_terms),
+    # keyed by (metric, plan): a fresh dict per publish, since the arrays are valid for
+    # this snapshot's data only.
+    prep_cache: Optional[dict] = None
 
 
 # Copy-on-write (clone + index_put_), as the JAX package does: a search dispatched a
@@ -71,6 +90,28 @@ def _scatter_rows(data, valid, sq_norms, slots, vals):
     sq_norms = sq_norms.clone().index_put_((slots,), (vals32 * vals32).sum(-1))
     valid = valid.clone().index_put_((slots,), torch.ones_like(slots, dtype=torch.bool))
     return data, valid, sq_norms
+
+
+def _scatter_mirror(mirror, slots, vals):
+    """Sweep-mirror upkeep: the written rows, rounded to bf16 (copy-on-write)."""
+    return mirror.clone().index_put_((slots,), vals.float().to(mirror.dtype))
+
+
+def _scatter_sweep_err(err, slots, vals):
+    """Per-row ||row - bf16(row)|| for the certificate, when no residual codes are kept."""
+    return err.clone().index_put_((slots,), sweep_err_norms(vals))
+
+
+def _scatter_resid(err, err1, rscale, resid, slots, vals):
+    """The int8 residual codes, their scales and both error norms of the written rows,
+    in one quantization (copy-on-write)."""
+    z, scale, e2, e1 = quantize_resid_rows(vals)
+    return (
+        err.clone().index_put_((slots,), e2),
+        err1.clone().index_put_((slots,), e1),
+        rscale.clone().index_put_((slots,), scale),
+        resid.clone().index_put_((slots,), z),
+    )
 
 
 def _clear_slots(valid, slots):
@@ -103,6 +144,11 @@ class NamespaceStore:
         self._data: Optional[torch.Tensor] = None
         self._valid: Optional[torch.Tensor] = None
         self._sq_norms: Optional[torch.Tensor] = None
+        self._mirror: Optional[torch.Tensor] = None        # [cap, dpad] bf16 sweep mirror
+        self._sweep_err: Optional[torch.Tensor] = None     # [cap] certificate bound
+        self._sweep_resid: Optional[torch.Tensor] = None   # [cap, dpad] int8 residual codes
+        self._sweep_rscale: Optional[torch.Tensor] = None  # [cap] their scales
+        self._sweep_err1: Optional[torch.Tensor] = None    # [cap] raw ||row - bf16(row)||
         # atomically-published snapshot tuple: readers never assemble a state from the
         # individual attributes
         self._state: Optional[DeviceState] = None
@@ -125,10 +171,19 @@ class NamespaceStore:
 
     @property
     def nbytes(self) -> int:
-        """Exact device-array byte accounting: data + valid + sq_norms."""
+        """Exact device-array byte accounting: data + valid + sq_norms, and the sweep
+        mirror and its certificate arrays when kept."""
         if self._data is None:
             return 0
-        return self.capacity * self.dpad * 4 + self.capacity * (1 + 4)
+        total = self.capacity * self.dpad * 4 + self.capacity * (1 + 4)
+        for t in self._sweep_arrays():
+            if t is not None:
+                total += t.numel() * t.element_size()
+        return total
+
+    def _sweep_arrays(self):
+        return (self._mirror, self._sweep_err, self._sweep_resid, self._sweep_rscale,
+                self._sweep_err1)
 
     def device_state(self) -> DeviceState:
         state = self._state  # single attribute read = atomic under the GIL
@@ -141,7 +196,9 @@ class NamespaceStore:
         self._state = DeviceState(
             self._data, self._valid, self._sq_norms,
             self._high_water, len(self._id_to_slot),
+            *self._sweep_arrays(),
             host_tables=(self._slot_ids, self._slot_meta, self._slot_values),
+            prep_cache={},
         )
 
     # ------------------------------------------------------------------ allocation
@@ -155,17 +212,57 @@ class NamespaceStore:
                 f"dimension mismatch in namespace {self.name!r}: store is {self.dim}-d, got {dim}-d"
             )
 
+    # ------------------------------------------------------------------ sweep mirror
+
+    def _mixed_sweep(self) -> bool:
+        """f32 store + bf16 sweep mirror (the only sweep configuration ported)."""
+        return self.config.sweep_dtype == "bfloat16"
+
+    def _use_resid(self) -> bool:
+        """Residual-corrected sweep (config.sweep_resid): keep the int8 residual codes."""
+        return self._mixed_sweep() and self.config.sweep_resid
+
+    @staticmethod
+    def _mirror_ok(cap: int) -> bool:
+        """The tile-major window-min output needs whole SWEEP_TILE-row tiles; smaller or
+        unaligned capacities run mirror-less (the sweep path needs two tiles anyway)."""
+        return cap >= SWEEP_TILE and cap % SWEEP_TILE == 0
+
+    def _build_sweep(self) -> None:
+        """(Re)build the mirror and every certificate array from the current device rows —
+        whenever the mirror is rebuilt wholesale (first eligible capacity, compaction)."""
+        self._mirror = self._sweep_err = None
+        self._sweep_resid = self._sweep_rscale = self._sweep_err1 = None
+        if not self._mixed_sweep() or self._data is None or not self._mirror_ok(
+                self._data.shape[0]):
+            return
+        self._mirror = self._data.to(torch.bfloat16)
+        if self._use_resid():
+            (self._sweep_resid, self._sweep_rscale, self._sweep_err,
+             self._sweep_err1) = quantize_resid_rows(self._data)
+        else:
+            self._sweep_err = sweep_err_norms(self._data)
+
     def _alloc_arrays(self, new_cap: int) -> None:
-        """Create or grow the device arrays to new_cap rows."""
+        """Create or grow the device arrays to new_cap rows.  The row-major mirror and its
+        arrays grow by appended rows like the store; a store that reaches its first
+        mirror-eligible capacity builds them from its rows."""
         if self._data is None:
             self._data = torch.zeros((new_cap, self.dpad), dtype=torch.float32, device=self.device)
             self._valid = torch.zeros((new_cap,), dtype=torch.bool, device=self.device)
             self._sq_norms = torch.zeros((new_cap,), dtype=torch.float32, device=self.device)
+            self._build_sweep()
         else:
             grow = new_cap - self.capacity
             self._data = _grow(self._data, grow)
             self._valid = _grow(self._valid, grow)
             self._sq_norms = _grow(self._sq_norms, grow)
+            if self._mirror is not None:
+                (self._mirror, self._sweep_err, self._sweep_resid, self._sweep_rscale,
+                 self._sweep_err1) = (None if t is None else _grow(t, grow)
+                                      for t in self._sweep_arrays())
+            else:
+                self._build_sweep()
 
     def _grow_host_tables(self, new_cap: int) -> None:
         self._slot_ids.extend([None] * (new_cap - len(self._slot_ids)))
@@ -204,6 +301,15 @@ class NamespaceStore:
         self._data, self._valid, self._sq_norms = _scatter_rows(
             self._data, self._valid, self._sq_norms, slots_t, vals_t
         )
+        if self._mirror is not None:
+            self._mirror = _scatter_mirror(self._mirror, slots_t, vals_t)
+            if self._sweep_resid is not None:
+                (self._sweep_err, self._sweep_err1, self._sweep_rscale,
+                 self._sweep_resid) = _scatter_resid(
+                    self._sweep_err, self._sweep_err1, self._sweep_rscale,
+                    self._sweep_resid, slots_t, vals_t)
+            else:
+                self._sweep_err = _scatter_sweep_err(self._sweep_err, slots_t, vals_t)
 
     def upsert(self, vectors: Sequence[Vector]) -> None:
         """Insert or overwrite-by-id a batch of vectors (one device scatter)."""
@@ -336,6 +442,9 @@ class NamespaceStore:
             valid = torch.zeros((new_cap,), dtype=torch.bool, device=self.device)
             valid[:n] = True
             self._data, self._valid, self._sq_norms = data, valid, sq_norms
+            # the certificate arrays are rebuilt in lockstep with the rows: stale bounds
+            # would certify against rows that moved
+            self._build_sweep()
             self.capacity = new_cap
             self._slot_ids = new_ids + [None] * (new_cap - n)
             self._slot_meta = new_meta + [None] * (new_cap - n)

@@ -159,7 +159,8 @@ def test_carry_over_from_jax_snapshot(pair, corpus):
 
 
 def test_unported_options_raise():
-    for cfg in (EngineConfig(dtype="bfloat16"), EngineConfig(sweep_dtype="bfloat16")):
+    for cfg in (EngineConfig(dtype="bfloat16"), EngineConfig(sweep_dtype="int8"),
+                EngineConfig(sweep_dtype="float32")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             QueryProcessor(cfg, device="cpu")
     tqp = QueryProcessor(EngineConfig(), device="cpu")

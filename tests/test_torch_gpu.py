@@ -1,10 +1,14 @@
-"""The CUDA window-min kernels against their plain torch versions, on the card.
+"""The CUDA kernels against their plain torch versions, on the card.
 
 Marked ``gpu``: each test skips without CUDA (decided inside the fixture, never at
 import).  Run on a machine with an H100, without the JAX test harness of
 tests/conftest.py:  python -m pytest --noconftest tests/test_torch_gpu.py -q
-Tolerance on live windows: |kernel - plain| <= 1e-5 * |plain| + 1e-3 (the same f32
-arithmetic in another summation order); fully masked windows are exactly 3e38.
+Row-major window-min kernels (csrc/window_min.cu): on live windows |kernel - plain| <=
+1e-5 * |plain| + 1e-3 (the same f32 arithmetic in another summation order).  Certified
+sweep kernels (csrc/sweep_min.cu, csrc/gather_score.cu): live windows within the
+certificate's accumulation slack Dp * 2^-22 * |qh| * maxd per query; the rescan's dots
+and norms within Dp * 2^-24 of |q| |row| + |row|^2.  Fully masked windows are exactly
+3e38 everywhere.
 """
 
 import numpy as np
@@ -12,7 +16,7 @@ import pytest
 import torch
 
 from mlvectordb_tpu_torch import EngineConfig, QueryProcessor, VectorDTO
-from mlvectordb_tpu_torch.ops import fused_knn
+from mlvectordb_tpu_torch.ops import fused_knn, fused_knn_t
 from mlvectordb_tpu_torch.ops.distances import MASKED
 
 pytestmark = pytest.mark.gpu
@@ -89,3 +93,126 @@ def test_engine_on_cuda_matches_cpu(cuda, metric):
             assert [r["id"] for r in ra] == [r["id"] for r in rb]
             np.testing.assert_allclose([r["score"] for r in ra], [r["score"] for r in rb],
                                        rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------------------ certified sweep (B1, B2)
+
+
+def _sweep_operands(dev, n, b, metric, heavy, seed):
+    """Kernel B1's operands as the certified search builds them, with ~1% tombstones and
+    a dead last tile in the bias row."""
+    rng = np.random.default_rng(seed)
+    data = torch.from_numpy(rng.standard_normal((n, 128), dtype=np.float32)).to(dev)
+    q = torch.from_numpy(rng.standard_normal((b, 128), dtype=np.float32)).to(dev)
+    valid = torch.from_numpy(rng.random(n) > 0.01).to(dev)
+    valid[-fused_knn_t.SWEEP_TILE:] = False
+    z, s, e2, e1 = fused_knn_t.quantize_resid_rows(data)
+    prep = fused_knn_t._prep_terms(
+        valid, (data * data).sum(-1), n, s, e2, e1, cap=n, metric=metric, masked=True,
+        use_resid=heavy, wb_sources=("sweep_err", "err1"))
+    qh, qres, qres_f32 = fused_knn_t._fold_query(q, metric, light=not heavy)
+    qn = torch.linalg.vector_norm(q, dim=1) * (2.0 if metric == "l2" else 1.0)
+    qe = torch.stack([qn, torch.linalg.vector_norm(qres_f32, dim=1)], 1).contiguous()
+    args = (qh.contiguous(), qres, data.to(torch.bfloat16), z if heavy else None,
+            s if heavy else None, prep["scale_row"], prep["bias_row"])
+    slack = 128 * 2.0 ** -22 * qn * (1.0 if metric == "cosine" else prep["maxd"])
+    return args, dict(qe=qe, eb_rows=prep["eb_rows"]), slack
+
+
+def _close_slack(got, want, slack):
+    dead = want == MASKED
+    assert torch.equal(got[dead], want[dead])
+    err = torch.where(dead, torch.zeros_like(got), (got - want).abs())
+    assert bool((err <= slack).all()), float((err / slack).max())
+
+
+@pytest.mark.parametrize("heavy", [False, True])
+@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
+@pytest.mark.parametrize("r1", [32, 16, 4, 1])
+@pytest.mark.parametrize("b", [8, 132])
+def test_sweep_kernel_matches_plain(cuda, heavy, metric, r1, b):
+    args, kw, slack = _sweep_operands(cuda, 16384, b, metric, heavy, r1 * 100 + b)
+    kw["emit_block_mins"] = r1 == 32
+    before = (fused_knn_t._window_mins_t.launches, fused_knn_t._window_mins_t.launches_heavy)
+    got, bm = fused_knn_t._window_mins_t(*args, r1=r1, **kw)
+    torch.cuda.synchronize()
+    assert (fused_knn_t._window_mins_t.launches,
+            fused_knn_t._window_mins_t.launches_heavy) == (before[0] + 1, before[1] + heavy)
+    want, want_bm = fused_knn_t._window_mins_t_ref(*args, r1=r1, **kw)
+    _close_slack(got, want, slack[None, :, None])
+    assert bool((want == MASKED).any())
+    if r1 == 32:
+        _close_slack(bm, want_bm, slack[None, :])
+
+
+@pytest.mark.parametrize("r1", [32, 4])
+def test_gather_score_kernel_matches_plain(cuda, r1):
+    rng = np.random.default_rng(r1)
+    data = torch.from_numpy(rng.standard_normal((65536, 128), dtype=np.float32)).to(cuda)
+    q = torch.from_numpy(rng.standard_normal((132, 128), dtype=np.float32)).to(cuda)
+    f = torch.sort(torch.randint(0, 65536 // r1, (132, 37), device=cuda), 1).values
+    f = f.to(torch.int32).contiguous()
+    before = fused_knn_t._gather_score.launches
+    dots, sqn = fused_knn_t._gather_score(q, data, f, r1=r1)
+    torch.cuda.synchronize()
+    assert fused_knn_t._gather_score.launches == before + 1
+    want_dots, want_sqn = fused_knn_t._gather_score_ref(q, data, f, r1=r1)
+    # the same f32 sums in another order: D * 2^-24 relative to |q| |row| and |row|^2
+    bound = 128 * 2.0 ** -24 * (torch.linalg.vector_norm(q, dim=1)[:, None]
+                                * want_sqn.sqrt() + want_sqn)
+    assert bool(((dots - want_dots).abs() <= bound).all())
+    assert bool(((sqn - want_sqn).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
+def test_sweep_engine_on_cuda_matches_cpu(cuda, metric):
+    rng = np.random.default_rng(17)
+    x = rng.standard_normal((20000, 128), dtype=np.float32)
+    q = [VectorDTO(v) for v in rng.standard_normal((16, 128), dtype=np.float32)]
+    out = []
+    for device in ("cpu", cuda):
+        qp = QueryProcessor(EngineConfig(sweep_dtype="bfloat16"), device=device)
+        ids = qp.bulk_load(x, "ns", ids=None if not out else out[0][0])
+        before = (fused_knn_t._window_mins_t.launches, fused_knn_t._gather_score.launches)
+        res = qp.find_similar_batch(q, 10, "ns", metric)
+        launched = (fused_knn_t._window_mins_t.launches - before[0],
+                    fused_knn_t._gather_score.launches - before[1])
+        qp.delete(ids[::50], "ns")
+        res2 = qp.find_similar_batch(q, 10, "ns", metric)
+        out.append((ids, res, res2, launched, qp.cert_tier_counts("ns")))
+    (_, c1, c2, _, ccpu), (_, g1, g2, launched, cgpu) = out
+    assert launched == (1, 1) and ccpu == cgpu == {"light_fast": 2}
+    for a, b in ((c1, g1), (c2, g2)):
+        for ra, rb in zip(a, b):
+            assert {r["id"] for r in ra} == {r["id"] for r in rb}
+            np.testing.assert_allclose(sorted(r["score"] for r in ra),
+                                       sorted(r["score"] for r in rb), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("light", [True, False])
+def test_sweep_tiers_on_cuda_match_cpu(cuda, light):
+    """The same certified search on the CPU (plain versions) and on the card (kernels):
+    a benign batch with one query aimed at a tight far cluster, whose proof fails in
+    both programs, so both serve it from the contained escalation (tier 1)."""
+    rng = np.random.default_rng(5)
+    n = 20 * fused_knn_t.SWEEP_TILE
+    x = rng.standard_normal((n, 128), dtype=np.float32)
+    q = rng.standard_normal((16, 128), dtype=np.float32)
+    centre = np.full(128, 4.0, np.float32)
+    x[1000:1800] = centre + rng.standard_normal((800, 128)).astype(np.float32) * 1e-3
+    q[0] = centre + rng.standard_normal(128).astype(np.float32) * 1e-3
+    out = []
+    for device in ("cpu", cuda):
+        data = torch.from_numpy(x).to(device)
+        z, s, e2, e1 = fused_knn_t.quantize_resid_rows(data)
+        d, i, tier = fused_knn_t.exact_knn_t(
+            torch.from_numpy(q).to(device), data.to(torch.bfloat16), data,
+            torch.ones(n, dtype=torch.bool, device=device), (data * data).sum(-1), k=10,
+            metric="l2", live_prefix=n, sweep_err=e2, resid=z, rscale=s, err1=e1,
+            light=light, report_tier=True)
+        out.append((d.cpu().numpy(), i.cpu().numpy(), tier))
+    (dc, ic, tc), (dg, ig, tg) = out
+    assert tc == tg == 1
+    np.testing.assert_allclose(np.sort(dg, 1), np.sort(dc, 1), rtol=1e-4, atol=1e-4)
+    for b in range(1, 16):                       # gaussian queries: no ties
+        assert set(ig[b].tolist()) == set(ic[b].tolist())
