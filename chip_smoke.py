@@ -22,14 +22,29 @@ one line per phase:
      clustered namespace of 131,072 rows where the light proof fails, the exact scan
      serves, the namespace flips to the heavy program, and both batches match the
      oracle's k-distances; the launch counts of the sweep kernels;
-  6. times on the card (CUDA events; informative only).
+  6. times on the card (CUDA events; informative only);
+  7. the k-bucket-128 certified sweep program: the sweep kernel's per-tile top-m pool
+     against its plain version (N = 65,536 and 1,048,576, B = 512 pool only and B = 8
+     window mins plus pool, r1 = 16, m = 8, light and heavy, l2/ip/cosine: bit-equal);
+     find_similar_batch at k=100 on the phase-5 namespace (l2 at B=128, ip and cosine at
+     B=16, before and after the deletes; set-exact recall@100 = 1.0; l2 at tier 0 with
+     transfers (1, 1), ip and cosine there or, after a failed light proof, at the exact
+     scan with (1, 2); the pool launched and no window-min matrix written); range_search
+     (limit 100 and 1000) and similarity_search against the oracle's hits within the
+     radius; a batch holding a NaN query (NaN mins where the plain version has them, and
+     tier 2 as on the CPU); times.
 Any failure raises, so the process exits non-zero.  The last two lines are the kernels'
-JSON record and {"ok": true, "device": {...}}.  Needs no network and imports no JAX.
+JSON record (with each kernel's bound: bytes over 3.35 TB/s or operations over the peak
+for their type, whichever is larger) and {"ok": true, "device": {...}}.  Needs no network
+and imports no JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -43,9 +58,13 @@ from mlvectordb_tpu_torch.ops import _kernels, fused_knn, fused_knn_t
 from mlvectordb_tpu_torch.ops.distances import MASKED
 
 N, D, K, B = 1 << 20, 128, 10, 128
+K100 = 100
 SEED = 42
 CSRC = "mlvectordb_tpu_torch/csrc/"
 SWEEP = EngineConfig(sweep_dtype="bfloat16")
+# NVIDIA's H100 SXM data sheet at 700 W: HBM rate, f32 on the CUDA cores, dense bf16 on the
+# tensor cores
+HBM_BPS, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
 
 
 def _gpu_line() -> str:
@@ -54,6 +73,41 @@ def _gpu_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def _start_ptxas_report():
+    """Start one nvcc per kernel source with the build's own flags plus ``-Xptxas -v``
+    (into build/kernels/ptxas/), beside the build; ``_ptxas_report`` reads them."""
+    out = _kernels.BUILD_DIR / "ptxas"
+    out.mkdir(parents=True, exist_ok=True)
+    return out, [subprocess.Popen(
+        [_kernels._nvcc(), *_kernels._ARCH, "-Xptxas", "-v", "-Xcompiler", "-fPIC", "-c",
+         "-o", str(out / f"{src.stem}.o"), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src in _kernels._sources()]
+
+
+def _ptxas_report(started):
+    """(kernel, registers, spill stores, spill loads, shared bytes) of each kernel, from
+    the assembler's report of the compiles ``_start_ptxas_report`` started."""
+    out, procs = started
+    rows = []
+    for proc in procs:
+        text = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v failed: {text}")
+        name, spills = None, (0, 0)
+        for line in text.splitlines():
+            if m := re.search(r"Compiling entry function '(\w+)'", line):
+                name = m.group(1)
+            elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+                spills = (int(m.group(1)), int(m.group(2)))
+            elif (m := re.search(r"Used (\d+) registers", line)) and name:
+                smem = re.search(r"(\d+) bytes smem", line)
+                rows.append((name, int(m.group(1)), *spills, int(smem.group(1)) if smem else 0))
+                name = None
+    shutil.rmtree(out, ignore_errors=True)
+    return rows
 
 
 def _time_ms(fn, iters: int = 10) -> float:
@@ -69,29 +123,30 @@ def _time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _engine_wall(qp, q_np, runs: int = 5):
-    """Host wall times (ms) of find_similar_batch at B=128, l2, k=10: distinct queries per
-    run, so the result cache cannot serve them; each run ends in its device->host copy."""
+def _engine_wall(qp, q_np, runs: int = 5, k: int = K):
+    """Host wall times (ms) of find_similar_batch at B=128, l2, k=10 (or ``k``): distinct
+    queries per run, so the result cache cannot serve them; each run ends in its
+    device->host copy."""
     wall = []
     for i in range(runs):
         qs = [VectorDTO(v) for v in q_np + np.float32(i + 1) * np.float32(1e-3)]
         t0 = time.perf_counter()
-        qp.find_similar_batch(qs, K, "sift", "l2")
+        qp.find_similar_batch(qs, k, "sift", "l2")
         wall.append((time.perf_counter() - t0) * 1e3)
     return wall
 
 
-def _engine_split(qp, q_np, runs: int = 5):
-    """Median host ms of the three parts of find_similar_batch at B=128, l2, k=10:
-    stacking the query DTOs, _raw_search (h2d, kernel, selection and rescan, d2h) and
-    hydration of the result dicts."""
+def _engine_split(qp, q_np, runs: int = 5, k: int = K):
+    """Median host ms of the three parts of find_similar_batch at B=128, l2, k=10 (or
+    ``k``): stacking the query DTOs, _raw_search (h2d, kernel, selection and rescan, d2h)
+    and hydration of the result dicts."""
     parts = {"stack": [], "raw_search": [], "hydrate": []}
     for i in range(runs):
         qs = [VectorDTO(v) for v in q_np + np.float32(i + 11) * np.float32(1e-3)]
         t0 = time.perf_counter()
         q = np.stack([np.asarray(x.values, np.float32).reshape(-1) for x in qs])
         t1 = time.perf_counter()
-        dist, slots, _, tables = qp._raw_search(q, "sift", K, "l2")
+        dist, slots, _, tables = qp._raw_search(q, "sift", k, "l2")
         t2 = time.perf_counter()
         qp._hydrate_batch(qp._to_user_score(dist, "l2"), dist, slots, tables)
         t3 = time.perf_counter()
@@ -117,28 +172,51 @@ def _oracle_dists(db64, q, metric, dead=None):
 
 
 class Oracle:
-    """Top-k row sets of the float64 brute force, computed once per (metric, batch,
-    deletes) and shared by the row-major and the sweep phases (same corpus, same queries)."""
+    """Top-k row sets of the float64 brute force, shared by every phase (same corpus, same
+    queries).  The distances are computed once per (metric, batch); the nearest ``KEEP``
+    rows of each query are kept in order, enough for any k <= 100 after the 1,000 deletes."""
+
+    KEEP = 1200
 
     def __init__(self, db64, q_np):
         self.db64, self.q_np, self.cache = db64, q_np, {}
 
+    def nearest(self, metric, nq):
+        """([nq, KEEP] row ids, [nq, KEEP] float64 distances), nearest first."""
+        if (metric, nq) not in self.cache:
+            d = _oracle_dists(self.db64, self.q_np[:nq], metric)
+            part = np.argpartition(d, self.KEEP, axis=1)[:, : self.KEEP]
+            dp = np.take_along_axis(d, part, axis=1)
+            order = np.argsort(dp, axis=1, kind="stable")
+            self.cache[(metric, nq)] = (np.take_along_axis(part, order, axis=1),
+                                        np.take_along_axis(dp, order, axis=1))
+        return self.cache[(metric, nq)]
+
     def sets(self, metric, nq, dead=None, k=K):
-        key = (metric, nq, dead is not None, k)
-        if key not in self.cache:
-            d = _oracle_dists(self.db64, self.q_np[:nq], metric, dead)
-            self.cache[key] = [set(r.tolist()) for r in np.argpartition(d, k, axis=1)[:, :k]]
-        return self.cache[key]
+        rows, _ = self.nearest(metric, nq)
+        dead = set() if dead is None else set(np.asarray(dead).tolist())
+        return [set([i for i in r.tolist() if i not in dead][:k]) for r in rows]
 
 
-def _check_recall(results, want_rows, ids, label):
+def _check_recall(results, want_rows, ids, label, k=K):
     want = [{ids[i] for i in rows} for rows in want_rows]
     hits = sum(len({r["id"] for r in rs} & w) for rs, w in zip(results, want))
-    recall = hits / (len(want) * K)
-    exact = all(len(rs) == K for rs in results)
-    print(f"  {label}: recall@10 = {recall} over {len(want)} queries")
+    recall = hits / (len(want) * k)
+    exact = all(len(rs) == k for rs in results)
+    print(f"  {label}: recall@{k} = {recall} over {len(want)} queries")
     if recall != 1.0 or not exact:
-        raise AssertionError(f"{label}: recall@10 = {recall}, result lengths ok: {exact}")
+        raise AssertionError(f"{label}: recall@{k} = {recall}, result lengths ok: {exact}")
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _bound(nbytes, ops, peak):
+    """(least ms, what bounds it): the bytes the call must move over the HBM rate, or its
+    operations over the peak for their type, whichever takes longer."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def check_kernels(db_np):
@@ -269,9 +347,10 @@ def _check_kdists(results, db64, q, label):
         raise AssertionError(f"{label}: k-distances differ from the oracle")
 
 
-def run_sweep_path(db_np, q_np, oracle, dead, self_row):
-    """Phase 5: the certified sweep path through QueryProcessor.  Returns the processor and
-    the clustered namespace's arrays (for the times)."""
+def run_sweep_path(db_np, q_np, oracle, dead, self_row, before_delete):
+    """Phase 5: the certified sweep path through QueryProcessor; ``before_delete(qp, ids)``
+    runs phase 7's searches before the deletes and returns the tier counts they added.
+    Returns the processor and the namespace's ids."""
     dev = torch.device("cuda")
     qp = QueryProcessor(SWEEP, device=dev)
     t0 = time.perf_counter()
@@ -290,6 +369,7 @@ def run_sweep_path(db_np, q_np, oracle, dead, self_row):
     for metric in ("ip", "cosine"):
         res = qp.find_similar_batch([VectorDTO(v) for v in q_np[:16]], K, "sift", metric)
         _check_recall(res, oracle.sets(metric, 16), ids, f"sweep {metric} B=16")
+    k100_tiers = before_delete(qp, ids)
     removed = qp.delete([ids[i] for i in dead], "sift")
     if len(removed) != 1000 or ns.device_state().live_count == ns.device_state().high_water:
         raise AssertionError("delete did not leave tombstones")
@@ -300,8 +380,9 @@ def run_sweep_path(db_np, q_np, oracle, dead, self_row):
             raise AssertionError(f"sweep {metric}: a deleted id was returned")
         _check_recall(res, oracle.sets(metric, nq, dead), ids,
                       f"sweep {metric} B={nq} after delete")
-    tiers = qp.cert_tier_counts("sift")
-    print(f"  certificate tiers, gaussian namespace: {tiers}")
+    tiers = {name: n - k100_tiers.get(name, 0)
+             for name, n in qp.cert_tier_counts("sift").items() if n != k100_tiers.get(name, 0)}
+    print(f"  certificate tiers, gaussian namespace (k=10 searches): {tiers}")
     if tiers != {"light_fast": 6}:
         raise AssertionError(f"the light program did not serve every batch at tier 0: {tiers}")
     self_hit = qp.find_similar(VectorDTO(db_np[self_row]), 1, "sift", "l2")
@@ -336,29 +417,219 @@ def run_sweep_path(db_np, q_np, oracle, dead, self_row):
             raise AssertionError("the light program did not escalate and flip to heavy")
         if i == 1 and any(t.startswith("light_") for t in served):
             raise AssertionError("the second clustered batch did not run the heavy program")
-    return qp
+    return qp, ids
+
+
+@contextlib.contextmanager
+def _spying(fn_name, record):
+    """Route fused_knn_t.<fn_name> through a spy that hands each call's (args, kwargs,
+    result) to ``record``.  The wrapper counts its launches on the module attribute, which
+    is the spy meanwhile, so the counts move to the spy and back."""
+    real = getattr(fused_knn_t, fn_name)
+
+    def spy(*a, **kw):
+        out = real(*a, **kw)
+        record(a, kw, out)
+        return out
+
+    spy.__dict__.update(real.__dict__)
+    setattr(fused_knn_t, fn_name, spy)
+    try:
+        yield
+    finally:
+        setattr(fused_knn_t, fn_name, real)
+        real.__dict__.update(spy.__dict__)
 
 
 def _capture(fn_name, call):
     """The positional and keyword arguments of the first call of fused_knn_t.<fn_name>
     made by ``call()``: the kernel's operands at the main path's shapes."""
-    real = getattr(fused_knn_t, fn_name)
     seen = []
-
-    def spy(*a, **kw):
-        if not seen:
-            seen.append((a, kw))
-        return real(*a, **kw)
-
-    # the wrapper counts its launches on the module attribute, which is the spy meanwhile
-    spy.__dict__.update(real.__dict__)
-    setattr(fused_knn_t, fn_name, spy)
-    try:
+    with _spying(fn_name, lambda a, kw, out: seen.append((a, kw))):
         call()
-    finally:
-        setattr(fused_knn_t, fn_name, real)
-        real.__dict__.update(spy.__dict__)
     return seen[0]
+
+
+# ---- phase 7: the k-bucket-128 certified sweep program ---------------------------------
+
+_SWEEP_COUNTERS = ((fused_knn_t._window_mins_t, "launches"),
+                   (fused_knn_t._window_mins_t, "launches_heavy"),
+                   (fused_knn_t._window_mins_t, "launches_topm"),
+                   (fused_knn_t._gather_score, "launches"))
+
+
+def _sweep_counts():
+    return [getattr(fn, name) for fn, name in _SWEEP_COUNTERS]
+
+
+def _set_sweep_counts(values):
+    for (fn, name), v in zip(_SWEEP_COUNTERS, values):
+        setattr(fn, name, v)
+
+
+def check_pool_kernel(db_np):
+    """Phase 7: the sweep kernel's top-m pool (r1 = 16, m = 8: the k bucket 128 at 2^20
+    rows) against its plain version: B = 512 pool only (skip_wm, the engine's B=128
+    bucket) and B = 8 window mins plus pool (range search), light and heavy, l2/ip/cosine,
+    ~1% tombstones and a dead tile.  Values, packed positions and padding bit-equal; the
+    window mins (B = 8) within the slack as in phase 4.  Returns the worst differences."""
+    rng = np.random.default_rng(SEED + 5)
+    dev = torch.device("cuda")
+    worst = {"value": 0.0, "positions": 0, "wmin": 0.0}
+    for n in (65536, N):
+        data = torch.from_numpy(db_np[:n]).to(dev)
+        valid = torch.from_numpy(rng.random(n) > 0.01).to(dev)   # ~1% tombstones
+        valid[-fused_knn_t.SWEEP_TILE:] = False                    # a fully masked tile
+        for b, skip in ((512, True), (8, False)):
+            q = torch.from_numpy(rng.standard_normal((b, D), dtype=np.float32)).to(dev)
+            for heavy in (False, True):
+                for metric in ("l2", "ip", "cosine"):
+                    args, kw, slack = _sweep_operands(data, q, valid, metric, heavy)
+                    kw.update(r1=16, emit_block_mins=False, emit_topm=8)
+                    wmin, bm, pool = fused_knn_t._window_mins_t(*args, skip_wm=skip, **kw)
+                    want_wmin, _, want = fused_knn_t._window_mins_t_ref(*args, **kw)
+                    torch.cuda.synchronize()
+                    label = f"pool n={n} B={b} heavy={heavy} {metric}"
+                    if (wmin is None) != skip or bm is not None:
+                        raise AssertionError(f"{label}: wrong outputs")
+                    gv, gp = fused_knn_t._decode_topm(pool, 8, 256)
+                    wv, wp = fused_knn_t._decode_topm(want, 8, 256)
+                    verr, npos = float((gv - wv).abs().max()), int((gp != wp).sum())
+                    worst["value"] = max(worst["value"], verr)
+                    worst["positions"] += npos
+                    if not torch.equal(pool.view(torch.int32), want.view(torch.int32)):
+                        raise AssertionError(f"{label}: pool differs (max |value err| {verr}, "
+                                             f"{npos} positions)")
+                    if wmin is not None:
+                        err = torch.where(want_wmin == float(MASKED), 0.0,
+                                          (wmin - want_wmin).abs())
+                        if not bool((err <= slack[None, :, None]).all()):
+                            raise AssertionError(f"{label}: window mins beyond the slack")
+                        worst["wmin"] = max(worst["wmin"], float(err.max()))
+                    del args, kw, wmin, pool, want_wmin, want
+        del data, valid, q
+    print(f"  pool kernel vs plain: max |value err| {worst['value']}, differing positions "
+          f"{worst['positions']} (both must be 0; padding rows bit-equal too); window mins "
+          f"beside the pool max |err| {worst['wmin']}")
+    return worst
+
+
+def run_k100_searches(qp, ids, q_np, oracle, dead, when):
+    """Phase 7: find_similar_batch at k=100 on the phase-5 namespace (k bucket 128 at
+    2^20 rows: r1 = 16, m = 8; every bucket here is too wide for tier 2, so the kernel
+    writes the pool only).  l2 at B=128, ip and cosine at B=16, each set-exact against the
+    float64 oracle.  The l2 batch (the main path) must be served by the light program at
+    tier 0 with transfers (1, 1).  An ip or cosine batch may instead fail a light proof and
+    then must be served by the exact scan with transfers (1, 2): which batch escalates is
+    the port's own reading of its certificate (the CPU tests hold that reading to the JAX
+    package's on smaller corpora).  The sweep counters are zeroed just before the engine's
+    searches and read just after, then the enclosing path's counts are put back.  Returns
+    (the tier counts these searches added, their launch counts)."""
+    outer = _sweep_counts()
+    _set_sweep_counts([0] * len(outer))
+    tiers0 = qp.cert_tier_counts("sift")
+    programs = []   # (batch, m, skip_wm, window mins written) per kernel call
+    served = {}
+
+    def record(a, kw, out):
+        programs.append((a[0].shape[0], kw["emit_topm"], kw["skip_wm"], out[0] is not None))
+
+    with _spying("_window_mins_t", record):
+        for metric, nq in (("l2", B), ("ip", 16), ("cosine", 16)):
+            x0, t0 = dict(qp.transfer_counts), qp.cert_tier_counts("sift")
+            res = qp.find_similar_batch([VectorDTO(v) for v in q_np[:nq]], K100, "sift",
+                                        metric)
+            xfer = (qp.transfer_counts["h2d"] - x0["h2d"],
+                    qp.transfer_counts["d2h"] - x0["d2h"])
+            tier = [t for t, n in qp.cert_tier_counts("sift").items() if n != t0.get(t, 0)]
+            served[metric] = (tier, xfer)
+            if (tier, xfer) != (["light_fast"], (1, 1)) and (
+                    metric == "l2" or (tier, xfer) != (["light_exact_scan"], (1, 2))):
+                raise AssertionError(f"k=100 {metric} {when}: served by {tier}, transfers "
+                                     f"{xfer}")
+            _check_recall(res, oracle.sets(metric, nq, dead, k=K100), ids,
+                          f"k=100 {metric} B={nq} {when}", k=K100)
+    counts = dict(zip(("sweep", "sweep_heavy", "topm", "gather"), _sweep_counts()))
+    _set_sweep_counts(outer)
+    tiers = {name: n - tiers0.get(name, 0) for name, n in qp.cert_tier_counts("sift").items()
+             if n != tiers0.get(name, 0)}
+    print(f"  k=100 {when}: (tier, transfers) per batch {served}, kernel calls (batch, m, "
+          f"skip_wm, window mins written) {programs}, launches {counts}")
+    if counts["topm"] < 1 or counts["gather"] < 1 or any(
+            not p[1] or not p[2] or p[3] for p in programs):
+        raise AssertionError(f"k=100 {when}: the pool-only program did not serve: {programs}")
+    return tiers, counts
+
+
+def check_range_search(qp, ids, q_np, oracle, dead):
+    """Phase 7: range_search (limit 100: k bucket 128 at B bucket 8, the pool beside the
+    window mins; the default limit 1000: r1 = 4) and similarity_search against the
+    oracle's hits within the radius, set halfway between its 50th and 51st live hit.
+    Returns the host ms of 5 range searches at limit 100."""
+    dead_set = set(np.asarray(dead).tolist())
+    want = {}
+    for metric, nq in (("l2", B), ("cosine", 16)):     # distances phase 3 computed
+        rows, dist = oracle.nearest(metric, nq)
+        live = [(r, d) for r, d in zip(rows[0].tolist(), dist[0].tolist()) if r not in dead_set]
+        want[metric] = ({ids[r] for r, _ in live[:50]}, (live[49][1] + live[50][1]) / 2)
+    q0 = VectorDTO(q_np[0])
+    radius = want["l2"][1]
+    threshold = 1.0 - want["cosine"][1]
+    calls = {"range limit=100": lambda: qp.range_search(q0, radius, "sift", "l2", limit=100),
+             "range limit=1000": lambda: qp.range_search(q0, radius, "sift", "l2"),
+             "similarity": lambda: qp.similarity_search(q0, threshold, "sift"),
+             "similarity limit=100": lambda: qp.similarity_search(q0, threshold, "sift",
+                                                                  limit=100)}
+    for label, call in calls.items():
+        metric = "cosine" if label.startswith("similarity") else "l2"
+        hits = call()
+        got = {h["id"] for h in hits}
+        print(f"  {label}: {len(hits)} hits, equal to the oracle's: {got == want[metric][0]}")
+        if got != want[metric][0] or len(hits) != 50:
+            raise AssertionError(f"{label}: hits differ from the oracle's")
+    wall = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        calls["range limit=100"]()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    return wall
+
+
+def check_nan_query(db_np):
+    """Phase 7: a B=8 batch with one NaN query at 2^16 rows, light and heavy, k=10 and
+    k=100.  The kernel's mins are NaN exactly where the plain version's are (jnp.minimum's
+    rule; the pool's NaN rows), and exact_knn_t reports tier 2 on the card as on the CPU."""
+    n = 65536
+    rng = np.random.default_rng(SEED + 6)
+    q = rng.standard_normal((8, D), dtype=np.float32)
+    q[2, 5] = np.nan
+    dev = torch.device("cuda")
+    for light in (True, False):
+        for k in (10, 100):
+            tiers = []
+            for device in ("cpu", dev):
+                data = torch.from_numpy(db_np[:n]).to(device)
+                z, s, e2, e1 = fused_knn_t.quantize_resid_rows(data)
+                _, _, tier = fused_knn_t.exact_knn_t(
+                    torch.from_numpy(q).to(device), data.to(torch.bfloat16), data,
+                    torch.ones(n, dtype=torch.bool, device=device), (data * data).sum(-1),
+                    k=k, metric="l2", live_prefix=n, sweep_err=e2, resid=z, rscale=s,
+                    err1=e1, light=light, report_tier=True)
+                tiers.append(tier)
+            args, kw, _ = _sweep_operands(data, torch.from_numpy(q).to(dev),
+                                          torch.ones(n, dtype=torch.bool, device=dev), "l2",
+                                          not light)
+            if k == 100:
+                kw.update(r1=16, emit_block_mins=False, emit_topm=8)
+            got = fused_knn_t._window_mins_t(*args, **kw)
+            want = fused_knn_t._window_mins_t_ref(*args, **kw)
+            torch.cuda.synchronize()
+            same = [torch.equal(torch.isnan(g), torch.isnan(w)) and bool(torch.isnan(w).any())
+                    for g, w in zip(got, want) if w is not None]
+            print(f"  NaN query, {'light' if light else 'heavy'} k={k}: tiers (cpu, cuda) "
+                  f"{tiers}; NaN at the plain version's places in every output: {all(same)}")
+            if tiers != [2, 2] or not all(same):
+                raise AssertionError(f"NaN query light={light} k={k}: {tiers} {same}")
 
 
 def main() -> int:
@@ -374,8 +645,13 @@ def main() -> int:
           " | nvidia-smi name, power.limit:")
     print(gpu)
     t0 = time.perf_counter()
+    ptxas = _start_ptxas_report()
     lib = _kernels.build()
     print(f"  kernels built: {lib.name} in {time.perf_counter() - t0:.1f} s")
+    for name, regs, st, ld, smem in _ptxas_report(ptxas):
+        short = re.sub(r"^_ZN\w*?\d+(?=[a-z_]+kernel)", "", name)[:36]  # kernel + template
+        print(f"  ptxas: {short}: {regs} registers, spill stores {st} B, loads {ld} B, "
+              f"{smem} B shared")
 
     rng = np.random.default_rng(SEED)
     db_np = rng.standard_normal((N, D), dtype=np.float32)
@@ -451,7 +727,14 @@ def main() -> int:
     fused_knn_t._window_mins_t.launches = 0
     fused_knn_t._window_mins_t.launches_heavy = 0
     fused_knn_t._gather_score.launches = 0
-    qps = run_sweep_path(db_np, q_np, oracle, dead, self_row)
+    k100 = {}
+
+    def before_delete(qp_, ids_):
+        print("phase 7 (on the phase-5 namespace, before its deletes) k=100 searches")
+        tiers, k100["before"] = run_k100_searches(qp_, ids_, q_np, oracle, None, "before delete")
+        return tiers
+
+    qps, sweep_ids = run_sweep_path(db_np, q_np, oracle, dead, self_row, before_delete)
     launches["sweep"] = fused_knn_t._window_mins_t.launches
     launches["sweep_heavy"] = fused_knn_t._window_mins_t.launches_heavy
     launches["gather"] = fused_knn_t._gather_score.launches
@@ -501,14 +784,15 @@ def main() -> int:
             rscale=sst.sweep_rscale, err1=sst.sweep_err1, light=light,
             prep_cache=sst.prep_cache, report_tier=True)
 
+    operands = {}
     for light in (True, False):
         name = "sweep_light" if light else "sweep_heavy"
-        a, k_ = _capture("_window_mins_t", lambda: sweep_search(light))
+        a, k_ = operands[name] = _capture("_window_mins_t", lambda: sweep_search(light))
         times[name] = _time_ms(lambda: fused_knn_t._window_mins_t(*a, **k_))
         times[name + "_plain"] = _time_ms(lambda: fused_knn_t._window_mins_t_ref(*a, **k_))
         times["exact_knn_t_" + ("light" if light else "heavy")] = _time_ms(
             lambda: sweep_search(light))
-    a, k_ = _capture("_gather_score", lambda: sweep_search(True))
+    a, k_ = operands["gather_score"] = _capture("_gather_score", lambda: sweep_search(True))
     times["gather_score"] = _time_ms(lambda: fused_knn_t._gather_score(*a, **k_))
     times["gather_score_plain"] = _time_ms(lambda: fused_knn_t._gather_score_ref(*a, **k_))
     gather_rows = a[2].numel() * k_["r1"]
@@ -531,24 +815,109 @@ def main() -> int:
     print(f"  engine split, median ms (host clock): fast path {split_fast}, masked path "
           f"{split_masked}, sweep path {split_sweep}")
 
+    # ---- 7. the k-bucket-128 certified sweep program -----------------------------------
+    print(f"phase 7 k-bucket-128 sweep program: pool kernel, k=100 engine, range search, NaN "
+          f"query, on {gpu}")
+    worst["pool"] = check_pool_kernel(db_np)
+    _, k100["after"] = run_k100_searches(qps, sweep_ids, q_np, oracle, dead, "after delete")
+    range_wall = check_range_search(qps, sweep_ids, q_np, oracle, dead)
+    check_nan_query(db_np)
+
+    def k128_search(light, tuning=fused_knn_t.DEFAULT_TUNING):
+        """The engine's k=100 l2 B=128 search: bucket 512, k bucket 128, pool only."""
+        return fused_knn_t.exact_knn_t(
+            q_pad, sst.mirror, sst.data, sst.valid, sst.sq_norms, k=128, metric="l2",
+            live_prefix=None, sweep_err=sst.sweep_err, resid=sst.sweep_resid,
+            rscale=sst.sweep_rscale, err1=sst.sweep_err1, light=light,
+            prep_cache=sst.prep_cache, report_tier=True, tuning=tuning)
+
+    t7 = {}
+    for light in (True, False):
+        name = "topm" if light else "topm_heavy"
+        a, k_ = operands[name] = _capture("_window_mins_t", lambda: k128_search(light))
+        if not (k_["skip_wm"] and k_["emit_topm"] and k_["r1"] == 16):
+            raise AssertionError(f"the k=128 search did not take the pool-only program: {k_}")
+        t7[name] = _time_ms(lambda: fused_knn_t._window_mins_t(*a, **k_))
+        t7[name + "_plain"] = _time_ms(lambda: fused_knn_t._window_mins_t_ref(*a, **k_))
+        t7["exact_knn_t_k128_" + ("light" if light else "heavy")] = _time_ms(
+            lambda: k128_search(light))
+        if light:
+            # the same launch with the window mins only, and with both outputs: the cost
+            # of the epilogue and of the write skip_wm drops
+            only = dict(k_, emit_topm=0, skip_wm=False)
+            both = dict(k_, skip_wm=False)
+            t7["topm_r16_window_mins_only"] = _time_ms(
+                lambda: fused_knn_t._window_mins_t(*a, **only))
+            t7["topm_with_window_mins"] = _time_ms(
+                lambda: fused_knn_t._window_mins_t(*a, **both))
+            # the same search in the JAX package's MLVDB_TOPM=0 program, which the port ran
+            # at this k bucket before it had the pool: two-level selection on the window mins
+            off = fused_knn_t.Tuning(topm_enable=False)
+            if _capture("_window_mins_t", lambda: k128_search(True, off))[1]["emit_topm"]:
+                raise AssertionError("Tuning(topm_enable=False) still ran the pool")
+            t7["exact_knn_t_k128_light_pool_off"] = _time_ms(lambda: k128_search(True, off))
+    wall_k100 = _engine_wall(qps, q_np, k=K100)
+    split_k100 = _engine_split(qps, q_np, k=K100)
+    t7["engine_wall_k100_median"] = statistics.median(wall_k100)
+    t7["range_search_limit100_median"] = statistics.median(range_wall)
+    for name, ms in t7.items():
+        extra = ""
+        if name in ("topm", "topm_heavy"):
+            extra = f", {flop * (3 if name == 'topm_heavy' else 1) / ms / 1e9:.1f} TFLOP/s"
+        print(f"  {name}: {ms:.4f} ms{extra}")
+    print(f"  engine wall runs (ms), B={B} l2 k=100, sweep path (tombstoned): {wall_k100}")
+    print(f"  engine split k=100, median ms (host clock): {split_k100}")
+    print(f"  range_search limit=100 runs (ms, host clock): {range_wall}")
+    times.update(t7)
+
+    # each kernel's bound at the operands timed above: every input read once, every
+    # output written once; the products over the peak for their type
+    out_fast = N // kw["r1"] * 512 * 4
+    bounds = {
+        "fast": _bound(_nbytes(data, qt, qn) + out_fast, flop, F32_FLOPS),
+        "masked": _bound(_nbytes(data, qt, qn, bias) + out_fast, flop, F32_FLOPS),
+    }
+    for name in ("sweep_light", "sweep_heavy", "topm", "topm_heavy"):
+        a, k_ = operands[name]
+        outs = fused_knn_t._window_mins_t(*a, **k_)
+        passes = 1 + (a[1] is not None) + (a[3] is not None)
+        bounds[name] = _bound(_nbytes(*a, k_["qe"], *k_["eb_rows"], *outs),
+                              2.0 * a[2].shape[0] * a[2].shape[1] * a[0].shape[0] * passes,
+                              BF16_FLOPS)
+    a, k_ = operands["gather_score"]
+    rows = a[2].numel() * k_["r1"]
+    bounds["gather_score"] = _bound(_nbytes(a[0], a[2]) + rows * (D * 4 + 2 * 4),
+                                    4.0 * rows * D, F32_FLOPS)
+    for name, (ms, by) in bounds.items():
+        print(f"  bound {name}: {ms:.4f} ms ({by}); the kernel at {ms / times[name]:.1%} of it")
+
+    def entry(name, source, replaces, launches_, err, key):
+        return {"name": name, "route": "cuda", "source": CSRC + source,
+                "replaces": replaces, "launches": launches_, "max_abs_err": err,
+                "ms": times[key], "plain_ms": times[key + "_plain"],
+                "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+                # no single PyTorch call computes a windowed min of ranks, a tile's top-m
+                # window mins or a window gather with two reductions
+                "library_ms": None}
+
+    sweep = entry("sweep_min", "sweep_min.cu", "mlvectordb_tpu/ops/pallas_knn_t.py:221",
+                  launches["sweep"], max(worst["light"], worst["heavy"]), "sweep_light")
+    sweep.update({
+        "launches_heavy": launches["sweep_heavy"], "heavy_ms": times["sweep_heavy"],
+        "heavy_plain_ms": times["sweep_heavy_plain"], "heavy_bound_ms": bounds["sweep_heavy"][0],
+        "launches_topm": k100["before"]["topm"] + k100["after"]["topm"],
+        "topm_ms": times["topm"], "topm_plain_ms": times["topm_plain"],
+        "topm_bound_ms": bounds["topm"][0], "topm_heavy_ms": times["topm_heavy"],
+        "topm_heavy_plain_ms": times["topm_heavy_plain"],
+        "topm_max_abs_err": worst["pool"]["value"]})
     record = {"kernels": [
-        {"name": "window_min_fast", "route": "cuda", "source": CSRC + "window_min.cu",
-         "replaces": "mlvectordb_tpu/ops/pallas_knn.py:102", "launches": launches["fast"],
-         "max_abs_err": worst["fast"], "ms": times["fast"], "plain_ms": times["fast_plain"]},
-        {"name": "window_min_masked", "route": "cuda", "source": CSRC + "window_min.cu",
-         "replaces": "mlvectordb_tpu/ops/pallas_knn.py:131", "launches": launches["masked"],
-         "max_abs_err": worst["masked"], "ms": times["masked"],
-         "plain_ms": times["masked_plain"]},
-        {"name": "sweep_min", "route": "cuda", "source": CSRC + "sweep_min.cu",
-         "replaces": "mlvectordb_tpu/ops/pallas_knn_t.py:221", "launches": launches["sweep"],
-         "max_abs_err": max(worst["light"], worst["heavy"]), "ms": times["sweep_light"],
-         "plain_ms": times["sweep_light_plain"],
-         "launches_heavy": launches["sweep_heavy"], "heavy_ms": times["sweep_heavy"],
-         "heavy_plain_ms": times["sweep_heavy_plain"]},
-        {"name": "gather_score", "route": "cuda", "source": CSRC + "gather_score.cu",
-         "replaces": "mlvectordb_tpu/ops/pallas_gather.py:33", "launches": launches["gather"],
-         "max_abs_err": worst["gather"], "ms": times["gather_score"],
-         "plain_ms": times["gather_score_plain"]},
+        entry("window_min_fast", "window_min.cu", "mlvectordb_tpu/ops/pallas_knn.py:102",
+              launches["fast"], worst["fast"], "fast"),
+        entry("window_min_masked", "window_min.cu", "mlvectordb_tpu/ops/pallas_knn.py:131",
+              launches["masked"], worst["masked"], "masked"),
+        sweep,
+        entry("gather_score", "gather_score.cu", "mlvectordb_tpu/ops/pallas_gather.py:33",
+              launches["gather"], worst["gather"], "gather_score"),
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

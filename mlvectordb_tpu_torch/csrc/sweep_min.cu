@@ -5,8 +5,9 @@
 // _window_mins), in the variants the certified sweep path runs: the light program (one
 // pass), the heavy program (two_pass: the query's bf16 residual against the same rows;
 // use_resid: int8 codes of each row's bf16 rounding residual, times a per-row scale),
-// the cosine scale row, up to two folded certificate bound rows, and the level-2 block
-// mins at r1 = 32.  For rows m of the bf16 mirror [cap, Dp] and folded queries qh
+// the cosine scale row, up to two folded certificate bound rows, the level-2 block mins at
+// r1 = 32, and the per-tile top-m candidate pool (n_top, with or without the window-min
+// matrix: skip_wm).  For rows m of the bf16 mirror [cap, Dp] and folded queries qh
 // (and qres):
 //
 //   rank = (qh.m [+ qres.m] [+ (qh.resid) * rscale]) [* scale] + bias - sum_t qe_t * eb_t
@@ -15,6 +16,20 @@
 // CONSECUTIVE rows [f*r1, (f+1)*r1), written tile-major [nt, B, g*128] (g = 32 / r1) at
 // position t*g*128 + a*128 + j for window f = (t*128 + j)*g + a — the JAX package's map,
 // so the outputs compare element by element.  The [cap, B] rank matrix never exists.
+// Every min propagates NaN, as jnp.minimum does: a NaN rank makes its window's min NaN.
+//
+// The pool (pallas_knn_t.py:343-380): for each tile t and query b, the m smallest
+// (value, position) pairs of the tile's g*128 window mins, in the order m rounds of
+// min / first-argmin / mask give them, written [nt, SUB, B] (SUB = _topm_sub_rows(m)):
+// rows 0..m-1 the values, rows m..m+m/2-1 the positions packed p0 + out_w*p1, the rest
+// +inf.  Those rounds yield the entries below +inf in (value, position) order; once only
+// +inf is left they repeat (+inf, position 0), and a tile holding a NaN min gives NaN
+// values at position out_w.  A tile spans g blocks of 128 windows, and blocks share
+// nothing, so with the pool a block owns a whole tile: it walks the tile's g sub-blocks
+// in turn and carries a running top-m per query (one entry per lane of the 16 that share
+// a query column; m*g <= 32 keeps m <= 16 wherever g > 1), so the pool never leaves the
+// SM.  Each round is a lexicographic min over a lane's 8 windows and its running entry,
+// a 16-lane shuffle reduction, and the winner masking its entry.
 //
 // What bounds it: the certificate's slack (pallas_knn_t.py:1184-1186, Dp*2^-22*|qh|*maxd)
 // assumes exact bf16 x bf16 and bf16 x int8 products summed in f32 with round-to-nearest.
@@ -42,6 +57,15 @@ constexpr int BM = 128;       // windows per block (= rows per r-step)
 constexpr int BK = 8;         // depth of one shared-memory stage
 constexpr int THREADS = 256;
 constexpr int WLANE = 128;    // windows per output block of a tile
+constexpr int RUN_LANES = 16; // lanes sharing a query column: the running pool's width
+
+// jnp.minimum's rule: a NaN operand makes the min NaN (fminf would drop it)
+__device__ __forceinline__ float nan_min(float a, float b) { return (a < b || a != a) ? a : b; }
+
+// (v, p) before (bv, bp) in (value, position) order; a NaN value is never before anything
+__device__ __forceinline__ bool lex_less(float v, int p, float bv, int bp) {
+  return v < bv || (v == bv && p < bp);
+}
 
 __device__ __forceinline__ void bf16x4_to_f32(uint2 u, float* v) {
   v[0] = __uint_as_float(u.x << 16);
@@ -64,8 +88,8 @@ sweep_min_kernel(const float* __restrict__ qh_t, const float* __restrict__ qres_
                  const float* __restrict__ rscale, const float* __restrict__ scale,
                  const float* __restrict__ bias, const float* __restrict__ qe,
                  const float* __restrict__ eb1, const float* __restrict__ eb2,
-                 float* __restrict__ out, float* __restrict__ bm, int D, int B, int Bp,
-                 int r1, int n_eb, int n_qtiles) {
+                 float* __restrict__ out, float* __restrict__ bm, float* __restrict__ pool,
+                 int D, int B, int Bp, int r1, int n_eb, int n_qtiles, int m, int subs) {
   constexpr bool HEAVY = TWO_PASS || RESID;
   constexpr int TN = HEAVY ? 4 : 8;     // queries per thread
   constexpr int BN = 16 * TN;           // queries per block
@@ -78,11 +102,13 @@ sweep_min_kernel(const float* __restrict__ qh_t, const float* __restrict__ qres_
   __shared__ __align__(16) float Ps[TWO_PASS ? 2 : 1][BK][TWO_PASS ? BN : 4];
   __shared__ float row_bias[BM], row_scale[BM], row_rscale[BM], row_eb1[BM], row_eb2[BM];
   __shared__ float q_e[2][BN];
+  // the running pool: entry tx of each of the thread's TN queries, private to the thread
+  __shared__ float run_v[TN][THREADS];
+  __shared__ int run_p[TN][THREADS];
 
   const int tid = threadIdx.x;
-  const long long wblock = blockIdx.x / n_qtiles;
+  const long long group = blockIdx.x / n_qtiles;  // subs consecutive 128-window blocks
   const int q0 = (blockIdx.x % n_qtiles) * BN;
-  const long long w0 = wblock * BM;              // first window of the block
 
   // compute mapping: rows tx*4+{0..3}, 64+tx*4+{0..3}; queries ty*4+{0..3} (+64 for TN 8)
   const int tx = tid % 16, ty = tid / 16;
@@ -99,13 +125,22 @@ sweep_min_kernel(const float* __restrict__ qh_t, const float* __restrict__ qres_
     q_e[1][tid] = qe[(long long)(q0 + tid) * 2 + 1];
   }
 
+  const float INF = __int_as_float(0x7f800000);
+  const int g = 32 / r1;
+  const long long gw = (long long)g * WLANE;
+  const int out_w = (int)gw;
+  const int nk = D / BK;
+  unsigned nan_bits = 0u;  // pool: bit j set when query j has a NaN window min in the tile
+
+  for (int s = 0; s < subs; ++s) {
+  const long long wblock = group * subs + s;
+  const long long w0 = wblock * BM;              // first window of this sub-block
   float best[8][TN];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) best[i][j] = __int_as_float(0x7f800000);  // +inf
+    for (int j = 0; j < TN; ++j) best[i][j] = INF;
 
-  const int nk = D / BK;
   for (int r = 0; r < r1; ++r) {
     const long long a_grow = (w0 + a_row) * r1 + r;     // the row this thread loads
     const uint16_t* a_src = mirror + a_grow * D + a_col;
@@ -210,24 +245,25 @@ sweep_min_kernel(const float* __restrict__ qh_t, const float* __restrict__ qres_
         rank = __fadd_rn(rank, row_bias[lr]);
         if (n_eb > 0) rank = __fsub_rn(rank, __fmul_rn(q_e[0][lq], row_eb1[lr]));
         if (n_eb > 1) rank = __fsub_rn(rank, __fmul_rn(q_e[1][lq], row_eb2[lr]));
-        best[i][j] = fminf(best[i][j], rank);
+        best[i][j] = nan_min(best[i][j], rank);
       }
     }
   }
 
   // window f = w0 + lr of tile t = f / (128 g) sits at lane (lf % g)*128 + lf / g
-  const int g = 32 / r1;
-  const long long gw = (long long)g * WLANE;
+  int pos[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const long long f = w0 + (i >> 2) * 64 + tx * 4 + (i & 3);
     const long long t = f / gw;
     const int lf = (int)(f - t * gw);
-    const long long col = (long long)(lf % g) * WLANE + lf / g;
+    pos[i] = (lf % g) * WLANE + lf / g;
+    if (out != nullptr) {
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int b = q0 + (j >> 2) * 64 + ty * 4 + (j & 3);
-      if (b < B) out[(t * B + b) * gw + col] = best[i][j];
+      for (int j = 0; j < TN; ++j) {
+        const int b = q0 + (j >> 2) * 64 + ty * 4 + (j & 3);
+        if (b < B) out[(t * B + b) * gw + pos[i]] = best[i][j];
+      }
     }
   }
 
@@ -236,30 +272,114 @@ sweep_min_kernel(const float* __restrict__ qh_t, const float* __restrict__ qres_
     // the thread's 8 windows, then over the 16 lanes that share its queries
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
-      float m = best[0][j];
+      float v = best[0][j];
 #pragma unroll
-      for (int i = 1; i < 8; ++i) m = fminf(m, best[i][j]);
+      for (int i = 1; i < 8; ++i) v = nan_min(v, best[i][j]);
 #pragma unroll
-      for (int off = 1; off < 16; off <<= 1) m = fminf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      for (int off = 1; off < 16; off <<= 1) v = nan_min(v, __shfl_xor_sync(0xffffffffu, v, off));
       const int b = q0 + (j >> 2) * 64 + ty * 4 + (j & 3);
-      if (tx == 0 && b < B) bm[wblock * B + b] = m;
+      if (tx == 0 && b < B) bm[wblock * B + b] = v;
     }
   }
+
+  if (pool != nullptr) {
+    // top-m pool of tile `group` (the block walks its g sub-blocks): m rounds over the
+    // 8 windows of each lane and the lane's running entry from the earlier sub-blocks
+    const bool last = s == subs - 1;
+    float cv[TN], nv[TN];
+    int cp[TN], np_[TN], prev[TN];
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (best[i][j] != best[i][j]) nan_bits |= 1u << j;
+      cv[j] = s > 0 ? run_v[j][tid] : INF;
+      cp[j] = s > 0 ? run_p[j][tid] : 0x7fffffff;
+      nv[j] = INF;
+      np_[j] = 0x7fffffff;
+      prev[j] = 0;
+    }
+    if (last) {
+#pragma unroll
+      for (int off = 1; off < RUN_LANES; off <<= 1)
+        nan_bits |= __shfl_xor_sync(0xffffffffu, nan_bits, off);
+    }
+    const int sub_rows = (m + (m + 1) / 2 + 7) / 8 * 8;
+    float* tile_pool = pool + group * (long long)sub_rows * B;
+    for (int k = 0; k < m; ++k) {
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        float bv = cv[j];
+        int bp = cp[j];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (lex_less(best[i][j], pos[i], bv, bp)) {
+            bv = best[i][j];
+            bp = pos[i];
+          }
+#pragma unroll
+        for (int off = 1; off < RUN_LANES; off <<= 1) {
+          const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+          const int op = __shfl_xor_sync(0xffffffffu, bp, off);
+          if (lex_less(ov, op, bv, bp)) {
+            bv = ov;
+            bp = op;
+          }
+        }
+        // the lane holding the winner masks it (positions are unique within a query)
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (pos[i] == bp) best[i][j] = INF;
+        if (cp[j] == bp) cv[j] = INF;
+        const int b = q0 + (j >> 2) * 64 + ty * 4 + (j & 3);
+        if (!last) {
+          if (tx == k) {  // k < m <= 16 here
+            nv[j] = bv;
+            np_[j] = bp;
+          }
+        } else if (tx == 0 && b < B) {
+          const bool nan_q = (nan_bits >> j) & 1u;
+          const int p = nan_q ? out_w : (bv == INF ? 0 : bp);
+          tile_pool[(long long)k * B + b] = nan_q ? __int_as_float(0x7fc00000) : bv;
+          if (k & 1)
+            tile_pool[(long long)(m + k / 2) * B + b] = (float)(prev[j] + out_w * p);
+          else
+            prev[j] = p;
+        }
+      }
+    }
+    if (!last) {
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        run_v[j][tid] = nv[j];
+        run_p[j][tid] = np_[j];
+      }
+    } else if (tx == 0) {
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int b = q0 + (j >> 2) * 64 + ty * 4 + (j & 3);
+        if (b < B)
+          for (int row = m + m / 2; row < sub_rows; ++row) tile_pool[(long long)row * B + b] = INF;
+      }
+    }
+  }
+  }  // sub-blocks
 }
 
 template <bool TWO_PASS, bool RESID>
 int launch(const float* qh_t, const float* qres_t, const uint16_t* mirror, const int8_t* resid,
            const float* rscale, const float* scale, const float* bias, const float* qe,
-           const float* eb1, const float* eb2, float* out, float* bm, long long cap, int D,
-           int B, int Bp, int r1, int n_eb, cudaStream_t stream) {
+           const float* eb1, const float* eb2, float* out, float* bm, float* pool,
+           long long cap, int D, int B, int Bp, int r1, int n_eb, int m, cudaStream_t stream) {
   constexpr int BN = (TWO_PASS || RESID) ? 64 : 128;
   if (Bp % BN || B > Bp) return (int)cudaErrorInvalidValue;
   const int n_qtiles = Bp / BN;
-  const long long blocks = cap / ((long long)r1 * BM) * n_qtiles;
+  const int subs = pool != nullptr ? 32 / r1 : 1;  // with the pool a block owns a tile
+  const long long blocks = cap / ((long long)r1 * BM * subs) * n_qtiles;
   if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   sweep_min_kernel<TWO_PASS, RESID><<<(unsigned)blocks, THREADS, 0, stream>>>(
-      qh_t, qres_t, mirror, resid, rscale, scale, bias, qe, eb1, eb2, out, bm, D, B, Bp, r1,
-      n_eb, n_qtiles);
+      qh_t, qres_t, mirror, resid, rscale, scale, bias, qe, eb1, eb2, out, bm, pool, D, B, Bp,
+      r1, n_eb, n_qtiles, m, subs);
   return (int)cudaGetLastError();
 }
 
@@ -268,30 +388,34 @@ int launch(const float* qh_t, const float* qres_t, const uint16_t* mirror, const
 // Plain C entry point (bound with ctypes).  qh_t / qres_t: f32 [D, Bp] (queries
 // transposed, zero-padded to Bp); mirror: bf16 bits [cap, D]; resid: int8 [cap, D] or
 // null; rscale / scale / eb1 / eb2: f32 [cap] or null; bias: f32 [cap]; qe: f32 [Bp, 2];
-// out: f32 [cap / 4096, B, (32 / r1) * 128]; bm: f32 [cap / 4096, B] or null (r1 = 32
-// only).  Returns cudaGetLastError() after the launch; 0 means it was accepted.
+// out: f32 [cap / 4096, B, (32 / r1) * 128] or null (skip_wm: the pool is the only
+// output); bm: f32 [cap / 4096, B] or null (r1 = 32 only); pool: f32
+// [cap / 4096, SUB, B] or null, m its even depth, 8..32, with m * (32 / r1) <= 32 and
+// never beside bm.  Returns cudaGetLastError() after the launch; 0 means it was accepted.
 extern "C" int mlvdb_sweep_min(const float* qh_t, const float* qres_t, const void* mirror,
                                const void* resid, const float* rscale, const float* scale,
                                const float* bias, const float* qe, const float* eb1,
-                               const float* eb2, float* out, float* bm, long long cap, int D,
-                               int B, int Bp, int r1, int n_eb, void* stream) {
+                               const float* eb2, float* out, float* bm, float* pool,
+                               long long cap, int D, int B, int Bp, int r1, int n_eb, int m,
+                               void* stream) {
   if (cap <= 0 || D <= 0 || D % (2 * BK) || B <= 0 || r1 <= 0 || 32 % r1 ||
       cap % (4096LL) || n_eb < 0 || n_eb > 2 || (bm != nullptr && r1 != 32) ||
-      (resid != nullptr) != (rscale != nullptr))
+      (resid != nullptr) != (rscale != nullptr) || (out == nullptr && pool == nullptr) ||
+      (pool != nullptr && (bm != nullptr || m < 8 || m > 32 || m % 2 || m * (32 / r1) > 32)))
     return (int)cudaErrorInvalidValue;
-  const uint16_t* m = static_cast<const uint16_t*>(mirror);
+  const uint16_t* mm = static_cast<const uint16_t*>(mirror);
   const int8_t* z = static_cast<const int8_t*>(resid);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool two_pass = qres_t != nullptr, use_resid = resid != nullptr;
   if (two_pass && use_resid)
-    return launch<true, true>(qh_t, qres_t, m, z, rscale, scale, bias, qe, eb1, eb2, out, bm,
-                              cap, D, B, Bp, r1, n_eb, s);
+    return launch<true, true>(qh_t, qres_t, mm, z, rscale, scale, bias, qe, eb1, eb2, out, bm,
+                              pool, cap, D, B, Bp, r1, n_eb, m, s);
   if (two_pass)
-    return launch<true, false>(qh_t, qres_t, m, z, rscale, scale, bias, qe, eb1, eb2, out, bm,
-                               cap, D, B, Bp, r1, n_eb, s);
+    return launch<true, false>(qh_t, qres_t, mm, z, rscale, scale, bias, qe, eb1, eb2, out, bm,
+                               pool, cap, D, B, Bp, r1, n_eb, m, s);
   if (use_resid)
-    return launch<false, true>(qh_t, qres_t, m, z, rscale, scale, bias, qe, eb1, eb2, out, bm,
-                               cap, D, B, Bp, r1, n_eb, s);
-  return launch<false, false>(qh_t, qres_t, m, z, rscale, scale, bias, qe, eb1, eb2, out, bm,
-                              cap, D, B, Bp, r1, n_eb, s);
+    return launch<false, true>(qh_t, qres_t, mm, z, rscale, scale, bias, qe, eb1, eb2, out, bm,
+                               pool, cap, D, B, Bp, r1, n_eb, m, s);
+  return launch<false, false>(qh_t, qres_t, mm, z, rscale, scale, bias, qe, eb1, eb2, out, bm,
+                              pool, cap, D, B, Bp, r1, n_eb, m, s);
 }

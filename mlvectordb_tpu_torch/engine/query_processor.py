@@ -1,9 +1,10 @@
 """Query engine: the counterpart of ``mlvectordb_tpu/engine/query_processor.py``.
 
-The ported slice: insert / upsert_many / bulk_load / delete / delete_namespace and exact
-batched search with hydration and the result cache, on the row-major path or, with
-``sweep_dtype="bfloat16"``, the certified sweep with its per-namespace light -> heavy
-dispatch and certificate-tier counters.  Reference behaviors kept:
+The ported slice: insert / upsert_many / bulk_load / delete / delete_namespace, exact
+batched search with hydration and the result cache, and range / similarity search, on the
+row-major path or, with ``sweep_dtype="bfloat16"``, the certified sweep with its
+per-namespace light -> heavy dispatch and certificate-tier counters.  Reference behaviors
+kept:
   * k clamped to the live count (index.py:103-107)
   * search of a missing namespace returns [] (index.py:98-99)
   * result dicts {id, values, metadata, score}, silently dropping hits that vanished from
@@ -12,7 +13,7 @@ dispatch and certificate-tier counters.  Reference behaviors kept:
     (index.py:121-128)
 
 Not ported yet: metadata filters and hybrid search (ROADMAP A19), IVF (A13), the WAL and
-snapshots (A20).  ``filter=`` and ``nprobe=`` raise.
+snapshots (A20), explain and statistics (A7).  ``filter=`` and ``nprobe=`` raise.
 """
 
 from __future__ import annotations
@@ -332,6 +333,41 @@ class QueryProcessor:
                 chunk = [r for r in chunk if r["id"] is not None and r["values"] is not None]
             out.append(chunk)
         return out
+
+    def range_search(
+        self,
+        query: VectorDTO,
+        radius: float,
+        namespace: str = "default",
+        metric: Optional[str] = None,
+        filter: Optional[Dict[str, Any]] = None,
+        limit: int = 1000,
+    ) -> List[Dict[str, Any]]:
+        """All vectors within ``radius`` of the query (query_processor.py:828-858): one
+        k = ``limit`` search, best first, then the radius in user-score units: l2/ip ->
+        distance <= radius; cosine -> similarity >= radius."""
+        if filter is not None:
+            raise NotImplementedError("filter= is not ported yet (ROADMAP A19: filters/hybrid)")
+        m = canonical_metric(metric or self.config.default_metric)
+        q_np = np.asarray(query.values, np.float32).reshape(1, -1)
+        dist, slots, ns, tables = self._raw_search(q_np, namespace, limit, m)
+        if ns is None:
+            return []
+        hits = self._hydrate_batch(self._to_user_score(dist, m), dist, slots, tables)[0]
+        if HIGHER_IS_BETTER[m]:
+            return [h for h in hits if h["score"] >= radius]
+        return [h for h in hits if h["score"] <= radius]
+
+    def similarity_search(
+        self,
+        query: VectorDTO,
+        threshold: float,
+        namespace: str = "default",
+        filter: Optional[Dict[str, Any]] = None,
+        limit: int = 1000,
+    ) -> List[Dict[str, Any]]:
+        """Cosine-similarity threshold search (query_processor.py:860-869)."""
+        return self.range_search(query, threshold, namespace, "cosine", filter, limit)
 
     # ------------------------------------------------------------------ helpers
     # (parity with reference query_processor.py:64-82)

@@ -9,9 +9,11 @@ each row's bf16 rounding residual (``quantize_resid_rows``).  A search runs:
              over each window of r1 consecutive rows, lowered by the row's own error
              bound (the certificate's optimistic bound).  Light: one pass.  Heavy: plus
              the query's bf16 residual and the int8 residual codes.
-  phase 2  — two-level window selection (torch, small tensors), then the exact f32 rescan
-             of the selected windows through kernel B2 (``csrc/gather_score.cu``,
-             ``_gather_score``), then the per-query certificate ``okq``.
+  phase 2  — window selection (torch, small tensors): two-level over the window mins, or
+             one narrow top-s over the kernel's per-tile top-m candidate pool where the
+             JAX package gates the pool on; then the exact f32 rescan of the selected
+             windows through kernel B2 (``csrc/gather_score.cu``, ``_gather_score``), then
+             the per-query certificate ``okq``.
   escalate — only after a proof failed: the contained or widened selection (tier 1), then
              the exact scan (tier 2).
 
@@ -32,8 +34,8 @@ brings all three down in its one packed copy; ``SweepResult.escalate`` runs only
 proof has failed and reports each further copy through the caller's ``fetch``.
 
 The JAX package's ``MLVDB_*`` environment globals are the fields of ``Tuning``, passed
-explicitly, with the JAX defaults.  The per-tile top-m pool (``n_top``/``skip_wm``) is not
-ported: every program here is the JAX package's ``TOPM_ENABLE=False`` program.
+explicitly, with the JAX defaults; ``Tuning(topm_enable=False)`` is its ``MLVDB_TOPM=0``
+program.
 """
 
 from __future__ import annotations
@@ -64,9 +66,16 @@ class Tuning(NamedTuple):
     blocktop: bool = True       # block-top refine for wide certified selections
     mb_blocktop: int = 8        # windows each selected block yields in that refine
     contain: bool = True        # per-query contained escalation
+    topm_enable: bool = True    # per-tile top-m candidate pool for tier 1 (MLVDB_TOPM)
 
 
 DEFAULT_TUNING = Tuning()
+
+
+def _topm_sub_rows(m: int) -> int:
+    """Rows of the pool's output block per tile (pallas_knn_t.py:215-218): m value rows +
+    ceil(m/2) packed-position rows, padded up to a multiple of 8."""
+    return -(-(m + (m + 1) // 2) // 8) * 8
 
 
 # ------------------------------------------------------------------ mirror upkeep
@@ -118,11 +127,46 @@ def _pick_r1(batch: int, n_rows: int, k: int) -> int:
 _REF_CHUNK_ELEMS = 1 << 25
 
 
+def _topm_pool_ref(wmin_t, m: int):
+    """The per-tile top-m pool of the window mins ``wmin_t`` [nt, B, out_w] as the JAX
+    kernel's epilogue forms it (pallas_knn_t.py:343-380), returned [nt, SUB, B]: for each
+    tile and query the m smallest (value, position) pairs in (value, position) order, by
+    one stable sort.  m rounds of min / first-argmin / mask give +inf entries at position
+    0, and a tile holding a NaN min NaN values at position out_w.  Rows 0..m-1 hold the
+    values, rows m.. the positions packed two per f32 as p0 + out_w*p1, the rest +inf."""
+    nt, B, out_w = wmin_t.shape
+    inf = float("inf")
+    sv, si = torch.sort(wmin_t, dim=-1, stable=True)
+    v, p = sv[..., :m], si[..., :m]
+    p = torch.where(v == inf, 0, p)
+    nan = torch.isnan(wmin_t).any(-1, keepdim=True)
+    v = torch.where(nan, float("nan"), v)
+    p = torch.where(nan, out_w, p)
+    if m % 2:
+        p = torch.cat([p, torch.zeros_like(p[..., :1])], dim=-1)
+    packed = (p[..., 0::2] + out_w * p[..., 1::2]).to(torch.float32)  # exact: < 2^24
+    pool = wmin_t.new_full((nt, _topm_sub_rows(m), B), inf)
+    pool[:, :m] = v.permute(0, 2, 1)
+    pool[:, m : m + packed.shape[-1]] = packed.permute(0, 2, 1)
+    return pool
+
+
+def _decode_topm(topm, m: int, out_w: int):
+    """The pool [nt, SUB, B] as (values [nt, m, B], positions within the tile [nt, m, B]
+    int32), the packed rows split as the JAX package splits them (pallas_knn_t.py:883-891)."""
+    npack = (m + 1) // 2
+    pk = topm[:, m : m + npack].to(torch.int32)           # exact: < out_w^2 <= 2^24
+    pos = torch.stack([pk % out_w, pk // out_w], dim=2).reshape(topm.shape[0], 2 * npack, -1)
+    return topm[:, :m], pos[:, :m]
+
+
 def _window_mins_t_ref(qh, qres, mirror, resid, rscale, scale, bias, *, r1,
-                       emit_block_mins=False, qe=None, eb_rows=()):
+                       emit_block_mins=False, emit_topm=0, skip_wm=False, qe=None,
+                       eb_rows=()):
     """Plain torch version of kernel B1: f32 matmuls of the bf16-converted operands per
     chunk of whole tiles, the kernel's formula, then the min over each r1-row window,
-    written tile-major."""
+    written tile-major; the block mins and the top-m pool from those mins."""
+    _check_outputs(emit_block_mins, emit_topm, skip_wm)
     require_f32_matmul()
     cap, Dp = mirror.shape
     B = qh.shape[0]
@@ -152,12 +196,26 @@ def _window_mins_t_ref(qh, qres, mirror, resid, rscale, scale, bias, *, r1,
         out[t0:t1] = wm.reshape(t1 - t0, WLANE, g, B).permute(0, 3, 2, 1).reshape(
             t1 - t0, B, g * WLANE)
     bm = out.amin(-1) if emit_block_mins else None                # [nt, B]
-    return out, bm
+    pool = _topm_pool_ref(out, emit_topm) if emit_topm else None  # [nt, SUB, B]
+    return None if skip_wm else out, bm, pool
+
+
+def _check_outputs(emit_block_mins, emit_topm, skip_wm):
+    """The output combinations the JAX package takes (pallas_knn_t.py:415-420)."""
+    if emit_topm and emit_block_mins:
+        raise ValueError("the top-m pool is never emitted beside the block mins")
+    if skip_wm and not emit_topm:
+        raise ValueError("skip_wm needs the top-m pool as the remaining output")
 
 
 def _check_sweep_operands(qh, qres, mirror, resid, rscale, scale, bias, qe, eb_rows, r1,
-                          emit_block_mins):
+                          emit_block_mins, emit_topm=0, skip_wm=False):
     """Raise on anything kernel B1 does not take."""
+    _check_outputs(emit_block_mins, emit_topm, skip_wm)
+    if emit_topm and (emit_topm % 2 or not 8 <= emit_topm <= 32
+                      or emit_topm * (R1MAX // max(r1, 1)) > 32):
+        raise ValueError(f"the kernel's pool needs an even m in 8..32 with m * (32 / r1) "
+                         f"<= 32; got m={emit_topm} r1={r1}")
     cap, Dp = mirror.shape
     B = qh.shape[0]
     dev = mirror.device
@@ -188,20 +246,23 @@ def _check_sweep_operands(qh, qres, mirror, resid, rscale, scale, bias, qe, eb_r
 
 
 def _window_mins_t(qh, qres, mirror, resid, rscale, scale, bias, *, r1,
-                   emit_block_mins=False, qe=None, eb_rows=()):
+                   emit_block_mins=False, emit_topm=0, skip_wm=False, qe=None, eb_rows=()):
     """Phase 1 (pallas_knn_t._window_mins, tile-major form).
 
     qh / qres [B, Dp] bf16 (metric factor folded in; qres = compensation residual or
     None), mirror [cap, Dp] bf16, resid [cap, Dp] int8 + rscale [cap] (or None),
     scale [cap] (cosine, or None), bias [cap], qe [B, n_eb] + eb_rows (n_eb [cap] rows).
     rank = (qh.m [+ qres.m] [+ (qh.resid)*rscale]) [*scale] + bias - sum_t qe_t*eb_t.
-    Returns ``(wmin_t [nt, B, g*128], block_mins [nt, B] or None)``.  The CUDA kernel for
-    a CUDA tensor, the plain version for a CPU tensor."""
+    ``emit_topm=m``: also the per-tile top-m pool; ``skip_wm``: the pool only.
+    Returns ``(wmin_t [nt, B, g*128] or None, block_mins [nt, B] or None,
+    pool [nt, SUB, B] or None)``.  The CUDA kernel for a CUDA tensor, the plain version
+    for a CPU tensor."""
     if mirror.device.type == "cpu":
         return _window_mins_t_ref(qh, qres, mirror, resid, rscale, scale, bias, r1=r1,
-                                  emit_block_mins=emit_block_mins, qe=qe, eb_rows=eb_rows)
+                                  emit_block_mins=emit_block_mins, emit_topm=emit_topm,
+                                  skip_wm=skip_wm, qe=qe, eb_rows=eb_rows)
     _check_sweep_operands(qh, qres, mirror, resid, rscale, scale, bias, qe, eb_rows, r1,
-                          emit_block_mins)
+                          emit_block_mins, emit_topm, skip_wm)
     cap, Dp = mirror.shape
     B = qh.shape[0]
     g = R1MAX // r1
@@ -222,9 +283,13 @@ def _window_mins_t(qh, qres, mirror, resid, rscale, scale, bias, *, r1,
     qe_p = torch.zeros((bp, 2), dtype=torch.float32, device=mirror.device)
     if eb_rows:
         qe_p[:B, : len(eb_rows)] = qe
-    out = torch.empty((nt, B, g * WLANE), dtype=torch.float32, device=mirror.device)
-    bm = (torch.empty((nt, B), dtype=torch.float32, device=mirror.device)
-          if emit_block_mins else None)
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=mirror.device)
+
+    out = None if skip_wm else empty(nt, B, g * WLANE)
+    bm = empty(nt, B) if emit_block_mins else None
+    pool = empty(nt, _topm_sub_rows(emit_topm), B) if emit_topm else None
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -233,8 +298,8 @@ def _window_mins_t(qh, qres, mirror, resid, rscale, scale, bias, *, r1,
         rc = _kernels.library().mlvdb_sweep_min(
             ptr(qh_t), ptr(qres_t), mirror.data_ptr(), ptr(resid), ptr(rscale), ptr(scale),
             bias.data_ptr(), qe_p.data_ptr(), ptr(eb_rows[0] if eb_rows else None),
-            ptr(eb_rows[1] if len(eb_rows) > 1 else None), out.data_ptr(), ptr(bm),
-            cap, Dp, B, bp, r1, len(eb_rows),
+            ptr(eb_rows[1] if len(eb_rows) > 1 else None), ptr(out), ptr(bm), ptr(pool),
+            cap, Dp, B, bp, r1, len(eb_rows), emit_topm,
             torch.cuda.current_stream(mirror.device).cuda_stream,
         )
     if rc != 0:
@@ -242,12 +307,16 @@ def _window_mins_t(qh, qres, mirror, resid, rscale, scale, bias, *, r1,
     _window_mins_t.launches += 1
     if heavy:
         _window_mins_t.launches_heavy += 1
-    return out, bm
+    if emit_topm:
+        _window_mins_t.launches_topm += 1
+    return out, bm, pool
 
 
-# kernel launches so far, all variants and the heavy ones (a run resets and reads these)
+# kernel launches so far: all variants, the heavy ones and those that emitted the top-m
+# pool (a run resets and reads these)
 _window_mins_t.launches = 0
 _window_mins_t.launches_heavy = 0
+_window_mins_t.launches_topm = 0
 
 
 # ------------------------------------------------------------------ kernel B2
@@ -443,6 +512,37 @@ def _select_and_rescan(q32, qn_row, rescan, maskadd, hw, wmin_t, *, k, metric, r
     return best_d, best_i, thresh
 
 
+def _select_topm_and_rescan(q32, qn_row, rescan, maskadd, hw, topm, *, k, metric, r1,
+                            masked, s_sel, m, tuning=DEFAULT_TUNING):
+    """Selection from the sweep kernel's per-tile top-m pool ``topm`` [nt, SUB, B] + the
+    exact rescan (pallas_knn_t.py:864-906): one narrow top-s over the [B, nt*m]
+    candidates.  A window never rescanned is either in the pool and not selected (>= the
+    s-th selected value) or outside its tile's top m (>= that tile's m-th min >= the pool
+    floor); both fold into ``thresh``, so a tile hiding more than m candidates escalates
+    the certificate."""
+    nt, _, B = topm.shape
+    g = R1MAX // r1
+    out_w = g * WLANE
+    pool = nt * m
+    vals_t, pos_t = _decode_topm(topm, m, out_w)          # [nt, m, B] each
+    vals = vals_t.permute(2, 0, 1).reshape(B, pool)
+    win = (torch.arange(nt, dtype=torch.int32, device=q32.device)[:, None, None] * out_w
+           + pos_t).permute(2, 0, 1).reshape(B, pool)     # output positions
+    s1 = min(s_sel, pool)
+    tile_floor = vals.reshape(B, nt, m)[:, :, m - 1].amin(1)   # [B]
+    if s1 >= tuning.sort_topk_from:
+        sv, order = torch.sort(vals, dim=-1, stable=True)
+        v1, p = sv[:, :s1], torch.gather(win, 1, order[:, :s1])
+    else:
+        v1, ci = _topk_min(vals, s1, tuning)
+        p = torch.gather(win, 1, ci)
+    thresh = tile_floor if s1 >= pool else torch.minimum(v1[:, -1], tile_floor)
+    f = _pos_to_window(p, g)
+    best_d, best_i = _rescan_windows(q32, qn_row, rescan, maskadd, hw, f, k=k,
+                                     metric=metric, r1=r1, masked=masked, tuning=tuning)
+    return best_d, best_i, thresh
+
+
 def _rescan_windows(q32, qn_row, rescan, maskadd, hw, f, *, k, metric, r1, masked,
                     tuning=DEFAULT_TUNING):
     """Exact f32 rescan of the selected windows ``f`` [B, s1] (pallas_knn_t.py:792-861)
@@ -460,7 +560,9 @@ def _rescan_windows(q32, qn_row, rescan, maskadd, hw, f, *, k, metric, r1, maske
     else:
         dd = 1.0 - dots * torch.rsqrt(torch.clamp_min(qn_row * sqn_c, 1e-30))
     if masked:
-        dd = dd + maskadd[rws.long()]
+        # a NaN pool entry decodes past the last window (pallas_knn_t.py:265-269): clamp
+        # the mask's index as XLA's gather clamps it (the kernel clamps its rows alike)
+        dd = dd + maskadd[torch.clamp(rws.long(), 0, maskadd.shape[0] - 1)]
     else:
         dd = torch.where(rws < hw, dd, torch.full_like(dd, float(MASKED)))
     kk = min(k, dd.shape[1])
@@ -640,13 +742,28 @@ def _fused_t(q, mirror, rescan, valid, sq_norms, hw, resid, prep, *, k, metric, 
     else:
         s1_w = min(2 * k, k + 16 + k // 8)
     s1_w = min(s1_w, P_all)
-    # the per-tile top-m pool is not ported (every program is JAX's pool-off one); the
-    # output is always tile-major, and the JAX package's level-2 width follows its own
-    # layout choice: 128-window blocks for k <= 32
-    r2 = WLANE if k <= 32 else R2
-    emit_bm = r2 == WLANE and g == 1
+
+    # the per-tile top-m pool (pallas_knn_t.py:1112-1165): m covers 4x the tier-1 width
+    # per tile; k <= 32 at r1 = 32 keeps the block-min selection (JAX's MLVDB_TOPM_BM=0)
+    m_base = 8 if k <= 128 else 16
+    nt_all = cap // SWEEP_TILE
+    m_need = -(-4 * s1_w // max(nt_all, 1))
+    m_top = max(m_base, -(-m_need // 2) * 2)
+    out_w_all = g * WLANE
+    bm_eligible = k <= 32 and r1 == R1MAX and P_all % WLANE == 0 and P_all // WLANE > 1
+    use_topm = (certify and tuning.topm_enable and not bm_eligible
+                and P_all % WLANE == 0 and nt_all > 1 and m_top * g <= 32
+                and nt_all * m_top >= 4 * s1_w and out_w_all * out_w_all <= (1 << 24))
+    # the JAX package's layout choice; the port always writes tile-major, which the
+    # selection indexes as JAX's [B, P] form, so it decides only the gates below
+    transposed = (k <= 128 or use_topm) and P_all % WLANE == 0 and P_all // WLANE > 1
+    use_topm = use_topm and transposed
+    r2 = WLANE if (transposed and k <= 32) else R2
+    emit_bm = transposed and r2 == WLANE and g == 1 and not use_topm
     s2_w = min(8 * s1_w, P_all)
     tier2_exists = s2_w > s1_w and B * s2_w * r1 <= cap
+    # the pool serves tier 1 and no tier 2 would read the window mins: pool only
+    skip_wm = use_topm and not tier2_exists
 
     q_l2 = torch.sqrt(qn_row)
     qh_l2 = q_l2 * (2.0 if metric == "l2" else 1.0)
@@ -677,10 +794,10 @@ def _fused_t(q, mirror, rescan, valid, sq_norms, hw, resid, prep, *, k, metric, 
         kth_real = kth < float(MASKED) / 2
         return torch.where(kth_real, thresh - e >= kth_rank, torch.isinf(thresh))
 
-    wmin_t, bm = _window_mins_t(
+    wmin_t, bm, topm = _window_mins_t(
         qh, qres, mirror, resid if use_resid else None, prep["rscale_row"],
-        prep["scale_row"], prep["bias_row"], r1=r1, emit_block_mins=emit_bm, qe=qe,
-        eb_rows=eb_rows,
+        prep["scale_row"], prep["bias_row"], r1=r1, emit_block_mins=emit_bm,
+        emit_topm=m_top if use_topm else 0, skip_wm=skip_wm, qe=qe, eb_rows=eb_rows,
     )
     wmin2_pre = None if bm is None else bm.T.contiguous()    # [B, nt] block mins
     maskadd = torch.where(valid, 0.0, float(MASKED)).to(torch.float32) if masked else None
@@ -693,7 +810,13 @@ def _fused_t(q, mirror, rescan, valid, sq_norms, hw, resid, prep, *, k, metric, 
             metric=metric, r1=r1, masked=masked, s_sel=s_sel, r2=r2, spec_l2=certify,
             wmin2=None if wmin2_pre is None else wmin2_pre[sub], tuning=tuning)
 
-    d1, i1, th1 = select(s1_w)
+    if use_topm:
+        # tier 1 from the pool: a tile hiding more than m candidates lowers thresh
+        d1, i1, th1 = _select_topm_and_rescan(
+            q32, qn_col, rescan, maskadd, hw, topm, k=k, metric=metric, r1=r1,
+            masked=masked, s_sel=s1_w, m=m_top, tuning=tuning)
+    else:
+        d1, i1, th1 = select(s1_w)
     if not certify:
         return SweepResult(d1, i1, None, 0)
     okq = check_exact(d1, th1)                            # [B] per-query proof
@@ -705,10 +828,11 @@ def _fused_t(q, mirror, rescan, valid, sq_norms, hw, resid, prep, *, k, metric, 
         return d, i, 2
 
     def escalate(okq_host, fetch_):
-        if not tier2_exists:
+        if not tier2_exists:                              # skip_wm lands here too
             return exact_fallback(fetch_)
         nfail = int((~okq_host).sum())
-        if tuning.contain and B > FQ_CONTAIN and nfail <= FQ_CONTAIN:
+        contain = tuning.contain and B > FQ_CONTAIN and not skip_wm
+        if contain and nfail <= FQ_CONTAIN:
             # contained: re-prove the failing queries (stable order, padded with passing
             # ones, as lax.top_k pads) at tier-2 width; the rest keep tier 1
             fidx = torch.sort((~okq).to(torch.float32), descending=True,

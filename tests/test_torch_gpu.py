@@ -134,11 +134,12 @@ def test_sweep_kernel_matches_plain(cuda, heavy, metric, r1, b):
     args, kw, slack = _sweep_operands(cuda, 16384, b, metric, heavy, r1 * 100 + b)
     kw["emit_block_mins"] = r1 == 32
     before = (fused_knn_t._window_mins_t.launches, fused_knn_t._window_mins_t.launches_heavy)
-    got, bm = fused_knn_t._window_mins_t(*args, r1=r1, **kw)
+    got, bm, pool = fused_knn_t._window_mins_t(*args, r1=r1, **kw)
     torch.cuda.synchronize()
     assert (fused_knn_t._window_mins_t.launches,
             fused_knn_t._window_mins_t.launches_heavy) == (before[0] + 1, before[1] + heavy)
-    want, want_bm = fused_knn_t._window_mins_t_ref(*args, r1=r1, **kw)
+    want, want_bm, _ = fused_knn_t._window_mins_t_ref(*args, r1=r1, **kw)
+    assert pool is None
     _close_slack(got, want, slack[None, :, None])
     assert bool((want == MASKED).any())
     if r1 == 32:
@@ -216,3 +217,102 @@ def test_sweep_tiers_on_cuda_match_cpu(cuda, light):
     np.testing.assert_allclose(np.sort(dg, 1), np.sort(dc, 1), rtol=1e-4, atol=1e-4)
     for b in range(1, 16):                       # gaussian queries: no ties
         assert set(ig[b].tolist()) == set(ic[b].tolist())
+
+
+# ------------------------------------------------------------------ the top-m pool (B1, B3)
+
+
+@pytest.mark.parametrize("skip_wm", [False, True])
+@pytest.mark.parametrize("r1,m", [(16, 8), (16, 16), (8, 8), (32, 10)])
+@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
+@pytest.mark.parametrize("heavy", [False, True])
+def test_pool_kernel_matches_plain(cuda, heavy, metric, r1, m, skip_wm):
+    """The pool is the kernel's own window mins ordered by (value, position): bit-equal to
+    the plain pool of those mins, and (B1 being bit-identical to its plain version on the
+    card) to the plain version's pool, padding and positions included."""
+    b = 512 if skip_wm else 8
+    args, kw, slack = _sweep_operands(cuda, 65536, b, metric, heavy, r1 * 10 + m + b)
+    before = fused_knn_t._window_mins_t.launches_topm
+    wmin, bm, pool = fused_knn_t._window_mins_t(*args, r1=r1, emit_topm=m, skip_wm=skip_wm,
+                                                **kw)
+    torch.cuda.synchronize()
+    assert fused_knn_t._window_mins_t.launches_topm == before + 1
+    assert bm is None and (wmin is None) == skip_wm
+    assert tuple(pool.shape) == (16, fused_knn_t._topm_sub_rows(m), b)
+    own = wmin if wmin is not None else fused_knn_t._window_mins_t(*args, r1=r1, **kw)[0]
+    # bit patterns: NaN and +inf entries compare too
+    assert torch.equal(pool.view(torch.int32),
+                       fused_knn_t._topm_pool_ref(own, m).view(torch.int32))
+    want_wmin, _, want = fused_knn_t._window_mins_t_ref(*args, r1=r1, emit_topm=m, **kw)
+    _close_slack(own, want_wmin, slack[None, :, None])
+    assert torch.equal(pool.view(torch.int32), want.view(torch.int32))
+
+
+def test_pool_kernel_rejects_bad_operands(cuda):
+    args, kw, _ = _sweep_operands(cuda, 16384, 8, "l2", False, 3)
+    for bad in (dict(r1=8, emit_topm=10),                       # m * g > 32
+                dict(r1=16, emit_topm=9),                       # odd m
+                dict(r1=32, emit_topm=8, emit_block_mins=True),  # the pool beside block mins
+                dict(r1=16, skip_wm=True)):                     # skip_wm without the pool
+        with pytest.raises(ValueError):
+            fused_knn_t._window_mins_t(*args, **bad, **kw)
+
+
+@pytest.mark.parametrize("k", [10, 100])
+@pytest.mark.parametrize("light", [True, False])
+def test_nan_query_tier_on_cuda_matches_cpu(cuda, light, k):
+    """A NaN query: the kernel's mins are NaN where the plain version's are (jnp.minimum's
+    rule), its proof fails, and the batch is served by the exact scan on both devices."""
+    rng = np.random.default_rng(11)
+    n = 65536
+    x = rng.standard_normal((n, 128), dtype=np.float32)
+    q = rng.standard_normal((8, 128), dtype=np.float32)
+    q[2, 5] = np.nan
+    out = []
+    for device in ("cpu", cuda):
+        data = torch.from_numpy(x).to(device)
+        z, s, e2, e1 = fused_knn_t.quantize_resid_rows(data)
+        d, i, tier = fused_knn_t.exact_knn_t(
+            torch.from_numpy(q).to(device), data.to(torch.bfloat16), data,
+            torch.ones(n, dtype=torch.bool, device=device), (data * data).sum(-1), k=k,
+            metric="l2", live_prefix=n, sweep_err=e2, resid=z, rscale=s, err1=e1,
+            light=light, report_tier=True)
+        out.append((i.cpu().numpy(), tier))
+    (ic, tc), (ig, tg) = out
+    assert tc == tg == 2
+    for b in (0, 1, 3, 4, 5, 6, 7):
+        assert set(ig[b].tolist()) == set(ic[b].tolist())
+    args, kw, _ = _sweep_operands(cuda, n, 8, "l2", not light, 12)
+    args = (args[0].clone(),) + args[1:]
+    args[0][2, 5] = float("nan")
+    r1, m = (32, 0) if k == 10 else (16, 8)
+    opts = dict(r1=r1, emit_block_mins=r1 == 32, emit_topm=m)
+    got = fused_knn_t._window_mins_t(*args, **opts, **kw)
+    want = fused_knn_t._window_mins_t_ref(*args, **opts, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        if w is not None:
+            assert torch.equal(torch.isnan(g), torch.isnan(w)) and bool(torch.isnan(w).any())
+
+
+@pytest.mark.parametrize("b", [8, 64])
+def test_k100_engine_on_cuda_matches_cpu(cuda, b):
+    """k=100 at 2^18 rows (k bucket 128, m = 10): bucket 8 keeps the window mins beside the
+    pool, bucket 64 writes the pool only; tiers and id sets as on the CPU."""
+    rng = np.random.default_rng(19)
+    x = rng.standard_normal((1 << 18, 128), dtype=np.float32)
+    q = [VectorDTO(v) for v in rng.standard_normal((b, 128), dtype=np.float32)]
+    out = []
+    for device in ("cpu", cuda):
+        qp = QueryProcessor(EngineConfig(sweep_dtype="bfloat16"), device=device)
+        ids = qp.bulk_load(x, "ns", ids=None if not out else out[0][0])
+        before = fused_knn_t._window_mins_t.launches_topm
+        res = qp.find_similar_batch(q, 100, "ns", "l2")
+        out.append((ids, res, qp.cert_tier_counts("ns"),
+                    fused_knn_t._window_mins_t.launches_topm - before))
+    (_, rc, tc, _), (_, rg, tg, launched) = out
+    assert tc == tg == {"light_fast": 1} and launched == 1
+    for a, c in zip(rc, rg):
+        assert len(c) == 100 and {r["id"] for r in a} == {r["id"] for r in c}
+        np.testing.assert_allclose(sorted(r["score"] for r in a),
+                                   sorted(r["score"] for r in c), rtol=1e-4, atol=1e-4)

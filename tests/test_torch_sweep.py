@@ -63,9 +63,10 @@ def _clustered(seed, n, b, n_centres, spread, noise):
     return rng, db.astype(np.float32), q.astype(np.float32)
 
 
-def _both(db, q, valid, *, metric, k, light=False, live_prefix=None, **kw):
-    """The same search through the JAX entry (interpret mode) and the port's:
-    ((dist, idx, tier) of JAX, of the port) as numpy arrays and ints."""
+def _both(db, q, valid, *, metric, k, light=False, live_prefix=None,
+          tuning=T.DEFAULT_TUNING, **kw):
+    """The same search through the JAX entry (interpret mode) and the port's (with
+    ``tuning``): ((dist, idx, tier) of JAX, of the port) as numpy arrays and ints."""
     n = db.shape[0]
     sq = (db * db).sum(-1).astype(np.float32)
     z, s, e2, e1 = (np.asarray(x) for x in J.quantize_resid_rows(jnp.asarray(db)))
@@ -78,7 +79,7 @@ def _both(db, q, valid, *, metric, k, light=False, live_prefix=None, **kw):
     td, ti, tt = T.exact_knn_t(
         _t(q), _t(db).to(torch.bfloat16), _t(db), _t(valid), _t(sq), k=k, metric=metric,
         live_prefix=lp, sweep_err=_t(e2), resid=_t(z), rscale=_t(s), err1=_t(e1),
-        light=light, report_tier=True, **kw)
+        light=light, report_tier=True, tuning=tuning, **kw)
     return (np.asarray(jd), np.asarray(ji), int(jt)), (td.numpy(), ti.numpy(), tt)
 
 
@@ -130,7 +131,10 @@ def test_pick_r1_and_constants_match_jax():
     assert (T.SWEEP_TILE, T.R1MAX, T.WLANE, T.Q_TILE, T.R2) == (
         J.SWEEP_TILE, J.R1MAX, J.WLANE, J.Q_TILE, J.R2)
     assert T.Tuning() == T.Tuning(J.SORT_TOPK_FROM, J.BLOCKTOP_ENABLE, J.MB_BLOCKTOP,
-                                  J.CONTAIN_ENABLE)
+                                  J.CONTAIN_ENABLE, J.TOPM_ENABLE)
+    assert J.TOPM_BM is False   # the port has no pool on block-min-eligible shapes
+    for m in (1, 7, 8, 10, 16, 20, 32):
+        assert T._topm_sub_rows(m) == J._topm_sub_rows(m)
     for b in (1, 8, 64, 512, 4096):
         for n in (8192, 1 << 20, 1 << 24):
             for k in (1, 10, 16, 17, 100, 128, 129, 256, 300, 1024):
@@ -177,13 +181,14 @@ def test_window_mins_plain_matches_pallas(variant, metric, r1):
         emit_block_mins=bm_on, qe=jnp.pad(jnp.asarray(qe), ((0, 0), (0, 126))),
         eb_rows=tuple(_jax_rows(e) for e in ebs))
     launches = T._window_mins_t.launches
-    got, bm = T._window_mins_t(
+    got, bm, pool = T._window_mins_t(
         _t(np.asarray(qh.astype(jnp.float32))).to(torch.bfloat16),
         None if qres is None else _t(np.asarray(qres.astype(jnp.float32))).to(torch.bfloat16),
         _t(db).to(torch.bfloat16), None if resid is None else _t(resid),
         None if rscale is None else _t(rscale), None if scale is None else _t(scale),
         _t(bias), r1=r1, emit_block_mins=bm_on, qe=_t(qe), eb_rows=tuple(map(_t, ebs)))
     assert T._window_mins_t.launches == launches  # CPU tensors: the plain version
+    assert pool is None and (bm is None) == (not bm_on)
     pairs = [(got.numpy(), want)]
     if bm_on:
         want, want_bm = want
@@ -297,14 +302,18 @@ def test_clustered_heavy_tier_matches_jax(metric):
     _assert_same_distances(j, t, _l2_scale(db, q) if metric == "l2" else None)
 
 
-def test_k100_matches_jax_program_without_pool(monkeypatch):
-    # 32 tiles: the JAX package would serve this k bucket from its per-tile top-m pool;
-    # the port has none, so it is held to JAX's own pool-off program
-    monkeypatch.setattr(J, "TOPM_ENABLE", False)
+@pytest.mark.parametrize("pool", [False, True])
+def test_k100_matches_jax_program_without_pool(monkeypatch, pool):
+    # 32 tiles, k=100: JAX's pool program (m=16, g=2) by default; Tuning(topm_enable=False)
+    # is its MLVDB_TOPM=0 program, held to JAX's own pool-off program
+    monkeypatch.setattr(J, "TOPM_ENABLE", pool)
     _, db, q = _gaussian(31, 32 * TILE, 8)
-    j, t = _both(db, q, np.ones(32 * TILE, bool), metric="l2", k=100)
+    launches = T._window_mins_t.launches_topm
+    tuning = T.Tuning() if pool else T.Tuning(topm_enable=False)
+    j, t = _both(db, q, np.ones(32 * TILE, bool), metric="l2", k=100, tuning=tuning)
     assert t[2] == j[2] == 0
     _assert_same_sets(j, t)
+    assert T._window_mins_t.launches_topm == launches  # CPU tensors: the plain version
 
 
 def test_k1024_bucket_matches_jax():
