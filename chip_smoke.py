@@ -7,7 +7,8 @@ Builds the hand-written kernels from csrc/ with nvcc (into build/kernels/), then
 one line per phase:
   1. device: the card's name and power limit;
   2. the row-major window-min kernels against their plain torch versions on the card
-     (l2/ip/cosine, N = 65,536 and 1,048,576, D = 128, B = 512, r1 in {8, 32});
+     (l2/ip/cosine, N = 65,536 and 1,048,576, D = 128, B = 512, r1 in {8, 32}), and a
+     NaN query through both (NaN mins exactly where the plain version has them);
   3. the default exact-kNN serving path at SIFT-1M shape through QueryProcessor:
      bulk_load of 1,048,576 x 128 f32, find_similar_batch (l2 at B=128, ip and cosine
      at B=16), delete of 1,000 ids and search again, each held to set-exact
@@ -32,7 +33,20 @@ one line per phase:
      scan with (1, 2); the pool launched and no window-min matrix written); range_search
      (limit 100 and 1000) and similarity_search against the oracle's hits within the
      radius; a batch holding a NaN query (NaN mins where the plain version has them, and
-     tier 2 as on the CPU); times.
+     tier 2 as on the CPU); times;
+  8. the int8 mirror (EngineConfig(sweep_dtype="int8"): two int8 streams): the sweep
+     kernel over int8 codes (one pass, two_pass, two_pass with the second stream; the
+     k = 10 and k = 100 programs at 2^20 rows, B = 512, and B = 8 at 2^16; l2/ip/cosine)
+     bit-equal to its plain version; find_similar_batch at the same shape (l2 at B=128,
+     ip and cosine at B=16, k = 10 and 100, before and after 1,000 deletes; set-exact
+     recall = 1.0; tiers and transfers printed, tier 0 only with (1, 1), no light_
+     tier); the launch counts showing the heavy int8 kernel served every search; one l2
+     batch with one int8 stream (sweep_resid=False); times and the engine wall beside
+     the bf16 sweep's;
+  9. the f32 mirror (sweep_dtype="float32", the store's own rows): the same checks, the
+     kernel within the slack of its plain version, the mirror the data tensor;
+ 10. probe B7 over the phase-8 codes (B = 128): convert + f32 FMA, int8 mma.sync and
+     the stream floor, each equal to its plain version; times, GB/s and bounds.
 Any failure raises, so the process exits non-zero.  The last two lines are the kernels'
 JSON record (with each kernel's bound: bytes over 3.35 TB/s or operations over the peak
 for their type, whichever is larger) and {"ok": true, "device": {...}}.  Needs no network
@@ -213,10 +227,10 @@ def _nbytes(*tensors):
 
 
 def _bound(nbytes, ops, peak):
-    """(least ms, what bounds it): the bytes the call must move over the HBM rate, or its
-    operations over the peak for their type, whichever takes longer."""
+    """(least ms, what bounds it, bytes, operations): the bytes the call must move over the
+    HBM rate, or its operations over the peak for their type, whichever takes longer."""
     t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
 
 
 def check_kernels(db_np):
@@ -262,22 +276,43 @@ def check_kernels(db_np):
     return worst
 
 
-def _sweep_operands(data, q, valid, metric, heavy):
-    """Kernel B1's operands as the certified search builds them (fused_knn_t._fused_t):
-    the folded query, the bias/scale rows of ``valid`` and the two certificate bound rows
-    with their per-query scales.  Returns (args, kwargs, per-query slack)."""
+# the sweep kernel's programs: the bf16 mirror's light and heavy ones, an int8 mirror's
+# one pass, two_pass, and two_pass with the second stream (the engine's), the f32 mirror's;
+# each with the per-row bound rows the certificate plan folds into it
+PROGRAMS = {"light": ("err1", "sqn_sqrt"), "heavy": ("sweep_err", "err1"),
+            "int8_light": ("err1", "sqn_sqrt"), "int8_two_pass": ("sweep_err",),
+            "int8_resid": ("sweep_err", "err1"), "f32": ()}
+
+
+def _sweep_operands(data, q, valid, metric, program):
+    """Kernel B1/B3's operands as the certified search builds them (fused_knn_t._fused_t)
+    for ``program`` (a key of PROGRAMS): the folded query, the bias/scale rows of
+    ``valid``, the residual codes and multiplier, and the certificate bound rows with
+    their per-query scales.  Returns (args, kwargs for r1 = 32 with the block mins,
+    per-query slack)."""
     n = data.shape[0]
-    z, s, e2, e1 = fused_knn_t.quantize_resid_rows(data)
-    sources = ("sweep_err", "err1") if heavy else ("err1", "sqn_sqrt")
+    wb = PROGRAMS[program]
+    mirror_dtype = (torch.float32 if program == "f32" else torch.int8
+                    if program.startswith("int8") else torch.bfloat16)
+    resid = program in ("heavy", "int8_resid")
+    if mirror_dtype == torch.bfloat16:
+        z, s, e2, e1 = fused_knn_t.quantize_resid_rows(data)
+        mirror, s2 = data.to(torch.bfloat16), None
+    else:
+        mirror, s, z, s2, e2, e1 = fused_knn_t.quantize_int8_resid_rows(data)
+        mirror = data if program == "f32" else mirror
     prep = fused_knn_t._prep_terms(valid, (data * data).sum(-1), n, s, e2, e1, cap=n,
-                                   metric=metric, masked=True, use_resid=heavy,
-                                   wb_sources=sources)
-    qh, qres, qres_f32 = fused_knn_t._fold_query(q, metric, light=not heavy)
+                                   metric=metric, masked=True, use_resid=resid,
+                                   wb_sources=wb, rscale2=s2,
+                                   int8_sweep=mirror_dtype == torch.int8)
+    qh, qres, qres_f32 = fused_knn_t._fold_query(q, metric, program.endswith("light"),
+                                                 mirror_dtype)
     qh_l2 = torch.linalg.vector_norm(q, dim=1) * (2.0 if metric == "l2" else 1.0)
-    qe = torch.stack([qh_l2, torch.linalg.vector_norm(qres_f32, dim=1)], 1).contiguous()
-    args = (qh, qres, data.to(torch.bfloat16), z if heavy else None, s if heavy else None,
-            prep["scale_row"], prep["bias_row"])
-    kw = dict(r1=32, emit_block_mins=True, qe=qe, eb_rows=prep["eb_rows"])
+    qe = torch.stack([qh_l2, torch.linalg.vector_norm(qres_f32, dim=1)], 1)[:, :len(wb)]
+    args = (qh, qres, mirror, z if resid else None, prep["rscale_row"], prep["scale_row"],
+            prep["bias_row"])
+    kw = dict(r1=32, emit_block_mins=True, qe=qe.contiguous() if wb else None,
+              eb_rows=prep["eb_rows"])
     slack = D * 2.0 ** -22 * qh_l2 * (1.0 if metric == "cosine" else prep["maxd"])
     return args, kw, slack
 
@@ -298,7 +333,8 @@ def check_sweep_kernels(db_np):
         valid[-fused_knn_t.SWEEP_TILE:] = False                    # a fully masked tile
         for heavy in (False, True):
             for metric in ("l2", "ip", "cosine"):
-                args, kw, slack = _sweep_operands(data, q, valid, metric, heavy)
+                args, kw, slack = _sweep_operands(data, q, valid, metric,
+                                                  "heavy" if heavy else "light")
                 got = fused_knn_t._window_mins_t(*args, **kw)
                 want = fused_knn_t._window_mins_t_ref(*args, **kw)
                 torch.cuda.synchronize()
@@ -455,7 +491,10 @@ def _capture(fn_name, call):
 _SWEEP_COUNTERS = ((fused_knn_t._window_mins_t, "launches"),
                    (fused_knn_t._window_mins_t, "launches_heavy"),
                    (fused_knn_t._window_mins_t, "launches_topm"),
-                   (fused_knn_t._gather_score, "launches"))
+                   (fused_knn_t._gather_score, "launches"),
+                   (fused_knn_t._window_mins_t, "launches_int8"),
+                   (fused_knn_t._window_mins_t, "launches_f32"))
+_COUNT_NAMES = ("sweep", "sweep_heavy", "topm", "gather", "int8", "f32")
 
 
 def _sweep_counts():
@@ -484,7 +523,8 @@ def check_pool_kernel(db_np):
             q = torch.from_numpy(rng.standard_normal((b, D), dtype=np.float32)).to(dev)
             for heavy in (False, True):
                 for metric in ("l2", "ip", "cosine"):
-                    args, kw, slack = _sweep_operands(data, q, valid, metric, heavy)
+                    args, kw, slack = _sweep_operands(data, q, valid, metric,
+                                                      "heavy" if heavy else "light")
                     kw.update(r1=16, emit_block_mins=False, emit_topm=8)
                     wmin, bm, pool = fused_knn_t._window_mins_t(*args, skip_wm=skip, **kw)
                     want_wmin, _, want = fused_knn_t._window_mins_t_ref(*args, **kw)
@@ -549,7 +589,7 @@ def run_k100_searches(qp, ids, q_np, oracle, dead, when):
                                      f"{xfer}")
             _check_recall(res, oracle.sets(metric, nq, dead, k=K100), ids,
                           f"k=100 {metric} B={nq} {when}", k=K100)
-    counts = dict(zip(("sweep", "sweep_heavy", "topm", "gather"), _sweep_counts()))
+    counts = dict(zip(_COUNT_NAMES, _sweep_counts()))
     _set_sweep_counts(outer)
     tiers = {name: n - tiers0.get(name, 0) for name, n in qp.cert_tier_counts("sift").items()
              if n != tiers0.get(name, 0)}
@@ -618,7 +658,7 @@ def check_nan_query(db_np):
                 tiers.append(tier)
             args, kw, _ = _sweep_operands(data, torch.from_numpy(q).to(dev),
                                           torch.ones(n, dtype=torch.bool, device=dev), "l2",
-                                          not light)
+                                          "light" if light else "heavy")
             if k == 100:
                 kw.update(r1=16, emit_block_mins=False, emit_topm=8)
             got = fused_knn_t._window_mins_t(*args, **kw)
@@ -632,6 +672,252 @@ def check_nan_query(db_np):
                 raise AssertionError(f"NaN query light={light} k={k}: {tiers} {same}")
 
 
+def check_window_min_nan(db_np):
+    """Phase 2: a NaN query through the row-major kernels (2^16 rows, B = 8, r1 = 8,
+    l2/ip/cosine, live prefix and tombstoned): its window mins are NaN exactly where the
+    plain version's are (jnp.maximum / jnp.minimum's rule), the other queries' within
+    the phase-2 bound."""
+    n = 65536
+    rng = np.random.default_rng(SEED + 7)
+    dev = torch.device("cuda")
+    data = torch.from_numpy(db_np[:n]).to(dev)
+    q = torch.from_numpy(rng.standard_normal((8, D), dtype=np.float32)).to(dev)
+    q[3, 11] = float("nan")
+    qt, qn = q.T.contiguous(), (q * q).sum(-1)[None, :].contiguous()
+    valid = torch.from_numpy(rng.random(n) > 0.01).to(dev)
+    valid[-fused_knn.DB_TILE:] = False
+    maskadd = torch.where(valid, 0.0, float(MASKED))
+    for metric in ("l2", "ip", "cosine"):
+        kw = dict(metric=metric, db_tile=fused_knn.DB_TILE, r1=8)
+        bias = ((data * data).sum(-1) + maskadd if metric == "l2" else maskadd)[:, None]
+        bias = bias.contiguous()
+        hw = n - fused_knn.DB_TILE - 1234
+        pairs = {"fast": (fused_knn._window_mins_fast(data, qt, qn, hw, **kw),
+                          fused_knn._window_mins_fast_ref(data, qt, qn, hw, **kw)),
+                 "masked": (fused_knn._window_mins_masked(data, qt, qn, bias, **kw),
+                            fused_knn._window_mins_masked_ref(data, qt, qn, bias, **kw))}
+        torch.cuda.synchronize()
+        for name, (got, want) in pairs.items():
+            nan = torch.isnan(want)
+            live = [b for b in range(8) if b != 3]
+            err = (got[:, live] - want[:, live]).abs()
+            ok = (torch.equal(torch.isnan(got), nan) and bool(nan[:, 3].any())
+                  and not bool(nan[:, live].any())
+                  and bool((err <= 1e-5 * want[:, live].abs() + 1e-3).all()))
+            print(f"  NaN query, {name} {metric}: NaN mins {int(nan.sum())} (plain) "
+                  f"{int(torch.isnan(got).sum())} (kernel), at the same places: {ok}")
+            if not ok:
+                raise AssertionError(f"{name} {metric}: NaN query mins differ from plain")
+
+
+# ---- phases 8 and 9: the int8 and f32 mirrors (kernel B3) -------------------------------
+
+B3_PROGRAMS = ("int8_light", "int8_two_pass", "int8_resid", "f32")
+
+
+def check_b3_kernels(db_np, programs):
+    """Phases 8 and 9: kernel B3 against its plain version at the engine's shapes (2^20
+    rows, B = 512: r1 = 32 with the block mins, the k = 10 program, and r1 = 16 with the
+    pool only, the k = 100 one; 2^16 rows at B = 8: r1 = 16 window mins and pool),
+    l2/ip/cosine, ~1% tombstones and a dead tile.  int8: every output bit-equal (exact
+    products, the same f32 sums); f32: window mins within the slack, the pool bit-equal
+    to the plain pool of the kernel's own mins.  Returns {program: (max |err|, differing
+    elements)}."""
+    rng = np.random.default_rng(SEED + 8)
+    dev = torch.device("cuda")
+    worst = {p: [0.0, 0] for p in programs}
+    shapes = ((N, 512, dict(r1=32, emit_block_mins=True)),
+              (N, 512, dict(r1=16, emit_block_mins=False, emit_topm=8, skip_wm=True)),
+              (65536, 8, dict(r1=16, emit_block_mins=False, emit_topm=8)))
+    for n, b, opts in shapes:
+        data = torch.from_numpy(db_np[:n]).to(dev)
+        q = torch.from_numpy(rng.standard_normal((b, D), dtype=np.float32)).to(dev)
+        valid = torch.from_numpy(rng.random(n) > 0.01).to(dev)
+        valid[-fused_knn_t.SWEEP_TILE:] = False
+        for program in programs:
+            for metric in ("l2", "ip", "cosine"):
+                args, kw, slack = _sweep_operands(data, q, valid, metric, program)
+                kw.update(opts)
+                got = fused_knn_t._window_mins_t(*args, **kw)
+                want = fused_knn_t._window_mins_t_ref(*args, **{**kw, "skip_wm": False})
+                torch.cuda.synchronize()
+                label = f"B3 {program} n={n} B={b} {opts} {metric}"
+                own = got[0]
+                if own is None:
+                    own = fused_knn_t._window_mins_t(
+                        *args, **{**kw, "emit_topm": 0, "skip_wm": False})[0]
+                dead = want[0] == float(MASKED)
+                if not torch.equal(own[dead], want[0][dead]) or not dead.any():
+                    raise AssertionError(f"{label}: masked windows differ")
+                err = torch.where(dead, 0.0, (own - want[0]).abs())
+                if not bool((err <= slack[None, :, None]).all()):
+                    raise AssertionError(f"{label}: |err| / slack "
+                                         f"{float((err / slack[None, :, None]).max())}")
+                unequal = int((own.view(torch.int32) != want[0].view(torch.int32)).sum())
+                for g, w in zip(got[1:], want[1:]):
+                    if g is not None:
+                        unequal += int((g.view(torch.int32) != w.view(torch.int32)).sum())
+                if got[2] is not None and not torch.equal(
+                        got[2].view(torch.int32),
+                        fused_knn_t._topm_pool_ref(own, opts["emit_topm"]).view(torch.int32)):
+                    raise AssertionError(f"{label}: the pool is not the kernel's own mins'")
+                if program != "f32" and unequal:
+                    raise AssertionError(f"{label}: {unequal} elements differ from plain "
+                                         f"(max |err| {float(err.max())})")
+                worst[program][0] = max(worst[program][0], float(err.max()))
+                worst[program][1] += unequal
+                del args, kw, got, want, own, err
+        del data, q, valid
+    for program, (err, unequal) in worst.items():
+        print(f"  B3 {program} vs plain: max |err| {err}, differing elements {unequal} "
+              f"({'must be 0: bit-equal' if program != 'f32' else 'within the slack'})")
+    return worst
+
+
+def run_mirror_path(cfg, label, db_np, q_np, oracle, dead):
+    """Phases 8 and 9: QueryProcessor(cfg) at SIFT-1M shape: bulk_load, then l2 at B=128
+    and ip and cosine at B=16, each at k = 10 and k = 100, then 1,000 deletes and the
+    same searches again, each set-exact against the oracle.  The launch counts are zeroed
+    just before the searches and read just after (the outer counts put back).  Every batch
+    served at tier 0 came with transfers (1, 1); an escalation is reported, never hidden
+    (recall holds its correctness).  No light_ tier: an int8 or f32 store has one
+    program.  Returns (processor, ids, launch counts, per-batch (tier, transfers))."""
+    dev = torch.device("cuda")
+    qp = QueryProcessor(cfg, device=dev)
+    t0 = time.perf_counter()
+    ids = qp.bulk_load(db_np, "sift")
+    torch.cuda.synchronize()
+    ns = qp.storage.namespace("sift")
+    st = ns.device_state()
+    print(f"  bulk_load: {len(ids)} rows in {time.perf_counter() - t0:.2f} s, capacity "
+          f"{ns.capacity}, device bytes {ns.nbytes:,} (mirror {st.mirror.dtype}, the row "
+          f"store itself: {st.mirror is st.data})")
+    outer = _sweep_counts()
+    _set_sweep_counts([0] * len(outer))
+    served = {}
+    for when, dead_rows in (("before delete", None), ("after delete", dead)):
+        if dead_rows is not None:
+            removed = qp.delete([ids[i] for i in dead_rows], "sift")
+            if len(removed) != 1000 or ns.device_state().live_count == ns.device_state().high_water:
+                raise AssertionError(f"{label}: delete did not leave tombstones")
+        for metric, nq in (("l2", B), ("ip", 16), ("cosine", 16)):
+            for k in (K, K100):
+                x0, t0_ = dict(qp.transfer_counts), qp.cert_tier_counts("sift")
+                res = qp.find_similar_batch([VectorDTO(v) for v in q_np[:nq]], k, "sift",
+                                            metric)
+                xfer = (qp.transfer_counts["h2d"] - x0["h2d"],
+                        qp.transfer_counts["d2h"] - x0["d2h"])
+                tier = [t for t, c in qp.cert_tier_counts("sift").items()
+                        if c != t0_.get(t, 0)]
+                served[f"{metric} k={k} {when}"] = (tier, xfer)
+                if ((tier == ["fast"] and xfer != (1, 1)) or xfer[0] != 1 or len(tier) != 1
+                        or tier[0].startswith("light_")):
+                    raise AssertionError(f"{label} {metric} k={k} {when}: {tier} {xfer}")
+                _check_recall(res, oracle.sets(metric, nq, dead_rows, k=k), ids,
+                              f"{label} {metric} B={nq} {when}", k=k)
+    counts = dict(zip(_COUNT_NAMES, _sweep_counts()))
+    _set_sweep_counts(outer)
+    print(f"  {label}: (tier, transfers) per batch {served}")
+    print(f"  {label}: launches {counts}")
+    return qp, ids, counts, served
+
+
+def time_mirror_kernels(qp, q_pad, name, light_variants):
+    """Phases 8 and 9: kernel B3 at the operands the engine's l2 B=128 search gives it
+    (bucket 512, k bucket 16: r1 = 32 with the block mins; k bucket 128: r1 = 16, the
+    pool only), on the tombstoned namespace; the plain version and exact_knn_t beside it.
+    ``light_variants``: also the int8 one-pass and two_pass programs at the same
+    operands.  Returns ({time name: ms}, {time name: (args, kwargs)})."""
+    st = qp.storage.namespace("sift").device_state()
+
+    def search(k):
+        return fused_knn_t.exact_knn_t(
+            q_pad, st.mirror, st.data, st.valid, st.sq_norms, k=k, metric="l2",
+            live_prefix=None, sweep_err=st.sweep_err, resid=st.sweep_resid,
+            rscale=st.sweep_rscale, err1=st.sweep_err1, rscale2=st.sweep_rscale2,
+            prep_cache=st.prep_cache, report_tier=True)
+
+    times, operands = {}, {}
+    for k, suffix in ((16, ""), (128, "_k128")):
+        a, kw = operands[name + suffix] = _capture("_window_mins_t", lambda: search(k))
+        times[name + suffix] = _time_ms(lambda: fused_knn_t._window_mins_t(*a, **kw))
+        times[name + suffix + "_plain"] = _time_ms(
+            lambda: fused_knn_t._window_mins_t_ref(*a, **kw))
+        times[f"exact_knn_t_{name}{suffix}"] = _time_ms(lambda: search(k))
+    if light_variants:
+        a, kw = operands[name]
+        for variant, args in (("_two_pass", (a[0], a[1], a[2], None, None) + a[5:]),
+                              ("_light", (a[0], None, a[2], None, None) + a[5:])):
+            operands[name + variant] = (args, kw)
+            times[name + variant] = _time_ms(lambda: fused_knn_t._window_mins_t(*args, **kw))
+            times[name + variant + "_plain"] = _time_ms(
+                lambda: fused_knn_t._window_mins_t_ref(*args, **kw))
+    return times, operands
+
+
+def _b3_bound(args, kw, outs):
+    """Kernel B3's bound: its inputs read once and outputs written once over the HBM
+    rate, or its products over the peak for their type (bf16 for an int8 or bf16 mirror
+    against bf16 queries, f32 for the f32 mirror), whichever is longer."""
+    passes = 1 + (args[1] is not None) + (args[3] is not None)
+    peak = F32_FLOPS if args[2].dtype == torch.float32 else BF16_FLOPS
+    return _bound(_nbytes(*args, kw["qe"], *kw["eb_rows"], *outs),
+                  2.0 * args[2].shape[0] * args[2].shape[1] * args[0].shape[0] * passes, peak)
+
+
+# ---- phase 10: probe B7 (int8 convert vs int8 tensor cores vs the stream floor) ----------
+
+INT8_PEAK = 1979e12  # dense int8 tensor-core operations per second, H100 SXM at 700 W
+
+
+def run_int8_probe(codes, rng):
+    """Phase 10: probe B7 at its own shape (the 2^20 x 128 int8 codes of the phase-8
+    mirror, B = 128 queries, 32-row window mins [256, 128, 128]): kA (B3's int8 one
+    pass), kB (int8 mma.sync) and kC (the stream floor), each equal to its plain version
+    (kA bit-equal: exact products; kB and kC exact integers); launch counts of the run,
+    CUDA-event times, GB/s of codes and bounds.  Returns the kernels' records."""
+    from mlvectordb_tpu_torch.probes import int8_mma
+
+    dev = torch.device("cuda")
+    n, bq = codes.shape[0], 128
+    q = torch.from_numpy(rng.standard_normal((bq, D), dtype=np.float32)).to(dev)
+    qh, q8 = q.to(torch.bfloat16), int8_mma.quantize_queries(q)
+    kernels = {
+        "int8_probe_convert_fma": (lambda: int8_mma.convert_fma_min(qh, codes),
+                                   lambda: int8_mma.convert_fma_min_ref(qh, codes),
+                                   (fused_knn_t._window_mins_t, "launches_int8"), BF16_FLOPS,
+                                   _nbytes(qh)),
+        "int8_probe_mma": (lambda: int8_mma.mma_min(q8, codes),
+                           lambda: int8_mma.mma_min_ref(q8, codes),
+                           (int8_mma.mma_min, "launches"), INT8_PEAK, _nbytes(q8)),
+        "int8_probe_stream": (lambda: int8_mma.stream_sum(codes, bq),
+                              lambda: int8_mma.stream_sum_ref(codes, bq),
+                              (int8_mma.stream_sum, "launches"), INT8_PEAK, 0),
+    }
+    out = {}
+    for name, (kernel, plain, (fn, attr), peak, q_bytes) in kernels.items():
+        outer = getattr(fn, attr)
+        setattr(fn, attr, 0)
+        got = kernel()
+        launches = getattr(fn, attr)
+        setattr(fn, attr, outer + launches)
+        want = plain()
+        torch.cuda.synchronize()
+        unequal = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        if unequal or launches != 1:
+            raise AssertionError(f"{name}: {unequal} elements differ from plain, {launches} "
+                                 "launches")
+        ms, plain_ms = _time_ms(kernel), _time_ms(plain)
+        ops = n * D if name == "int8_probe_stream" else 2.0 * n * D * bq
+        bound = _bound(_nbytes(codes, got) + q_bytes, ops, peak)
+        out[name] = dict(launches=launches, ms=ms, plain_ms=plain_ms, bound=bound,
+                         err=float((got.float() - want.float()).abs().max()))
+        print(f"  {name}: equal to plain; {ms:.4f} ms ({n * D / ms / 1e6:.1f} GB/s of codes), "
+              f"plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), "
+              f"{bound[0] / ms:.1%} of it")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA GPU",
@@ -639,6 +925,7 @@ def main() -> int:
         return 2
 
     # ---- 1. device ------------------------------------------------------------------
+    t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     gpu = _gpu_line()
     print(f"phase 1 device: {kind} | torch {torch.__version__} cuda {torch.version.cuda}"
@@ -662,6 +949,7 @@ def main() -> int:
     # ---- 2. row-major kernels against their plain versions ---------------------------
     print("phase 2 row-major kernels vs plain on the card")
     worst = check_kernels(db_np)
+    check_window_min_nan(db_np)
 
     # ---- 3. the row-major main path at SIFT-1M shape ---------------------------------
     print(f"phase 3 row-major path: QueryProcessor at {N:,} x {D} f32")
@@ -870,6 +1158,64 @@ def main() -> int:
     print(f"  range_search limit=100 runs (ms, host clock): {range_wall}")
     times.update(t7)
 
+    # ---- 8. the int8 mirror -------------------------------------------------------------
+    print(f"phase 8 int8 mirror (sweep_dtype='int8', two int8 streams): kernel B3 vs plain, "
+          f"QueryProcessor at {N:,} x {D}, on {gpu}")
+    worst["b3"] = check_b3_kernels(db_np, B3_PROGRAMS[:3])
+    qp8, _, c8, _ = run_mirror_path(EngineConfig(sweep_dtype="int8"), "int8", db_np, q_np,
+                                    oracle, dead)
+    if c8["int8"] != 12 or c8["sweep_heavy"] != 12 or c8["gather"] < 1:
+        raise AssertionError(f"the heavy int8 kernel did not serve every search: {c8}")
+    t8, operands8 = time_mirror_kernels(qp8, q_pad, "b3_int8", light_variants=True)
+    t8["engine_wall_int8_median"] = statistics.median(wall_int8 := _engine_wall(qp8, q_np))
+    split_int8 = _engine_split(qp8, q_np)
+    # one int8 stream (sweep_resid=False): one l2 batch, its tier reported
+    qp1 = QueryProcessor(EngineConfig(sweep_dtype="int8", sweep_resid=False), device=dev)
+    ids1 = qp1.bulk_load(db_np, "sift")
+    outer = _sweep_counts()
+    _set_sweep_counts([0] * len(outer))
+    x0 = dict(qp1.transfer_counts)
+    res = qp1.find_similar_batch([VectorDTO(v) for v in q_np], K, "sift", "l2")
+    c1 = dict(zip(_COUNT_NAMES, _sweep_counts()))
+    _set_sweep_counts(outer)
+    xfer = (qp1.transfer_counts["h2d"] - x0["h2d"], qp1.transfer_counts["d2h"] - x0["d2h"])
+    print(f"  int8, one stream: l2 B={B} k={K} served by {qp1.cert_tier_counts('sift')}, "
+          f"transfers {xfer}, launches {c1}")
+    _check_recall(res, oracle.sets("l2", B), ids1, "int8 one stream l2 B=128")
+    if c1["int8"] != 1 or c1["sweep_heavy"] != 1 or xfer[0] != 1:
+        raise AssertionError(f"the one-stream int8 search did not run B3: {c1} {xfer}")
+    del qp1, ids1, res
+
+    # ---- 9. the f32 mirror ---------------------------------------------------------------
+    print(f"phase 9 f32 mirror (sweep_dtype='float32'): kernel B3 vs plain, QueryProcessor "
+          f"at {N:,} x {D}, on {gpu}")
+    worst["b3"].update(check_b3_kernels(db_np, B3_PROGRAMS[3:]))
+    qpf, _, cf, _ = run_mirror_path(EngineConfig(sweep_dtype="float32"), "f32", db_np, q_np,
+                                    oracle, dead)
+    nsf = qpf.storage.namespace("sift")
+    if nsf.device_state().mirror is not nsf.device_state().data or (
+            nsf.nbytes != nsf.capacity * (D * 4 + 5)):
+        raise AssertionError(f"the f32 mirror is not the row store: {nsf.nbytes}")
+    if cf["f32"] != 12 or cf["sweep_heavy"] != 0 or cf["gather"] < 1:
+        raise AssertionError(f"the f32 kernel did not serve every search: {cf}")
+    tf, operandsf = time_mirror_kernels(qpf, q_pad, "b3_f32", light_variants=False)
+    tf["engine_wall_f32_median"] = statistics.median(wall_f32 := _engine_wall(qpf, q_np))
+    split_f32 = _engine_split(qpf, q_np)
+    for name, ms in {**t8, **tf}.items():
+        print(f"  {name}: {ms:.4f} ms")
+    print(f"  engine wall runs (ms), B={B} l2 k={K}, tombstoned, on {gpu}: int8 {wall_int8}, "
+          f"f32 {wall_f32}, bf16 sweep (phase 6) {wall_sweep}")
+    print(f"  engine split, median ms (host clock): int8 {split_int8}, f32 {split_f32}")
+    times.update(t8)
+    times.update(tf)
+    operands.update(operands8)
+    operands.update(operandsf)
+
+    # ---- 10. probe B7 -------------------------------------------------------------------
+    print(f"phase 10 int8 probe (B7): convert + f32 FMA vs int8 mma.sync vs the stream floor, "
+          f"{N:,} x {D} codes, B=128, on {gpu}")
+    probe = run_int8_probe(qp8.storage.namespace("sift").device_state().mirror, rng)
+
     # each kernel's bound at the operands timed above: every input read once, every
     # output written once; the products over the peak for their type
     out_fast = N // kw["r1"] * 512 * 4
@@ -884,12 +1230,17 @@ def main() -> int:
         bounds[name] = _bound(_nbytes(*a, k_["qe"], *k_["eb_rows"], *outs),
                               2.0 * a[2].shape[0] * a[2].shape[1] * a[0].shape[0] * passes,
                               BF16_FLOPS)
+    for name in ("b3_int8", "b3_int8_k128", "b3_int8_two_pass", "b3_int8_light", "b3_f32",
+                 "b3_f32_k128"):
+        a, k_ = operands[name]
+        bounds[name] = _b3_bound(a, k_, fused_knn_t._window_mins_t(*a, **k_))
     a, k_ = operands["gather_score"]
     rows = a[2].numel() * k_["r1"]
     bounds["gather_score"] = _bound(_nbytes(a[0], a[2]) + rows * (D * 4 + 2 * 4),
                                     4.0 * rows * D, F32_FLOPS)
-    for name, (ms, by) in bounds.items():
-        print(f"  bound {name}: {ms:.4f} ms ({by}); the kernel at {ms / times[name]:.1%} of it")
+    for name, (ms, by, nbytes, ops) in bounds.items():
+        print(f"  bound {name}: {ms:.4f} ms ({by}; {nbytes / 1e6:.0f} MB, {ops / 1e9:.1f} "
+              f"G operations); the kernel at {ms / times[name]:.1%} of it")
 
     def entry(name, source, replaces, launches_, err, key):
         return {"name": name, "route": "cuda", "source": CSRC + source,
@@ -919,6 +1270,32 @@ def main() -> int:
         entry("gather_score", "gather_score.cu", "mlvectordb_tpu/ops/pallas_gather.py:33",
               launches["gather"], worst["gather"], "gather_score"),
     ]}
+    # kernel B3: the engine's int8 program (two_pass + the second stream) and the f32 one
+    for name, key, counts, programs in (("sweep_min_int8", "b3_int8", c8["int8"],
+                                         B3_PROGRAMS[:3]),
+                                        ("sweep_min_f32", "b3_f32", cf["f32"], B3_PROGRAMS[3:])):
+        e = entry(name, "sweep_min.cu", "mlvectordb_tpu/ops/pallas_knn_t.py:221", counts,
+                  max(worst["b3"][p][0] for p in programs), key)
+        e.update({"differing_elements": sum(worst["b3"][p][1] for p in programs),
+                  "k128_ms": times[key + "_k128"], "k128_plain_ms": times[key + "_k128_plain"],
+                  "k128_bound_ms": bounds[key + "_k128"][0]})
+        if key == "b3_int8":
+            e.update({f"{v}_{f}": times["b3_int8_" + v + ("_plain" if f == "plain_ms" else "")]
+                      for v in ("two_pass", "light") for f in ("ms", "plain_ms")})
+            e.update({"launches_one_stream": c1["int8"]})
+        record["kernels"].append(e)
+    for name, line in (("int8_probe_convert_fma", 57), ("int8_probe_mma", 67),
+                       ("int8_probe_stream", 76)):
+        r = probe[name]
+        record["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": CSRC + ("sweep_min.cu" if name.endswith("fma") else "int8_probe.cu"),
+            "replaces": f"benchmarks/probe_int8_mxu.py:{line}", "launches": r["launches"],
+            "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            # torch._int_mm gives the int8 product alone, no window min: no single call
+            "library_ms": None})
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s on {gpu}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))

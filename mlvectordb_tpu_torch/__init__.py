@@ -2,9 +2,10 @@
 
 Two exact k-NN serving paths run on a CUDA device with kernels hand-written in CUDA for
 Hopper: the default one (row-major f32 store, fused window-min kernels, window selection
-and exact f32 rescan, hydration) and, with ``sweep_dtype="bfloat16"``, the certified
-sweep (a bf16 mirror and int8 residual codes beside the f32 rows, window-min kernel,
-gather-score rescan kernel, per-query exactness certificate with escalation).  The same
+and exact f32 rescan, hydration) and, with a ``sweep_dtype``, the certified sweep (a
+bf16 mirror with int8 residual codes, int8 codes in one or two streams, or the f32 rows
+themselves, ranked by the sweep window-min kernel; the gather-score rescan kernel; a
+per-query exactness certificate with escalation).  The same
 code runs on the CPU with the kernels' plain torch versions.
 Every tensor lives on the ``torch.device`` the caller passes.  This package never imports
 JAX.

@@ -9,7 +9,8 @@ same ids.
 
 ``sweep_arrays_from_jax`` turns a JAX namespace's sweep arrays (numpy copies of its
 window-major ``_data_t`` and ``_sweep_resid`` and its per-row vectors) into the port's
-row-major ones, so the two stores can be shown to hold the same codes.
+row-major ones, for a bf16, int8 or f32 mirror, so the two stores can be shown to hold the
+same codes.
 """
 
 from __future__ import annotations
@@ -48,17 +49,22 @@ def rows_from_sweep_layout(arr_t: np.ndarray) -> np.ndarray:
 
 
 def sweep_arrays_from_jax(data_t: np.ndarray, sweep_resid: Optional[np.ndarray] = None,
-                          sweep_err=None, sweep_rscale=None, sweep_err1=None, *,
-                          device) -> Dict[str, Optional[torch.Tensor]]:
-    """The port's row-major sweep arrays from a JAX namespace's: ``data_t`` is its bf16
-    window-major mirror (numpy, ml_dtypes bfloat16), ``sweep_resid`` its int8 codes in
-    the same layout; the per-row vectors are in store-row order on both sides."""
-    mirror_bits = rows_from_sweep_layout(np.asarray(data_t).view(np.int16))
-    out = {"mirror": torch.from_numpy(np.ascontiguousarray(mirror_bits)).view(
-        torch.bfloat16).to(device)}
+                          sweep_err=None, sweep_rscale=None, sweep_err1=None,
+                          sweep_rscale2=None, *, device) -> Dict[str, Optional[torch.Tensor]]:
+    """The port's row-major sweep arrays from a JAX namespace's: ``data_t`` is its
+    window-major mirror (numpy: ml_dtypes bfloat16, int8 codes or f32 — for f32 the
+    result equals the port's ``data``), ``sweep_resid`` its int8 codes in the same
+    layout; the per-row vectors are in store-row order on both sides."""
+    data_t = np.asarray(data_t)
+    if data_t.dtype in (np.int8, np.float32):
+        mirror = torch.from_numpy(np.ascontiguousarray(rows_from_sweep_layout(data_t)))
+    else:   # bfloat16: numpy has no such type, so the bits travel as int16
+        mirror = torch.from_numpy(np.ascontiguousarray(
+            rows_from_sweep_layout(data_t.view(np.int16)))).view(torch.bfloat16)
+    out = {"mirror": mirror.to(device)}
     out["sweep_resid"] = None if sweep_resid is None else torch.from_numpy(
         np.ascontiguousarray(rows_from_sweep_layout(np.asarray(sweep_resid, np.int8)))).to(device)
     for name, v in (("sweep_err", sweep_err), ("sweep_rscale", sweep_rscale),
-                    ("sweep_err1", sweep_err1)):
+                    ("sweep_err1", sweep_err1), ("sweep_rscale2", sweep_rscale2)):
         out[name] = None if v is None else torch.from_numpy(np.array(v, np.float32)).to(device)
     return out

@@ -1,14 +1,20 @@
-// Phase 1 of the certified bf16-sweep exact k-NN: rank + consecutive-row window-min, for
+// Phase 1 of the certified sweep exact k-NN: rank + consecutive-row window-min, for
 // Hopper (sm_90a).
 //
 // Replaces the Pallas kernel mlvectordb_tpu/ops/pallas_knn_t.py:_sweep_kernel (launched by
 // _window_mins), in the variants the certified sweep path runs: the light program (one
 // pass), the heavy program (two_pass: the query's bf16 residual against the same rows;
-// use_resid: int8 codes of each row's bf16 rounding residual, times a per-row scale),
-// the cosine scale row, up to two folded certificate bound rows, the level-2 block mins at
-// r1 = 32, and the per-tile top-m candidate pool (n_top, with or without the window-min
-// matrix: skip_wm).  For rows m of the bf16 mirror [cap, Dp] and folded queries qh
-// (and qres):
+// use_resid: int8 codes of each row's residual, times a per-row scale), the cosine scale
+// row, up to two folded certificate bound rows, the level-2 block mins at r1 = 32, and the
+// per-tile top-m candidate pool (n_top, with or without the window-min matrix: skip_wm).
+// The mirror's element type is a template parameter (only the stage loader differs):
+//   bf16 bits — the bf16 mirror of an f32 store (light, two_pass, two_pass + use_resid);
+//   int8      — the int8 primary mirror (sweep_dtype="int8"): codes z1 against bf16
+//               queries, the scale row carrying s1 and use_resid's multiplier s2 / s1
+//               (one pass, two_pass, two_pass + use_resid);
+//   f32       — the f32 mirror (sweep_dtype="float32"): f32 queries, one pass.
+// The bias row may be absent (rank = dots: the int8 probe's convert-and-FMA kernel).
+// For rows m of the mirror [cap, Dp] and folded queries qh (and qres):
 //
 //   rank = (qh.m [+ qres.m] [+ (qh.resid) * rscale]) [* scale] + bias - sum_t qe_t * eb_t
 //
@@ -34,10 +40,12 @@
 // What bounds it: the certificate's slack (pallas_knn_t.py:1184-1186, Dp*2^-22*|qh|*maxd)
 // assumes exact bf16 x bf16 and bf16 x int8 products summed in f32 with round-to-nearest.
 // Tensor-core accumulation does not promise that, so this kernel converts the operands to
-// f32 and uses f32 FMA on the CUDA cores: the products are exact and the sums are IEEE
-// f32.  At the engine's B = 512 bucket and 2^20 x 128 rows that is 2*2^20*512*128 =
-// 137 GFLOP (light) and three times that (heavy) against 256 MB of mirror (+128 MB of
-// codes): compute-bound on the f32 pipes (67 TFLOP/s peak on an H100 SXM at 700 W).
+// f32 and uses f32 FMA on the CUDA cores: the products are exact (an int8 code has at
+// most 7 significant bits, a bf16 value 8) and the sums are IEEE f32.  The f32 mirror's
+// products round once in each FMA, which the slack covers.  At the engine's B = 512
+// bucket and 2^20 x 128 rows that is 2*2^20*512*128 = 137 GFLOP (light, f32) and three
+// times that (heavy) against 128-512 MB of mirror (+128 MB of codes): compute-bound on
+// the f32 pipes (67 TFLOP/s peak on an H100 SXM at 700 W).
 //
 // What the design does about it: a register-tiled f32 product, as in window_min.cu.  A
 // block of 256 threads owns 128 windows x BN queries and walks the r1 rows of its windows
@@ -81,10 +89,30 @@ __device__ __forceinline__ void i8x4_to_f32(uint32_t u, float* v) {
   v[3] = (float)((int)u >> 24);
 }
 
-template <bool TWO_PASS, bool RESID>
+// The stage loader of each mirror type: 4 consecutive elements of one row, as f32
+template <typename MT> struct Stage;
+template <> struct Stage<uint16_t> {  // bf16 bits
+  using Reg = uint2;
+  static __device__ __forceinline__ void cvt(Reg u, float* v) { bf16x4_to_f32(u, v); }
+};
+template <> struct Stage<int8_t> {
+  using Reg = uint32_t;
+  static __device__ __forceinline__ void cvt(Reg u, float* v) { i8x4_to_f32(u, v); }
+};
+template <> struct Stage<float> {
+  using Reg = float4;
+  static __device__ __forceinline__ void cvt(Reg u, float* v) {
+    v[0] = u.x;
+    v[1] = u.y;
+    v[2] = u.z;
+    v[3] = u.w;
+  }
+};
+
+template <typename MT, bool TWO_PASS, bool RESID>
 __global__ void __launch_bounds__(THREADS, 1)
 sweep_min_kernel(const float* __restrict__ qh_t, const float* __restrict__ qres_t,
-                 const uint16_t* __restrict__ mirror, const int8_t* __restrict__ resid,
+                 const MT* __restrict__ mirror, const int8_t* __restrict__ resid,
                  const float* __restrict__ rscale, const float* __restrict__ scale,
                  const float* __restrict__ bias, const float* __restrict__ qe,
                  const float* __restrict__ eb1, const float* __restrict__ eb2,
@@ -142,8 +170,9 @@ sweep_min_kernel(const float* __restrict__ qh_t, const float* __restrict__ qres_
     for (int j = 0; j < TN; ++j) best[i][j] = INF;
 
   for (int r = 0; r < r1; ++r) {
+    using AReg = typename Stage<MT>::Reg;
     const long long a_grow = (w0 + a_row) * r1 + r;     // the row this thread loads
-    const uint16_t* a_src = mirror + a_grow * D + a_col;
+    const MT* a_src = mirror + a_grow * D + a_col;
     const int8_t* r_src = resid + a_grow * D + a_col;
 
     float acc1[8][TN], acc2[8][TN], acc3[8][TN];
@@ -152,14 +181,14 @@ sweep_min_kernel(const float* __restrict__ qh_t, const float* __restrict__ qres_
 #pragma unroll
       for (int j = 0; j < TN; ++j) acc1[i][j] = acc2[i][j] = acc3[i][j] = 0.f;
 
-    uint2 a_reg = *reinterpret_cast<const uint2*>(a_src);
+    AReg a_reg = *reinterpret_cast<const AReg*>(a_src);
     uint32_t r_reg = 0u;
     if constexpr (RESID) r_reg = *reinterpret_cast<const uint32_t*>(r_src);
     float4 q_reg = q_loader ? *reinterpret_cast<const float4*>(q_src) : make_float4(0, 0, 0, 0);
     int buf = 0;
     for (int kc = 0; kc < nk; ++kc) {
       float v[4];
-      bf16x4_to_f32(a_reg, v);
+      Stage<MT>::cvt(a_reg, v);
 #pragma unroll
       for (int c = 0; c < 4; ++c) As[buf][a_col + c][a_row] = v[c];
       if constexpr (RESID) {
@@ -174,7 +203,7 @@ sweep_min_kernel(const float* __restrict__ qh_t, const float* __restrict__ qres_
       }
       __syncthreads();
       if (kc + 1 < nk) {  // next stage's loads are in flight during this stage's FMAs
-        a_reg = *reinterpret_cast<const uint2*>(a_src + (kc + 1) * BK);
+        a_reg = *reinterpret_cast<const AReg*>(a_src + (kc + 1) * BK);
         if constexpr (RESID) r_reg = *reinterpret_cast<const uint32_t*>(r_src + (kc + 1) * BK);
         if (q_loader)
           q_reg = *reinterpret_cast<const float4*>(q_src + (long long)(kc + 1) * BK * Bp);
@@ -220,7 +249,7 @@ sweep_min_kernel(const float* __restrict__ qh_t, const float* __restrict__ qres_
     // per-row terms of this step's 128 rows (row (w0 + i)*r1 + r)
     if (tid < BM) {
       const long long row = (w0 + tid) * r1 + r;
-      row_bias[tid] = bias[row];
+      row_bias[tid] = bias ? bias[row] : 0.f;
       row_scale[tid] = scale ? scale[row] : 1.f;
       if constexpr (RESID) row_rscale[tid] = rscale[row];
       row_eb1[tid] = n_eb > 0 ? eb1[row] : 0.f;
@@ -242,7 +271,7 @@ sweep_min_kernel(const float* __restrict__ qh_t, const float* __restrict__ qres_
         if constexpr (TWO_PASS) dots = __fadd_rn(dots, acc2[i][j]);
         if constexpr (RESID) dots = __fadd_rn(dots, __fmul_rn(acc3[i][j], row_rscale[lr]));
         float rank = scale ? __fmul_rn(dots, row_scale[lr]) : dots;
-        rank = __fadd_rn(rank, row_bias[lr]);
+        if (bias) rank = __fadd_rn(rank, row_bias[lr]);
         if (n_eb > 0) rank = __fsub_rn(rank, __fmul_rn(q_e[0][lq], row_eb1[lr]));
         if (n_eb > 1) rank = __fsub_rn(rank, __fmul_rn(q_e[1][lq], row_eb2[lr]));
         best[i][j] = nan_min(best[i][j], rank);
@@ -366,56 +395,72 @@ sweep_min_kernel(const float* __restrict__ qh_t, const float* __restrict__ qres_
   }  // sub-blocks
 }
 
-template <bool TWO_PASS, bool RESID>
-int launch(const float* qh_t, const float* qres_t, const uint16_t* mirror, const int8_t* resid,
-           const float* rscale, const float* scale, const float* bias, const float* qe,
-           const float* eb1, const float* eb2, float* out, float* bm, float* pool,
-           long long cap, int D, int B, int Bp, int r1, int n_eb, int m, cudaStream_t stream) {
+// Everything one launch takes beside the mirror (see mlvdb_sweep_min)
+struct Args {
+  const float *qh_t, *qres_t;
+  const int8_t* resid;
+  const float *rscale, *scale, *bias, *qe, *eb1, *eb2;
+  float *out, *bm, *pool;
+  long long cap;
+  int D, B, Bp, r1, n_eb, m;
+  cudaStream_t stream;
+};
+
+template <typename MT, bool TWO_PASS, bool RESID>
+int launch(const Args& a, const void* mirror) {
   constexpr int BN = (TWO_PASS || RESID) ? 64 : 128;
-  if (Bp % BN || B > Bp) return (int)cudaErrorInvalidValue;
-  const int n_qtiles = Bp / BN;
-  const int subs = pool != nullptr ? 32 / r1 : 1;  // with the pool a block owns a tile
-  const long long blocks = cap / ((long long)r1 * BM * subs) * n_qtiles;
+  if (a.Bp % BN || a.B > a.Bp) return (int)cudaErrorInvalidValue;
+  const int n_qtiles = a.Bp / BN;
+  const int subs = a.pool != nullptr ? 32 / a.r1 : 1;  // with the pool a block owns a tile
+  const long long blocks = a.cap / ((long long)a.r1 * BM * subs) * n_qtiles;
   if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  sweep_min_kernel<TWO_PASS, RESID><<<(unsigned)blocks, THREADS, 0, stream>>>(
-      qh_t, qres_t, mirror, resid, rscale, scale, bias, qe, eb1, eb2, out, bm, pool, D, B, Bp,
-      r1, n_eb, n_qtiles, m, subs);
+  sweep_min_kernel<MT, TWO_PASS, RESID><<<(unsigned)blocks, THREADS, 0, a.stream>>>(
+      a.qh_t, a.qres_t, static_cast<const MT*>(mirror), a.resid, a.rscale, a.scale, a.bias,
+      a.qe, a.eb1, a.eb2, a.out, a.bm, a.pool, a.D, a.B, a.Bp, a.r1, a.n_eb, n_qtiles, a.m,
+      subs);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  qh_t / qres_t: f32 [D, Bp] (queries
-// transposed, zero-padded to Bp); mirror: bf16 bits [cap, D]; resid: int8 [cap, D] or
-// null; rscale / scale / eb1 / eb2: f32 [cap] or null; bias: f32 [cap]; qe: f32 [Bp, 2];
-// out: f32 [cap / 4096, B, (32 / r1) * 128] or null (skip_wm: the pool is the only
-// output); bm: f32 [cap / 4096, B] or null (r1 = 32 only); pool: f32
-// [cap / 4096, SUB, B] or null, m its even depth, 8..32, with m * (32 / r1) <= 32 and
-// never beside bm.  Returns cudaGetLastError() after the launch; 0 means it was accepted.
+// transposed, zero-padded to Bp); mirror [cap, D] of mirror_type 0 = bf16 bits, 1 = int8
+// codes, 2 = f32; resid: int8 [cap, D] or null; rscale / scale / eb1 / eb2 / bias: f32
+// [cap] or null; qe: f32 [Bp, 2]; out: f32 [cap / 4096, B, (32 / r1) * 128] or null
+// (skip_wm: the pool is the only output); bm: f32 [cap / 4096, B] or null (r1 = 32 only);
+// pool: f32 [cap / 4096, SUB, B] or null, m its even depth, 8..32, with
+// m * (32 / r1) <= 32 and never beside bm.  The passes a mirror type takes: bf16 any of
+// qres_t and resid; int8 none, qres_t, or both; f32 neither.  Returns cudaGetLastError()
+// after the launch; 0 means it was accepted.
 extern "C" int mlvdb_sweep_min(const float* qh_t, const float* qres_t, const void* mirror,
                                const void* resid, const float* rscale, const float* scale,
                                const float* bias, const float* qe, const float* eb1,
                                const float* eb2, float* out, float* bm, float* pool,
                                long long cap, int D, int B, int Bp, int r1, int n_eb, int m,
-                               void* stream) {
+                               int mirror_type, void* stream) {
   if (cap <= 0 || D <= 0 || D % (2 * BK) || B <= 0 || r1 <= 0 || 32 % r1 ||
       cap % (4096LL) || n_eb < 0 || n_eb > 2 || (bm != nullptr && r1 != 32) ||
       (resid != nullptr) != (rscale != nullptr) || (out == nullptr && pool == nullptr) ||
       (pool != nullptr && (bm != nullptr || m < 8 || m > 32 || m % 2 || m * (32 / r1) > 32)))
     return (int)cudaErrorInvalidValue;
-  const uint16_t* mm = static_cast<const uint16_t*>(mirror);
-  const int8_t* z = static_cast<const int8_t*>(resid);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Args a{qh_t, qres_t, static_cast<const int8_t*>(resid), rscale, scale, bias, qe, eb1,
+               eb2, out, bm, pool, cap, D, B, Bp, r1, n_eb, m,
+               static_cast<cudaStream_t>(stream)};
   const bool two_pass = qres_t != nullptr, use_resid = resid != nullptr;
-  if (two_pass && use_resid)
-    return launch<true, true>(qh_t, qres_t, mm, z, rscale, scale, bias, qe, eb1, eb2, out, bm,
-                              pool, cap, D, B, Bp, r1, n_eb, m, s);
-  if (two_pass)
-    return launch<true, false>(qh_t, qres_t, mm, z, rscale, scale, bias, qe, eb1, eb2, out, bm,
-                               pool, cap, D, B, Bp, r1, n_eb, m, s);
-  if (use_resid)
-    return launch<false, true>(qh_t, qres_t, mm, z, rscale, scale, bias, qe, eb1, eb2, out, bm,
-                               pool, cap, D, B, Bp, r1, n_eb, m, s);
-  return launch<false, false>(qh_t, qres_t, mm, z, rscale, scale, bias, qe, eb1, eb2, out, bm,
-                              pool, cap, D, B, Bp, r1, n_eb, m, s);
+  switch (mirror_type) {
+    case 0:
+      if (two_pass && use_resid) return launch<uint16_t, true, true>(a, mirror);
+      if (two_pass) return launch<uint16_t, true, false>(a, mirror);
+      if (use_resid) return launch<uint16_t, false, true>(a, mirror);
+      return launch<uint16_t, false, false>(a, mirror);
+    case 1:
+      if (two_pass && use_resid) return launch<int8_t, true, true>(a, mirror);
+      if (two_pass) return launch<int8_t, true, false>(a, mirror);
+      if (use_resid) break;
+      return launch<int8_t, false, false>(a, mirror);
+    case 2:
+      if (two_pass || use_resid) break;
+      return launch<float, false, false>(a, mirror);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -2,8 +2,9 @@
 
 The ported slice: insert / upsert_many / bulk_load / delete / delete_namespace, exact
 batched search with hydration and the result cache, and range / similarity search, on the
-row-major path or, with ``sweep_dtype="bfloat16"``, the certified sweep with its
-per-namespace light -> heavy dispatch and certificate-tier counters.  Reference behaviors
+row-major path or, with a ``sweep_dtype`` ("bfloat16", "int8" or "float32"), the
+certified sweep with its certificate-tier counters and, for a bf16 mirror, the
+per-namespace light -> heavy dispatch.  Reference behaviors
 kept:
   * k clamped to the live count (index.py:103-107)
   * search of a missing namespace returns [] (index.py:98-99)
@@ -177,7 +178,8 @@ class QueryProcessor:
                 k=kb, metric=metric, db_tile=self.config.db_tile, live_prefix=live_prefix,
                 report_tier=want_tier, mirror=state.mirror, sweep_err=state.sweep_err,
                 sweep_resid=state.sweep_resid, sweep_rscale=state.sweep_rscale,
-                sweep_err1=state.sweep_err1, sweep_light=use_light,
+                sweep_err1=state.sweep_err1, sweep_rscale2=state.sweep_rscale2,
+                sweep_light=use_light,
                 sweep_prep=state.prep_cache, sweep_defer=True,
             )
             if isinstance(out, SweepResult):
@@ -229,11 +231,14 @@ class QueryProcessor:
                    masked: bool = False) -> bool:
         """Adaptive certified dispatch (config.adaptive_certify): serve a namespace with
         the light single-pass program until an escalation to the exact scan shows that
-        its corpus needs the heavy residual-corrected one.  Only stores that keep the
-        residual codes have both programs."""
+        its corpus needs the heavy residual-corrected one.  Only a bf16 mirror with its
+        residual codes has both programs: an int8 mirror's band is too wide for the light
+        proof by construction, and an f32 mirror has one program (query_processor.py:
+        568-588 of the JAX package)."""
         if not (self.config.certify_exact and self.config.adaptive_certify):
             return False
-        if state.sweep_resid is None or state.mirror is None:
+        if (state.sweep_resid is None or state.mirror is None
+                or state.mirror.dtype != torch.bfloat16):
             return False
         return self._cert_mode.get((namespace, metric, masked), "light") == "light"
 

@@ -83,9 +83,11 @@ def library() -> ctypes.CDLL:
     lib.mlvdb_window_min_fast.argtypes = [_P, _P, _P, _I, _P, _LL, _I, _I, _I, _I, _I, _P]
     lib.mlvdb_window_min_masked.argtypes = [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P]
     lib.mlvdb_sweep_min.argtypes = [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _P]
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _P]
     lib.mlvdb_gather_score.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    lib.mlvdb_int8_mma_min.argtypes = [_P, _P, _P, _LL, _I, _I, _P]
+    lib.mlvdb_int8_stream_sum.argtypes = [_P, _P, _LL, _I, _I, _P]
     for fn in (lib.mlvdb_window_min_fast, lib.mlvdb_window_min_masked, lib.mlvdb_sweep_min,
-               lib.mlvdb_gather_score):
+               lib.mlvdb_gather_score, lib.mlvdb_int8_mma_min, lib.mlvdb_int8_stream_sum):
         fn.restype = _I
     return lib

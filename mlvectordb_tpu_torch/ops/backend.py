@@ -3,9 +3,9 @@
 Both backends share one signature and produce identical (exact) results:
     backend(q, data, valid, sq_norms, *, k, metric, db_tile, live_prefix) -> (dist, idx)
 
-``use_pallas`` selects the fused paths.  With a bf16 sweep ``mirror`` (the store keeps one
-under ``sweep_dtype="bfloat16"``) that is the certified sweep (ops/fused_knn_t.exact_knn_t,
-kernels B1 and B2); without one, the row-major window-min path (ops/fused_knn,
+``use_pallas`` selects the fused paths.  With a sweep ``mirror`` (the store keeps a bf16,
+int8 or f32 one under ``sweep_dtype``) that is the certified sweep
+(ops/fused_knn_t.exact_knn_t, kernels B1/B3 and B2); without one, the row-major window-min path (ops/fused_knn,
 kernels B4 and B5).  Their kernels run as CUDA kernels on CUDA tensors and as their plain
 torch versions on CPU tensors, so the selection and rescan code runs on both.
 ``use_pallas=False`` selects the tiled scan.  There is no silent fallback between them: a
@@ -35,14 +35,14 @@ def _scan_backend(q, data, valid, sq_norms, *, k, metric, db_tile, live_prefix=N
 def _make_fused_backend(certify: bool):
     def fused_backend(q, data, valid, sq_norms, *, k, metric, db_tile, live_prefix=None,
                       report_tier=False, mirror=None, sweep_err=None, sweep_resid=None,
-                      sweep_rscale=None, sweep_err1=None, sweep_light=False,
-                      sweep_prep=None, sweep_defer=False):
+                      sweep_rscale=None, sweep_err1=None, sweep_rscale2=None,
+                      sweep_light=False, sweep_prep=None, sweep_defer=False):
         if mirror is not None:
-            # the certified sweep: phase 1 reads the bf16 mirror, the rescan the f32 rows
+            # the certified sweep: phase 1 reads the mirror, the rescan the f32 rows
             return exact_knn_t(
                 q, mirror, data, valid, sq_norms, k=k, metric=metric,
                 live_prefix=live_prefix, sweep_err=sweep_err, resid=sweep_resid,
-                rscale=sweep_rscale, err1=sweep_err1, certify=certify,
+                rscale=sweep_rscale, err1=sweep_err1, rscale2=sweep_rscale2, certify=certify,
                 report_tier=report_tier, light=sweep_light, prep_cache=sweep_prep,
                 defer=sweep_defer,
             )

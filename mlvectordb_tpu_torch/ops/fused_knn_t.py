@@ -1,14 +1,22 @@
-"""Certified bf16-sweep exact k-NN in torch + CUDA: the counterpart of
+"""Certified sweep exact k-NN in torch + CUDA: the counterpart of
 ``mlvectordb_tpu/ops/pallas_knn_t.py``.
 
-The store keeps f32 rows for the rescan and, beside them, a bf16 mirror and int8 codes of
-each row's bf16 rounding residual (``quantize_resid_rows``).  A search runs:
+The store keeps f32 rows for the rescan and, beside them, a sweep mirror in one of three
+types (``EngineConfig.sweep_dtype``):
+  bf16  — the rows rounded to bf16, with int8 codes of each row's rounding residual
+          (``quantize_resid_rows``);
+  int8  — row-wise int8 codes ``row ~ s1*z1`` (``quantize_int8_rows``), with a second
+          stream ``+ s2*z2`` of the remainder under ``sweep_resid``
+          (``quantize_int8_resid_rows``): 2 B/element in place of bf16's 3;
+  f32   — the rows themselves (the store's own tensor: no copy).
+A search runs:
 
-  phase 1  — kernel B1 (``csrc/sweep_min.cu``, ``_window_mins_t``): one pass over the
+  phase 1  — kernels B1/B3 (``csrc/sweep_min.cu``, ``_window_mins_t``): one pass over the
              mirror ranks every row against every folded query and writes only the min
              over each window of r1 consecutive rows, lowered by the row's own error
              bound (the certificate's optimistic bound).  Light: one pass.  Heavy: plus
-             the query's bf16 residual and the int8 residual codes.
+             the query's bf16 residual and the int8 residual codes.  ``_plan`` derives
+             the program from the mirror's type as the JAX package does.
   phase 2  — window selection (torch, small tensors): two-level over the window mins, or
              one narrow top-s over the kernel's per-tile top-m candidate pool where the
              JAX package gates the pool on; then the exact f32 rescan of the selected
@@ -87,22 +95,49 @@ def sweep_err_norms(data: torch.Tensor) -> torch.Tensor:
     return torch.sqrt((delta * delta).sum(-1))
 
 
+def _codes(x: torch.Tensor):
+    """Row-wise int8 codes of ``x`` [n, Dp] f32, the JAX package's quantizer step
+    (pallas_knn_t.py:120-127): ``(z [n, Dp] int8, scale [n], ||x - scale*z|| [n])`` with
+    scale = max|x| / 127.  ``torch.round`` rounds half to even, as ``jnp.round`` does, so
+    the codes are the JAX package's bit for bit.  The scale is divided by a tensor:
+    CUDA turns a division by a Python scalar into a product with its reciprocal, which
+    is 1 ulp off the division on some rows."""
+    amax = x.abs().amax(-1)
+    scale = amax / torch.full_like(amax, 127.0)
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))[:, None]
+    z = torch.clamp(torch.round(x / safe), -127.0, 127.0)
+    z = torch.where(scale[:, None] > 0, z, torch.zeros_like(z))
+    rem = x - scale[:, None] * z
+    return z.to(torch.int8), scale, torch.sqrt((rem * rem).sum(-1))
+
+
 def quantize_resid_rows(vals: torch.Tensor):
     """Row-wise int8 codes of the bf16 rounding residual (pallas_knn_t.py:170-186):
     ``(z [n, Dp] int8, scale [n] f32, err2 [n] f32, err1 [n] f32)`` with
-    delta = row - bf16(row) ~ scale * z, err2 = ||delta - scale*z|| and err1 = ||delta||.
-    ``torch.round`` rounds half to even, as ``jnp.round`` does, so the codes are the
-    JAX package's bit for bit."""
+    delta = row - bf16(row) ~ scale * z, err2 = ||delta - scale*z|| and err1 = ||delta||."""
     v32 = vals.float()
     delta = v32 - v32.to(torch.bfloat16).float()
     e1 = torch.sqrt((delta * delta).sum(-1))
-    scale = delta.abs().amax(-1) / 127.0
-    safe = torch.where(scale > 0, scale, torch.ones_like(scale))[:, None]
-    z = torch.clamp(torch.round(delta / safe), -127.0, 127.0)
-    z = torch.where(scale[:, None] > 0, z, torch.zeros_like(z))
-    rem = delta - scale[:, None] * z
-    e2 = torch.sqrt((rem * rem).sum(-1))
-    return z.to(torch.int8), scale, e2, e1
+    z, scale, e2 = _codes(delta)
+    return z, scale, e2, e1
+
+
+def quantize_int8_rows(vals: torch.Tensor):
+    """The int8 primary mirror (pallas_knn_t.py:114-127): ``(z [n, Dp] int8,
+    scale [n] f32, err [n] f32)`` with row ~ scale * z and err = ||row - scale*z||, the
+    certificate's data-side bound."""
+    return _codes(vals.float())
+
+
+def quantize_int8_resid_rows(vals: torch.Tensor):
+    """The two-level int8 mirror (pallas_knn_t.py:137-156): row ~ s1*z1 + s2*z2, where
+    z2 codes delta1 = row - s1*z1 with its own scale.  Returns ``(z1, s1, z2, s2, err2,
+    err1)``: codes [n, Dp] int8, the rest [n] f32, err2 = ||delta1 - s2*z2|| and
+    err1 = ||delta1||."""
+    v32 = vals.float()
+    z1, s1, e1 = _codes(v32)
+    z2, s2, e2 = _codes(v32 - s1[:, None] * z1.float())
+    return z1, s1, z2, s2, e2, e1
 
 
 def _pick_r1(batch: int, n_rows: int, k: int) -> int:
@@ -163,9 +198,10 @@ def _decode_topm(topm, m: int, out_w: int):
 def _window_mins_t_ref(qh, qres, mirror, resid, rscale, scale, bias, *, r1,
                        emit_block_mins=False, emit_topm=0, skip_wm=False, qe=None,
                        eb_rows=()):
-    """Plain torch version of kernel B1: f32 matmuls of the bf16-converted operands per
-    chunk of whole tiles, the kernel's formula, then the min over each r1-row window,
-    written tile-major; the block mins and the top-m pool from those mins."""
+    """Plain torch version of kernels B1/B3: f32 matmuls of the operands converted to f32
+    (bf16, int8 or f32 mirror) per chunk of whole tiles, the kernel's formula, then the
+    min over each r1-row window, written tile-major; the block mins and the top-m pool
+    from those mins."""
     _check_outputs(emit_block_mins, emit_topm, skip_wm)
     require_f32_matmul()
     cap, Dp = mirror.shape
@@ -188,7 +224,8 @@ def _window_mins_t_ref(qh, qres, mirror, resid, rscale, scale, bias, *, r1,
         rank = dots
         if scale is not None:
             rank = rank * scale[rows, None]
-        rank = rank + bias[rows, None]
+        if bias is not None:
+            rank = rank + bias[rows, None]
         for t, eb in enumerate(eb_rows):
             rank = rank - qe[:, t][None, :] * eb[rows, None]
         wm = rank.reshape(-1, r1, B).amin(1)                      # [windows, B]
@@ -208,21 +245,37 @@ def _check_outputs(emit_block_mins, emit_topm, skip_wm):
         raise ValueError("skip_wm needs the top-m pool as the remaining output")
 
 
+# the kernel's mirror types: its code, and the query type the plan gives each
+# (pallas_knn_t.py:1078: an int8 mirror is ranked against bf16 queries)
+_MIRROR_TYPES = {torch.bfloat16: (0, torch.bfloat16), torch.int8: (1, torch.bfloat16),
+                 torch.float32: (2, torch.float32)}
+
+
 def _check_sweep_operands(qh, qres, mirror, resid, rscale, scale, bias, qe, eb_rows, r1,
                           emit_block_mins, emit_topm=0, skip_wm=False):
-    """Raise on anything kernel B1 does not take."""
+    """Raise on anything kernels B1/B3 do not take: per mirror type, its query type and
+    its passes (bf16: any; int8: one pass, two_pass, or two_pass with the residual
+    codes; f32: one pass)."""
     _check_outputs(emit_block_mins, emit_topm, skip_wm)
     if emit_topm and (emit_topm % 2 or not 8 <= emit_topm <= 32
                       or emit_topm * (R1MAX // max(r1, 1)) > 32):
         raise ValueError(f"the kernel's pool needs an even m in 8..32 with m * (32 / r1) "
                          f"<= 32; got m={emit_topm} r1={r1}")
+    if mirror.dtype not in _MIRROR_TYPES:
+        raise ValueError(f"mirror must be bf16, int8 or f32; got {mirror.dtype}")
+    q_dtype = _MIRROR_TYPES[mirror.dtype][1]
+    if (mirror.dtype == torch.float32 and (qres is not None or resid is not None)) or (
+            mirror.dtype == torch.int8 and resid is not None and qres is None):
+        raise ValueError(f"the kernel has no such program for a {mirror.dtype} mirror: "
+                         f"qres {qres is not None}, resid {resid is not None}")
     cap, Dp = mirror.shape
     B = qh.shape[0]
     dev = mirror.device
-    want = {"qh": (qh, torch.bfloat16, (B, Dp)), "mirror": (mirror, torch.bfloat16, (cap, Dp)),
-            "bias": (bias, torch.float32, (cap,))}
+    want = {"qh": (qh, q_dtype, (B, Dp)), "mirror": (mirror, mirror.dtype, (cap, Dp))}
+    if bias is not None:
+        want["bias"] = (bias, torch.float32, (cap,))
     if qres is not None:
-        want["qres"] = (qres, torch.bfloat16, (B, Dp))
+        want["qres"] = (qres, q_dtype, (B, Dp))
     if resid is not None:
         want["resid"] = (resid, torch.int8, (cap, Dp))
         want["rscale"] = (rscale, torch.float32, (cap,))
@@ -249,9 +302,11 @@ def _window_mins_t(qh, qres, mirror, resid, rscale, scale, bias, *, r1,
                    emit_block_mins=False, emit_topm=0, skip_wm=False, qe=None, eb_rows=()):
     """Phase 1 (pallas_knn_t._window_mins, tile-major form).
 
-    qh / qres [B, Dp] bf16 (metric factor folded in; qres = compensation residual or
-    None), mirror [cap, Dp] bf16, resid [cap, Dp] int8 + rscale [cap] (or None),
-    scale [cap] (cosine, or None), bias [cap], qe [B, n_eb] + eb_rows (n_eb [cap] rows).
+    qh / qres [B, Dp] (metric factor folded in; qres = compensation residual or None):
+    bf16 for a bf16 or int8 mirror, f32 for an f32 one; mirror [cap, Dp] bf16, int8 or
+    f32; resid [cap, Dp] int8 + rscale [cap] (or None), scale [cap] (cosine and the int8
+    dequant scale, or None), bias [cap] (or None: rank = dots), qe [B, n_eb] + eb_rows
+    (n_eb [cap] rows).
     rank = (qh.m [+ qres.m] [+ (qh.resid)*rscale]) [*scale] + bias - sum_t qe_t*eb_t.
     ``emit_topm=m``: also the per-tile top-m pool; ``skip_wm``: the pool only.
     Returns ``(wmin_t [nt, B, g*128] or None, block_mins [nt, B] or None,
@@ -297,9 +352,9 @@ def _window_mins_t(qh, qres, mirror, resid, rscale, scale, bias, *, r1,
     with torch.cuda.device(mirror.device):  # the C launch uses the runtime's current device
         rc = _kernels.library().mlvdb_sweep_min(
             ptr(qh_t), ptr(qres_t), mirror.data_ptr(), ptr(resid), ptr(rscale), ptr(scale),
-            bias.data_ptr(), qe_p.data_ptr(), ptr(eb_rows[0] if eb_rows else None),
+            ptr(bias), qe_p.data_ptr(), ptr(eb_rows[0] if eb_rows else None),
             ptr(eb_rows[1] if len(eb_rows) > 1 else None), ptr(out), ptr(bm), ptr(pool),
-            cap, Dp, B, bp, r1, len(eb_rows), emit_topm,
+            cap, Dp, B, bp, r1, len(eb_rows), emit_topm, _MIRROR_TYPES[mirror.dtype][0],
             torch.cuda.current_stream(mirror.device).cuda_stream,
         )
     if rc != 0:
@@ -309,14 +364,20 @@ def _window_mins_t(qh, qres, mirror, resid, rscale, scale, bias, *, r1,
         _window_mins_t.launches_heavy += 1
     if emit_topm:
         _window_mins_t.launches_topm += 1
+    if mirror.dtype == torch.int8:
+        _window_mins_t.launches_int8 += 1
+    elif mirror.dtype == torch.float32:
+        _window_mins_t.launches_f32 += 1
     return out, bm, pool
 
 
-# kernel launches so far: all variants, the heavy ones and those that emitted the top-m
-# pool (a run resets and reads these)
+# kernel launches so far: all variants, the heavy ones, those that emitted the top-m pool,
+# and those over an int8 or an f32 mirror (a run resets and reads these)
 _window_mins_t.launches = 0
 _window_mins_t.launches_heavy = 0
 _window_mins_t.launches_topm = 0
+_window_mins_t.launches_int8 = 0
+_window_mins_t.launches_f32 = 0
 
 
 # ------------------------------------------------------------------ kernel B2
@@ -605,10 +666,12 @@ def _cert_plan(*, certify, light, mixed, lossy_sweep, int8_sweep, use_resid,
 
 
 def _prep_terms(valid, sq_norms, hw, rscale, sweep_err, err1, *, cap, metric, masked,
-                use_resid, wb_sources):
+                use_resid, wb_sources, rscale2=None, int8_sweep=False):
     """Query-independent prep (pallas_knn_t.py:958-1012) in store-row order: the bias
     and scale rows, the residual multiplier row, the live-max norm and the
-    certificate's per-row bound rows."""
+    certificate's per-row bound rows.  ``int8_sweep``: ``rscale`` is the primary dequant
+    scale s1, folded into the scale row, and the residual multiplier is s2 / s1
+    (``rscale2`` = s2), so that (z1.q + (z2.q)*(s2/s1)) * s1 = s1*z1.q + s2*z2.q."""
     dev = sq_norms.device
     sqn = sq_norms.float()
     if masked:
@@ -618,6 +681,13 @@ def _prep_terms(valid, sq_norms, hw, rscale, sweep_err, err1, *, cap, metric, ma
                               float(MASKED)).to(torch.float32)
     bias = (sqn + maskadd) if metric == "l2" else maskadd
     inv_norm = torch.rsqrt(torch.clamp_min(sqn, 1e-30)) if metric == "cosine" else None
+    scale = inv_norm
+    if int8_sweep:
+        scale = rscale if inv_norm is None else rscale * inv_norm
+    rscale_row = None
+    if use_resid:
+        # s1 == 0 only for all-zero or unwritten rows, whose remainder is zero too
+        rscale_row = torch.where(rscale > 0, rscale2 / rscale, 0.0) if int8_sweep else rscale
     live = maskadd < 1.0
     maxd = torch.sqrt(torch.where(live, sqn, torch.zeros_like(sqn)).amax())
 
@@ -629,34 +699,43 @@ def _prep_terms(valid, sq_norms, hw, rscale, sweep_err, err1, *, cap, metric, ma
 
     srcs = {"sqn_sqrt": lambda: torch.sqrt(sqn), "sweep_err": lambda: sweep_err,
             "err1": lambda: err1}
-    return {"bias_row": bias.contiguous(), "scale_row": inv_norm,
-            "rscale_row": rscale if use_resid else None, "maxd": maxd,
-            "eb_rows": tuple(eb_row(srcs[s]()) for s in wb_sources)}
+    return {"bias_row": bias.contiguous(), "scale_row": scale, "rscale_row": rscale_row,
+            "maxd": maxd, "eb_rows": tuple(eb_row(srcs[s]()) for s in wb_sources)}
 
 
-def _plan(*, certify, light, metric, sweep_err, resid, rscale, err1):
-    """(use_resid, wb_sources, q_tags, err_tags) of a bf16 mirror over f32 rows."""
+def _plan(*, certify, light, metric, mirror_dtype, rescan_dtype, sweep_err, resid, rscale,
+          err1, rscale2):
+    """(use_resid, wb_sources, q_tags, err_tags) of a mirror of ``mirror_dtype`` over rows
+    of ``rescan_dtype`` (pallas_knn_t.py:1515-1531): a bf16 mirror of f32 rows and an int8
+    mirror are mixed and lossy, an f32 mirror neither; the residual pass needs its
+    arrays, and for an int8 mirror the second scale as well."""
+    bf_sweep = mirror_dtype == torch.bfloat16
+    int8_sweep = mirror_dtype == torch.int8
+    mixed = (bf_sweep and rescan_dtype != mirror_dtype) or int8_sweep
     use_resid = (certify and not light and resid is not None and rscale is not None
-                 and err1 is not None)
-    plan = _cert_plan(certify=certify, light=light, mixed=True, lossy_sweep=True,
-                      int8_sweep=False, use_resid=use_resid,
-                      has_sweep_err=sweep_err is not None, has_err1=err1 is not None,
-                      metric=metric)
+                 and err1 is not None and (bf_sweep or (int8_sweep and rscale2 is not None)))
+    plan = _cert_plan(certify=certify, light=light, mixed=mixed,
+                      lossy_sweep=bf_sweep or int8_sweep, int8_sweep=int8_sweep,
+                      use_resid=use_resid, has_sweep_err=sweep_err is not None,
+                      has_err1=err1 is not None, metric=metric)
     return (use_resid, *plan)
 
 
 def search_prep(mirror, valid, sq_norms, *, metric, live_prefix, certify=True, light=False,
-                sweep_err=None, resid=None, rscale=None, err1=None):
-    """The query-independent prep dict of one search (pallas_knn_t.py:1377-1427), as
-    ``exact_knn_t`` caches it per snapshot; pass it back through ``prep=``."""
+                sweep_err=None, resid=None, rscale=None, err1=None, rscale2=None):
+    """The query-independent prep dict of one search over f32 rows
+    (pallas_knn_t.py:1377-1427), as ``exact_knn_t`` caches it per snapshot; pass it back
+    through ``prep=``."""
     cap = mirror.shape[0]
-    use_resid, wb_sources, _, _ = _plan(certify=certify, light=light, metric=metric,
-                                        sweep_err=sweep_err, resid=resid, rscale=rscale,
-                                        err1=err1)
+    use_resid, wb_sources, _, _ = _plan(
+        certify=certify, light=light, metric=metric, mirror_dtype=mirror.dtype,
+        rescan_dtype=torch.float32, sweep_err=sweep_err, resid=resid, rscale=rscale,
+        err1=err1, rscale2=rscale2)
     masked = live_prefix is None
     return _prep_terms(valid, sq_norms, cap if masked else live_prefix, rscale, sweep_err,
                        err1, cap=cap, metric=metric, masked=masked, use_resid=use_resid,
-                       wb_sources=wb_sources)
+                       wb_sources=wb_sources, rscale2=rscale2,
+                       int8_sweep=mirror.dtype == torch.int8)
 
 
 # ------------------------------------------------------------------ the search
@@ -712,14 +791,17 @@ class SweepResult:
         return torch.from_numpy(d).to(dev), torch.from_numpy(i).to(dev), tier
 
 
-def _fold_query(q32, metric, light):
-    """The kernel's query operands: the metric factor folded in (l2 ranks by -2q.x, ip and
-    cosine by -q.x), rounded to bf16 as ``qh``, and the rounding residual ``qres_f32``;
-    ``qres`` is its bf16 compensation operand, None for the light program."""
+def _fold_query(q32, metric, light, mirror_dtype=torch.bfloat16):
+    """The kernel's query operands (pallas_knn_t.py:1066-1087): the metric factor folded
+    in (l2 ranks by -2q.x, ip and cosine by -q.x), rounded to bf16 as ``qh`` against a
+    bf16 or int8 mirror and kept f32 against an f32 one, and the rounding residual
+    ``qres_f32``; ``qres`` is its compensation operand in qh's type, given only to a lossy
+    mirror's heavy program (None for the light program and the f32 mirror)."""
     q_fold = -2.0 * q32 if metric == "l2" else -q32
-    qh = q_fold.to(torch.bfloat16)
+    lossy = mirror_dtype != torch.float32
+    qh = q_fold.to(torch.bfloat16 if lossy else torch.float32)
     qres_f32 = q_fold - qh.float()
-    return qh, (None if light else qres_f32.to(torch.bfloat16)), qres_f32
+    return qh, (qres_f32.to(qh.dtype) if lossy and not light else None), qres_f32
 
 
 def _fused_t(q, mirror, rescan, valid, sq_norms, hw, resid, prep, *, k, metric, r1,
@@ -732,7 +814,7 @@ def _fused_t(q, mirror, rescan, valid, sq_norms, hw, resid, prep, *, k, metric, 
     q32 = q.float()
     qn_row = (q32 * q32).sum(-1)
     # compensated query: qh + qres represents the folded query to ~2^-18; light skips it
-    qh, qres, qres_f32 = _fold_query(q32, metric, light)
+    qh, qres, qres_f32 = _fold_query(q32, metric, light, mirror.dtype)
 
     P_all = cap // r1
     if not certify:
@@ -854,14 +936,16 @@ def _fused_t(q, mirror, rescan, valid, sq_norms, hw, resid, prep, *, k, metric, 
 
 def exact_knn_t(q, mirror, rescan_data, valid, sq_norms, *, k, metric, live_prefix=None,
                 r1_override=None, sweep_err=None, resid=None, rscale=None, err1=None,
-                certify=True, report_tier=False, light=False, prep_cache=None, prep=None,
-                tuning=DEFAULT_TUNING, defer=False):
-    """Certified bf16-sweep exact k-NN (pallas_knn_t.exact_knn_pallas_t); same results
+                rscale2=None, certify=True, report_tier=False, light=False, prep_cache=None,
+                prep=None, tuning=DEFAULT_TUNING, defer=False):
+    """Certified sweep exact k-NN (pallas_knn_t.exact_knn_pallas_t); same results
     contract as ops.topk.exact_knn.
 
-    ``mirror`` [cap, Dp] bf16 row-major, ``rescan_data`` [cap, Dp] f32.  ``sweep_err``,
-    ``resid``/``rscale``/``err1``: the store's certificate arrays (see
-    ``quantize_resid_rows``).  ``light``: the single-pass program.  ``prep_cache``: the
+    ``mirror`` [cap, Dp] row-major: bf16, int8 codes or f32; ``rescan_data`` [cap, Dp]
+    f32.  ``sweep_err``, ``resid``/``rscale``/``err1``: the store's certificate arrays
+    (see ``quantize_resid_rows``); for an int8 mirror ``rscale`` is its dequant scale
+    s1, and ``resid``/``rscale2`` the second stream's codes and scale s2 (see
+    ``quantize_int8_resid_rows``).  ``light``: the single-pass program.  ``prep_cache``: the
     snapshot's dict of query-independent prep.  ``report_tier`` adds the tier that served
     the batch: 0 certified tier 1 selection, 1 contained or widened selection, 2 exact
     scan, -1 the shape gate sent the search to the scan (no certificate ran).
@@ -871,7 +955,8 @@ def exact_knn_t(q, mirror, rescan_data, valid, sq_norms, *, k, metric, live_pref
     qt_w = min(Q_TILE, B)
     r1 = r1_override or _pick_r1(B, cap, k)
     if (cap < 2 * SWEEP_TILE or cap % SWEEP_TILE != 0 or B % qt_w != 0 or Dp % 128 != 0
-            or k * r1 > cap or r1 not in (1, 2, 4, 8, 16, 32)):
+            or k * r1 > cap or r1 not in (1, 2, 4, 8, 16, 32)
+            or (mirror.dtype == torch.int8 and rscale is None)):  # codes need their scales
         d, i = exact_knn(q, rescan_data, valid, sq_norms, k=k, metric=metric,
                          db_tile=SWEEP_TILE)
         res = SweepResult(d, i, None, -1)
@@ -879,16 +964,18 @@ def exact_knn_t(q, mirror, rescan_data, valid, sq_norms, *, k, metric, live_pref
         masked = live_prefix is None
         hw = cap if masked else int(live_prefix)
         use_resid, wb_sources, q_tags, err_tags = _plan(
-            certify=certify, light=light, metric=metric, sweep_err=sweep_err,
-            resid=resid, rscale=rscale, err1=err1)
+            certify=certify, light=light, metric=metric, mirror_dtype=mirror.dtype,
+            rescan_dtype=rescan_data.dtype, sweep_err=sweep_err, resid=resid,
+            rscale=rscale, err1=err1, rscale2=rscale2)
         if prep is None:
             key = (metric, -1 if masked else hw, masked, certify, light, use_resid,
-                   wb_sources)
+                   wb_sources, str(mirror.dtype))
             prep = prep_cache.get(key) if prep_cache is not None else None
             if prep is None:
                 prep = _prep_terms(valid, sq_norms, hw, rscale, sweep_err, err1, cap=cap,
                                    metric=metric, masked=masked, use_resid=use_resid,
-                                   wb_sources=wb_sources)
+                                   wb_sources=wb_sources, rscale2=rscale2,
+                                   int8_sweep=mirror.dtype == torch.int8)
                 if prep_cache is not None:
                     prep_cache[key] = prep  # GIL-atomic; a racing reader recomputes
         res = _fused_t(q, mirror, rescan_data, valid, sq_norms, hw, resid, prep, k=k,

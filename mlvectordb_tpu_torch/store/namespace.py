@@ -4,20 +4,25 @@ Device state (capacity grows in powers of two):
   data     [capacity, dim_padded]  float32, rows lane-padded with zeros
   valid    [capacity]              bool — False = never-written, tombstoned, or freed slot
   sq_norms [capacity]              f32  — precomputed squared norms (L2/cosine need them)
-With ``sweep_dtype="bfloat16"`` (the certified sweep, ops/fused_knn_t), beside them:
-  mirror       [capacity, dim_padded] bf16 — ROW-major sweep mirror (the JAX package's is
-                                             window-major [dpad, cap]; see fused_knn_t)
-  sweep_err    [capacity] f32  — the certificate's data-side bound per row
-  sweep_resid  [capacity, dim_padded] int8 — codes of row - bf16(row) (config.sweep_resid)
-  sweep_rscale [capacity] f32  — their per-row scales
-  sweep_err1   [capacity] f32  — raw ||row - bf16(row)||
+With a ``sweep_dtype`` (the certified sweep, ops/fused_knn_t), beside them a ROW-major
+sweep mirror [capacity, dim_padded] (the JAX package's is window-major [dpad, cap]; see
+fused_knn_t) and the certificate's per-row arrays:
+  "bfloat16": mirror bf16;  sweep_err [capacity] f32, the data-side bound per row; with
+              config.sweep_resid, sweep_resid [capacity, dim_padded] int8 codes of
+              row - bf16(row), their scales sweep_rscale and the raw norms sweep_err1
+  "int8":     mirror int8 codes z1 with the dequant scales sweep_rscale (s1) and
+              sweep_err = ||row - s1*z1||; with config.sweep_resid, the second stream
+              sweep_resid (z2) with its scales sweep_rscale2 (s2), sweep_err =
+              ||row - s1*z1 - s2*z2|| and sweep_err1 = ||row - s1*z1||
+  "float32":  mirror IS data: the row-major f32 mirror would hold the same bytes in the
+              same layout, so the store keeps one tensor (the JAX package keeps a
+              transposed copy)
 
 Host state: slot -> uuid / metadata / float32 values, uuid -> slot map, free-slot stack.
 Writes scatter into free slots (upsert by id overwrites in place); deletes clear the
 mask.  Compaction repacks live rows and is strictly per-namespace.
 
-Not ported yet: int8 and f32 mirrors, bf16 storage, host offload and the native metadata
-columns.
+Not ported yet: bf16 storage, host offload and the native metadata columns.
 """
 
 from __future__ import annotations
@@ -30,7 +35,8 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_CONFIG, EngineConfig
-from ..ops.fused_knn_t import SWEEP_TILE, quantize_resid_rows, sweep_err_norms
+from ..ops.fused_knn_t import (SWEEP_TILE, quantize_int8_resid_rows, quantize_int8_rows,
+                               quantize_resid_rows, sweep_err_norms)
 from .vector import Vector
 
 
@@ -40,11 +46,6 @@ def check_supported(config: EngineConfig) -> None:
         raise NotImplementedError(
             f"dtype={config.dtype!r} is not ported yet (ROADMAP A18: bf16 storage); "
             "the torch store holds float32"
-        )
-    if config.sweep_dtype not in (None, "bfloat16"):
-        raise NotImplementedError(
-            f"sweep_dtype={config.sweep_dtype!r} is not ported yet (ROADMAP A10: int8 and "
-            "f32 sweep mirrors); the torch store takes sweep_dtype=None or 'bfloat16'"
         )
 
 
@@ -63,13 +64,14 @@ class DeviceState(NamedTuple):
     # into top-k.
     high_water: int
     live_count: int
-    # Row-major bf16 sweep mirror and the certificate's per-row arrays
-    # (config.sweep_dtype="bfloat16"; see the module docstring), or None.
+    # Row-major sweep mirror and the certificate's per-row arrays (config.sweep_dtype;
+    # see the module docstring), or None.  An f32 mirror is ``data`` itself.
     mirror: Optional[torch.Tensor] = None
     sweep_err: Optional[torch.Tensor] = None
     sweep_resid: Optional[torch.Tensor] = None
     sweep_rscale: Optional[torch.Tensor] = None
     sweep_err1: Optional[torch.Tensor] = None
+    sweep_rscale2: Optional[torch.Tensor] = None
     # Host slot tables (ids, metadata, values) captured at publish time: hydration
     # reads all three from here, one atomic tuple, because compact() replaces the
     # lists wholesale.
@@ -100,6 +102,22 @@ def _scatter_mirror(mirror, slots, vals):
 def _scatter_sweep_err(err, slots, vals):
     """Per-row ||row - bf16(row)|| for the certificate, when no residual codes are kept."""
     return err.clone().index_put_((slots,), sweep_err_norms(vals))
+
+
+def _scatter_int8(mirror, rscale, err, slots, vals):
+    """The int8 primary mirror: the written rows' codes, scales and error norms
+    (copy-on-write)."""
+    z, s, e = quantize_int8_rows(vals)
+    return (mirror.clone().index_put_((slots,), z), rscale.clone().index_put_((slots,), s),
+            err.clone().index_put_((slots,), e))
+
+
+def _scatter_int8_resid(mirror, rscale, resid, rscale2, err, err1, slots, vals):
+    """The two-level int8 mirror: both code streams of the written rows, their scales and
+    error norms, in one quantization (copy-on-write)."""
+    out = quantize_int8_resid_rows(vals)
+    return tuple(t.clone().index_put_((slots,), v)
+                 for t, v in zip((mirror, rscale, resid, rscale2, err, err1), out))
 
 
 def _scatter_resid(err, err1, rscale, resid, slots, vals):
@@ -144,11 +162,14 @@ class NamespaceStore:
         self._data: Optional[torch.Tensor] = None
         self._valid: Optional[torch.Tensor] = None
         self._sq_norms: Optional[torch.Tensor] = None
-        self._mirror: Optional[torch.Tensor] = None        # [cap, dpad] bf16 sweep mirror
+        # the sweep mirror and its arrays (module docstring); None for an f32 mirror,
+        # which is _data itself (_sweep_mirror)
+        self._mirror: Optional[torch.Tensor] = None        # [cap, dpad] bf16 or int8
         self._sweep_err: Optional[torch.Tensor] = None     # [cap] certificate bound
         self._sweep_resid: Optional[torch.Tensor] = None   # [cap, dpad] int8 residual codes
-        self._sweep_rscale: Optional[torch.Tensor] = None  # [cap] their scales
-        self._sweep_err1: Optional[torch.Tensor] = None    # [cap] raw ||row - bf16(row)||
+        self._sweep_rscale: Optional[torch.Tensor] = None  # [cap] their (bf16) or z1's scales
+        self._sweep_err1: Optional[torch.Tensor] = None    # [cap] raw residual norms
+        self._sweep_rscale2: Optional[torch.Tensor] = None  # [cap] z2's scales (int8)
         # atomically-published snapshot tuple: readers never assemble a state from the
         # individual attributes
         self._state: Optional[DeviceState] = None
@@ -172,7 +193,8 @@ class NamespaceStore:
     @property
     def nbytes(self) -> int:
         """Exact device-array byte accounting: data + valid + sq_norms, and the sweep
-        mirror and its certificate arrays when kept."""
+        mirror and its certificate arrays when kept (an f32 mirror is data: counted
+        once)."""
         if self._data is None:
             return 0
         total = self.capacity * self.dpad * 4 + self.capacity * (1 + 4)
@@ -183,7 +205,17 @@ class NamespaceStore:
 
     def _sweep_arrays(self):
         return (self._mirror, self._sweep_err, self._sweep_resid, self._sweep_rscale,
-                self._sweep_err1)
+                self._sweep_err1, self._sweep_rscale2)
+
+    def _sweep_mirror(self) -> Optional[torch.Tensor]:
+        """The mirror a search reads: the f32 mirror is the row store itself, whenever the
+        capacity takes the sweep layout."""
+        # any sweep_dtype other than bf16 and int8 names the f32 mirror, as in the JAX
+        # package (namespace.py:350-355)
+        if (self.config.sweep_dtype not in (None, "bfloat16", "int8")
+                and self._data is not None and self._mirror_ok(self._data.shape[0])):
+            return self._data
+        return self._mirror
 
     def device_state(self) -> DeviceState:
         state = self._state  # single attribute read = atomic under the GIL
@@ -196,7 +228,7 @@ class NamespaceStore:
         self._state = DeviceState(
             self._data, self._valid, self._sq_norms,
             self._high_water, len(self._id_to_slot),
-            *self._sweep_arrays(),
+            self._sweep_mirror(), *self._sweep_arrays()[1:],
             host_tables=(self._slot_ids, self._slot_meta, self._slot_values),
             prep_cache={},
         )
@@ -215,12 +247,17 @@ class NamespaceStore:
     # ------------------------------------------------------------------ sweep mirror
 
     def _mixed_sweep(self) -> bool:
-        """f32 store + bf16 sweep mirror (the only sweep configuration ported)."""
+        """f32 store + bf16 sweep mirror."""
         return self.config.sweep_dtype == "bfloat16"
 
+    def _int8_sweep(self) -> bool:
+        """int8 primary mirror (codes + dequant scales + error norms)."""
+        return self.config.sweep_dtype == "int8"
+
     def _use_resid(self) -> bool:
-        """Residual-corrected sweep (config.sweep_resid): keep the int8 residual codes."""
-        return self._mixed_sweep() and self.config.sweep_resid
+        """Residual-corrected sweep (config.sweep_resid): the bf16 mirror's residual codes
+        or the int8 mirror's second stream (JAX namespace.py:382-390)."""
+        return self.config.sweep_resid and (self._mixed_sweep() or self._int8_sweep())
 
     @staticmethod
     def _mirror_ok(cap: int) -> bool:
@@ -233,8 +270,18 @@ class NamespaceStore:
         whenever the mirror is rebuilt wholesale (first eligible capacity, compaction)."""
         self._mirror = self._sweep_err = None
         self._sweep_resid = self._sweep_rscale = self._sweep_err1 = None
-        if not self._mixed_sweep() or self._data is None or not self._mirror_ok(
-                self._data.shape[0]):
+        self._sweep_rscale2 = None
+        if not (self._mixed_sweep() or self._int8_sweep()) or self._data is None or not (
+                self._mirror_ok(self._data.shape[0])):
+            return   # no mirror, or the f32 one (_data itself)
+        if self._int8_sweep():
+            # one quantization of the whole store gives every array
+            if self._use_resid():
+                (self._mirror, self._sweep_rscale, self._sweep_resid, self._sweep_rscale2,
+                 self._sweep_err, self._sweep_err1) = quantize_int8_resid_rows(self._data)
+            else:
+                self._mirror, self._sweep_rscale, self._sweep_err = quantize_int8_rows(
+                    self._data)
             return
         self._mirror = self._data.to(torch.bfloat16)
         if self._use_resid():
@@ -259,8 +306,8 @@ class NamespaceStore:
             self._sq_norms = _grow(self._sq_norms, grow)
             if self._mirror is not None:
                 (self._mirror, self._sweep_err, self._sweep_resid, self._sweep_rscale,
-                 self._sweep_err1) = (None if t is None else _grow(t, grow)
-                                      for t in self._sweep_arrays())
+                 self._sweep_err1, self._sweep_rscale2) = (
+                    None if t is None else _grow(t, grow) for t in self._sweep_arrays())
             else:
                 self._build_sweep()
 
@@ -301,7 +348,16 @@ class NamespaceStore:
         self._data, self._valid, self._sq_norms = _scatter_rows(
             self._data, self._valid, self._sq_norms, slots_t, vals_t
         )
-        if self._mirror is not None:
+        if self._mirror is not None and self._int8_sweep():
+            if self._sweep_resid is not None:
+                (self._mirror, self._sweep_rscale, self._sweep_resid, self._sweep_rscale2,
+                 self._sweep_err, self._sweep_err1) = _scatter_int8_resid(
+                    self._mirror, self._sweep_rscale, self._sweep_resid,
+                    self._sweep_rscale2, self._sweep_err, self._sweep_err1, slots_t, vals_t)
+            else:
+                self._mirror, self._sweep_rscale, self._sweep_err = _scatter_int8(
+                    self._mirror, self._sweep_rscale, self._sweep_err, slots_t, vals_t)
+        elif self._mirror is not None:
             self._mirror = _scatter_mirror(self._mirror, slots_t, vals_t)
             if self._sweep_resid is not None:
                 (self._sweep_err, self._sweep_err1, self._sweep_rscale,

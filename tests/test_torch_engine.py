@@ -159,9 +159,9 @@ def test_carry_over_from_jax_snapshot(pair, corpus):
 
 
 def test_unported_options_raise():
-    for cfg in (EngineConfig(dtype="bfloat16"), EngineConfig(sweep_dtype="int8"),
-                EngineConfig(sweep_dtype="float32")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for cfg in (EngineConfig(dtype="bfloat16"),
+                EngineConfig(dtype="bfloat16", sweep_dtype="bfloat16")):
+        with pytest.raises(NotImplementedError, match="ROADMAP A18"):
             QueryProcessor(cfg, device="cpu")
     tqp = QueryProcessor(EngineConfig(), device="cpu")
     q = [VectorDTO(np.ones(4, np.float32))]

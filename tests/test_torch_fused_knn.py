@@ -204,3 +204,40 @@ def test_kernel_operand_checks():
     for d, t, n, bias, metric, r1 in bad:
         with pytest.raises(ValueError):
             tfused._check_operands(d, t, n, bias, metric=metric, db_tile=4096, r1=r1)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("variant", ["fast", "masked"])
+def test_nan_query_window_mins_match_pallas(variant, metric):
+    """A NaN query: jnp.maximum / jnp.minimum propagate NaN, so its window mins are NaN
+    wherever the JAX kernels' are (the CUDA kernels' rule since the repair: card tests in
+    tests/test_torch_gpu.py); a dead row is MASKED whatever its distance (jnp.where), so
+    a window past the high-water mark stays 3e38.  The other queries as before."""
+    n, r1 = 16384, 8
+    rng, db, q = _corpus(77 + len(metric), n)
+    q[3, 11] = np.nan
+    qn = (q * q).sum(-1)[None, :]
+    tq = (torch.from_numpy(db), torch.from_numpy(np.ascontiguousarray(q.T)),
+          torch.from_numpy(qn))
+    jq = (jnp.asarray(db), jnp.asarray(q.T), jnp.asarray(qn))
+    kw = dict(metric=metric, db_tile=tfused.DB_TILE, r1=r1)
+    if variant == "fast":
+        hw = n - tfused.DB_TILE - 1000
+        want = jfused._window_mins_fast(*jq, jnp.asarray([[hw]], jnp.int32), q_tile=B, **kw)
+        got = tfused._window_mins_fast(*tq, hw, **kw)
+    else:
+        valid = rng.random(n) > 0.01
+        valid[-tfused.DB_TILE:] = False
+        maskadd = np.where(valid, 0.0, MASKED).astype(np.float32)
+        bias = ((db * db).sum(-1) + maskadd if metric == "l2" else maskadd)
+        bias = bias.astype(np.float32)[:, None]
+        want = jfused._window_mins_masked(*jq, jnp.asarray(bias), q_tile=B, **kw)
+        got = tfused._window_mins_masked(*tq, torch.from_numpy(bias), **kw)
+    got, want = got.numpy(), np.asarray(want)
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    assert nan[:, 3].any() and not np.delete(nan, 3, axis=1).any()
+    if variant == "fast":
+        assert (want[:, 3] == MASKED).any()          # whole windows past the high water
+    live = np.delete(np.arange(B), 3)
+    _assert_window_mins_close(got[:, live].copy(), want[:, live].copy())

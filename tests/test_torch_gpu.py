@@ -98,25 +98,43 @@ def test_engine_on_cuda_matches_cpu(cuda, metric):
 # ------------------------------------------------------------------ certified sweep (B1, B2)
 
 
-def _sweep_operands(dev, n, b, metric, heavy, seed):
-    """Kernel B1's operands as the certified search builds them, with ~1% tombstones and
-    a dead last tile in the bias row."""
+# the sweep kernel's programs: the bf16 mirror's light and heavy ones, an int8 mirror's
+# one pass, two_pass, and two_pass with the second stream, the f32 mirror's; each with the
+# per-row bound rows the certificate plan folds into it
+PROGRAMS = {"light": ("err1", "sqn_sqrt"), "heavy": ("sweep_err", "err1"),
+            "int8_light": ("err1", "sqn_sqrt"), "int8_two_pass": ("sweep_err",),
+            "int8_resid": ("sweep_err", "err1"), "f32": ()}
+
+
+def _sweep_operands(dev, n, b, metric, program, seed):
+    """Kernels B1/B3's operands as the certified search builds them for ``program`` (a
+    key of PROGRAMS), with ~1% tombstones and a dead last tile in the bias row."""
     rng = np.random.default_rng(seed)
     data = torch.from_numpy(rng.standard_normal((n, 128), dtype=np.float32)).to(dev)
     q = torch.from_numpy(rng.standard_normal((b, 128), dtype=np.float32)).to(dev)
     valid = torch.from_numpy(rng.random(n) > 0.01).to(dev)
     valid[-fused_knn_t.SWEEP_TILE:] = False
-    z, s, e2, e1 = fused_knn_t.quantize_resid_rows(data)
+    wb = PROGRAMS[program]
+    mirror_dtype = (torch.float32 if program == "f32" else torch.int8
+                    if program.startswith("int8") else torch.bfloat16)
+    resid = program in ("heavy", "int8_resid")
+    if mirror_dtype == torch.bfloat16:
+        z, s, e2, e1 = fused_knn_t.quantize_resid_rows(data)
+        mirror, s2 = data.to(torch.bfloat16), None
+    else:
+        mirror, s, z, s2, e2, e1 = fused_knn_t.quantize_int8_resid_rows(data)
+        mirror = data if program == "f32" else mirror
     prep = fused_knn_t._prep_terms(
         valid, (data * data).sum(-1), n, s, e2, e1, cap=n, metric=metric, masked=True,
-        use_resid=heavy, wb_sources=("sweep_err", "err1"))
-    qh, qres, qres_f32 = fused_knn_t._fold_query(q, metric, light=not heavy)
+        use_resid=resid, wb_sources=wb, rscale2=s2, int8_sweep=mirror_dtype == torch.int8)
+    qh, qres, qres_f32 = fused_knn_t._fold_query(q, metric, program.endswith("light"),
+                                                 mirror_dtype)
     qn = torch.linalg.vector_norm(q, dim=1) * (2.0 if metric == "l2" else 1.0)
-    qe = torch.stack([qn, torch.linalg.vector_norm(qres_f32, dim=1)], 1).contiguous()
-    args = (qh.contiguous(), qres, data.to(torch.bfloat16), z if heavy else None,
-            s if heavy else None, prep["scale_row"], prep["bias_row"])
+    qe = torch.stack([qn, torch.linalg.vector_norm(qres_f32, dim=1)], 1)[:, :len(wb)]
+    args = (qh.contiguous(), qres, mirror, z if resid else None, prep["rscale_row"],
+            prep["scale_row"], prep["bias_row"])
     slack = 128 * 2.0 ** -22 * qn * (1.0 if metric == "cosine" else prep["maxd"])
-    return args, dict(qe=qe, eb_rows=prep["eb_rows"]), slack
+    return args, dict(qe=qe.contiguous() if wb else None, eb_rows=prep["eb_rows"]), slack
 
 
 def _close_slack(got, want, slack):
@@ -131,7 +149,8 @@ def _close_slack(got, want, slack):
 @pytest.mark.parametrize("r1", [32, 16, 4, 1])
 @pytest.mark.parametrize("b", [8, 132])
 def test_sweep_kernel_matches_plain(cuda, heavy, metric, r1, b):
-    args, kw, slack = _sweep_operands(cuda, 16384, b, metric, heavy, r1 * 100 + b)
+    args, kw, slack = _sweep_operands(cuda, 16384, b, metric, "heavy" if heavy else "light",
+                                       r1 * 100 + b)
     kw["emit_block_mins"] = r1 == 32
     before = (fused_knn_t._window_mins_t.launches, fused_knn_t._window_mins_t.launches_heavy)
     got, bm, pool = fused_knn_t._window_mins_t(*args, r1=r1, **kw)
@@ -231,7 +250,8 @@ def test_pool_kernel_matches_plain(cuda, heavy, metric, r1, m, skip_wm):
     the plain pool of those mins, and (B1 being bit-identical to its plain version on the
     card) to the plain version's pool, padding and positions included."""
     b = 512 if skip_wm else 8
-    args, kw, slack = _sweep_operands(cuda, 65536, b, metric, heavy, r1 * 10 + m + b)
+    args, kw, slack = _sweep_operands(cuda, 65536, b, metric, "heavy" if heavy else "light",
+                                       r1 * 10 + m + b)
     before = fused_knn_t._window_mins_t.launches_topm
     wmin, bm, pool = fused_knn_t._window_mins_t(*args, r1=r1, emit_topm=m, skip_wm=skip_wm,
                                                 **kw)
@@ -249,7 +269,7 @@ def test_pool_kernel_matches_plain(cuda, heavy, metric, r1, m, skip_wm):
 
 
 def test_pool_kernel_rejects_bad_operands(cuda):
-    args, kw, _ = _sweep_operands(cuda, 16384, 8, "l2", False, 3)
+    args, kw, _ = _sweep_operands(cuda, 16384, 8, "l2", "light", 3)
     for bad in (dict(r1=8, emit_topm=10),                       # m * g > 32
                 dict(r1=16, emit_topm=9),                       # odd m
                 dict(r1=32, emit_topm=8, emit_block_mins=True),  # the pool beside block mins
@@ -282,7 +302,7 @@ def test_nan_query_tier_on_cuda_matches_cpu(cuda, light, k):
     assert tc == tg == 2
     for b in (0, 1, 3, 4, 5, 6, 7):
         assert set(ig[b].tolist()) == set(ic[b].tolist())
-    args, kw, _ = _sweep_operands(cuda, n, 8, "l2", not light, 12)
+    args, kw, _ = _sweep_operands(cuda, n, 8, "l2", "light" if light else "heavy", 12)
     args = (args[0].clone(),) + args[1:]
     args[0][2, 5] = float("nan")
     r1, m = (32, 0) if k == 10 else (16, 8)
@@ -316,3 +336,129 @@ def test_k100_engine_on_cuda_matches_cpu(cuda, b):
         assert len(c) == 100 and {r["id"] for r in a} == {r["id"] for r in c}
         np.testing.assert_allclose(sorted(r["score"] for r in a),
                                    sorted(r["score"] for r in c), rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------------------ NaN in B4 / B5
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
+@pytest.mark.parametrize("variant", ["fast", "masked"])
+def test_window_min_nan_query_matches_plain(cuda, variant, metric):
+    """A NaN query's window mins are NaN exactly where the plain version's are (the JAX
+    kernels' jnp.maximum / jnp.minimum rule), live prefix and tombstoned alike."""
+    rng = np.random.default_rng(23)
+    n = 65536
+    data = torch.from_numpy(rng.standard_normal((n, 128), dtype=np.float32)).to(cuda)
+    q = torch.from_numpy(rng.standard_normal((8, 128), dtype=np.float32)).to(cuda)
+    q[3, 11] = float("nan")
+    qt, qn = q.T.contiguous(), (q * q).sum(-1)[None, :].contiguous()
+    kw = dict(metric=metric, db_tile=fused_knn.DB_TILE, r1=8)
+    if variant == "fast":
+        hw = n - fused_knn.DB_TILE - 1234
+        got = fused_knn._window_mins_fast(data, qt, qn, hw, **kw)
+        want = fused_knn._window_mins_fast_ref(data, qt, qn, hw, **kw)
+    else:
+        valid = torch.from_numpy(rng.random(n) > 0.01).to(cuda)
+        valid[-fused_knn.DB_TILE:] = False
+        maskadd = torch.where(valid, 0.0, float(MASKED))
+        bias = ((data * data).sum(-1) + maskadd if metric == "l2" else maskadd)
+        bias = bias[:, None].contiguous()
+        got = fused_knn._window_mins_masked(data, qt, qn, bias, **kw)
+        want = fused_knn._window_mins_masked_ref(data, qt, qn, bias, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(got), torch.isnan(want)) and bool(torch.isnan(want[:, 3]).any())
+    live = [b for b in range(8) if b != 3]
+    _close(got[:, live], want[:, live])
+
+
+# ------------------------------------------------------------------ B3: int8 and f32 mirrors
+
+
+@pytest.mark.parametrize("r1,outputs", [(32, "block_mins"), (16, "pool"), (16, "pool_only"),
+                                        (4, "window_mins")])
+@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
+@pytest.mark.parametrize("program", ["int8_light", "int8_two_pass", "int8_resid", "f32"])
+def test_b3_kernel_matches_plain(cuda, program, metric, r1, outputs):
+    """int8: every output bit-equal to the plain version (exact products, the same f32
+    sums); f32: the window mins within the slack (products round), the pool bit-equal to
+    the plain pool of the kernel's own mins."""
+    b = 512 if outputs == "pool_only" else 8
+    args, kw, slack = _sweep_operands(cuda, 65536, b, metric, program, r1 * 10 + b)
+    opts = dict(emit_block_mins=outputs == "block_mins",
+                emit_topm=8 if outputs.startswith("pool") else 0,
+                skip_wm=outputs == "pool_only")
+    counter = "launches_f32" if program == "f32" else "launches_int8"
+    before = getattr(fused_knn_t._window_mins_t, counter)
+    got = fused_knn_t._window_mins_t(*args, r1=r1, **opts, **kw)
+    torch.cuda.synchronize()
+    assert getattr(fused_knn_t._window_mins_t, counter) == before + 1
+    want = fused_knn_t._window_mins_t_ref(*args, r1=r1, **opts, **kw)
+    if opts["skip_wm"]:
+        want = (None,) + want[1:]
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+    if program != "f32":
+        for g, w in zip(got, want):
+            if w is not None:
+                assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        return
+    own = got[0] if got[0] is not None else fused_knn_t._window_mins_t(*args, r1=r1, **kw)[0]
+    want_wmin = fused_knn_t._window_mins_t_ref(*args, r1=r1, **kw)[0]
+    _close_slack(own, want_wmin, slack[None, :, None])
+    if opts["emit_block_mins"]:
+        _close_slack(got[1], want[1], slack[None, :])
+    if opts["emit_topm"]:
+        assert torch.equal(got[2].view(torch.int32),
+                           fused_knn_t._topm_pool_ref(own, 8).view(torch.int32))
+
+
+@pytest.mark.parametrize("kind", ["int8", "int8_no_resid", "float32"])
+def test_int8_f32_engine_on_cuda_matches_cpu(cuda, kind):
+    rng = np.random.default_rng(29)
+    x = rng.standard_normal((20000, 128), dtype=np.float32)
+    q = [VectorDTO(v) for v in rng.standard_normal((16, 128), dtype=np.float32)]
+    cfg = EngineConfig(sweep_dtype=kind.split("_")[0], sweep_resid=kind != "int8_no_resid")
+    counter = "launches_f32" if kind == "float32" else "launches_int8"
+    out = []
+    for device in ("cpu", cuda):
+        qp = QueryProcessor(cfg, device=device)
+        ids = qp.bulk_load(x, "ns", ids=None if not out else out[0][0])
+        before = getattr(fused_knn_t._window_mins_t, counter)
+        res = {m: qp.find_similar_batch(q, 10, "ns", m) for m in ("l2", "ip", "cosine")}
+        launched = getattr(fused_knn_t._window_mins_t, counter) - before
+        qp.delete(ids[::50], "ns")
+        res2 = qp.find_similar_batch(q, 10, "ns", "l2")
+        out.append((ids, res, res2, launched, qp.cert_tier_counts("ns"), qp._cert_mode))
+    (_, c1, c2, _, ccpu, _), (_, g1, g2, launched, cgpu, mode) = out
+    assert launched == 3 and ccpu == cgpu and mode == {}
+    assert not any(t.startswith("light_") for t in cgpu)
+    for a, b in [(c1[m], g1[m]) for m in c1] + [(c2, g2)]:
+        for ra, rb in zip(a, b):
+            assert {r["id"] for r in ra} == {r["id"] for r in rb}
+            np.testing.assert_allclose(sorted(r["score"] for r in ra),
+                                       sorted(r["score"] for r in rb), rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------------------ B7: the int8 probe
+
+
+@pytest.mark.parametrize("b", [64, 128])
+def test_int8_probe_kernels_match_plain(cuda, b):
+    from mlvectordb_tpu_torch.probes import int8_mma
+
+    rng = np.random.default_rng(31 + b)
+    data = torch.from_numpy(rng.standard_normal((65536, 128), dtype=np.float32)).to(cuda)
+    q = torch.from_numpy(rng.standard_normal((b, 128), dtype=np.float32)).to(cuda)
+    codes = fused_knn_t.quantize_int8_rows(data)[0]
+    q8, qh = int8_mma.quantize_queries(q), q.to(torch.bfloat16)
+    before = (int8_mma.mma_min.launches, int8_mma.stream_sum.launches)
+    got = (int8_mma.convert_fma_min(qh, codes), int8_mma.mma_min(q8, codes),
+           int8_mma.stream_sum(codes, b))
+    torch.cuda.synchronize()
+    assert (int8_mma.mma_min.launches, int8_mma.stream_sum.launches) == (before[0] + 1,
+                                                                         before[1] + 1)
+    want = (int8_mma.convert_fma_min_ref(qh, codes), int8_mma.mma_min_ref(q8, codes),
+            int8_mma.stream_sum_ref(codes, b))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == (16, b, 128) and g.dtype == w.dtype
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
