@@ -46,7 +46,22 @@ one line per phase:
   9. the f32 mirror (sweep_dtype="float32", the store's own rows): the same checks, the
      kernel within the slack of its plain version, the mirror the data tensor;
  10. probe B7 over the phase-8 codes (B = 128): convert + f32 FMA, int8 mma.sync and
-     the stream floor, each equal to its plain version; times, GB/s and bounds.
+     the stream floor, each equal to its plain version; times, GB/s and bounds;
+ 11. a bf16 store, row-major (EngineConfig(dtype="bfloat16")) on the phase-3 corpus: the
+     window-min kernels over bf16 rows against their plain versions (as phase 2, NaN
+     query included), then the phase-3 searches before and after the deletes, each
+     set-exact against a float64 oracle over the bf16-rounded rows with the f32 query;
+     launch counts, device bytes, times beside the f32 kernels';
+ 12. DEEP: a bf16 store with the same-dtype sweep (sweep_dtype="bfloat16": the mirror is
+     the rows themselves, one pass) at 8,388,608 x 128: cosine B=128 k=10, l2 B=128
+     k=10, ip B=16 k=10 and cosine B=128 k=100, before and after 1,000 deletes, each
+     set-exact against the bf16-row oracle (computed on the card in chunks) with its
+     tier and transfers; the sweep and gather kernels against their plain versions at
+     the engine's operands; device bytes; the rows' rounding gap beside the query's;
+     times and the engine wall;
+ 13. probe B6 over the phase-12 rows (B = 128, r1 = 32): the sweep kernel writing its
+     window mins [B, P] and tile-major, each against its plain version and against the
+     other; times, GB/s and bounds.
 Any failure raises, so the process exits non-zero.  The last two lines are the kernels'
 JSON record (with each kernel's bound: bytes over 3.35 TB/s or operations over the peak
 for their type, whichever is larger) and {"ok": true, "device": {...}}.  Needs no network
@@ -137,32 +152,32 @@ def _time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _engine_wall(qp, q_np, runs: int = 5, k: int = K):
-    """Host wall times (ms) of find_similar_batch at B=128, l2, k=10 (or ``k``): distinct
-    queries per run, so the result cache cannot serve them; each run ends in its
-    device->host copy."""
+def _engine_wall(qp, q_np, runs: int = 5, k: int = K, namespace="sift", metric="l2"):
+    """Host wall times (ms) of find_similar_batch at B=128, l2, k=10 (or ``k``, the
+    ``namespace`` and ``metric`` given): distinct queries per run, so the result cache
+    cannot serve them; each run ends in its device->host copy."""
     wall = []
     for i in range(runs):
         qs = [VectorDTO(v) for v in q_np + np.float32(i + 1) * np.float32(1e-3)]
         t0 = time.perf_counter()
-        qp.find_similar_batch(qs, k, "sift", "l2")
+        qp.find_similar_batch(qs, k, namespace, metric)
         wall.append((time.perf_counter() - t0) * 1e3)
     return wall
 
 
-def _engine_split(qp, q_np, runs: int = 5, k: int = K):
+def _engine_split(qp, q_np, runs: int = 5, k: int = K, namespace="sift", metric="l2"):
     """Median host ms of the three parts of find_similar_batch at B=128, l2, k=10 (or
-    ``k``): stacking the query DTOs, _raw_search (h2d, kernel, selection and rescan, d2h)
-    and hydration of the result dicts."""
+    ``k``, the ``namespace`` and ``metric`` given): stacking the query DTOs, _raw_search
+    (h2d, kernel, selection and rescan, d2h) and hydration of the result dicts."""
     parts = {"stack": [], "raw_search": [], "hydrate": []}
     for i in range(runs):
         qs = [VectorDTO(v) for v in q_np + np.float32(i + 11) * np.float32(1e-3)]
         t0 = time.perf_counter()
         q = np.stack([np.asarray(x.values, np.float32).reshape(-1) for x in qs])
         t1 = time.perf_counter()
-        dist, slots, _, tables = qp._raw_search(q, "sift", k, "l2")
+        dist, slots, _, tables = qp._raw_search(q, namespace, k, metric)
         t2 = time.perf_counter()
-        qp._hydrate_batch(qp._to_user_score(dist, "l2"), dist, slots, tables)
+        qp._hydrate_batch(qp._to_user_score(dist, metric), dist, slots, tables)
         t3 = time.perf_counter()
         for name, ms in zip(parts, ((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3)):
             parts[name].append(ms)
@@ -233,17 +248,19 @@ def _bound(nbytes, ops, peak):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
 
 
-def check_kernels(db_np):
-    """Phase 2: each row-major kernel against its plain version on the card.  Returns
-    max |err|."""
+def check_kernels(db_np, rows=torch.float32):
+    """Phases 2 and 11: each row-major kernel against its plain version on the card, over
+    rows of type ``rows`` (f32, or bf16 with the query rounded to bf16 and carried as
+    f32, as exact_knn_fused passes it).  Returns max |err|."""
     masked_value = float(MASKED)
     rng = np.random.default_rng(SEED + 1)
     dev = torch.device("cuda")
     worst = {"fast": 0.0, "masked": 0.0}
     for n in (65536, N):
-        data = torch.from_numpy(db_np[:n]).to(dev)
+        src = torch.from_numpy(db_np[:n]).to(dev)
+        data = src.to(rows)
         q = torch.from_numpy(rng.standard_normal((512, D), dtype=np.float32)).to(dev)
-        qt, qn = q.T.contiguous(), (q * q).sum(-1)[None, :].contiguous()
+        qt, qn = q.T.to(rows).float().contiguous(), (q * q).sum(-1)[None, :].contiguous()
         hw = n - fused_knn.DB_TILE - 1234
         valid = torch.from_numpy(rng.random(n) > 0.01).to(dev)   # ~1% tombstones
         valid[-fused_knn.DB_TILE:] = False                         # fully masked windows
@@ -251,7 +268,7 @@ def check_kernels(db_np):
         for r1 in (8, 32):
             for metric in ("l2", "ip", "cosine"):
                 kw = dict(metric=metric, db_tile=fused_knn.DB_TILE, r1=r1)
-                bias = ((data * data).sum(-1) + maskadd if metric == "l2" else maskadd)
+                bias = ((src * src).sum(-1) + maskadd if metric == "l2" else maskadd)
                 bias = bias[:, None].contiguous()
                 pairs = {
                     "fast": (fused_knn._window_mins_fast(data, qt, qn, hw, **kw),
@@ -270,8 +287,8 @@ def check_kernels(db_np):
                         raise AssertionError(
                             f"{name} n={n} r1={r1} {metric}: max |err| {err.max().item()}")
                     worst[name] = max(worst[name], err.max().item())
-        del data, q, qt, qn, valid, maskadd, bias, pairs
-    print(f"  max |kernel - plain| on live windows: fast {worst['fast']}, masked "
+        del src, data, q, qt, qn, valid, maskadd, bias, pairs
+    print(f"  max |kernel - plain| on live windows, {rows} rows: fast {worst['fast']}, masked "
           f"{worst['masked']} (bound 1e-5*|plain| + 1e-3; masked windows exactly 3e38)")
     return worst
 
@@ -493,8 +510,10 @@ _SWEEP_COUNTERS = ((fused_knn_t._window_mins_t, "launches"),
                    (fused_knn_t._window_mins_t, "launches_topm"),
                    (fused_knn_t._gather_score, "launches"),
                    (fused_knn_t._window_mins_t, "launches_int8"),
-                   (fused_knn_t._window_mins_t, "launches_f32"))
-_COUNT_NAMES = ("sweep", "sweep_heavy", "topm", "gather", "int8", "f32")
+                   (fused_knn_t._window_mins_t, "launches_f32"),
+                   (fused_knn_t._gather_score, "launches_bf16"),
+                   (fused_knn_t._window_mins_t, "launches_bp"))
+_COUNT_NAMES = ("sweep", "sweep_heavy", "topm", "gather", "int8", "f32", "gather_bf16", "bp")
 
 
 def _sweep_counts():
@@ -672,24 +691,25 @@ def check_nan_query(db_np):
                 raise AssertionError(f"NaN query light={light} k={k}: {tiers} {same}")
 
 
-def check_window_min_nan(db_np):
-    """Phase 2: a NaN query through the row-major kernels (2^16 rows, B = 8, r1 = 8,
-    l2/ip/cosine, live prefix and tombstoned): its window mins are NaN exactly where the
-    plain version's are (jnp.maximum / jnp.minimum's rule), the other queries' within
-    the phase-2 bound."""
+def check_window_min_nan(db_np, rows=torch.float32):
+    """Phases 2 and 11: a NaN query through the row-major kernels over rows of type
+    ``rows`` (2^16 rows, B = 8, r1 = 8, l2/ip/cosine, live prefix and tombstoned): its
+    window mins are NaN exactly where the plain version's are (jnp.maximum /
+    jnp.minimum's rule), the other queries' within the phase-2 bound."""
     n = 65536
     rng = np.random.default_rng(SEED + 7)
     dev = torch.device("cuda")
-    data = torch.from_numpy(db_np[:n]).to(dev)
+    data = torch.from_numpy(db_np[:n]).to(dev).to(rows)
     q = torch.from_numpy(rng.standard_normal((8, D), dtype=np.float32)).to(dev)
     q[3, 11] = float("nan")
-    qt, qn = q.T.contiguous(), (q * q).sum(-1)[None, :].contiguous()
+    qt, qn = q.T.to(rows).float().contiguous(), (q * q).sum(-1)[None, :].contiguous()
     valid = torch.from_numpy(rng.random(n) > 0.01).to(dev)
     valid[-fused_knn.DB_TILE:] = False
     maskadd = torch.where(valid, 0.0, float(MASKED))
     for metric in ("l2", "ip", "cosine"):
         kw = dict(metric=metric, db_tile=fused_knn.DB_TILE, r1=8)
-        bias = ((data * data).sum(-1) + maskadd if metric == "l2" else maskadd)[:, None]
+        rows32 = data.float()
+        bias = ((rows32 * rows32).sum(-1) + maskadd if metric == "l2" else maskadd)[:, None]
         bias = bias.contiguous()
         hw = n - fused_knn.DB_TILE - 1234
         pairs = {"fast": (fused_knn._window_mins_fast(data, qt, qn, hw, **kw),
@@ -704,7 +724,7 @@ def check_window_min_nan(db_np):
             ok = (torch.equal(torch.isnan(got), nan) and bool(nan[:, 3].any())
                   and not bool(nan[:, live].any())
                   and bool((err <= 1e-5 * want[:, live].abs() + 1e-3).all()))
-            print(f"  NaN query, {name} {metric}: NaN mins {int(nan.sum())} (plain) "
+            print(f"  NaN query, {name} {metric}, {rows} rows: NaN mins {int(nan.sum())} (plain) "
                   f"{int(torch.isnan(got).sum())} (kernel), at the same places: {ok}")
             if not ok:
                 raise AssertionError(f"{name} {metric}: NaN query mins differ from plain")
@@ -918,6 +938,391 @@ def run_int8_probe(codes, rng):
     return out
 
 
+# ---- phases 11-13: bf16 storage, DEEP and probe B6 --------------------------------------
+
+N_DEEP = 1 << 23
+BF16_ROWS = EngineConfig(dtype="bfloat16")
+DEEP = EngineConfig(dtype="bfloat16", sweep_dtype="bfloat16")
+
+
+class DeviceOracle(Oracle):
+    """The float64 brute force over rows held on the card, here a bf16 store's exact
+    answer: its rows as stored (rounded on the card from the f32 corpus, apart from the
+    store) against the f32 queries.  In chunks of 2^20 rows: each chunk's nearest KEEP,
+    then the nearest KEEP of those."""
+
+    CHUNK = 1 << 20
+
+    def __init__(self, rows, q_np):
+        self.rows, self.q_np, self.cache = rows, q_np, {}
+
+    def nearest(self, metric, nq):
+        if (metric, nq) not in self.cache:
+            q = torch.from_numpy(self.q_np[:nq]).to(self.rows.device, torch.float64)
+            qn = (q * q).sum(-1)[:, None]
+            vals, found = [], []
+            for lo in range(0, self.rows.shape[0], self.CHUNK):
+                x = self.rows[lo:lo + self.CHUNK].double()
+                dots, sq = q @ x.T, (x * x).sum(-1)[None, :]
+                if metric == "l2":
+                    d = sq - 2.0 * dots + qn
+                elif metric == "ip":
+                    d = 1.0 - dots
+                else:
+                    d = 1.0 - dots / torch.sqrt(torch.clamp_min(sq * qn, 1e-30))
+                v, i = torch.topk(d, min(self.KEEP, d.shape[1]), dim=1, largest=False)
+                vals.append(v)
+                found.append(i + lo)
+            v, p = torch.topk(torch.cat(vals, 1), self.KEEP, dim=1, largest=False)  # sorted
+            self.cache[(metric, nq)] = (torch.gather(torch.cat(found, 1), 1, p).cpu().numpy(),
+                                        v.cpu().numpy())
+        return self.cache[(metric, nq)]
+
+
+def _served(qp, namespace, q_np, metric, nq, k):
+    """One find_similar_batch: (results, the tiers it added, its (h2d, d2h) transfers)."""
+    x0, t0 = dict(qp.transfer_counts), qp.cert_tier_counts(namespace)
+    res = qp.find_similar_batch([VectorDTO(v) for v in q_np[:nq]], k, namespace, metric)
+    xfer = (qp.transfer_counts["h2d"] - x0["h2d"], qp.transfer_counts["d2h"] - x0["d2h"])
+    tier = [t for t, c in qp.cert_tier_counts(namespace).items() if c != t0.get(t, 0)]
+    return res, tier, xfer
+
+
+def _deleted(qp, namespace, ids, dead):
+    ns = qp.storage.namespace(namespace)
+    removed = qp.delete([ids[i] for i in dead], namespace)
+    if len(removed) != len(dead) or ns.device_state().live_count == ns.device_state().high_water:
+        raise AssertionError(f"{namespace}: delete did not leave tombstones")
+    return {ids[i] for i in dead}
+
+
+_BF16_COUNTERS = ((fused_knn._window_mins_fast, "launches"),
+                  (fused_knn._window_mins_fast, "launches_bf16"),
+                  (fused_knn._window_mins_masked, "launches"),
+                  (fused_knn._window_mins_masked, "launches_bf16"))
+
+
+def run_bf16_row_major(db_np, q_np, dead, self_row, q512):
+    """Phase 11: QueryProcessor(dtype="bfloat16") on the phase-3 corpus, row-major.  The
+    launch counts are zeroed just before the searches and read just after (the outer
+    counts put back).  Returns (launch counts, {time name: ms}, {bound name: bound})."""
+    dev = torch.device("cuda")
+    rows = torch.from_numpy(db_np).to(dev).to(torch.bfloat16)
+    oracle = DeviceOracle(rows, q_np)
+    qp = QueryProcessor(BF16_ROWS, device=dev)
+    t0 = time.perf_counter()
+    ids = qp.bulk_load(db_np, "sift")
+    torch.cuda.synchronize()
+    ns = qp.storage.namespace("sift")
+    st = ns.device_state()
+    print(f"  bulk_load: {len(ids)} rows in {time.perf_counter() - t0:.2f} s, capacity "
+          f"{ns.capacity}, device bytes {ns.nbytes:,} (rows {st.data.dtype}, no mirror: "
+          f"{st.mirror is None})")
+    if (st.data.dtype != torch.bfloat16 or st.mirror is not None
+            or ns.nbytes != ns.capacity * (D * 2 + 5)
+            or not torch.equal(st.data[:N].view(torch.int16), rows.view(torch.int16))):
+        raise AssertionError("the bf16 store does not hold the rounded rows alone")
+    outer = [getattr(fn, a) for fn, a in _BF16_COUNTERS]
+    for fn, a in _BF16_COUNTERS:
+        setattr(fn, a, 0)
+    dead_ids = set()
+    for when, dead_rows in (("before delete", None), ("after delete", dead)):
+        if dead_rows is not None:
+            dead_ids = _deleted(qp, "sift", ids, dead_rows)
+        for metric, nq in (("l2", B), ("ip", 16), ("cosine", 16)):
+            res, tier, xfer = _served(qp, "sift", q_np, metric, nq, K)
+            if xfer != (1, 1) or tier:
+                raise AssertionError(f"bf16 row-major {metric} {when}: {tier} {xfer}")
+            if any(r["id"] in dead_ids for rs in res for r in rs):
+                raise AssertionError(f"bf16 row-major {metric}: a deleted id was returned")
+            _check_recall(res, oracle.sets(metric, nq, dead_rows), ids,
+                          f"bf16 row-major {metric} B={nq} {when} (bf16-row oracle)")
+    counts = dict(zip(("fast", "fast_bf16", "masked", "masked_bf16"),
+                      [getattr(fn, a) for fn, a in _BF16_COUNTERS]))
+    for (fn, a), v, n in zip(_BF16_COUNTERS, outer, counts.values()):
+        setattr(fn, a, v + n)
+    print(f"  launches on the bf16 row-major path: {counts}")
+    if (counts["fast_bf16"] < 1 or counts["masked_bf16"] < 1
+            or counts["fast"] != counts["fast_bf16"] or counts["masked"] != counts["masked_bf16"]):
+        raise AssertionError(f"a bf16 kernel of the path never launched: {counts}")
+    self_hit = qp.find_similar(VectorDTO(db_np[self_row]), 1, "sift", "l2")
+    print(f"  self query (row {self_row}): score {self_hit[0]['score']} (|x - bf16(x)|^2)")
+    if self_hit[0]["id"] != ids[self_row] or not self_hit[0]["score"] < 1e-3:
+        raise AssertionError(f"stored row {self_row} queried as itself returned {self_hit[:1]}")
+
+    # B4/B5 over bf16 rows at the operands phase 6 times the f32 kernels at (B=512, r1 of
+    # k bucket 16), on the tombstoned namespace
+    st = ns.device_state()
+    data = st.data
+    qt, qn = q512.T.to(torch.bfloat16).float().contiguous(), (q512 * q512).sum(-1)[None, :]
+    qn = qn.contiguous()
+    bias = (st.sq_norms + torch.where(st.valid, 0.0, float(MASKED)))[:, None].contiguous()
+    kw = dict(metric="l2", db_tile=fused_knn.DB_TILE, r1=fused_knn._pick_r1(512, N, 16))
+    times = {
+        "fast_bf16": _time_ms(lambda: fused_knn._window_mins_fast(data, qt, qn, N, **kw)),
+        "fast_bf16_plain": _time_ms(
+            lambda: fused_knn._window_mins_fast_ref(data, qt, qn, N, **kw)),
+        "masked_bf16": _time_ms(lambda: fused_knn._window_mins_masked(data, qt, qn, bias, **kw)),
+        "masked_bf16_plain": _time_ms(
+            lambda: fused_knn._window_mins_masked_ref(data, qt, qn, bias, **kw)),
+    }
+    q_pad = torch.zeros((512, D), device=dev)
+    q_pad[:B] = torch.from_numpy(q_np).to(dev)
+    times["exact_knn_fused_bf16_masked"] = _time_ms(lambda: fused_knn.exact_knn_fused(
+        q_pad, data, st.valid, st.sq_norms, k=16, metric="l2", live_prefix=None))
+    wall = _engine_wall(qp, q_np)
+    times["engine_wall_bf16_masked_median"] = statistics.median(wall)
+    split = _engine_split(qp, q_np)
+    flop = 2.0 * N * 512 * D
+    out = N // kw["r1"] * 512 * 4
+    bounds = {"fast_bf16": _bound(_nbytes(data, qt, qn) + out, flop, BF16_FLOPS),
+              "masked_bf16": _bound(_nbytes(data, qt, qn, bias) + out, flop, BF16_FLOPS)}
+    for name, ms in times.items():
+        extra = f", {flop / ms / 1e9:.1f} TFLOP/s" if name in ("fast_bf16", "masked_bf16") else ""
+        print(f"  {name}: {ms:.4f} ms{extra}")
+    print(f"  engine wall runs (ms), B={B} l2 k={K}, tombstoned bf16 store: {wall}")
+    print(f"  engine split, median ms (host clock): {split}")
+    return counts, times, bounds
+
+
+def _slack_rows(st, q, metric):
+    """The certificate's accumulation slack Dp * 2^-22 * |qh| * maxd per query."""
+    sqn = torch.where(st.valid, st.sq_norms, torch.zeros_like(st.sq_norms))
+    maxd = 1.0 if metric == "cosine" else torch.sqrt(sqn.max())
+    return D * 2.0 ** -22 * torch.linalg.vector_norm(q, dim=1) * (
+        2.0 if metric == "l2" else 1.0) * maxd
+
+
+def check_same_dtype_kernels(st, q_pad, search):
+    """Phase 12: kernel B1 over the bf16 rows (one pass) at the operands the engine's
+    searches give it: cosine and l2 at k bucket 16 (r1 = 32, block mins), cosine at k
+    bucket 128 (the pool); kernel B2 over the bf16 rows at the cosine search's.  The
+    window mins (the kernel's own, where it wrote the pool only) within the slack of the
+    plain version's, block mins too, the pool bit-equal to the plain pool of the kernel's
+    own mins; B2 within Dp * 2^-24 * (|q||row| + |row|^2).  Returns (max |err| of B1,
+    of B2, {program: (args, kwargs)})."""
+    worst, operands = 0.0, {}
+    for metric, k in (("cosine", 16), ("l2", 16), ("cosine", 128)):
+        a, kw = operands[f"{metric}_k{k}"] = _capture("_window_mins_t",
+                                                      lambda: search(metric, k))
+        if a[1] is not None or a[3] is not None or a[2].data_ptr() != st.data.data_ptr():
+            raise AssertionError(f"{metric} k={k}: not the one-pass program over the rows")
+        got = fused_knn_t._window_mins_t(*a, **kw)
+        want = fused_knn_t._window_mins_t_ref(*a, **{**kw, "skip_wm": False})
+        own = got[0] if got[0] is not None else fused_knn_t._window_mins_t(
+            *a, **{**kw, "emit_topm": 0, "skip_wm": False})[0]
+        torch.cuda.synchronize()
+        slack = _slack_rows(st, q_pad, metric)
+        for g, w, sl in ((own, want[0], slack[None, :, None]), (got[1], want[1], slack[None, :])):
+            if g is None:
+                continue
+            dead = w == float(MASKED)
+            err = torch.where(dead, 0.0, (g - w).abs())
+            if not torch.equal(g[dead], w[dead]) or not bool((err <= sl).all()):
+                raise AssertionError(f"same-dtype B1 {metric} k={k}: |err| / slack "
+                                     f"{float((err / sl).max())}")
+            worst = max(worst, float(err.max()))
+        if got[2] is not None and not torch.equal(
+                got[2].view(torch.int32),
+                fused_knn_t._topm_pool_ref(own, kw["emit_topm"]).view(torch.int32)):
+            raise AssertionError(f"same-dtype B1 {metric} k={k}: the pool is not its mins'")
+        print(f"  B1 same-dtype {metric} k bucket {k}: r1={kw['r1']}, block mins "
+              f"{kw['emit_block_mins']}, pool m={kw['emit_topm']}, skip_wm {kw['skip_wm']}, "
+              f"bound rows {len(kw['eb_rows'])}: within the slack of plain")
+        del got, want, own
+    a, kw = operands["gather"] = _capture("_gather_score", lambda: search("cosine", 16))
+    if a[1].dtype != torch.bfloat16:
+        raise AssertionError("the same-dtype rescan did not read the bf16 rows")
+    dots, sqn = fused_knn_t._gather_score(*a, **kw)
+    want_dots, want_sqn = fused_knn_t._gather_score_ref(*a, **kw)
+    torch.cuda.synchronize()
+    bound = D * 2.0 ** -24 * (torch.linalg.vector_norm(a[0], dim=1)[:, None] * want_sqn.sqrt()
+                              + want_sqn)
+    gworst = 0.0
+    for got, want in ((dots, want_dots), (sqn, want_sqn)):
+        err = (got - want).abs()
+        if not bool((err <= bound).all()):
+            raise AssertionError(f"gather_score bf16: |err| / bound {float((err / bound).max())}")
+        gworst = max(gworst, float(err.max()))
+    print(f"  max |kernel - plain|: B1 same-dtype {worst} (bound Dp*2^-22*|qh|*maxd), B2 over "
+          f"bf16 rows {gworst} (bound Dp*2^-24*(|q||row| + |row|^2))")
+    return worst, gworst, operands
+
+
+def run_deep():
+    """Phase 12: the DEEP configuration's single-chip portion (BASELINE.json config #4,
+    benchmarks/suite.py:363-381): 8,388,608 x 128 bf16 rows with the same-dtype sweep.
+    Returns (launch counts, max |err| of B1 and B2, times, bounds, the store's rows)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 12)
+    t0 = time.perf_counter()
+    db = rng.standard_normal((N_DEEP, D), dtype=np.float32)
+    qd = rng.standard_normal((B, D), dtype=np.float32)
+    # the oracle's rows, rounded on the card apart from the store, and the rounding's gap
+    # |‖row‖ - ‖bf16(row)‖| / ‖row‖ the sweep's bias and scale rows hold before a compaction
+    rows = torch.empty((N_DEEP, D), dtype=torch.bfloat16, device=dev)
+    gap = 0.0
+    for lo in range(0, N_DEEP, DeviceOracle.CHUNK):
+        x = torch.from_numpy(db[lo:lo + DeviceOracle.CHUNK]).to(dev)
+        rows[lo:lo + x.shape[0]] = x.to(torch.bfloat16)
+        n32 = torch.linalg.vector_norm(x.double(), dim=1)
+        n16 = torch.linalg.vector_norm(rows[lo:lo + x.shape[0]].double(), dim=1)
+        gap = max(gap, float(((n32 - n16).abs() / n32).max()))
+    print(f"  corpus: {N_DEEP:,} x {D} gaussian f32 made in {time.perf_counter() - t0:.1f} s")
+    qp = QueryProcessor(DEEP, device=dev)
+    t0 = time.perf_counter()
+    ids = qp.bulk_load(db, "deep")
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    ns = qp.storage.namespace("deep")
+    st = ns.device_state()
+    print(f"  bulk_load: {len(ids)} rows in {ingest_s:.2f} s, capacity {ns.capacity}, device "
+          f"bytes {ns.nbytes:,}; mirror is the rows: {st.mirror.data_ptr() == st.data.data_ptr()}")
+    if (st.data.dtype != torch.bfloat16 or st.mirror.data_ptr() != st.data.data_ptr()
+            or st.sweep_err is not None or st.sweep_resid is not None
+            or ns.capacity != N_DEEP or ns.nbytes != N_DEEP * (D * 2 + 5)
+            or not torch.equal(st.data.view(torch.int16), rows.view(torch.int16))):
+        raise AssertionError("the DEEP store is not its bf16 rows alone")
+    oracle = DeviceOracle(rows, qd)
+    near = sorted({next(iter(s)) for s in oracle.sets("cosine", B, k=1)})
+    others = rng.choice(np.setdiff1d(np.arange(N_DEEP), near), 1000 - len(near), replace=False)
+    dead = np.asarray(sorted(near + others.tolist()))
+
+    searches = (("cosine", B, K), ("l2", B, K), ("ip", 16, K), ("cosine", B, K100))
+    outer = _sweep_counts()
+    _set_sweep_counts([0] * len(outer))
+    served, dead_ids = {}, set()
+    for when, dead_rows in (("before delete", None), ("after delete", dead)):
+        if dead_rows is not None:
+            dead_ids = _deleted(qp, "deep", ids, dead_rows)
+        for metric, nq, k in searches:
+            res, tier, xfer = _served(qp, "deep", qd, metric, nq, k)
+            served[f"{metric} B={nq} k={k} {when}"] = (tier, xfer)
+            if (xfer[0] != 1 or len(tier) != 1 or tier[0].startswith("light_")
+                    or (tier == ["fast"] and xfer != (1, 1))):
+                raise AssertionError(f"DEEP {metric} k={k} {when}: {tier} {xfer}")
+            if any(r["id"] in dead_ids for rs in res for r in rs):
+                raise AssertionError(f"DEEP {metric}: a deleted id was returned")
+            _check_recall(res, oracle.sets(metric, nq, dead_rows, k=k), ids,
+                          f"DEEP {metric} B={nq} {when} (bf16-row oracle)", k=k)
+    counts = dict(zip(_COUNT_NAMES, _sweep_counts()))
+    _set_sweep_counts([o + c for o, c in zip(outer, counts.values())])
+    print(f"  DEEP (tier, transfers) per batch: {served}")
+    print(f"  DEEP launches: {counts}")
+    if (counts["sweep"] != 2 * len(searches) or counts["sweep_heavy"] or counts["int8"]
+            or counts["f32"] or counts["gather_bf16"] < 1
+            or counts["gather_bf16"] != counts["gather"]):
+        raise AssertionError(f"the same-dtype kernels did not serve every search: {counts}")
+    q_fold = torch.from_numpy(-qd)
+    qres = torch.linalg.vector_norm(q_fold - q_fold.to(torch.bfloat16).float(), dim=1)
+    rel = (qres / torch.linalg.vector_norm(q_fold, dim=1)).numpy()
+    print(f"  rounding: max |‖row‖ - ‖bf16(row)‖| / ‖row‖ over the corpus {gap:.3e}; the "
+          f"query's |qres| / |q| (the certificate's term) max {rel.max():.3e}, median "
+          f"{float(np.median(rel)):.3e}")
+
+    # the kernels at the operands of the engine's B=128 searches (bucket 512), tombstoned
+    st = ns.device_state()
+    q_pad = torch.zeros((512, D), device=dev)
+    q_pad[:B] = torch.from_numpy(qd).to(dev)
+
+    def search(metric, k):
+        return fused_knn_t.exact_knn_t(q_pad, st.mirror, st.data, st.valid, st.sq_norms, k=k,
+                                       metric=metric, live_prefix=None,
+                                       prep_cache=st.prep_cache, report_tier=True)
+
+    worst, gworst, operands = check_same_dtype_kernels(st, q_pad, search)
+    times = {}
+    for name, key in (("sweep_same_dtype", "cosine_k16"), ("sweep_same_dtype_l2", "l2_k16"),
+                      ("sweep_same_dtype_k128", "cosine_k128")):
+        a, kw = operands[key]
+        times[name] = _time_ms(lambda: fused_knn_t._window_mins_t(*a, **kw))
+        times[name + "_plain"] = _time_ms(lambda: fused_knn_t._window_mins_t_ref(*a, **kw))
+    a, kw = operands["gather"]
+    times["gather_bf16"] = _time_ms(lambda: fused_knn_t._gather_score(*a, **kw))
+    times["gather_bf16_plain"] = _time_ms(lambda: fused_knn_t._gather_score_ref(*a, **kw))
+    times["exact_knn_t_deep"] = _time_ms(lambda: search("cosine", 16))
+    times["exact_knn_t_deep_k128"] = _time_ms(lambda: search("cosine", 128))
+    wall = _engine_wall(qp, qd, namespace="deep", metric="cosine")
+    split = _engine_split(qp, qd, namespace="deep", metric="cosine")
+    times["engine_wall_deep_median"] = statistics.median(wall)
+    bounds = {}
+    for name, key in (("sweep_same_dtype", "cosine_k16"), ("sweep_same_dtype_l2", "l2_k16"),
+                      ("sweep_same_dtype_k128", "cosine_k128")):
+        a, kw = operands[key]
+        bounds[name] = _b3_bound(a, kw, fused_knn_t._window_mins_t(*a, **kw))
+    a, kw = operands["gather"]
+    gathered = a[2].numel() * kw["r1"]
+    bounds["gather_bf16"] = _bound(_nbytes(a[0], a[2]) + gathered * (D * 2 + 2 * 4),
+                                   4.0 * gathered * D, F32_FLOPS)
+    flop = 2.0 * N_DEEP * 512 * D
+    for name, ms in times.items():
+        extra = ""
+        if name.startswith("sweep_same_dtype") and not name.endswith("plain"):
+            extra = f", {flop / ms / 1e9:.1f} TFLOP/s, bound {bounds[name][0]:.4f} ms"
+        elif name == "gather_bf16":
+            extra = f", {gathered * D * 2 / ms / 1e6:.1f} GB/s of gathered rows"
+        print(f"  {name}: {ms:.4f} ms{extra}")
+    print(f"  engine wall runs (ms), B={B} cosine k={K}, tombstoned DEEP store: {wall}")
+    print(f"  engine split, median ms (host clock): {split}")
+    return counts, worst, gworst, times, bounds, st.data
+
+
+def run_out_layout(rows, rng):
+    """Phase 13: probe B6 over the phase-12 rows (B = 128, zero bias, qh = bf16(-q)) at
+    its own shape (r1 = 32, g = 1) and at the k=1000 program's (r1 = 4, g = 8, where the
+    JAX package writes [B, P]): the [B, P] and tile-major outputs, each within the slack
+    of its plain version and equal to each other bit for bit; launch counts of the probe
+    run (r1 = 32), times, GB/s (the TPU probe's count) and bounds.  Returns the kernels'
+    records."""
+    from mlvectordb_tpu_torch.probes import out_layout
+
+    dev = torch.device("cuda")
+    q = torch.from_numpy(rng.standard_normal((128, D), dtype=np.float32)).to(dev)
+    ops = out_layout.operands(rows, q)
+    maxd = max(float((rows[lo:lo + (1 << 20)].float() ** 2).sum(-1).max())
+               for lo in range(0, rows.shape[0], 1 << 20)) ** 0.5
+    slack = D * 2.0 ** -22 * torch.linalg.vector_norm(ops[0].float(), dim=1) * maxd
+    n, out = rows.shape[0], {"2d": {}, "3d": {}}
+    fn = fused_knn_t._window_mins_t
+    for r1 in (fused_knn_t.R1MAX, 4):
+        outer = (fn.launches, fn.launches_bp)
+        fn.launches = fn.launches_bp = 0
+        a, c = out_layout.out_2d(*ops, r1), out_layout.out_3d(*ops, r1)
+        launches = {"2d": fn.launches_bp, "3d": fn.launches - fn.launches_bp}
+        fn.launches, fn.launches_bp = outer[0] + fn.launches, outer[1] + fn.launches_bp
+        torch.cuda.synchronize()
+        same = torch.equal(out_layout.as_tile_major(a, r1), c)
+        errs = {}
+        for name, got, plain, sl in (("2d", a, out_layout.out_2d_ref, slack[:, None]),
+                                     ("3d", c, out_layout.out_3d_ref, slack[None, :, None])):
+            err = (got - plain(*ops, r1)).abs()
+            if not bool((err <= sl).all()):
+                raise AssertionError(f"B6 {name} r1={r1}: |err| / slack "
+                                     f"{float((err / sl).max())}")
+            errs[name] = float(err.max())
+            del err
+        print(f"  B6 over {n:,} x {D} bf16 rows, B=128, r1={r1}: [B, P] equal to tile-major "
+              f"bit for bit: {same}; max |kernel - plain| 2d {errs['2d']}, 3d {errs['3d']} "
+              f"(bound Dp*2^-22*|qh|*maxd); launches {launches}")
+        if not same or launches != {"2d": 1, "3d": 1}:
+            raise AssertionError(f"B6 r1={r1}: layouts differ ({same}) or launches {launches}")
+        for name, kernel, plain, res in (("2d", out_layout.out_2d, out_layout.out_2d_ref, a),
+                                         ("3d", out_layout.out_3d, out_layout.out_3d_ref, c)):
+            ms, plain_ms = _time_ms(lambda: kernel(*ops, r1)), _time_ms(lambda: plain(*ops, r1))
+            bound = _bound(_nbytes(*ops, res), 2.0 * n * D * 128, BF16_FLOPS)
+            if r1 == fused_knn_t.R1MAX:   # the probe's shape: the kernel's record
+                out[name].update(launches=launches[name], ms=ms, plain_ms=plain_ms,
+                                 bound=bound, err=errs[name])
+            else:                         # the k=1000 program's shape, beside it
+                out[name].update({f"r1_{r1}_ms": ms, f"r1_{r1}_plain_ms": plain_ms,
+                                  f"r1_{r1}_bound_ms": bound[0],
+                                  f"r1_{r1}_max_abs_err": errs[name]})
+            print(f"  B6 {name} r1={r1}: {ms:.4f} ms ({out_layout.gbs(n, D, 128, ms, r1):.0f} "
+                  f"GB/s as the TPU probe counts), plain {plain_ms:.4f} ms, bound "
+                  f"{bound[0]:.4f} ms ({bound[1]}), {bound[0] / ms:.1%} of it")
+        del a, c
+    return out
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA GPU",
@@ -996,7 +1401,7 @@ def main() -> int:
         _check_recall(res, oracle.sets(metric, nq, dead), ids, f"{metric} B={nq} after delete")
     self_hit = qp.find_similar(VectorDTO(db_np[self_row]), 1, "sift", "l2")
     print(f"  self query (row {self_row}): score {self_hit[0]['score']}")
-    if self_hit[0]["id"] != ids[self_row] or not self_hit[0]["score"] < 1e-5:
+    if self_hit[0]["id"] != ids[self_row] or not self_hit[0]["score"] < 1e-3:
         raise AssertionError(f"stored row {self_row} queried as itself returned {self_hit[:1]}")
 
     launches = {"fast": fused_knn._window_mins_fast.launches,
@@ -1216,6 +1621,26 @@ def main() -> int:
           f"{N:,} x {D} codes, B=128, on {gpu}")
     probe = run_int8_probe(qp8.storage.namespace("sift").device_state().mirror, rng)
 
+    # ---- 11. a bf16 store, row-major -------------------------------------------------------
+    print(f"phase 11 bf16 store, row-major (dtype='bfloat16'): kernels B4/B5 over bf16 rows vs "
+          f"plain, QueryProcessor at {N:,} x {D}, on {gpu}")
+    for name, err in check_kernels(db_np, torch.bfloat16).items():
+        worst[name + "_bf16"] = err
+    check_window_min_nan(db_np, torch.bfloat16)
+    c11, t11, b11 = run_bf16_row_major(db_np, q_np, dead, self_row, q512)
+    times.update(t11)
+
+    # ---- 12. DEEP: the same-dtype certified sweep ----------------------------------------
+    print(f"phase 12 DEEP: QueryProcessor(dtype='bfloat16', sweep_dtype='bfloat16') at "
+          f"{N_DEEP:,} x {D}, on {gpu}")
+    c12, worst["same_dtype"], worst["gather_bf16"], t12, b12, deep_rows = run_deep()
+    times.update(t12)
+
+    # ---- 13. probe B6 ----------------------------------------------------------------------
+    print(f"phase 13 output-layout probe (B6): [B, P] vs tile-major over the phase-12 rows, "
+          f"on {gpu}")
+    b6 = run_out_layout(deep_rows, rng)
+
     # each kernel's bound at the operands timed above: every input read once, every
     # output written once; the products over the peak for their type
     out_fast = N // kw["r1"] * 512 * 4
@@ -1238,6 +1663,8 @@ def main() -> int:
     rows = a[2].numel() * k_["r1"]
     bounds["gather_score"] = _bound(_nbytes(a[0], a[2]) + rows * (D * 4 + 2 * 4),
                                     4.0 * rows * D, F32_FLOPS)
+    bounds.update(b11)
+    bounds.update(b12)
     for name, (ms, by, nbytes, ops) in bounds.items():
         print(f"  bound {name}: {ms:.4f} ms ({by}; {nbytes / 1e6:.0f} MB, {ops / 1e9:.1f} "
               f"G operations); the kernel at {ms / times[name]:.1%} of it")
@@ -1295,6 +1722,32 @@ def main() -> int:
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             # torch._int_mm gives the int8 product alone, no window min: no single call
             "library_ms": None})
+    # bf16 storage: B4/B5 and B2 over bf16 rows, B1 over a bf16 store's own rows
+    for name, source, replaces, launches_, key in (
+            ("window_min_fast_bf16", "window_min.cu", "mlvectordb_tpu/ops/pallas_knn.py:102",
+             c11["fast_bf16"], "fast_bf16"),
+            ("window_min_masked_bf16", "window_min.cu", "mlvectordb_tpu/ops/pallas_knn.py:131",
+             c11["masked_bf16"], "masked_bf16"),
+            ("gather_score_bf16", "gather_score.cu", "mlvectordb_tpu/ops/pallas_gather.py:33",
+             c12["gather_bf16"], "gather_bf16"),
+            ("sweep_min_same_dtype", "sweep_min.cu", "mlvectordb_tpu/ops/pallas_knn_t.py:221",
+             c12["sweep"], "sweep_same_dtype")):
+        err = worst["same_dtype" if key == "sweep_same_dtype" else key]
+        e = entry(name, source, replaces, launches_, err, key)
+        if key == "sweep_same_dtype":
+            e.update({f"{v}_{f}": times[f"sweep_same_dtype_{v}" + ("_plain" if f == "plain_ms"
+                                                                   else "")]
+                      for v in ("l2", "k128") for f in ("ms", "plain_ms")})
+            e.update({"launches_topm": c12["topm"]})
+        record["kernels"].append(e)
+    for name, line in (("out_layout_2d", 54), ("out_layout_3d", 75)):
+        r = b6[name[-2:]]
+        record["kernels"].append({
+            "name": name, "route": "cuda", "source": CSRC + "sweep_min.cu",
+            "replaces": f"benchmarks/probe_out3d.py:{line}", "launches": r["launches"],
+            "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": None,
+            **{k: v for k, v in r.items() if k.startswith("r1_4_")}})
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s on {gpu}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,11 +1,11 @@
 """mlvectordb_tpu_torch — the PyTorch + CUDA port of mlvectordb_tpu.
 
 Two exact k-NN serving paths run on a CUDA device with kernels hand-written in CUDA for
-Hopper: the default one (row-major f32 store, fused window-min kernels, window selection
-and exact f32 rescan, hydration) and, with a ``sweep_dtype``, the certified sweep (a
-bf16 mirror with int8 residual codes, int8 codes in one or two streams, or the f32 rows
-themselves, ranked by the sweep window-min kernel; the gather-score rescan kernel; a
-per-query exactness certificate with escalation).  The same
+Hopper: the default one (row-major f32 or bf16 store, fused window-min kernels, window
+selection and exact f32 rescan, hydration) and, with a ``sweep_dtype``, the certified
+sweep (a bf16 mirror with int8 residual codes, int8 codes in one or two streams, the f32
+rows themselves, or a bf16 store's own rows, ranked by the sweep window-min kernel; the
+gather-score rescan kernel; a per-query exactness certificate with escalation).  The same
 code runs on the CPU with the kernels' plain torch versions.
 Every tensor lives on the ``torch.device`` the caller passes.  This package never imports
 JAX.

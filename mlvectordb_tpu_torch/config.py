@@ -2,8 +2,8 @@
 
 A copy of ``mlvectordb_tpu/config.py`` (importing that module pulls in JAX through
 ``mlvectordb_tpu/__init__.py``).  Every field is kept, so a config compares one to one
-with the JAX package's; values of parts not yet ported (bf16 storage, int8 and f32
-sweep mirrors) are accepted here and rejected by the store.
+with the JAX package's; combinations not yet ported (a bf16 store with an int8 or f32
+sweep mirror) are accepted here and rejected by the store.
 """
 
 from __future__ import annotations
@@ -62,7 +62,7 @@ class EngineConfig:
     # Optional sweep mirror (kept in sync with the store; the port's is row-major
     # [capacity, dpad], the JAX package's transposed): the phase-1 window ranking reads
     # it (ops/fused_knn_t.py) while the exact rescan + hydration read the primary
-    # row-major matrix.  The port takes None and "bfloat16".  "bfloat16" = recommended serving config (+50% HBM for ~2-3x
+    # row-major matrix.  "bfloat16" = recommended serving config (+50% HBM for ~2-3x
     # QPS; candidate scoring stays exact f32 — the bench recall gate and oracle tests
     # pin set-exactness); "float32" = +100% HBM, HIGHEST-precision ranking; "int8" =
     # per-row-scaled codes at 1 byte/element (phase 1 at ~2x the bf16 bandwidth

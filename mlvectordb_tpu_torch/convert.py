@@ -3,14 +3,16 @@
 ``store_from_jax_snapshot`` builds a torch ``NamespaceStore`` from the dict that the JAX
 ``NamespaceStore.snapshot_arrays()`` returns (numpy values, string ids, metadata), through
 ``bulk_upsert`` as the JAX ``load_snapshot`` does; under ``sweep_dtype="bfloat16"`` that
-builds the bf16 mirror and the residual arrays from the rows.  Data plays the role of
+builds the bf16 mirror and the residual arrays from the rows, and under
+``dtype="bfloat16"`` the snapshot's f32 values round to bf16 on the device as the JAX
+store rounds them (its norms taken from the f32 values, as there).  Data plays the role of
 weights here: a namespace served by the JAX package can be served by this one with the
 same ids.
 
 ``sweep_arrays_from_jax`` turns a JAX namespace's sweep arrays (numpy copies of its
 window-major ``_data_t`` and ``_sweep_resid`` and its per-row vectors) into the port's
 row-major ones, for a bf16, int8 or f32 mirror, so the two stores can be shown to hold the
-same codes.
+same codes; for a bf16 store's same-dtype mirror the result equals the port's ``data``.
 """
 
 from __future__ import annotations

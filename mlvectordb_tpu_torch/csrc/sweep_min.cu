@@ -21,7 +21,10 @@
 // in the JAX package's order of terms, then the min over each window f of r1
 // CONSECUTIVE rows [f*r1, (f+1)*r1), written tile-major [nt, B, g*128] (g = 32 / r1) at
 // position t*g*128 + a*128 + j for window f = (t*128 + j)*g + a — the JAX package's map,
-// so the outputs compare element by element.  The [cap, B] rank matrix never exists.
+// so the outputs compare element by element.  Or, on request, in the JAX package's
+// non-transposed form [B, nt*g*128] (pallas_knn_t.py:453-457): the same positions, each
+// query's row of all tiles (window mins only: no block mins, no pool beside it, as in
+// the JAX package).  The [cap, B] rank matrix never exists.
 // Every min propagates NaN, as jnp.minimum does: a NaN rank makes its window's min NaN.
 //
 // The pool (pallas_knn_t.py:343-380): for each tile t and query b, the m smallest
@@ -117,7 +120,8 @@ sweep_min_kernel(const float* __restrict__ qh_t, const float* __restrict__ qres_
                  const float* __restrict__ bias, const float* __restrict__ qe,
                  const float* __restrict__ eb1, const float* __restrict__ eb2,
                  float* __restrict__ out, float* __restrict__ bm, float* __restrict__ pool,
-                 int D, int B, int Bp, int r1, int n_eb, int n_qtiles, int m, int subs) {
+                 int D, int B, int Bp, int r1, int n_eb, int n_qtiles, int m, int subs,
+                 long long bp_width) {
   constexpr bool HEAVY = TWO_PASS || RESID;
   constexpr int TN = HEAVY ? 4 : 8;     // queries per thread
   constexpr int BN = 16 * TN;           // queries per block
@@ -288,10 +292,13 @@ sweep_min_kernel(const float* __restrict__ qh_t, const float* __restrict__ qres_
     const int lf = (int)(f - t * gw);
     pos[i] = (lf % g) * WLANE + lf / g;
     if (out != nullptr) {
+      // tile-major [nt, B, gw], or [B, bp_width] with bp_width = nt * gw
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
         const int b = q0 + (j >> 2) * 64 + ty * 4 + (j & 3);
-        if (b < B) out[(t * B + b) * gw + pos[i]] = best[i][j];
+        const long long at =
+            bp_width ? b * bp_width + t * gw + pos[i] : (t * B + b) * gw + pos[i];
+        if (b < B) out[at] = best[i][j];
       }
     }
   }
@@ -403,6 +410,7 @@ struct Args {
   float *out, *bm, *pool;
   long long cap;
   int D, B, Bp, r1, n_eb, m;
+  long long bp_width;  // 0: tile-major output; else [B, bp_width = cap / r1]
   cudaStream_t stream;
 };
 
@@ -417,7 +425,7 @@ int launch(const Args& a, const void* mirror) {
   sweep_min_kernel<MT, TWO_PASS, RESID><<<(unsigned)blocks, THREADS, 0, a.stream>>>(
       a.qh_t, a.qres_t, static_cast<const MT*>(mirror), a.resid, a.rscale, a.scale, a.bias,
       a.qe, a.eb1, a.eb2, a.out, a.bm, a.pool, a.D, a.B, a.Bp, a.r1, a.n_eb, n_qtiles, a.m,
-      subs);
+      subs, a.bp_width);
   return (int)cudaGetLastError();
 }
 
@@ -429,22 +437,24 @@ int launch(const Args& a, const void* mirror) {
 // [cap] or null; qe: f32 [Bp, 2]; out: f32 [cap / 4096, B, (32 / r1) * 128] or null
 // (skip_wm: the pool is the only output); bm: f32 [cap / 4096, B] or null (r1 = 32 only);
 // pool: f32 [cap / 4096, SUB, B] or null, m its even depth, 8..32, with
-// m * (32 / r1) <= 32 and never beside bm.  The passes a mirror type takes: bf16 any of
-// qres_t and resid; int8 none, qres_t, or both; f32 neither.  Returns cudaGetLastError()
-// after the launch; 0 means it was accepted.
+// m * (32 / r1) <= 32 and never beside bm.  out_bp = 1: out is [B, cap / r1] instead
+// (the non-transposed form, window mins only: bm and pool null).  The passes a mirror
+// type takes: bf16 any of qres_t and resid; int8 none, qres_t, or both; f32 neither.
+// Returns cudaGetLastError() after the launch; 0 means it was accepted.
 extern "C" int mlvdb_sweep_min(const float* qh_t, const float* qres_t, const void* mirror,
                                const void* resid, const float* rscale, const float* scale,
                                const float* bias, const float* qe, const float* eb1,
                                const float* eb2, float* out, float* bm, float* pool,
                                long long cap, int D, int B, int Bp, int r1, int n_eb, int m,
-                               int mirror_type, void* stream) {
+                               int mirror_type, int out_bp, void* stream) {
   if (cap <= 0 || D <= 0 || D % (2 * BK) || B <= 0 || r1 <= 0 || 32 % r1 ||
       cap % (4096LL) || n_eb < 0 || n_eb > 2 || (bm != nullptr && r1 != 32) ||
       (resid != nullptr) != (rscale != nullptr) || (out == nullptr && pool == nullptr) ||
-      (pool != nullptr && (bm != nullptr || m < 8 || m > 32 || m % 2 || m * (32 / r1) > 32)))
+      (pool != nullptr && (bm != nullptr || m < 8 || m > 32 || m % 2 || m * (32 / r1) > 32)) ||
+      (out_bp && (out == nullptr || bm != nullptr || pool != nullptr)))
     return (int)cudaErrorInvalidValue;
   const Args a{qh_t, qres_t, static_cast<const int8_t*>(resid), rscale, scale, bias, qe, eb1,
-               eb2, out, bm, pool, cap, D, B, Bp, r1, n_eb, m,
+               eb2, out, bm, pool, cap, D, B, Bp, r1, n_eb, m, out_bp ? cap / r1 : 0,
                static_cast<cudaStream_t>(stream)};
   const bool two_pass = qres_t != nullptr, use_resid = resid != nullptr;
   switch (mirror_type) {

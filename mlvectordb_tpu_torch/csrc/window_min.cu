@@ -10,13 +10,20 @@
 // package's strided layout, so the two outputs compare element by element).  The [N, B]
 // distance matrix never exists in device memory.
 //
+// The row type is a template parameter: f32 rows (the default store) or bf16 rows (a
+// dtype="bfloat16" store, where the JAX kernels multiply at DEFAULT precision, bf16 x bf16
+// with f32 accumulation, pallas_knn.py:93-99).  bf16 rows are converted to f32 on load,
+// which is exact; the caller rounds the queries to bf16 and passes them as f32, so every
+// product is exact and the sums are the f32 kernel's.  Row norms come from the loaded
+// (bf16) rows, as the JAX kernels compute them; qn comes from the f32 query.
+//
 // What bounds it: the dots must be true f32.  The selection margin s = min(2k, k + 16)
 // that phase 2 applies to these window mins is a sound bound only because the window
 // ranking and the rescan are both f32 (pallas_knn.py:93-99), so this kernel uses f32 FMA
 // on the CUDA cores: no TF32, no tensor cores, no library product.  At the main-path
 // shapes (N = 2^20, D = 128, B = 512) that is 2 * 2^20 * 512 * 128 = 137 GFLOP against
-// 512 MB of data read once per 128-query tile: compute-bound on the f32 pipes
-// (67 TFLOP/s peak on an H100 SXM at 700 W).
+// 512 MB of data (256 MB as bf16) read once per 128-query tile: compute-bound on the f32
+// pipes (67 TFLOP/s peak on an H100 SXM at 700 W), for either row type.
 //
 // What the design does about it: a register-tiled f32 product.  A block of 256 threads
 // owns 128 windows x 128 queries; each thread keeps an 8 x 8 tile of dot accumulators
@@ -28,6 +35,7 @@
 // extra traffic.  Making it faster (split-f32 on the tensor cores, TMA, wgmma) is later work.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -53,9 +61,23 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return r;
 }
 
-template <int METRIC, bool BIAS>
+// 4 consecutive elements of one row, as f32: the only code that differs by row type
+template <typename RT> struct Row;
+template <> struct Row<float> {
+  using Reg = float4;
+  static __device__ __forceinline__ float4 cvt(Reg u) { return u; }
+};
+template <> struct Row<uint16_t> {  // bf16 bits: the high half of an f32
+  using Reg = uint2;
+  static __device__ __forceinline__ float4 cvt(Reg u) {
+    return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                       __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+  }
+};
+
+template <typename RT, int METRIC, bool BIAS>
 __global__ void __launch_bounds__(THREADS, 1)
-window_min_kernel(const float* __restrict__ data, const float* __restrict__ qt,
+window_min_kernel(const RT* __restrict__ data, const float* __restrict__ qt,
                   const float* __restrict__ qn, const float* __restrict__ bias, int hw,
                   float* __restrict__ out, int D, int B, int db_tile, int r1, int n_qtiles) {
   constexpr bool NEED_SQN = (METRIC == COSINE) || (METRIC == L2 && !BIAS);
@@ -96,8 +118,9 @@ window_min_kernel(const float* __restrict__ data, const float* __restrict__ qt,
   const int nk = D / BK;
   const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int r = 0; r < r1; ++r) {
+    using AReg = typename Row<RT>::Reg;
     const long long step_row0 = row0 + (long long)r * W;
-    const float* a_src = data + (step_row0 + a_row) * D + a_col;
+    const RT* a_src = data + (step_row0 + a_row) * D + a_col;
     const float* b_src = qt + (long long)b_row * B + q0 + b_col;
 
     float acc[8][8];
@@ -107,10 +130,11 @@ window_min_kernel(const float* __restrict__ data, const float* __restrict__ qt,
       for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
     float sq = 0.f;
 
-    float4 a_reg = *reinterpret_cast<const float4*>(a_src);
+    AReg a_raw = *reinterpret_cast<const AReg*>(a_src);
     float4 b_reg = b_ok ? *reinterpret_cast<const float4*>(b_src) : zero4;
     int buf = 0;
     for (int kc = 0; kc < nk; ++kc) {
+      const float4 a_reg = Row<RT>::cvt(a_raw);
       if (NEED_SQN) {
         sq = fmaf(a_reg.x, a_reg.x, sq);
         sq = fmaf(a_reg.y, a_reg.y, sq);
@@ -124,7 +148,7 @@ window_min_kernel(const float* __restrict__ data, const float* __restrict__ qt,
       *reinterpret_cast<float4*>(&Bs[buf][b_row][b_col]) = b_reg;
       __syncthreads();
       if (kc + 1 < nk) {  // next stage's loads are in flight during this stage's FMAs
-        a_reg = *reinterpret_cast<const float4*>(a_src + (kc + 1) * BK);
+        a_raw = *reinterpret_cast<const AReg*>(a_src + (kc + 1) * BK);
         b_reg = b_ok ? *reinterpret_cast<const float4*>(b_src + (long long)(kc + 1) * BK * B)
                      : zero4;
       }
@@ -195,47 +219,66 @@ window_min_kernel(const float* __restrict__ data, const float* __restrict__ qt,
   }
 }
 
-template <bool BIAS>
-int launch(const float* data, const float* qt, const float* qn, const float* bias, int hw,
+template <typename RT, bool BIAS>
+int launch(const void* data_v, const float* qt, const float* qn, const float* bias, int hw,
            float* out, long long n_rows, int D, int B, int db_tile, int r1, int metric,
            cudaStream_t stream) {
   if (n_rows <= 0 || D <= 0 || B <= 0 || r1 <= 0 || db_tile <= 0 || D % BK || B % 4 ||
       db_tile % r1 || (db_tile / r1) % BM || n_rows % db_tile || metric < 0 || metric > 2)
     return (int)cudaErrorInvalidValue;
+  const RT* data = static_cast<const RT*>(data_v);
   const int n_qtiles = (B + BN - 1) / BN;
   const long long blocks = n_rows / ((long long)r1 * BM) * n_qtiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)blocks), block(THREADS);
   switch (metric) {
     case L2:
-      window_min_kernel<L2, BIAS><<<grid, block, 0, stream>>>(data, qt, qn, bias, hw, out, D, B,
-                                                             db_tile, r1, n_qtiles);
+      window_min_kernel<RT, L2, BIAS><<<grid, block, 0, stream>>>(data, qt, qn, bias, hw, out, D,
+                                                                 B, db_tile, r1, n_qtiles);
       break;
     case IP:
-      window_min_kernel<IP, BIAS><<<grid, block, 0, stream>>>(data, qt, qn, bias, hw, out, D, B,
-                                                             db_tile, r1, n_qtiles);
+      window_min_kernel<RT, IP, BIAS><<<grid, block, 0, stream>>>(data, qt, qn, bias, hw, out, D,
+                                                                 B, db_tile, r1, n_qtiles);
       break;
     default:
-      window_min_kernel<COSINE, BIAS><<<grid, block, 0, stream>>>(data, qt, qn, bias, hw, out, D,
-                                                                 B, db_tile, r1, n_qtiles);
+      window_min_kernel<RT, COSINE, BIAS><<<grid, block, 0, stream>>>(data, qt, qn, bias, hw, out,
+                                                                     D, B, db_tile, r1, n_qtiles);
   }
   return (int)cudaGetLastError();
+}
+
+template <bool BIAS>
+int launch_rows(int row_type, const void* data, const float* qt, const float* qn,
+                const float* bias, int hw, float* out, long long n_rows, int D, int B,
+                int db_tile, int r1, int metric, cudaStream_t stream) {
+  switch (row_type) {
+    case 0:
+      return launch<float, BIAS>(data, qt, qn, bias, hw, out, n_rows, D, B, db_tile, r1, metric,
+                                 stream);
+    case 1:
+      return launch<uint16_t, BIAS>(data, qt, qn, bias, hw, out, n_rows, D, B, db_tile, r1,
+                                    metric, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Plain C entry points (bound with ctypes).  Each returns cudaGetLastError() after the
-// launch; 0 means the launch was accepted.  metric: 0 = l2, 1 = ip, 2 = cosine.
-extern "C" int mlvdb_window_min_fast(const float* data, const float* qt, const float* qn, int hw,
+// launch; 0 means the launch was accepted.  data: [n_rows, D] of row_type 0 = f32, 1 = bf16
+// bits; qt: f32 [D, B] (bf16-rounded values for bf16 rows); metric: 0 = l2, 1 = ip,
+// 2 = cosine.
+extern "C" int mlvdb_window_min_fast(const void* data, const float* qt, const float* qn, int hw,
                                      float* out, long long n_rows, int D, int B, int db_tile,
-                                     int r1, int metric, void* stream) {
-  return launch<false>(data, qt, qn, nullptr, hw, out, n_rows, D, B, db_tile, r1, metric,
-                       static_cast<cudaStream_t>(stream));
+                                     int r1, int metric, int row_type, void* stream) {
+  return launch_rows<false>(row_type, data, qt, qn, nullptr, hw, out, n_rows, D, B, db_tile, r1,
+                            metric, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int mlvdb_window_min_masked(const float* data, const float* qt, const float* qn,
+extern "C" int mlvdb_window_min_masked(const void* data, const float* qt, const float* qn,
                                        const float* bias, float* out, long long n_rows, int D,
-                                       int B, int db_tile, int r1, int metric, void* stream) {
-  return launch<true>(data, qt, qn, bias, 0, out, n_rows, D, B, db_tile, r1, metric,
-                      static_cast<cudaStream_t>(stream));
+                                       int B, int db_tile, int r1, int metric, int row_type,
+                                       void* stream) {
+  return launch_rows<true>(row_type, data, qt, qn, bias, 0, out, n_rows, D, B, db_tile, r1,
+                           metric, static_cast<cudaStream_t>(stream));
 }

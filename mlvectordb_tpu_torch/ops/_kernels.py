@@ -17,12 +17,17 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
+# the row_type argument of mlvdb_window_min_* and mlvdb_gather_score: f32 rows, or bf16
+# rows (a dtype="bfloat16" store)
+ROW_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _sources() -> list:
@@ -80,11 +85,12 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, with every entry point's argument types declared."""
     lib = ctypes.CDLL(str(build()))
-    lib.mlvdb_window_min_fast.argtypes = [_P, _P, _P, _I, _P, _LL, _I, _I, _I, _I, _I, _P]
-    lib.mlvdb_window_min_masked.argtypes = [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P]
+    lib.mlvdb_window_min_fast.argtypes = [_P, _P, _P, _I, _P, _LL, _I, _I, _I, _I, _I, _I, _P]
+    lib.mlvdb_window_min_masked.argtypes = [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _P]
     lib.mlvdb_sweep_min.argtypes = [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _P]
-    lib.mlvdb_gather_score.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I,
+        _P]
+    lib.mlvdb_gather_score.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
     lib.mlvdb_int8_mma_min.argtypes = [_P, _P, _P, _LL, _I, _I, _P]
     lib.mlvdb_int8_stream_sum.argtypes = [_P, _P, _LL, _I, _I, _P]
     for fn in (lib.mlvdb_window_min_fast, lib.mlvdb_window_min_masked, lib.mlvdb_sweep_min,

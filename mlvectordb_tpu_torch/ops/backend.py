@@ -38,7 +38,8 @@ def _make_fused_backend(certify: bool):
                       sweep_rscale=None, sweep_err1=None, sweep_rscale2=None,
                       sweep_light=False, sweep_prep=None, sweep_defer=False):
         if mirror is not None:
-            # the certified sweep: phase 1 reads the mirror, the rescan the f32 rows
+            # the certified sweep: phase 1 reads the mirror, the rescan the rows (f32, or
+            # a bf16 store's, which are then its mirror too)
             return exact_knn_t(
                 q, mirror, data, valid, sq_norms, k=k, metric=metric,
                 live_prefix=live_prefix, sweep_err=sweep_err, resid=sweep_resid,

@@ -3,6 +3,9 @@
 Phase 1 (hand-written CUDA kernels, ``csrc/window_min.cu``): one pass over the database
 computes the distance of every row to every query in f32 and writes only the min over
 each window of r1 rows, a [N/r1, B] matrix; the [N, B] distance matrix never exists.
+The rows are f32, or bf16 for a ``dtype="bfloat16"`` store: then the query is rounded to
+bf16 as the JAX package rounds it (pallas_knn.py:333), so every product is exact and
+summed in f32 (its DEFAULT precision), while ``qn`` stays the f32 query's.
 Two variants, as in the JAX package:
   * fast   — no per-row input: row norms are summed in the kernel from the loaded rows,
     and rows >= the high-water mark are masked arithmetically.  Used when the namespace
@@ -13,7 +16,8 @@ Each kernel wrapper launches its kernel for a CUDA tensor and runs its plain tor
 version (``_window_mins_*_ref``) for a CPU tensor; the CPU tests use the plain versions.
 
 Phase 2 (torch, small tensors): two-level window selection, then an exact f32 rescan of
-the candidate rows and the final top-k.
+the candidate rows (read as f32, scored against the f32 query with the JAX package's
+formulas, the l2 expansion ``qn + ||row||^2 - 2 q.row`` included) and the final top-k.
 
 Exactness: if a true top-k element lived in a window that selection dropped, then >= s
 selected windows each contain an element closer than it — contradiction with its rank
@@ -108,12 +112,15 @@ def _check_operands(data, qt, qn, row_input, *, metric, db_tile, r1):
     """Raise on anything the CUDA kernels do not take; returns (N, D, B)."""
     N, D = data.shape
     B = qt.shape[1]
+    if data.dtype not in _kernels.ROW_TYPES:
+        raise ValueError(f"data must be float32 or bfloat16; got {data.dtype}")
     tensors = {"data": data, "qt": qt, "qn": qn}
     if row_input is not None:
         tensors["bias"] = row_input
     for name, t in tensors.items():
-        if t.device != data.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous float32 tensor on {data.device}")
+        want = data.dtype if name == "data" else torch.float32
+        if t.device != data.device or t.dtype != want or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {want} tensor on {data.device}")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     if qt.shape[0] != D or qn.numel() != B or (row_input is not None and row_input.numel() != N):
@@ -141,12 +148,13 @@ def _window_mins_fast(data, qt, qn, hw, *, metric, db_tile, r1):
     with torch.cuda.device(data.device):  # the C launch uses the runtime's current device
         rc = _kernels.library().mlvdb_window_min_fast(
             data.data_ptr(), qt.data_ptr(), qn.data_ptr(), int(hw), out.data_ptr(),
-            N, D, B, db_tile, r1, _METRIC_CODE[metric],
+            N, D, B, db_tile, r1, _METRIC_CODE[metric], _kernels.ROW_TYPES[data.dtype],
             torch.cuda.current_stream(data.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"window_min_fast launch failed: cudaError {rc}")
     _window_mins_fast.launches += 1
+    _window_mins_fast.launches_bf16 += int(data.dtype == torch.bfloat16)
     return out
 
 
@@ -160,18 +168,20 @@ def _window_mins_masked(data, qt, qn, bias, *, metric, db_tile, r1):
     with torch.cuda.device(data.device):
         rc = _kernels.library().mlvdb_window_min_masked(
             data.data_ptr(), qt.data_ptr(), qn.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            N, D, B, db_tile, r1, _METRIC_CODE[metric],
+            N, D, B, db_tile, r1, _METRIC_CODE[metric], _kernels.ROW_TYPES[data.dtype],
             torch.cuda.current_stream(data.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"window_min_masked launch failed: cudaError {rc}")
     _window_mins_masked.launches += 1
+    _window_mins_masked.launches_bf16 += int(data.dtype == torch.bfloat16)
     return out
 
 
-# kernel launches so far (a run resets and reads these to show which kernels it used)
-_window_mins_fast.launches = 0
-_window_mins_masked.launches = 0
+# kernel launches so far, and those over bf16 rows (a run resets and reads these to show
+# which kernels it used)
+_window_mins_fast.launches = _window_mins_fast.launches_bf16 = 0
+_window_mins_masked.launches = _window_mins_masked.launches_bf16 = 0
 
 
 def _select_and_rescan(q, qn_row, data, maskadd, hw, wmin1t, *, k, metric, db_tile, masked, r1):
@@ -211,17 +221,14 @@ def _select_and_rescan(q, qn_row, data, maskadd, hw, wmin1t, *, k, metric, db_ti
     rows = (base[:, :, None] + torch.arange(r1, device=dev) * W).reshape(B, s1 * r1)
 
     sub = data.index_select(0, rows.reshape(-1)).float().reshape(B, s1 * r1, -1)
+    dots = torch.einsum("bd,bnd->bn", q, sub)                      # [B, s1*r1], f32
+    sqn_c = (sub * sub).sum(-1)                                    # norms from the rows
     if metric == "l2":
-        # sum of squared differences: a stored row queried as itself scores exactly 0,
-        # where the norm expansion leaves a few ulps of |x|^2
-        dist = (sub - q[:, None, :]).square().sum(-1)
+        dist = torch.clamp_min(qn_row + sqn_c - 2.0 * dots, 0.0)
+    elif metric == "ip":
+        dist = 1.0 - dots
     else:
-        dots = torch.einsum("bd,bnd->bn", q, sub)                  # [B, s1*r1], f32
-        if metric == "ip":
-            dist = 1.0 - dots
-        else:
-            sqn_c = (sub * sub).sum(-1)                            # norms from the rows
-            dist = 1.0 - dots * torch.rsqrt(torch.clamp_min(qn_row * sqn_c, 1e-30))
+        dist = 1.0 - dots * torch.rsqrt(torch.clamp_min(qn_row * sqn_c, 1e-30))
     if masked:
         dist = dist + maskadd[rows]
     else:
@@ -275,7 +282,8 @@ def exact_knn_fused(
     qk = q32 if Bk == B else torch.cat([q32, q32.new_zeros((Bk - B, q32.shape[1]))])
     qn_k = (qk * qk).sum(-1)
     qn = qn_k.reshape(1, Bk)                                      # [1, Bk]
-    qtarr = qk.T.contiguous()                                     # [Dp, Bk]
+    # rounded to the rows' type (a no-op for f32), carried to the kernel as f32
+    qtarr = qk.T.to(data.dtype).float().contiguous()              # [Dp, Bk]
     qn_row = qn_k[:B, None]                                       # [B, 1]
 
     if live_prefix is not None:

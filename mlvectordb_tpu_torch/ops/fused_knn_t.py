@@ -4,7 +4,9 @@
 The store keeps f32 rows for the rescan and, beside them, a sweep mirror in one of three
 types (``EngineConfig.sweep_dtype``):
   bf16  — the rows rounded to bf16, with int8 codes of each row's rounding residual
-          (``quantize_resid_rows``);
+          (``quantize_resid_rows``); over a bf16 store (``dtype="bfloat16"``) the mirror
+          is the store's own rows and the rescan reads them too: the same-dtype sweep,
+          one pass, whose certificate carries the query's bf16 rounding alone;
   int8  — row-wise int8 codes ``row ~ s1*z1`` (``quantize_int8_rows``), with a second
           stream ``+ s2*z2`` of the remainder under ``sweep_resid``
           (``quantize_int8_resid_rows``): 2 B/element in place of bf16's 3;
@@ -30,7 +32,10 @@ the same window set as the JAX package's window-major ``[Dp, cap]`` layout, whic
 only because Mosaic reduces over lane slices.  Per-row vectors stay in store-row order.
 The window mins come out tile-major ``[nt, B, g*128]`` with the JAX package's position
 map (``_pos_to_window``), so the selection code and the element-by-element tests carry
-over unchanged.
+over unchanged.  Kernel B1 also writes the JAX package's non-transposed ``[B, nt*g*128]``
+form (``transposed=False``, the same positions), which probe B6 (``probes/out_layout``)
+times against tile-major; the search keeps tile-major, which the card ran no slower
+(PERF.md, the B6 layout decision).
 
 Each kernel wrapper launches its CUDA kernel for a CUDA tensor and runs its plain torch
 version (``*_ref``) for a CPU tensor; there is no fallback between the two.
@@ -197,12 +202,12 @@ def _decode_topm(topm, m: int, out_w: int):
 
 def _window_mins_t_ref(qh, qres, mirror, resid, rscale, scale, bias, *, r1,
                        emit_block_mins=False, emit_topm=0, skip_wm=False, qe=None,
-                       eb_rows=()):
+                       eb_rows=(), transposed=True):
     """Plain torch version of kernels B1/B3: f32 matmuls of the operands converted to f32
     (bf16, int8 or f32 mirror) per chunk of whole tiles, the kernel's formula, then the
-    min over each r1-row window, written tile-major; the block mins and the top-m pool
-    from those mins."""
-    _check_outputs(emit_block_mins, emit_topm, skip_wm)
+    min over each r1-row window, written tile-major (or ``[B, P]``); the block mins and
+    the top-m pool from those mins."""
+    _check_outputs(emit_block_mins, emit_topm, skip_wm, transposed)
     require_f32_matmul()
     cap, Dp = mirror.shape
     B = qh.shape[0]
@@ -232,17 +237,21 @@ def _window_mins_t_ref(qh, qres, mirror, resid, rscale, scale, bias, *, r1,
         # local window lf = j*g + a of tile t -> output lane a*128 + j
         out[t0:t1] = wm.reshape(t1 - t0, WLANE, g, B).permute(0, 3, 2, 1).reshape(
             t1 - t0, B, g * WLANE)
+    if not transposed:
+        return out.permute(1, 0, 2).reshape(B, nt * g * WLANE), None, None   # [B, P]
     bm = out.amin(-1) if emit_block_mins else None                # [nt, B]
     pool = _topm_pool_ref(out, emit_topm) if emit_topm else None  # [nt, SUB, B]
     return None if skip_wm else out, bm, pool
 
 
-def _check_outputs(emit_block_mins, emit_topm, skip_wm):
+def _check_outputs(emit_block_mins, emit_topm, skip_wm, transposed=True):
     """The output combinations the JAX package takes (pallas_knn_t.py:415-420)."""
     if emit_topm and emit_block_mins:
         raise ValueError("the top-m pool is never emitted beside the block mins")
     if skip_wm and not emit_topm:
         raise ValueError("skip_wm needs the top-m pool as the remaining output")
+    if not transposed and (emit_block_mins or emit_topm):
+        raise ValueError("the block mins and the pool need the tile-major output")
 
 
 # the kernel's mirror types: its code, and the query type the plan gives each
@@ -252,11 +261,11 @@ _MIRROR_TYPES = {torch.bfloat16: (0, torch.bfloat16), torch.int8: (1, torch.bflo
 
 
 def _check_sweep_operands(qh, qres, mirror, resid, rscale, scale, bias, qe, eb_rows, r1,
-                          emit_block_mins, emit_topm=0, skip_wm=False):
+                          emit_block_mins, emit_topm=0, skip_wm=False, transposed=True):
     """Raise on anything kernels B1/B3 do not take: per mirror type, its query type and
     its passes (bf16: any; int8: one pass, two_pass, or two_pass with the residual
     codes; f32: one pass)."""
-    _check_outputs(emit_block_mins, emit_topm, skip_wm)
+    _check_outputs(emit_block_mins, emit_topm, skip_wm, transposed)
     if emit_topm and (emit_topm % 2 or not 8 <= emit_topm <= 32
                       or emit_topm * (R1MAX // max(r1, 1)) > 32):
         raise ValueError(f"the kernel's pool needs an even m in 8..32 with m * (32 / r1) "
@@ -299,8 +308,9 @@ def _check_sweep_operands(qh, qres, mirror, resid, rscale, scale, bias, qe, eb_r
 
 
 def _window_mins_t(qh, qres, mirror, resid, rscale, scale, bias, *, r1,
-                   emit_block_mins=False, emit_topm=0, skip_wm=False, qe=None, eb_rows=()):
-    """Phase 1 (pallas_knn_t._window_mins, tile-major form).
+                   emit_block_mins=False, emit_topm=0, skip_wm=False, qe=None, eb_rows=(),
+                   transposed=True):
+    """Phase 1 (pallas_knn_t._window_mins).
 
     qh / qres [B, Dp] (metric factor folded in; qres = compensation residual or None):
     bf16 for a bf16 or int8 mirror, f32 for an f32 one; mirror [cap, Dp] bf16, int8 or
@@ -310,14 +320,16 @@ def _window_mins_t(qh, qres, mirror, resid, rscale, scale, bias, *, r1,
     rank = (qh.m [+ qres.m] [+ (qh.resid)*rscale]) [*scale] + bias - sum_t qe_t*eb_t.
     ``emit_topm=m``: also the per-tile top-m pool; ``skip_wm``: the pool only.
     Returns ``(wmin_t [nt, B, g*128] or None, block_mins [nt, B] or None,
-    pool [nt, SUB, B] or None)``.  The CUDA kernel for a CUDA tensor, the plain version
-    for a CPU tensor."""
+    pool [nt, SUB, B] or None)``; ``transposed=False``: ``(wmin [B, nt*g*128], None,
+    None)``, the JAX package's non-transposed output.  The CUDA kernel for a CUDA tensor,
+    the plain version for a CPU tensor."""
     if mirror.device.type == "cpu":
         return _window_mins_t_ref(qh, qres, mirror, resid, rscale, scale, bias, r1=r1,
                                   emit_block_mins=emit_block_mins, emit_topm=emit_topm,
-                                  skip_wm=skip_wm, qe=qe, eb_rows=eb_rows)
+                                  skip_wm=skip_wm, qe=qe, eb_rows=eb_rows,
+                                  transposed=transposed)
     _check_sweep_operands(qh, qres, mirror, resid, rscale, scale, bias, qe, eb_rows, r1,
-                          emit_block_mins, emit_topm, skip_wm)
+                          emit_block_mins, emit_topm, skip_wm, transposed)
     cap, Dp = mirror.shape
     B = qh.shape[0]
     g = R1MAX // r1
@@ -342,7 +354,10 @@ def _window_mins_t(qh, qres, mirror, resid, rscale, scale, bias, *, r1,
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=mirror.device)
 
-    out = None if skip_wm else empty(nt, B, g * WLANE)
+    if skip_wm:
+        out = None
+    else:
+        out = empty(nt, B, g * WLANE) if transposed else empty(B, nt * g * WLANE)
     bm = empty(nt, B) if emit_block_mins else None
     pool = empty(nt, _topm_sub_rows(emit_topm), B) if emit_topm else None
 
@@ -355,11 +370,12 @@ def _window_mins_t(qh, qres, mirror, resid, rscale, scale, bias, *, r1,
             ptr(bias), qe_p.data_ptr(), ptr(eb_rows[0] if eb_rows else None),
             ptr(eb_rows[1] if len(eb_rows) > 1 else None), ptr(out), ptr(bm), ptr(pool),
             cap, Dp, B, bp, r1, len(eb_rows), emit_topm, _MIRROR_TYPES[mirror.dtype][0],
-            torch.cuda.current_stream(mirror.device).cuda_stream,
+            int(not transposed), torch.cuda.current_stream(mirror.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"sweep_min launch failed: cudaError {rc}")
     _window_mins_t.launches += 1
+    _window_mins_t.launches_bp += int(not transposed)
     if heavy:
         _window_mins_t.launches_heavy += 1
     if emit_topm:
@@ -372,8 +388,10 @@ def _window_mins_t(qh, qres, mirror, resid, rscale, scale, bias, *, r1,
 
 
 # kernel launches so far: all variants, the heavy ones, those that emitted the top-m pool,
-# and those over an int8 or an f32 mirror (a run resets and reads these)
+# those over an int8 or an f32 mirror, and those that wrote the [B, P] form (a run resets
+# and reads these)
 _window_mins_t.launches = 0
+_window_mins_t.launches_bp = 0
 _window_mins_t.launches_heavy = 0
 _window_mins_t.launches_topm = 0
 _window_mins_t.launches_int8 = 0
@@ -384,8 +402,8 @@ _window_mins_t.launches_f32 = 0
 
 def _gather_score_ref(q32, data, f, *, r1):
     """Plain torch version of kernel B2 (pallas_knn_t._rescan_windows._score): gather
-    the r1 rows of each candidate window ``f`` [B, s1] and return per-row
-    ``(q . row, ||row||^2)`` [B, s1*r1] in f32."""
+    the r1 rows (f32 or bf16, read as f32) of each candidate window ``f`` [B, s1] and
+    return per-row ``(q . row, ||row||^2)`` [B, s1*r1] in f32."""
     require_f32_matmul()
     B, s1 = f.shape
     w = torch.clamp(f.long(), 0, data.shape[0] // r1 - 1)   # as XLA's gather clamps
@@ -400,7 +418,8 @@ def _check_gather_operands(q32, data, f, r1):
     """Raise on anything kernel B2 does not take."""
     cap, Dp = data.shape
     B, s1 = f.shape
-    for name, t, dtype in (("q32", q32, torch.float32), ("data", data, torch.float32),
+    rows = data.dtype if data.dtype in _kernels.ROW_TYPES else torch.float32
+    for name, t, dtype in (("q32", q32, torch.float32), ("data", data, rows),
                            ("f", f, torch.int32)):
         if t.device != data.device or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {dtype} tensor on {data.device}")
@@ -424,15 +443,18 @@ def _gather_score(q32, data, f, *, r1):
     with torch.cuda.device(data.device):
         rc = _kernels.library().mlvdb_gather_score(
             q32.data_ptr(), data.data_ptr(), f.data_ptr(), dots.data_ptr(), sqn.data_ptr(),
-            B, s1, r1, Dp, cap // r1, torch.cuda.current_stream(data.device).cuda_stream,
+            B, s1, r1, Dp, cap // r1, _kernels.ROW_TYPES[data.dtype],
+            torch.cuda.current_stream(data.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"gather_score launch failed: cudaError {rc}")
     _gather_score.launches += 1
+    _gather_score.launches_bf16 += int(data.dtype == torch.bfloat16)
     return dots, sqn
 
 
-_gather_score.launches = 0
+# launches so far, and those over bf16 rows
+_gather_score.launches = _gather_score.launches_bf16 = 0
 
 
 # ------------------------------------------------------------------ phase 2 selection
@@ -607,8 +629,9 @@ def _select_topm_and_rescan(q32, qn_row, rescan, maskadd, hw, topm, *, k, metric
 def _rescan_windows(q32, qn_row, rescan, maskadd, hw, f, *, k, metric, r1, masked,
                     tuning=DEFAULT_TUNING):
     """Exact f32 rescan of the selected windows ``f`` [B, s1] (pallas_knn_t.py:792-861)
-    through kernel B2, then the metric formula, the mask and the final top-k.  The
-    kernel writes only (dots, sqn) per row, so nothing is chunked."""
+    of the rows ``rescan`` (f32, or a bf16 store's own rows read as f32) through kernel
+    B2, then the metric formula, the mask and the final top-k.  The kernel writes only
+    (dots, sqn) per row, so nothing is chunked."""
     B, s1 = f.shape
     f = torch.sort(f, dim=1).values.to(torch.int32).contiguous()
     dots, sqn_c = _gather_score(q32, rescan, f, r1=r1)
@@ -703,15 +726,24 @@ def _prep_terms(valid, sq_norms, hw, rscale, sweep_err, err1, *, cap, metric, ma
             "maxd": maxd, "eb_rows": tuple(eb_row(srcs[s]()) for s in wb_sources)}
 
 
+def _mixed(mirror_dtype, rescan_dtype) -> bool:
+    """A mirror whose rows differ from the rescan's (pallas_knn_t.py:1077): bf16 over f32
+    rows, or int8 codes.  A bf16 mirror of a bf16 store (the same-dtype sweep) and the
+    f32 mirror are not."""
+    return ((mirror_dtype == torch.bfloat16 and rescan_dtype != mirror_dtype)
+            or mirror_dtype == torch.int8)
+
+
 def _plan(*, certify, light, metric, mirror_dtype, rescan_dtype, sweep_err, resid, rscale,
           err1, rscale2):
     """(use_resid, wb_sources, q_tags, err_tags) of a mirror of ``mirror_dtype`` over rows
     of ``rescan_dtype`` (pallas_knn_t.py:1515-1531): a bf16 mirror of f32 rows and an int8
-    mirror are mixed and lossy, an f32 mirror neither; the residual pass needs its
-    arrays, and for an int8 mirror the second scale as well."""
+    mirror are mixed and lossy, a bf16 mirror of bf16 rows lossy only, an f32 mirror
+    neither; the residual pass needs its arrays, and for an int8 mirror the second scale
+    as well."""
     bf_sweep = mirror_dtype == torch.bfloat16
     int8_sweep = mirror_dtype == torch.int8
-    mixed = (bf_sweep and rescan_dtype != mirror_dtype) or int8_sweep
+    mixed = _mixed(mirror_dtype, rescan_dtype)
     use_resid = (certify and not light and resid is not None and rscale is not None
                  and err1 is not None and (bf_sweep or (int8_sweep and rscale2 is not None)))
     plan = _cert_plan(certify=certify, light=light, mixed=mixed,
@@ -722,14 +754,15 @@ def _plan(*, certify, light, metric, mirror_dtype, rescan_dtype, sweep_err, resi
 
 
 def search_prep(mirror, valid, sq_norms, *, metric, live_prefix, certify=True, light=False,
-                sweep_err=None, resid=None, rscale=None, err1=None, rscale2=None):
-    """The query-independent prep dict of one search over f32 rows
+                sweep_err=None, resid=None, rscale=None, err1=None, rscale2=None,
+                rescan_dtype=torch.float32):
+    """The query-independent prep dict of one search over rows of ``rescan_dtype``
     (pallas_knn_t.py:1377-1427), as ``exact_knn_t`` caches it per snapshot; pass it back
     through ``prep=``."""
     cap = mirror.shape[0]
     use_resid, wb_sources, _, _ = _plan(
         certify=certify, light=light, metric=metric, mirror_dtype=mirror.dtype,
-        rescan_dtype=torch.float32, sweep_err=sweep_err, resid=resid, rscale=rscale,
+        rescan_dtype=rescan_dtype, sweep_err=sweep_err, resid=resid, rscale=rscale,
         err1=err1, rscale2=rscale2)
     masked = live_prefix is None
     return _prep_terms(valid, sq_norms, cap if masked else live_prefix, rscale, sweep_err,
@@ -791,17 +824,18 @@ class SweepResult:
         return torch.from_numpy(d).to(dev), torch.from_numpy(i).to(dev), tier
 
 
-def _fold_query(q32, metric, light, mirror_dtype=torch.bfloat16):
+def _fold_query(q32, metric, light, mirror_dtype=torch.bfloat16, mixed=True):
     """The kernel's query operands (pallas_knn_t.py:1066-1087): the metric factor folded
     in (l2 ranks by -2q.x, ip and cosine by -q.x), rounded to bf16 as ``qh`` against a
     bf16 or int8 mirror and kept f32 against an f32 one, and the rounding residual
-    ``qres_f32``; ``qres`` is its compensation operand in qh's type, given only to a lossy
-    mirror's heavy program (None for the light program and the f32 mirror)."""
+    ``qres_f32``; ``qres`` is its compensation operand in qh's type, given only to a
+    mixed lossy mirror's heavy program (None for the light program, the same-dtype sweep
+    and the f32 mirror)."""
     q_fold = -2.0 * q32 if metric == "l2" else -q32
     lossy = mirror_dtype != torch.float32
     qh = q_fold.to(torch.bfloat16 if lossy else torch.float32)
     qres_f32 = q_fold - qh.float()
-    return qh, (qres_f32.to(qh.dtype) if lossy and not light else None), qres_f32
+    return qh, (qres_f32.to(qh.dtype) if lossy and mixed and not light else None), qres_f32
 
 
 def _fused_t(q, mirror, rescan, valid, sq_norms, hw, resid, prep, *, k, metric, r1,
@@ -814,7 +848,8 @@ def _fused_t(q, mirror, rescan, valid, sq_norms, hw, resid, prep, *, k, metric, 
     q32 = q.float()
     qn_row = (q32 * q32).sum(-1)
     # compensated query: qh + qres represents the folded query to ~2^-18; light skips it
-    qh, qres, qres_f32 = _fold_query(q32, metric, light, mirror.dtype)
+    qh, qres, qres_f32 = _fold_query(q32, metric, light, mirror.dtype,
+                                     _mixed(mirror.dtype, rescan.dtype))
 
     P_all = cap // r1
     if not certify:
@@ -837,7 +872,8 @@ def _fused_t(q, mirror, rescan, valid, sq_norms, hw, resid, prep, *, k, metric, 
                 and P_all % WLANE == 0 and nt_all > 1 and m_top * g <= 32
                 and nt_all * m_top >= 4 * s1_w and out_w_all * out_w_all <= (1 << 24))
     # the JAX package's layout choice; the port always writes tile-major, which the
-    # selection indexes as JAX's [B, P] form, so it decides only the gates below
+    # selection indexes as JAX's [B, P] form, so it decides only the gates below (probe
+    # B6 timed both forms of the kernel: PERF.md)
     transposed = (k <= 128 or use_topm) and P_all % WLANE == 0 and P_all // WLANE > 1
     use_topm = use_topm and transposed
     r2 = WLANE if (transposed and k <= 32) else R2
@@ -942,8 +978,9 @@ def exact_knn_t(q, mirror, rescan_data, valid, sq_norms, *, k, metric, live_pref
     contract as ops.topk.exact_knn.
 
     ``mirror`` [cap, Dp] row-major: bf16, int8 codes or f32; ``rescan_data`` [cap, Dp]
-    f32.  ``sweep_err``, ``resid``/``rscale``/``err1``: the store's certificate arrays
-    (see ``quantize_resid_rows``); for an int8 mirror ``rscale`` is its dequant scale
+    f32, or a bf16 store's rows (then the mirror is those rows: the same-dtype sweep).
+    ``sweep_err``, ``resid``/``rscale``/``err1``: the store's certificate arrays (see
+    ``quantize_resid_rows``); for an int8 mirror ``rscale`` is its dequant scale
     s1, and ``resid``/``rscale2`` the second stream's codes and scale s2 (see
     ``quantize_int8_resid_rows``).  ``light``: the single-pass program.  ``prep_cache``: the
     snapshot's dict of query-independent prep.  ``report_tier`` adds the tier that served

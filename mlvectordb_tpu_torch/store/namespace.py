@@ -1,9 +1,11 @@
 """Per-namespace device store: the counterpart of ``mlvectordb_tpu/store/namespace.py``.
 
 Device state (capacity grows in powers of two):
-  data     [capacity, dim_padded]  float32, rows lane-padded with zeros
+  data     [capacity, dim_padded]  float32, or bfloat16 under config.dtype="bfloat16"
+                                   (the written f32 rows rounded); lane-padded with zeros
   valid    [capacity]              bool — False = never-written, tombstoned, or freed slot
-  sq_norms [capacity]              f32  — precomputed squared norms (L2/cosine need them)
+  sq_norms [capacity]              f32  — squared norms: of the written f32 rows, and after
+                                   a compaction of the stored rows (the JAX package's rule)
 With a ``sweep_dtype`` (the certified sweep, ops/fused_knn_t), beside them a ROW-major
 sweep mirror [capacity, dim_padded] (the JAX package's is window-major [dpad, cap]; see
 fused_knn_t) and the certificate's per-row arrays:
@@ -17,12 +19,16 @@ fused_knn_t) and the certificate's per-row arrays:
   "float32":  mirror IS data: the row-major f32 mirror would hold the same bytes in the
               same layout, so the store keeps one tensor (the JAX package keeps a
               transposed copy)
+Over a bf16 store (config.dtype="bfloat16") the bf16 mirror is data itself for the same
+reason (the same-dtype sweep: no certificate arrays); a bf16 store takes no int8 or f32
+mirror yet (ROADMAP A24).
 
 Host state: slot -> uuid / metadata / float32 values, uuid -> slot map, free-slot stack.
-Writes scatter into free slots (upsert by id overwrites in place); deletes clear the
-mask.  Compaction repacks live rows and is strictly per-namespace.
+Hydration returns the written f32 values, whatever the storage dtype.  Writes scatter
+into free slots (upsert by id overwrites in place); deletes clear the mask.  Compaction
+repacks live rows and is strictly per-namespace.
 
-Not ported yet: bf16 storage, host offload and the native metadata columns.
+Not ported yet: host offload and the native metadata columns.
 """
 
 from __future__ import annotations
@@ -42,11 +48,16 @@ from .vector import Vector
 
 def check_supported(config: EngineConfig) -> None:
     """Raise for configurations whose store or kernels are not ported yet."""
-    if config.dtype != "float32":
+    if config.dtype == "bfloat16" and config.sweep_dtype not in (None, "bfloat16"):
         raise NotImplementedError(
-            f"dtype={config.dtype!r} is not ported yet (ROADMAP A18: bf16 storage); "
-            "the torch store holds float32"
+            f"a bf16 store with sweep_dtype={config.sweep_dtype!r} is not ported yet "
+            "(ROADMAP A24); a bf16 store takes sweep_dtype None or 'bfloat16'"
         )
+
+
+def _storage_dtype(config: EngineConfig) -> torch.dtype:
+    """The rows' device type (JAX namespace.py:347-348): bf16 only when asked for."""
+    return torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
 
 
 class DeviceState(NamedTuple):
@@ -197,7 +208,7 @@ class NamespaceStore:
         once)."""
         if self._data is None:
             return 0
-        total = self.capacity * self.dpad * 4 + self.capacity * (1 + 4)
+        total = self.capacity * (self.dpad * self._data.element_size() + 1 + 4)
         for t in self._sweep_arrays():
             if t is not None:
                 total += t.numel() * t.element_size()
@@ -208,12 +219,12 @@ class NamespaceStore:
                 self._sweep_err1, self._sweep_rscale2)
 
     def _sweep_mirror(self) -> Optional[torch.Tensor]:
-        """The mirror a search reads: the f32 mirror is the row store itself, whenever the
+        """The mirror a search reads: a mirror of the rows' own type (the f32 mirror of an
+        f32 store, the bf16 mirror of a bf16 store) is the row store itself, whenever the
         capacity takes the sweep layout."""
-        # any sweep_dtype other than bf16 and int8 names the f32 mirror, as in the JAX
-        # package (namespace.py:350-355)
-        if (self.config.sweep_dtype not in (None, "bfloat16", "int8")
-                and self._data is not None and self._mirror_ok(self._data.shape[0])):
+        if (self.config.sweep_dtype is not None and not self._mixed_sweep()
+                and not self._int8_sweep() and self._data is not None
+                and self._mirror_ok(self._data.shape[0])):
             return self._data
         return self._mirror
 
@@ -247,8 +258,9 @@ class NamespaceStore:
     # ------------------------------------------------------------------ sweep mirror
 
     def _mixed_sweep(self) -> bool:
-        """f32 store + bf16 sweep mirror."""
-        return self.config.sweep_dtype == "bfloat16"
+        """f32 store + bf16 sweep mirror (JAX namespace.py:369-375)."""
+        return (_storage_dtype(self.config) == torch.float32
+                and self.config.sweep_dtype == "bfloat16")
 
     def _int8_sweep(self) -> bool:
         """int8 primary mirror (codes + dequant scales + error norms)."""
@@ -295,7 +307,8 @@ class NamespaceStore:
         arrays grow by appended rows like the store; a store that reaches its first
         mirror-eligible capacity builds them from its rows."""
         if self._data is None:
-            self._data = torch.zeros((new_cap, self.dpad), dtype=torch.float32, device=self.device)
+            self._data = torch.zeros((new_cap, self.dpad), dtype=_storage_dtype(self.config),
+                                     device=self.device)
             self._valid = torch.zeros((new_cap,), dtype=torch.bool, device=self.device)
             self._sq_norms = torch.zeros((new_cap,), dtype=torch.float32, device=self.device)
             self._build_sweep()
@@ -473,7 +486,10 @@ class NamespaceStore:
         return self._tombstones / self._high_water >= self.config.rebuild_threshold
 
     def compact(self) -> None:
-        """Repack live rows to the front and shrink capacity.  Per-namespace only."""
+        """Repack live rows to the front and shrink capacity.  Per-namespace only.  The
+        squared norms are recomputed from the stored rows, as the JAX package does
+        (namespace.py:786): a float64 sum cast to f32, so on a bf16 store they become
+        ||bf16(row)||^2."""
         with self._lock:
             live = sorted(self._id_to_slot.items(), key=lambda kv: kv[1])
             n = len(live)
@@ -489,12 +505,15 @@ class NamespaceStore:
             if self.dim is None:
                 return
             new_cap = self.config.round_capacity(max(n, 1))
-            data = torch.zeros((new_cap, self.dpad), dtype=torch.float32, device=self.device)
+            data = torch.zeros((new_cap, self.dpad), dtype=_storage_dtype(self.config),
+                               device=self.device)
             sq_norms = torch.zeros((new_cap,), dtype=torch.float32, device=self.device)
             if self._data is not None and n:
                 old = torch.as_tensor([s for _, s in live], dtype=torch.int64).to(self.device)
                 data[:n] = self._data.index_select(0, old)        # gathered on the device
-                sq_norms[:n] = self._sq_norms.index_select(0, old)
+                for lo in range(0, n, _NORM_CHUNK):               # bounded float64 copies
+                    rows = data[lo : min(n, lo + _NORM_CHUNK)].double()
+                    sq_norms[lo : lo + rows.shape[0]] = (rows * rows).sum(-1).float()
             valid = torch.zeros((new_cap,), dtype=torch.bool, device=self.device)
             valid[:n] = True
             self._data, self._valid, self._sq_norms = data, valid, sq_norms
@@ -534,7 +553,7 @@ class NamespaceStore:
             live = sorted(self._id_to_slot.items(), key=lambda kv: kv[1])
             if self._data is not None and live:
                 slots = torch.as_tensor([s for _, s in live], dtype=torch.int64).to(self.device)
-                rows = self._data.index_select(0, slots)[:, : self.dim].cpu().numpy()
+                rows = self._data.index_select(0, slots)[:, : self.dim].float().cpu().numpy()
             else:
                 rows = np.zeros((0, self.dim or 0), np.float32)
             return {
@@ -544,6 +563,10 @@ class NamespaceStore:
                 "values": rows,
                 "metadata": [self._slot_meta[s] for _, s in live],
             }
+
+
+# rows per float64 chunk of compaction's norm sums
+_NORM_CHUNK = 1 << 20
 
 
 def _last_write_wins(slots: np.ndarray, vals: np.ndarray):

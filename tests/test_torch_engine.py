@@ -1,13 +1,17 @@
 """The ported serving slice as a whole, against the JAX package's QueryProcessor.
 
 A JAX QueryProcessor (CPU) and a torch QueryProcessor(device="cpu") load the same
-20,000 x 128 corpus under the same uuids; the namespace capacity (32768) puts the torch
-side on the fused path (plain window-min versions on the CPU) and the JAX side on its
-scan.  Results must name the same ids in the same order with scores within 1e-4.
+20,000 x 128 corpus under the same uuids; the namespace capacity (32768) puts both on
+the fused row-major path: the torch side's plain window-min versions, and the JAX side's
+Pallas kernels in interpret mode (its backend is told it runs on a TPU, as
+tests/test_torch_int8.py does).  Both rescan with the same formulas, the l2 expansion
+qn + ||row||^2 - 2 q.row included.  Results must name the same ids in the same order with
+scores within 1e-4.
 """
 
 import subprocess
 import sys
+import types
 import uuid
 
 import numpy as np
@@ -17,6 +21,7 @@ import torch
 from mlvectordb_tpu.config import EngineConfig as JaxConfig
 from mlvectordb_tpu.engine.query_processor import QueryProcessor as JaxQueryProcessor
 from mlvectordb_tpu.interfaces.vector import VectorDTO as JaxDTO
+from mlvectordb_tpu.ops import backend as jax_backend
 from mlvectordb_tpu.store.storage import StorageEngine as JaxStorage
 from mlvectordb_tpu.store.vector import Vector as JaxVector
 from mlvectordb_tpu_torch import (
@@ -41,12 +46,14 @@ def corpus():
 @pytest.fixture
 def pair(corpus):
     _, x, ids, meta, _ = corpus
-    jqp = JaxQueryProcessor(config=JaxConfig())
-    tqp = QueryProcessor(EngineConfig(), device="cpu")
-    jqp.bulk_load(x, "ns", ids=ids, metadatas=meta)
-    tqp.bulk_load(x, "ns", ids=ids, metadatas=meta)
-    assert tqp.storage.namespace("ns").capacity == 32768
-    return jqp, tqp
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_backend, "jax", types.SimpleNamespace(default_backend=lambda: "tpu"))
+        jqp = JaxQueryProcessor(config=JaxConfig())
+        tqp = QueryProcessor(EngineConfig(), device="cpu")
+        jqp.bulk_load(x, "ns", ids=ids, metadatas=meta)
+        tqp.bulk_load(x, "ns", ids=ids, metadatas=meta)
+        assert tqp.storage.namespace("ns").capacity == 32768
+        yield jqp, tqp
 
 
 def _search_both(jqp, tqp, queries, k, metric, namespace="ns"):
@@ -159,10 +166,13 @@ def test_carry_over_from_jax_snapshot(pair, corpus):
 
 
 def test_unported_options_raise():
-    for cfg in (EngineConfig(dtype="bfloat16"),
-                EngineConfig(dtype="bfloat16", sweep_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A18"):
-            QueryProcessor(cfg, device="cpu")
+    # a bf16 store serves row-major and with the same-dtype bf16 mirror; its int8 and
+    # f32 mirrors are not ported yet
+    for sweep in ("int8", "float32"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A24"):
+            QueryProcessor(EngineConfig(dtype="bfloat16", sweep_dtype=sweep), device="cpu")
+    for sweep in (None, "bfloat16"):
+        QueryProcessor(EngineConfig(dtype="bfloat16", sweep_dtype=sweep), device="cpu")
     tqp = QueryProcessor(EngineConfig(), device="cpu")
     q = [VectorDTO(np.ones(4, np.float32))]
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -163,6 +163,34 @@ def test_exact_knn_fused_batch_not_multiple_of_four(oracle):
     _assert_set_exact(td.numpy(), ti.numpy(), jd, ji, oi)
 
 
+@pytest.mark.parametrize("live", [True, False])
+def test_exact_knn_fused_l2_rescan_is_jax_formula(live):
+    """The row-major l2 rescan scores max(qn + ||row||^2 - 2 q.row, 0), as the JAX
+    package's _select_and_rescan does (pallas_knn.py:260-262).  Integer rows keep every
+    norm and dot exact in f32 whatever the summation order, while qn + ||row||^2 passes
+    2^24 and rounds once: the two rescans agree bit for bit, where a sum of squared
+    differences would return the unrounded distances."""
+    n, b = 2 * tfused.DB_TILE, 8
+    rng = np.random.default_rng(16)
+    db = rng.integers(-500, 501, (n, D)).astype(np.float32)
+    near = rng.choice(n, b, replace=False)
+    q = db[near] + rng.integers(-3, 4, (b, D)).astype(np.float32)
+    valid = np.ones(n, bool) if live else rng.random(n) > 0.05
+    valid[near] = True
+    sq = (db * db).sum(-1).astype(np.float32)
+    assert (sq < 2**24).all() and ((q * q).sum(-1)[:, None] + sq[None, :] > 2**24).all()
+    lp = n if live else None
+    jd, ji = jfused.exact_knn_pallas(jnp.asarray(q), jnp.asarray(db), jnp.asarray(valid),
+                                     jnp.asarray(sq), k=10, metric="l2", live_prefix=lp)
+    td, ti = tfused.exact_knn_fused(*(torch.from_numpy(a) for a in (q, db, valid, sq)), k=10,
+                                    metric="l2", live_prefix=lp)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    assert (ti.numpy()[:, 0] == near).all() and valid[ti.numpy()].all()
+    direct = ((db[ti.numpy()].astype(np.float64) - q[:, None, :]) ** 2).sum(-1)
+    assert (td.numpy() != direct).any()          # the expansion's rounding shows
+
+
 def test_small_capacity_falls_back_to_scan():
     n = 256
     q, db, j, t = _knn_inputs(15, n, 4, np.ones(n, bool))

@@ -462,3 +462,163 @@ def test_int8_probe_kernels_match_plain(cuda, b):
     for g, w in zip(got, want):
         assert g.shape == w.shape == (16, b, 128) and g.dtype == w.dtype
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+# ------------------------------------------------------------------ bf16 storage (B4/B5/B2/B1)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
+@pytest.mark.parametrize("r1", [8, 32])
+@pytest.mark.parametrize("b", [8, 512])
+def test_bf16_rows_kernels_match_plain(cuda, metric, r1, b):
+    """B4/B5 over bf16 rows and a bf16-rounded query (carried as f32): every product is
+    exact, so the kernel and its plain version differ only in summation order."""
+    rng = np.random.default_rng(r1 * 1000 + b + 3)
+    n = 65536
+    data = torch.from_numpy(rng.standard_normal((n, 128), dtype=np.float32)).to(cuda)
+    rows = data.to(torch.bfloat16)
+    q = torch.from_numpy(rng.standard_normal((b, 128), dtype=np.float32)).to(cuda)
+    qt = q.T.to(torch.bfloat16).float().contiguous()
+    qn = (q * q).sum(-1)[None, :].contiguous()
+    kw = dict(metric=metric, db_tile=fused_knn.DB_TILE, r1=r1)
+    hw = n - fused_knn.DB_TILE - 1234
+    before = (fused_knn._window_mins_fast.launches_bf16,
+              fused_knn._window_mins_masked.launches_bf16)
+    got = fused_knn._window_mins_fast(rows, qt, qn, hw, **kw)
+    valid = torch.from_numpy(rng.random(n) > 0.01).to(cuda)
+    valid[-fused_knn.DB_TILE:] = False
+    maskadd = torch.where(valid, 0.0, float(MASKED))
+    bias = ((data * data).sum(-1) + maskadd if metric == "l2" else maskadd)[:, None].contiguous()
+    got_m = fused_knn._window_mins_masked(rows, qt, qn, bias, **kw)
+    torch.cuda.synchronize()
+    assert (fused_knn._window_mins_fast.launches_bf16,
+            fused_knn._window_mins_masked.launches_bf16) == (before[0] + 1, before[1] + 1)
+    _close(got, fused_knn._window_mins_fast_ref(rows, qt, qn, hw, **kw))
+    _close(got_m, fused_knn._window_mins_masked_ref(rows, qt, qn, bias, **kw))
+
+
+@pytest.mark.parametrize("r1", [32, 4])
+def test_gather_score_bf16_rows_match_plain(cuda, r1):
+    rng = np.random.default_rng(r1 + 40)
+    data = torch.from_numpy(rng.standard_normal((65536, 128), dtype=np.float32)).to(cuda)
+    rows = data.to(torch.bfloat16)
+    q = torch.from_numpy(rng.standard_normal((132, 128), dtype=np.float32)).to(cuda)
+    f = torch.sort(torch.randint(0, 65536 // r1, (132, 37), device=cuda), 1).values
+    f = f.to(torch.int32).contiguous()
+    before = fused_knn_t._gather_score.launches_bf16
+    dots, sqn = fused_knn_t._gather_score(q, rows, f, r1=r1)
+    torch.cuda.synchronize()
+    assert fused_knn_t._gather_score.launches_bf16 == before + 1
+    want_dots, want_sqn = fused_knn_t._gather_score_ref(q, rows, f, r1=r1)
+    bound = 128 * 2.0 ** -24 * (torch.linalg.vector_norm(q, dim=1)[:, None]
+                                * want_sqn.sqrt() + want_sqn)
+    assert bool(((dots - want_dots).abs() <= bound).all())
+    assert bool(((sqn - want_sqn).abs() <= bound).all())
+
+
+def _same_dtype_operands(dev, n, b, metric, seed):
+    """Kernel B1's operands for the same-dtype sweep (a bf16 store's rows as the mirror):
+    one pass, the bound row sqrt(sqn) scaled by |qres| for l2/ip, none for cosine."""
+    rng = np.random.default_rng(seed)
+    data = torch.from_numpy(rng.standard_normal((n, 128), dtype=np.float32)).to(dev)
+    q = torch.from_numpy(rng.standard_normal((b, 128), dtype=np.float32)).to(dev)
+    valid = torch.from_numpy(rng.random(n) > 0.01).to(dev)
+    valid[-fused_knn_t.SWEEP_TILE:] = False
+    rows = data.to(torch.bfloat16)
+    _, wb, _, _ = fused_knn_t._plan(certify=True, light=False, metric=metric,
+                                    mirror_dtype=torch.bfloat16, rescan_dtype=torch.bfloat16,
+                                    sweep_err=None, resid=None, rscale=None, err1=None,
+                                    rscale2=None)
+    prep = fused_knn_t._prep_terms(valid, (data * data).sum(-1), n, None, None, None, cap=n,
+                                   metric=metric, masked=True, use_resid=False,
+                                   wb_sources=wb)
+    qh, qres, qres_f32 = fused_knn_t._fold_query(q, metric, False, torch.bfloat16, mixed=False)
+    assert qres is None
+    qe = torch.linalg.vector_norm(qres_f32, dim=1)[:, None].contiguous() if wb else None
+    args = (qh, None, rows, None, None, prep["scale_row"], prep["bias_row"])
+    qn = torch.linalg.vector_norm(q, dim=1) * (2.0 if metric == "l2" else 1.0)
+    slack = 128 * 2.0 ** -22 * qn * (1.0 if metric == "cosine" else prep["maxd"])
+    return args, dict(qe=qe, eb_rows=prep["eb_rows"]), slack
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
+@pytest.mark.parametrize("r1", [32, 16, 4])
+@pytest.mark.parametrize("b", [8, 132])
+def test_same_dtype_sweep_kernel_matches_plain(cuda, metric, r1, b):
+    """B1 over a bf16 store's own rows, tile-major (with the block mins at r1 = 32) and in
+    the [B, P] form: each within the slack of its plain version, the two forms bit-equal
+    at the positions they share."""
+    args, kw, slack = _same_dtype_operands(cuda, 65536, b, metric, r1 * 7 + b)
+    c = fused_knn_t._window_mins_t
+    before = (c.launches, c.launches_heavy, c.launches_bp)
+    got, bm, _ = c(*args, r1=r1, emit_block_mins=r1 == 32, **kw)
+    bp = fused_knn_t._window_mins_t(*args, r1=r1, transposed=False, **kw)[0]
+    torch.cuda.synchronize()
+    c = fused_knn_t._window_mins_t
+    assert (c.launches, c.launches_heavy, c.launches_bp) == (before[0] + 2, before[1],
+                                                             before[2] + 1)
+    want, want_bm, _ = fused_knn_t._window_mins_t_ref(*args, r1=r1, emit_block_mins=r1 == 32,
+                                                      **kw)
+    _close_slack(got, want, slack[None, :, None])
+    assert bool((want == MASKED).any())
+    if r1 == 32:
+        _close_slack(bm, want_bm, slack[None, :])
+    want_bp = fused_knn_t._window_mins_t_ref(*args, r1=r1, transposed=False, **kw)[0]
+    assert bp.shape == want_bp.shape == (b, 65536 // r1)
+    _close_slack(bp, want_bp, slack[:, None])
+    assert torch.equal(bp.reshape(b, -1, (32 // r1) * 128).permute(1, 0, 2), got)
+
+
+@pytest.mark.parametrize("sweep", [None, "bfloat16"])
+@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
+def test_bf16_engine_on_cuda_matches_cpu(cuda, sweep, metric):
+    """A bf16 store row-major (B4/B5 over bf16 rows) and with the same-dtype sweep (B1
+    one pass, B2 over bf16 rows): the same ids and tiers on the card as on the CPU."""
+    rng = np.random.default_rng(37)
+    x = rng.standard_normal((20000, 128), dtype=np.float32)
+    q = [VectorDTO(v) for v in rng.standard_normal((16, 128), dtype=np.float32)]
+    cfg = EngineConfig(dtype="bfloat16", sweep_dtype=sweep)
+    counters = ((fused_knn._window_mins_fast, "launches_bf16"),
+                (fused_knn._window_mins_masked, "launches_bf16"),
+                (fused_knn_t._window_mins_t, "launches"),
+                (fused_knn_t._window_mins_t, "launches_heavy"),
+                (fused_knn_t._gather_score, "launches_bf16"))
+    out = []
+    for device in ("cpu", cuda):
+        qp = QueryProcessor(cfg, device=device)
+        ids = qp.bulk_load(x, "ns", ids=None if not out else out[0][0])
+        st = qp.storage.namespace("ns").device_state()
+        assert st.data.dtype == torch.bfloat16 and (st.mirror is st.data) == (sweep is not None)
+        before = [getattr(fn, a) for fn, a in counters]
+        res = qp.find_similar_batch(q, 10, "ns", metric)
+        qp.delete(ids[::50], "ns")
+        res2 = qp.find_similar_batch(q, 10, "ns", metric)
+        launched = [getattr(fn, a) - v for (fn, a), v in zip(counters, before)]
+        out.append((ids, res, res2, launched, qp.cert_tier_counts("ns")))
+    (_, c1, c2, _, ccpu), (_, g1, g2, launched, cgpu) = out
+    assert launched == ([1, 1, 0, 0, 0] if sweep is None else [0, 0, 2, 0, 2])
+    assert ccpu == cgpu == ({} if sweep is None else {"fast": 2})
+    for a, b in ((c1, g1), (c2, g2)):
+        for ra, rb in zip(a, b):
+            assert {r["id"] for r in ra} == {r["id"] for r in rb}
+            np.testing.assert_allclose(sorted(r["score"] for r in ra),
+                                       sorted(r["score"] for r in rb), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("r1", [32, 4])
+def test_out_layout_probe_matches_plain(cuda, r1):
+    """Probe B6 at 2^18 rows: both layouts equal to their plain versions within the
+    slack, and to each other bit for bit."""
+    from mlvectordb_tpu_torch.probes import out_layout
+
+    rng = np.random.default_rng(43 + r1)
+    rows = torch.from_numpy(rng.standard_normal((1 << 18, 128), dtype=np.float32)).to(cuda)
+    q = torch.from_numpy(rng.standard_normal((128, 128), dtype=np.float32)).to(cuda)
+    ops = out_layout.operands(rows, q)
+    a, c = out_layout.out_2d(*ops, r1), out_layout.out_3d(*ops, r1)
+    torch.cuda.synchronize()
+    assert torch.equal(out_layout.as_tile_major(a, r1), c)
+    slack = 128 * 2.0 ** -22 * torch.linalg.vector_norm(q, dim=1) * rows.to(
+        torch.bfloat16).float().norm(dim=1).max()
+    _close_slack(a, out_layout.out_2d_ref(*ops, r1), slack[:, None])
+    _close_slack(c, out_layout.out_3d_ref(*ops, r1), slack[None, :, None])
