@@ -180,7 +180,7 @@ class QueryProcessor:
                 sweep_resid=state.sweep_resid, sweep_rscale=state.sweep_rscale,
                 sweep_err1=state.sweep_err1, sweep_rscale2=state.sweep_rscale2,
                 sweep_light=use_light,
-                sweep_prep=state.prep_cache, sweep_defer=True,
+                sweep_prep=state.prep_cache, sweep_defer=True, n_live=B,
             )
             if isinstance(out, SweepResult):
                 # ONE device->host transfer: the int32 ids travel bit-cast beside the

@@ -13,7 +13,9 @@ kernel that cannot build or launch raises.
 
 ``report_tier`` adds the certificate tier that served the batch (-1: no certificate ran).
 ``sweep_defer`` (sweep path only) returns the device-side ``fused_knn_t.SweepResult``, so
-the caller can bring the tier-1 result and its proof down in one copy.
+the caller can bring the tier-1 result and its proof down in one copy.  ``n_live`` (sweep
+path only) is the caller's batch before its zero padding: phase 1 computes the live query
+columns alone.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ def _make_fused_backend(certify: bool):
     def fused_backend(q, data, valid, sq_norms, *, k, metric, db_tile, live_prefix=None,
                       report_tier=False, mirror=None, sweep_err=None, sweep_resid=None,
                       sweep_rscale=None, sweep_err1=None, sweep_rscale2=None,
-                      sweep_light=False, sweep_prep=None, sweep_defer=False):
+                      sweep_light=False, sweep_prep=None, sweep_defer=False, n_live=None):
         if mirror is not None:
             # the certified sweep: phase 1 reads the mirror, the rescan the rows (f32, or
             # a bf16 store's, which are then its mirror too)
@@ -45,7 +47,7 @@ def _make_fused_backend(certify: bool):
                 live_prefix=live_prefix, sweep_err=sweep_err, resid=sweep_resid,
                 rscale=sweep_rscale, err1=sweep_err1, rscale2=sweep_rscale2, certify=certify,
                 report_tier=report_tier, light=sweep_light, prep_cache=sweep_prep,
-                defer=sweep_defer,
+                defer=sweep_defer, n_live=n_live,
             )
         d, i = exact_knn_fused(
             q, data, valid, sq_norms, k=k, metric=metric, db_tile=db_tile,

@@ -18,7 +18,10 @@ A search runs:
              over each window of r1 consecutive rows, lowered by the row's own error
              bound (the certificate's optimistic bound).  Light: one pass.  Heavy: plus
              the query's bf16 residual and the int8 residual codes.  ``_plan`` derives
-             the program from the mirror's type as the JAX package does.
+             the program from the mirror's type as the JAX package does.  A bf16 or
+             int8 mirror's products run on the tensor cores (bf16 mma, f32 sums), an f32
+             mirror's on the CUDA cores.  Only the live query columns are computed; the
+             engine's zero-padded rows take one cached zero-query column.
   phase 2  — window selection (torch, small tensors): two-level over the window mins, or
              one narrow top-s over the kernel's per-tile top-m candidate pool where the
              JAX package gates the pool on; then the exact f32 rescan of the selected
@@ -69,6 +72,7 @@ WLANE = SWEEP_TILE // R1MAX  # 128 windows per output block
 Q_TILE = 256                # query tile of the JAX shape gate (B % min(256, B) == 0)
 R2 = 32                     # fine windows per level-2 selection block
 FQ_CONTAIN = 8              # queries re-proved by the contained escalation
+LIVE_STEP = 8               # query columns of one tensor-core n-tile: the live count's step
 
 
 class Tuning(NamedTuple):
@@ -244,6 +248,50 @@ def _window_mins_t_ref(qh, qres, mirror, resid, rscale, scale, bias, *, r1,
     return None if skip_wm else out, bm, pool
 
 
+def _phase1_budget(qh, qres, mirror, resid, rscale, scale, bias, *, r1, qe=None, eb_rows=(),
+                   transposed=True):
+    """Per-element bound on |kernel - plain| of B1/B3's window mins, shaped as they are.
+
+    Each pass's dot is within Dp * 2^-23 * |a||b| of the exact one on the tensor cores
+    (the bar ``chip_smoke.py`` measures) and within Dp * 2^-24 * |a||b| in the plain
+    version's f32 sums; the epilogue's roundings add 2^-21 of each term's magnitude.  A
+    window min moves by at most the largest of its live rows' bounds (min is 1-Lipschitz);
+    masked rows (bias >= MASKED / 2) never hold a live window's min.  The bound of a block
+    min is the largest over its windows: ``budget.amax(-1)``."""
+    cap, Dp = mirror.shape
+    g = R1MAX // r1
+    nt = cap // SWEEP_TILE
+    tc, eps = Dp * (2.0 ** -23 + 2.0 ** -24), 2.0 ** -21
+    dev = mirror.device
+
+    def norms(x):   # row norms, 2^20 rows at a time
+        return torch.cat([torch.linalg.vector_norm(x[i:i + (1 << 20)].float(), dim=1)
+                          for i in range(0, x.shape[0], 1 << 20)])
+
+    s = torch.ones(cap, device=dev) if scale is None else scale.abs()
+    v = norms(mirror) * s                                      # qh.m and qres.m
+    u = v if resid is None else v + norms(resid) * rscale.abs() * s
+    live = torch.ones(cap, dtype=torch.bool, device=dev) if bias is None else bias < MASKED / 2
+
+    def wmax(x):    # [cap] -> the largest over each window's live rows, tile-major [nt, 1, gw]
+        x = torch.where(live, x, torch.zeros_like(x)).reshape(-1, r1).amax(1)
+        return x.reshape(nt, WLANE, g).permute(0, 2, 1).reshape(nt, 1, g * WLANE)
+
+    def qcol(x):    # [B] -> [1, B, 1]
+        return x[None, :, None]
+
+    out = (tc + eps) * qcol(torch.linalg.vector_norm(qh.float(), dim=1)) * wmax(u)
+    if qres is not None:
+        out = out + (tc + eps) * qcol(torch.linalg.vector_norm(qres.float(), dim=1)) * wmax(v)
+    if bias is not None:
+        out = out + eps * wmax(bias.abs())
+    for t, eb in enumerate(eb_rows):
+        out = out + eps * qcol(qe[:, t].abs()) * wmax(eb.abs())
+    if not transposed:
+        return out.permute(1, 0, 2).reshape(qh.shape[0], nt * g * WLANE)
+    return out
+
+
 def _check_outputs(emit_block_mins, emit_topm, skip_wm, transposed=True):
     """The output combinations the JAX package takes (pallas_knn_t.py:415-420)."""
     if emit_topm and emit_block_mins:
@@ -307,9 +355,113 @@ def _check_sweep_operands(qh, qres, mirror, resid, rscale, scale, bias, qe, eb_r
             f"Dp={Dp} B={B} r1={r1} n_eb={len(eb_rows)} block_mins={emit_block_mins}")
 
 
+def _live_columns(batch: int, n_live) -> int:
+    """The query columns a launch computes: ``n_live`` rounded up to the tensor-core
+    product's n (``LIVE_STEP``), at most the batch; every column when ``n_live`` is None."""
+    if n_live is None:
+        return batch
+    return min(batch, -(-max(int(n_live), 1) // LIVE_STEP) * LIVE_STEP)
+
+
+def _sweep_launch(qh, qres, mirror, resid, rscale, scale, bias, *, r1, emit_block_mins,
+                  emit_topm, skip_wm, qe, eb_rows, transposed, n_c):
+    """Launch kernel B1/B3 on the first ``n_c`` query columns of outputs ``B = len(qh)``
+    wide; the columns from ``n_c`` on are left unwritten.  Returns the outputs."""
+    _check_sweep_operands(qh, qres, mirror, resid, rscale, scale, bias, qe, eb_rows, r1,
+                          emit_block_mins, emit_topm, skip_wm, transposed)
+    cap, Dp = mirror.shape
+    B = qh.shape[0]
+    g = R1MAX // r1
+    nt = cap // SWEEP_TILE
+    dev = mirror.device
+    if mirror.dtype == torch.float32:
+        # the FMA body reads f32 queries [Dp, Bq], Bq a multiple of its 128-query tile
+        bq = -(-n_c // 128) * 128
+
+        def q_op(x):
+            t = torch.zeros((Dp, bq), dtype=torch.float32, device=dev)
+            t[:, :n_c] = x[:n_c].T
+            return t
+    else:
+        # the tensor-core body reads bf16 query rows [Bq, Dp], Bq a multiple of 8
+        bq = -(-n_c // LIVE_STEP) * LIVE_STEP
+
+        def q_op(x):
+            if bq == n_c:
+                return x[:n_c]
+            t = torch.zeros((bq, Dp), dtype=x.dtype, device=dev)
+            t[:n_c] = x[:n_c]
+            return t
+
+    qe_p = torch.zeros((bq, 2), dtype=torch.float32, device=dev)
+    if eb_rows:
+        qe_p[:n_c, : len(eb_rows)] = qe[:n_c]
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    if skip_wm:
+        out = None
+    else:
+        out = empty(nt, B, g * WLANE) if transposed else empty(B, nt * g * WLANE)
+    bm = empty(nt, B) if emit_block_mins else None
+    pool = empty(nt, _topm_sub_rows(emit_topm), B) if emit_topm else None
+    qh_op, qres_op = q_op(qh), (None if qres is None else q_op(qres))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):  # the C launch uses the runtime's current device
+        rc = _kernels.library().mlvdb_sweep_min(
+            qh_op.data_ptr(), ptr(qres_op), mirror.data_ptr(), ptr(resid), ptr(rscale),
+            ptr(scale), ptr(bias), qe_p.data_ptr(), ptr(eb_rows[0] if eb_rows else None),
+            ptr(eb_rows[1] if len(eb_rows) > 1 else None), ptr(out), ptr(bm), ptr(pool),
+            cap, Dp, B, n_c, bq, r1, len(eb_rows), emit_topm, _MIRROR_TYPES[mirror.dtype][0],
+            int(not transposed), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"sweep_min launch failed: cudaError {rc}")
+    return out, bm, pool
+
+
+def _zero_query_outputs(qh, qres, mirror, resid, rscale, scale, bias, *, qe, eb_rows,
+                        n_live, zero_cache, plain, **opts):
+    """The outputs of the padded query row ``n_live`` (the engine's zero query), one
+    column each, computed by the kernel (``plain``: its plain version) on that row tiled
+    to one query tile and kept in ``zero_cache`` (the snapshot's prep dict holds it)
+    under the program's key.  Counted on ``_window_mins_t.launches_zero`` where the
+    kernel ran."""
+    key = ("zero_query", opts["r1"], qres is not None, resid is not None, str(mirror.dtype),
+           opts["emit_block_mins"], opts["emit_topm"], opts["skip_wm"], opts["transposed"])
+    hit = None if zero_cache is None else zero_cache.get(key)
+    if hit is not None:
+        return hit
+
+    def row(x):
+        return None if x is None else x[n_live:n_live + 1].expand(LIVE_STEP, -1).contiguous()
+
+    args = (row(qh), row(qres), mirror, resid, rscale, scale, bias)
+    kw = dict(opts, qe=row(qe), eb_rows=eb_rows)
+    if plain:
+        outs = _window_mins_t_ref(*args, **kw)
+    else:
+        outs = _sweep_launch(*args, **kw, n_c=LIVE_STEP)
+        _window_mins_t.launches_zero += 1
+    axes = _query_axes(opts["transposed"])
+    hit = tuple(None if o is None else o.narrow(ax, 0, 1).clone() for o, ax in zip(outs, axes))
+    if zero_cache is not None:
+        zero_cache[key] = hit  # GIL-atomic; a racing reader recomputes
+    return hit
+
+
+def _query_axes(transposed):
+    """The query axis of each output: window mins (tile-major or [B, P]), block mins, pool."""
+    return (1 if transposed else 0, 1, 2)
+
+
 def _window_mins_t(qh, qres, mirror, resid, rscale, scale, bias, *, r1,
                    emit_block_mins=False, emit_topm=0, skip_wm=False, qe=None, eb_rows=(),
-                   transposed=True):
+                   transposed=True, n_live=None, zero_cache=None):
     """Phase 1 (pallas_knn_t._window_mins).
 
     qh / qres [B, Dp] (metric factor folded in; qres = compensation residual or None):
@@ -322,80 +474,100 @@ def _window_mins_t(qh, qres, mirror, resid, rscale, scale, bias, *, r1,
     Returns ``(wmin_t [nt, B, g*128] or None, block_mins [nt, B] or None,
     pool [nt, SUB, B] or None)``; ``transposed=False``: ``(wmin [B, nt*g*128], None,
     None)``, the JAX package's non-transposed output.  The CUDA kernel for a CUDA tensor,
-    the plain version for a CPU tensor."""
+    the plain version for a CPU tensor.
+
+    ``n_live``: rows ``[n_live, B)`` are the engine's padding, each the folded zero
+    query.  Only the first ``_live_columns(B, n_live)`` columns are computed; the rest
+    are filled from the zero query's outputs, cached in ``zero_cache`` (a dict, or None
+    to compute them here).  Every output keeps its B-wide shape and the values a full
+    call gives those rows."""
+    kw = dict(r1=r1, emit_block_mins=emit_block_mins, emit_topm=emit_topm, skip_wm=skip_wm,
+              qe=qe, eb_rows=eb_rows, transposed=transposed, n_live=n_live,
+              zero_cache=zero_cache)
     if mirror.device.type == "cpu":
-        return _window_mins_t_ref(qh, qres, mirror, resid, rscale, scale, bias, r1=r1,
-                                  emit_block_mins=emit_block_mins, emit_topm=emit_topm,
-                                  skip_wm=skip_wm, qe=qe, eb_rows=eb_rows,
-                                  transposed=transposed)
-    _check_sweep_operands(qh, qres, mirror, resid, rscale, scale, bias, qe, eb_rows, r1,
-                          emit_block_mins, emit_topm, skip_wm, transposed)
-    cap, Dp = mirror.shape
+        return _window_mins_t_plain(qh, qres, mirror, resid, rscale, scale, bias, **kw)
+    return _window_mins_t_kernel(qh, qres, mirror, resid, rscale, scale, bias, **kw)
+
+
+def _live_split(qh, qres, mirror, resid, rscale, scale, bias, *, qe, eb_rows, n_live,
+                zero_cache, plain, **opts):
+    """(live columns, the zero query's outputs or None) of one call (``_window_mins_t``)."""
+    _check_outputs(opts["emit_block_mins"], opts["emit_topm"], opts["skip_wm"],
+                   opts["transposed"])
+    n_c = _live_columns(qh.shape[0], n_live)
+    zero = None
+    if n_c < qh.shape[0]:
+        zero = _zero_query_outputs(qh, qres, mirror, resid, rscale, scale, bias, qe=qe,
+                                   eb_rows=eb_rows, n_live=n_live, zero_cache=zero_cache,
+                                   plain=plain, **opts)
+    return n_c, zero
+
+
+def _window_mins_t_plain(qh, qres, mirror, resid, rscale, scale, bias, *, r1,
+                         emit_block_mins=False, emit_topm=0, skip_wm=False, qe=None,
+                         eb_rows=(), transposed=True, n_live=None, zero_cache=None):
+    """The plain version of ``_window_mins_t``, on any device: ``_window_mins_t_ref`` on
+    the live columns, the padded ones from the zero query's plain outputs."""
+    opts = dict(r1=r1, emit_block_mins=emit_block_mins, emit_topm=emit_topm, skip_wm=skip_wm,
+                transposed=transposed)
+    n_c, zero = _live_split(qh, qres, mirror, resid, rscale, scale, bias, qe=qe,
+                            eb_rows=eb_rows, n_live=n_live, zero_cache=zero_cache,
+                            plain=True, **opts)
     B = qh.shape[0]
-    g = R1MAX // r1
-    nt = cap // SWEEP_TILE
-    heavy = qres is not None or resid is not None
-    # the kernel reads queries as f32 [Dp, Bp], Bp a multiple of its query tile; bf16
-    # values are exact in f32, so this changes no product
-    bn = 64 if heavy else 128
-    bp = -(-B // bn) * bn
 
-    def qt(x):
-        t = torch.zeros((Dp, bp), dtype=torch.float32, device=mirror.device)
-        t[:, :B] = x.float().T
-        return t
+    def cut(x):
+        return None if x is None else x[:n_c]
 
-    qh_t = qt(qh)
-    qres_t = qt(qres) if qres is not None else None
-    qe_p = torch.zeros((bp, 2), dtype=torch.float32, device=mirror.device)
-    if eb_rows:
-        qe_p[:B, : len(eb_rows)] = qe
-
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=mirror.device)
-
-    if skip_wm:
-        out = None
-    else:
-        out = empty(nt, B, g * WLANE) if transposed else empty(B, nt * g * WLANE)
-    bm = empty(nt, B) if emit_block_mins else None
-    pool = empty(nt, _topm_sub_rows(emit_topm), B) if emit_topm else None
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    with torch.cuda.device(mirror.device):  # the C launch uses the runtime's current device
-        rc = _kernels.library().mlvdb_sweep_min(
-            ptr(qh_t), ptr(qres_t), mirror.data_ptr(), ptr(resid), ptr(rscale), ptr(scale),
-            ptr(bias), qe_p.data_ptr(), ptr(eb_rows[0] if eb_rows else None),
-            ptr(eb_rows[1] if len(eb_rows) > 1 else None), ptr(out), ptr(bm), ptr(pool),
-            cap, Dp, B, bp, r1, len(eb_rows), emit_topm, _MIRROR_TYPES[mirror.dtype][0],
-            int(not transposed), torch.cuda.current_stream(mirror.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"sweep_min launch failed: cudaError {rc}")
-    _window_mins_t.launches += 1
-    _window_mins_t.launches_bp += int(not transposed)
-    if heavy:
-        _window_mins_t.launches_heavy += 1
-    if emit_topm:
-        _window_mins_t.launches_topm += 1
-    if mirror.dtype == torch.int8:
-        _window_mins_t.launches_int8 += 1
-    elif mirror.dtype == torch.float32:
-        _window_mins_t.launches_f32 += 1
-    return out, bm, pool
+    outs = _window_mins_t_ref(qh[:n_c], cut(qres), mirror, resid, rscale, scale, bias,
+                              qe=cut(qe), eb_rows=eb_rows, **opts)
+    if zero is None:
+        return outs
+    return tuple(None if o is None else torch.cat(
+        [o, z.expand(*[B - n_c if d == ax else s for d, s in enumerate(o.shape)])], dim=ax)
+        for o, z, ax in zip(outs, zero, _query_axes(transposed)))
 
 
-# kernel launches so far: all variants, the heavy ones, those that emitted the top-m pool,
-# those over an int8 or an f32 mirror, and those that wrote the [B, P] form (a run resets
-# and reads these)
+def _window_mins_t_kernel(qh, qres, mirror, resid, rscale, scale, bias, *, r1,
+                          emit_block_mins=False, emit_topm=0, skip_wm=False, qe=None,
+                          eb_rows=(), transposed=True, n_live=None, zero_cache=None):
+    """The CUDA path of ``_window_mins_t``: the kernel on the live columns, the padded
+    ones filled from the zero query's outputs; every launch counted."""
+    opts = dict(r1=r1, emit_block_mins=emit_block_mins, emit_topm=emit_topm, skip_wm=skip_wm,
+                transposed=transposed)
+    n_c, zero = _live_split(qh, qres, mirror, resid, rscale, scale, bias, qe=qe,
+                            eb_rows=eb_rows, n_live=n_live, zero_cache=zero_cache,
+                            plain=False, **opts)
+    B = qh.shape[0]
+    outs = _sweep_launch(qh, qres, mirror, resid, rscale, scale, bias, qe=qe,
+                         eb_rows=eb_rows, n_c=n_c, **opts)
+    fn = _window_mins_t
+    fn.launches += 1
+    fn.cols += n_c
+    fn.launches_bp += int(not transposed)
+    fn.launches_heavy += int(qres is not None or resid is not None)
+    fn.launches_topm += int(bool(emit_topm))
+    fn.launches_int8 += int(mirror.dtype == torch.int8)
+    fn.launches_f32 += int(mirror.dtype == torch.float32)
+    if zero is not None:
+        for o, z, ax in zip(outs, zero, _query_axes(transposed)):
+            if o is not None:
+                pad = o.narrow(ax, n_c, B - n_c)
+                pad.copy_(z.expand_as(pad))
+    return outs
+
+
+# kernel launches so far: all variants (not the zero-query fills), the heavy ones, those
+# that emitted the top-m pool, those over an int8 or an f32 mirror, those that wrote the
+# [B, P] form; the query columns those launches computed; and the launches that filled a
+# zero-query cache (a run resets and reads these)
 _window_mins_t.launches = 0
+_window_mins_t.cols = 0
 _window_mins_t.launches_bp = 0
 _window_mins_t.launches_heavy = 0
 _window_mins_t.launches_topm = 0
 _window_mins_t.launches_int8 = 0
 _window_mins_t.launches_f32 = 0
+_window_mins_t.launches_zero = 0
 
 
 # ------------------------------------------------------------------ kernel B2
@@ -839,9 +1011,12 @@ def _fold_query(q32, metric, light, mirror_dtype=torch.bfloat16, mixed=True):
 
 
 def _fused_t(q, mirror, rescan, valid, sq_norms, hw, resid, prep, *, k, metric, r1,
-             masked, certify, light, use_resid, q_tags, err_tags, tuning):
+             masked, certify, light, use_resid, q_tags, err_tags, tuning, n_live=None):
     """Phase 1, tier-1 selection and rescan, and the per-query certificate
-    (pallas_knn_t._fused_t, :1022-1347), with the escalation packed into the result."""
+    (pallas_knn_t._fused_t, :1022-1347), with the escalation packed into the result.
+    ``n_live``: rows from it on are the engine's zero padding; phase 1 computes only the
+    live columns and takes the padding's from the zero-query outputs cached in ``prep``.
+    Everything after phase 1 sees the padded batch, as the JAX package does."""
     cap, Dp = mirror.shape
     B = q.shape[0]
     g = R1MAX // r1
@@ -916,6 +1091,7 @@ def _fused_t(q, mirror, rescan, valid, sq_norms, hw, resid, prep, *, k, metric, 
         qh, qres, mirror, resid if use_resid else None, prep["rscale_row"],
         prep["scale_row"], prep["bias_row"], r1=r1, emit_block_mins=emit_bm,
         emit_topm=m_top if use_topm else 0, skip_wm=skip_wm, qe=qe, eb_rows=eb_rows,
+        n_live=n_live, zero_cache=None if n_live is None else prep.setdefault("zero_query", {}),
     )
     wmin2_pre = None if bm is None else bm.T.contiguous()    # [B, nt] block mins
     maskadd = torch.where(valid, 0.0, float(MASKED)).to(torch.float32) if masked else None
@@ -973,7 +1149,7 @@ def _fused_t(q, mirror, rescan, valid, sq_norms, hw, resid, prep, *, k, metric, 
 def exact_knn_t(q, mirror, rescan_data, valid, sq_norms, *, k, metric, live_prefix=None,
                 r1_override=None, sweep_err=None, resid=None, rscale=None, err1=None,
                 rscale2=None, certify=True, report_tier=False, light=False, prep_cache=None,
-                prep=None, tuning=DEFAULT_TUNING, defer=False):
+                prep=None, tuning=DEFAULT_TUNING, defer=False, n_live=None):
     """Certified sweep exact k-NN (pallas_knn_t.exact_knn_pallas_t); same results
     contract as ops.topk.exact_knn.
 
@@ -986,7 +1162,9 @@ def exact_knn_t(q, mirror, rescan_data, valid, sq_norms, *, k, metric, live_pref
     snapshot's dict of query-independent prep.  ``report_tier`` adds the tier that served
     the batch: 0 certified tier 1 selection, 1 contained or widened selection, 2 exact
     scan, -1 the shape gate sent the search to the scan (no certificate ran).
-    ``defer``: return the device-side ``SweepResult`` instead (see its docstring)."""
+    ``defer``: return the device-side ``SweepResult`` instead (see its docstring).
+    ``n_live``: the caller's batch before it padded ``q`` with zero rows (None: every row
+    is live); phase 1 then computes only the live query columns (``_window_mins_t``)."""
     cap, Dp = mirror.shape
     B = q.shape[0]
     qt_w = min(Q_TILE, B)
@@ -1018,7 +1196,7 @@ def exact_knn_t(q, mirror, rescan_data, valid, sq_norms, *, k, metric, live_pref
         res = _fused_t(q, mirror, rescan_data, valid, sq_norms, hw, resid, prep, k=k,
                        metric=metric, r1=r1, masked=masked, certify=certify, light=light,
                        use_resid=use_resid, q_tags=q_tags, err_tags=err_tags,
-                       tuning=tuning)
+                       tuning=tuning, n_live=n_live)
     if defer:
         return res
     d, i, tier = res.resolve()

@@ -4,6 +4,8 @@
     its memory traffic (the counterpart of ``benchmarks/probe_int8_mxu.py``);
   * ``out_layout`` — the sweep kernel writing its window mins ``[B, P]`` against
     tile-major (the counterpart of ``benchmarks/probe_out3d.py``);
+  * ``tc_error`` — the sweep kernel's dots on the tensor cores against float64, over
+    hard inputs (the bound its certificate budgets);
   * ``time_window_min`` — a script that times kernels B4 and B5 at the engine's shape,
     run once per checkout to compare two versions of them in one call.
 """

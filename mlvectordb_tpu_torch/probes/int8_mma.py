@@ -5,9 +5,9 @@ Three kernels over the same int8 mirror codes [N, D] (row-major, as the store ke
 them) and B queries, each writing one value per window of 32 consecutive rows,
 tile-major [N / 4096, B, 128] as the sweep kernel does at r1 = 32:
 
-  kA ``convert_fma_min`` — the codes converted to f32 against bf16 queries, f32 FMA, the
-     window min: kernel B3's int8 one-pass route (``csrc/sweep_min.cu``), called
-     without scale or bias rows.
+  kA ``convert_mma_min`` — the codes converted to bf16 in registers against bf16
+     queries, bf16 ``mma.sync`` with f32 sums, the window min: kernel B3's int8 one-pass
+     route (``csrc/sweep_min.cu``), called without scale or bias rows.
   kB ``mma_min`` — int8 codes x int8 queries -> int32 dots on the tensor cores
      (``mma.sync`` m16n8k32, ``csrc/int8_probe.cu``), the int32 window min.  The
      queries are quantized as the TPU probe quantizes them (``quantize_queries``).  A
@@ -18,7 +18,8 @@ tile-major [N / 4096, B, 128] as the sweep kernel does at r1 = 32:
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain torch version
 (``*_ref``) for a CPU tensor.  kB and kC are exact integer results, so kernel and plain
-version are equal on the card; kA is B3 and compares as B3 does.
+version are equal on the card; kA is B3 and compares as B3 does (within its phase-1
+budget, ``fused_knn_t._phase1_budget``).
 """
 
 from __future__ import annotations
@@ -38,13 +39,14 @@ def quantize_queries(q: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(q.float() * 16.0), -127, 127).to(torch.int8)
 
 
-def convert_fma_min(qh: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+def convert_mma_min(qh: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """kA: [nt, B, 128] f32 window mins of qh [B, D] bf16 . codes [N, D] int8 (kernel B3,
-    one pass, no scale or bias rows; its launches count on ``_window_mins_t``)."""
+    one pass on the tensor cores, no scale or bias rows; its launches count on
+    ``_window_mins_t``)."""
     return _window_mins_t(qh, None, codes, None, None, None, None, r1=R1MAX)[0]
 
 
-def convert_fma_min_ref(qh: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+def convert_mma_min_ref(qh: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     return _window_mins_t_ref(qh, None, codes, None, None, None, None, r1=R1MAX)[0]
 
 

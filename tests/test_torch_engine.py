@@ -233,6 +233,34 @@ def test_storage_engine_matches_jax(corpus):
     assert tse.total_vectors == 0 and tse.read(ids[2], "a") is None
 
 
+@pytest.mark.parametrize("path", ["upsert", "bulk_upsert"])
+def test_repeated_id_in_one_write_batch_keeps_the_last_write(path):
+    """A write batch that names one id twice ([a: 1.0, b: 2.0, a: 3.0]): the port's device
+    row, its squared norm, the hydrated values and the search ranking all follow the last
+    write.  The JAX store pads the batch to a power of two by repeating row 0 after its
+    host tables took the last write (mlvectordb_tpu/store/namespace.py:637-644), so its
+    device row keeps 1.0 while hydration gives 3.0, and its search ranks the stale row: an
+    intended divergence (ROADMAP §C)."""
+    a, b = uuid.UUID(int=1), uuid.UUID(int=2)
+    rows = np.array([[1.0] * 4, [2.0] * 4, [3.0] * 4], np.float32)
+    ids = [a, b, a]
+    out = {}
+    for name, qp, dto in (("jax", JaxQueryProcessor(config=JaxConfig()), JaxDTO),
+                          ("port", QueryProcessor(EngineConfig(), device="cpu"), VectorDTO)):
+        if path == "upsert":
+            qp.upsert_many([dto(r, id=i) for r, i in zip(rows, ids)], "ns")
+        else:
+            qp.bulk_load(rows, "ns", ids=ids)
+        ns = qp.storage.namespace("ns")
+        state, slot = ns.device_state(), ns._id_to_slot[a]
+        hits = qp.find_similar(dto(np.full(4, 3.0, np.float32)), 2, "ns", "l2")
+        out[name] = (float(np.asarray(state.data)[slot, 0]),
+                     float(np.asarray(state.sq_norms)[slot]), float(ns.get(a).values[0]),
+                     [h["id"] for h in hits])
+    assert out["port"] == (3.0, 36.0, 3.0, [a, b])
+    assert out["jax"] == (1.0, 4.0, 3.0, [b, a])
+
+
 def test_package_never_imports_jax():
     code = "import sys, mlvectordb_tpu_torch; sys.exit(1 if 'jax' in sys.modules else 0)"
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
