@@ -6,16 +6,23 @@
 Builds the hand-written kernels from csrc/ with nvcc (into build/kernels/), then, printing
 one line per phase:
   1. device: the card's name and power limit; each kernel's registers and spills
-     (-Xptxas -v) and the mma.sync (HMMA) instructions of each tensor-core sweep kernel
+     (-Xptxas -v) and the mma.sync (HMMA) instructions of each tensor-core kernel: the
+     sweep kernel's bf16 and int8 bodies and the six row-major window-min instantiations
      (cuobjdump of the built library; none is a failure);
-  2. the row-major window-min kernels against their plain torch versions on the card
-     (l2/ip/cosine, N = 65,536 and 1,048,576, D = 128, B = 512, r1 in {8, 32}), and a
-     NaN query through both (NaN mins exactly where the plain version has them);
+  2. the row-major window-min kernels (the tensor cores: f32 rows as a three-way bf16
+     split) against their plain torch versions on the card (l2/ip/cosine, N = 65,536 and
+     1,048,576, D = 128, B = 512, r1 in {8, 32}), each live window within the
+     per-element budget fused_knn._phase1_budget; B = 512 with 128 live queries: the
+     live-column launch bit-equal to the full one; a NaN query through both (NaN mins
+     exactly where the plain version has them); at Dp = 1536 (2^18 rows, f32 and bf16,
+     the query chunks streamed) both kernels within the budget, the live launch bit-equal
+     to the full one, timed with its bound;
   3. the default exact-kNN serving path at SIFT-1M shape through QueryProcessor:
      bulk_load of 1,048,576 x 128 f32, find_similar_batch (l2 at B=128, ip and cosine
      at B=16), delete of 1,000 ids and search again, each held to set-exact
-     recall@10 = 1.0 against a float64 numpy oracle, plus the launch counts showing
-     which kernels served it and the one-h2d/one-d2h transfer rule;
+     recall@10 = 1.0 against a float64 numpy oracle, plus the launch counts and the query
+     columns computed (the live ones alone) showing which kernels served it and the
+     one-h2d/one-d2h transfer rule;
   4. the certified sweep kernels against their plain versions on the card: the sweep
      window-min kernel (bf16 mirror: the tensor cores), light and heavy, l2/ip/cosine,
      N = 65,536 and 1,048,576, B = 512, ~1% tombstones in the bias row, each window min
@@ -28,7 +35,10 @@ one line per phase:
      clustered namespace of 131,072 rows where the light proof fails, the exact scan
      serves, the namespace flips to the heavy program, and both batches match the
      oracle's k-distances; the launch counts of the sweep kernels;
-  6. times on the card (CUDA events; informative only);
+  6. times on the card (CUDA events; informative only): B4/B5 at the engine's operands
+     (128 live columns of the 512 bucket, r1 from the padded batch), their plain
+     versions, their full 512-column launch and the f32 product alone (torch.matmul, TF32
+     off) as a yardstick;
   7. the k-bucket-128 certified sweep program: the sweep kernel's per-tile top-m pool
      (N = 65,536 and 1,048,576, B = 512 pool only and B = 8 window mins plus pool, r1 =
      16, m = 8, light and heavy, l2/ip/cosine) bit-equal to the plain pool of the
@@ -58,9 +68,10 @@ one line per phase:
      version; times, GB/s and bounds;
  11. a bf16 store, row-major (EngineConfig(dtype="bfloat16")) on the phase-3 corpus: the
      window-min kernels over bf16 rows against their plain versions (as phase 2, NaN
-     query included), then the phase-3 searches before and after the deletes, each
-     set-exact against a float64 oracle over the bf16-rounded rows with the f32 query;
-     launch counts, device bytes, times beside the f32 kernels';
+     query and live columns included), then the phase-3 searches before and after the
+     deletes, each set-exact against a float64 oracle over the bf16-rounded rows with the
+     f32 query; launch counts and query columns, device bytes, times at the engine's
+     operands as in phase 6 (the bf16 product alone as the yardstick);
  12. DEEP: a bf16 store with the same-dtype sweep (sweep_dtype="bfloat16": the mirror is
      the rows themselves, one pass) at 8,388,608 x 128: cosine B=128 k=10, l2 B=128
      k=10, ip B=16 k=10 and cosine B=128 k=100, before and after 1,000 deletes, each
@@ -75,13 +86,15 @@ one line per phase:
      bit-equal to the other; times, GB/s and bounds;
  14. the sweep kernel at every engine operand set of phases 6-9: the live-column launch
      (128 of 512 columns) bit-equal to the full launch on every column; the tensor-core
-     dots against float64 over the DEEP rows, hard rows and int8 codes of +-127, each
-     max |dot - exact| / (|qh||x|) printed against the bar Dp * 2^-23.
+     dots against float64 over the DEEP rows, hard rows and int8 codes of +-127, and B4's
+     (f32 rows: the phase-3 corpus and hard f32 rows; bf16 rows: the DEEP rows), each
+     max |dot - exact| / (|q||x|) printed against the bar Dp * 2^-23.
 Any failure raises, so the process exits non-zero.  The last two lines are the kernels'
 JSON record (with each kernel's bound: bytes over 3.35 TB/s or operations over the peak
-for their type, whichever is larger; for the sweep kernel the products of the live
-queries, with the bound at the whole padded batch and the time of a launch over every
-column beside it) and {"ok": true, "device": {...}}.  Needs no network
+for their type, whichever is larger; for the sweep kernel and B4/B5 the products of the
+live queries, with the bound at the whole padded batch and the time of a launch over every
+column beside it; B4/B5 also the route the bound assumes and the torch.matmul yardstick)
+and {"ok": true, "device": {...}}.  Needs no network
 and imports no JAX.
 """
 
@@ -162,17 +175,22 @@ def _ptxas_report(started):
     return rows
 
 
+# the tensor-core kernels' names: the sweep kernel's bf16 and int8 bodies (B1/B3) and the
+# row-major window-min kernel over bf16 and f32 rows (B4/B5)
+MMA_KERNELS = ("sweep_mma_kernel", "window_mma_kernel")
+
+
 def _mma_counts(lib):
-    """{kernel: HMMA instructions} of the built library's tensor-core sweep kernels, from
-    its SASS (cuobjdump, beside nvcc): the proof that the bf16 and int8 bodies run
-    mma.sync."""
+    """{kernel: HMMA instructions} of the built library's tensor-core kernels (each
+    instantiation of MMA_KERNELS), from its SASS (cuobjdump, beside nvcc): the proof that
+    the bf16 and int8 sweep bodies and B4/B5 over bf16 and f32 rows run mma.sync."""
     tool = Path(_kernels._nvcc()).with_name("cuobjdump")
     text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
     counts, name = {}, None
     for line in text.splitlines():
         if m := re.search(r"Function : (\S+)", line):
-            name = m.group(1) if "sweep_mma_kernel" in m.group(1) else None
+            name = m.group(1) if any(k in m.group(1) for k in MMA_KERNELS) else None
             if name:
                 counts[name] = 0
         elif name and "HMMA" in line:
@@ -335,12 +353,17 @@ def _check_live_tiles(a, kw, n_live, label):
 
 def check_kernels(db_np, rows=torch.float32):
     """Phases 2 and 11: each row-major kernel against its plain version on the card, over
-    rows of type ``rows`` (f32, or bf16 with the query rounded to bf16 and carried as
-    f32, as exact_knn_fused passes it).  Returns max |err|."""
+    rows of type ``rows`` (f32: the three-way bf16 split; bf16 with the query rounded to
+    bf16 and carried as f32, as exact_knn_fused passes it: one pass), l2/ip/cosine, r1 in
+    {8, 32}, B = 512: live windows within the per-element budget fused_knn._phase1_budget,
+    fully masked windows exactly 3e38; at 2^20 rows, the engine's padding of B = 128 to
+    512: the launch of the 128 live columns bit-equal to those columns of the full launch.
+    Returns ({variant: max |err|}, {variant: max |err| / budget})."""
     masked_value = float(MASKED)
     rng = np.random.default_rng(SEED + 1)
     dev = torch.device("cuda")
     worst = {"fast": 0.0, "masked": 0.0}
+    ratios = {"fast": 0.0, "masked": 0.0}
     for n in (65536, N):
         src = torch.from_numpy(db_np[:n]).to(dev)
         data = src.to(rows)
@@ -357,25 +380,41 @@ def check_kernels(db_np, rows=torch.float32):
                 bias = bias[:, None].contiguous()
                 pairs = {
                     "fast": (fused_knn._window_mins_fast(data, qt, qn, hw, **kw),
-                             fused_knn._window_mins_fast_ref(data, qt, qn, hw, **kw)),
+                             fused_knn._window_mins_fast_ref(data, qt, qn, hw, **kw),
+                             fused_knn._phase1_budget(data, qt, qn, hw=hw, **kw)),
                     "masked": (fused_knn._window_mins_masked(data, qt, qn, bias, **kw),
-                               fused_knn._window_mins_masked_ref(data, qt, qn, bias, **kw)),
+                               fused_knn._window_mins_masked_ref(data, qt, qn, bias, **kw),
+                               fused_knn._phase1_budget(data, qt, qn, bias=bias, **kw)),
                 }
                 torch.cuda.synchronize()
-                for name, (got, want) in pairs.items():
-                    dead = want == masked_value
-                    if not torch.equal(got[dead], want[dead]) or not dead.any():
-                        raise AssertionError(f"{name} n={n} r1={r1} {metric}: masked windows differ")
-                    err = (got[~dead] - want[~dead]).abs()
-                    bound = 1e-5 * want[~dead].abs() + 1e-3
-                    if not bool((err <= bound).all()):
-                        raise AssertionError(
-                            f"{name} n={n} r1={r1} {metric}: max |err| {err.max().item()}")
-                    worst[name] = max(worst[name], err.max().item())
-        del src, data, q, qt, qn, valid, maskadd, bias, pairs
-    print(f"  max |kernel - plain| on live windows, {rows} rows: fast {worst['fast']}, masked "
-          f"{worst['masked']} (bound 1e-5*|plain| + 1e-3; masked windows exactly 3e38)")
-    return worst
+                for name, (got, want, budget) in pairs.items():
+                    label = f"{name} {rows} n={n} r1={r1} {metric}"
+                    if not bool((want == masked_value).any()):
+                        raise AssertionError(f"{label}: no masked window")
+                    err, ratio = _check_budget(got, want, budget, label)
+                    worst[name] = max(worst[name], err)
+                    ratios[name] = max(ratios[name], ratio)
+                del pairs
+                if n == N and r1 == 8:
+                    qz = q.clone()
+                    qz[B:] = 0.0                    # the engine's padding of B=128 to 512
+                    zt = qz.T.to(rows).float().contiguous()
+                    zn = (qz * qz).sum(-1)[None, :].contiguous()
+                    for name, fn, arg in (("fast", fused_knn._window_mins_fast, hw),
+                                          ("masked", fused_knn._window_mins_masked, bias)):
+                        full = fn(data, zt, zn, arg, **kw)
+                        live = fn(data, zt, zn, arg, **kw, n_live=B)
+                        torch.cuda.synchronize()
+                        if live.shape[1] != B or not _bits_equal(live, full[:, :B]):
+                            raise AssertionError(f"{name} {rows} {metric}: the live-column "
+                                                 f"launch differs from the full one")
+                    print(f"  {rows} {metric} r1={r1}, B=512 with {B} live queries: {B} columns "
+                          f"computed, each bit-equal to the full launch's (fast and masked)")
+        del src, data, q, qt, qn, valid, maskadd, bias
+    print(f"  max |kernel - plain| on live windows, {rows} rows: fast {worst['fast']} "
+          f"({ratios['fast']:.4f} of the budget), masked {worst['masked']} "
+          f"({ratios['masked']:.4f}); masked windows exactly 3e38")
+    return worst, ratios
 
 
 # the sweep kernel's programs: the bf16 mirror's light and heavy ones, an int8 mirror's
@@ -570,11 +609,11 @@ def run_sweep_path(db_np, q_np, oracle, dead, self_row, before_delete):
 
 
 @contextlib.contextmanager
-def _spying(fn_name, record):
-    """Route fused_knn_t.<fn_name> through a spy that hands each call's (args, kwargs,
+def _spying(fn_name, record, module=fused_knn_t):
+    """Route <module>.<fn_name> through a spy that hands each call's (args, kwargs,
     result) to ``record``.  The wrapper counts its launches on the module attribute, which
     is the spy meanwhile, so the counts move to the spy and back."""
-    real = getattr(fused_knn_t, fn_name)
+    real = getattr(module, fn_name)
 
     def spy(*a, **kw):
         out = real(*a, **kw)
@@ -582,19 +621,19 @@ def _spying(fn_name, record):
         return out
 
     spy.__dict__.update(real.__dict__)
-    setattr(fused_knn_t, fn_name, spy)
+    setattr(module, fn_name, spy)
     try:
         yield
     finally:
-        setattr(fused_knn_t, fn_name, real)
+        setattr(module, fn_name, real)
         real.__dict__.update(spy.__dict__)
 
 
-def _capture(fn_name, call):
-    """The positional and keyword arguments of the first call of fused_knn_t.<fn_name>
-    made by ``call()``: the kernel's operands at the main path's shapes."""
+def _capture(fn_name, call, module=fused_knn_t):
+    """The positional and keyword arguments of the first call of <module>.<fn_name> made
+    by ``call()``: the kernel's operands at the main path's shapes."""
     seen = []
-    with _spying(fn_name, lambda a, kw, out: seen.append((a, kw))):
+    with _spying(fn_name, lambda a, kw, out: seen.append((a, kw)), module):
         call()
     return seen[0]
 
@@ -808,7 +847,7 @@ def check_window_min_nan(db_np, rows=torch.float32):
     """Phases 2 and 11: a NaN query through the row-major kernels over rows of type
     ``rows`` (2^16 rows, B = 8, r1 = 8, l2/ip/cosine, live prefix and tombstoned): its
     window mins are NaN exactly where the plain version's are (jnp.maximum /
-    jnp.minimum's rule), the other queries' within the phase-2 bound."""
+    jnp.minimum's rule), the other queries' within the per-element budget."""
     n = 65536
     rng = np.random.default_rng(SEED + 7)
     dev = torch.device("cuda")
@@ -825,22 +864,90 @@ def check_window_min_nan(db_np, rows=torch.float32):
         bias = ((rows32 * rows32).sum(-1) + maskadd if metric == "l2" else maskadd)[:, None]
         bias = bias.contiguous()
         hw = n - fused_knn.DB_TILE - 1234
+        live = [b for b in range(8) if b != 3]
+        lt, ln = qt[:, live], qn[:, live]
         pairs = {"fast": (fused_knn._window_mins_fast(data, qt, qn, hw, **kw),
-                          fused_knn._window_mins_fast_ref(data, qt, qn, hw, **kw)),
+                          fused_knn._window_mins_fast_ref(data, qt, qn, hw, **kw),
+                          fused_knn._phase1_budget(data, lt, ln, hw=hw, **kw)),
                  "masked": (fused_knn._window_mins_masked(data, qt, qn, bias, **kw),
-                            fused_knn._window_mins_masked_ref(data, qt, qn, bias, **kw))}
+                            fused_knn._window_mins_masked_ref(data, qt, qn, bias, **kw),
+                            fused_knn._phase1_budget(data, lt, ln, bias=bias, **kw))}
         torch.cuda.synchronize()
-        for name, (got, want) in pairs.items():
+        for name, (got, want, budget) in pairs.items():
             nan = torch.isnan(want)
-            live = [b for b in range(8) if b != 3]
-            err = (got[:, live] - want[:, live]).abs()
+            g, w = got[:, live], want[:, live]
+            dead = w == float(MASKED)
+            err = torch.where(dead, torch.zeros_like(g), (g - w).abs())
             ok = (torch.equal(torch.isnan(got), nan) and bool(nan[:, 3].any())
-                  and not bool(nan[:, live].any())
-                  and bool((err <= 1e-5 * want[:, live].abs() + 1e-3).all()))
+                  and not bool(nan[:, live].any()) and torch.equal(g[dead], w[dead])
+                  and bool((err <= budget).all()))
             print(f"  NaN query, {name} {metric}, {rows} rows: NaN mins {int(nan.sum())} (plain) "
                   f"{int(torch.isnan(got).sum())} (kernel), at the same places: {ok}")
             if not ok:
                 raise AssertionError(f"{name} {metric}: NaN query mins differ from plain")
+
+
+# a wide embedding (the OpenAI width BASELINE.json names), where B4/B5 stream their query
+# chunks; rows made on the card
+WIDE_DP, WIDE_ROWS = 1536, 1 << 18
+
+
+def check_wide_dims():
+    """Phase 2: B4/B5 at Dp = 1536 over 2^18 gaussian rows (f32, and the same rounded to
+    bf16), where the kernel streams its query chunks through shared memory: each variant
+    and metric at B = 512 within the per-element budget of its plain version; at the
+    engine's operands (128 live of the 512 bucket, l2, r1 from the padded batch, ~1%
+    tombstones and a dead tile in B5's bias) the live launch bit-equal to the full one, its
+    time, the full launch's and plain's, and the bound at the live columns and at the
+    padded batch.  Returns {kernel key: record}."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    x = torch.randn((WIDE_ROWS, WIDE_DP), generator=g, device=dev)
+    q = torch.randn((512, WIDE_DP), generator=g, device=dev)
+    valid = torch.rand(WIDE_ROWS, generator=g, device=dev) > 0.01
+    valid[-fused_knn.DB_TILE:] = False
+    maskadd = torch.where(valid, 0.0, float(MASKED))
+    sqn = (x * x).sum(-1)
+    hw = WIDE_ROWS - fused_knn.DB_TILE - 1234
+    r1 = fused_knn._pick_r1(512, WIDE_ROWS, 16)
+    qz = q.clone()
+    qz[B:] = 0.0                                 # the engine's padding of B=128 to 512
+    out = {}
+    for rows, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        data = x.to(rows)
+        worst = {"fast": 0.0, "masked": 0.0}
+        qt, qn = q.T.to(rows).float().contiguous(), (q * q).sum(-1)[None, :].contiguous()
+        for metric in ("l2", "ip", "cosine"):
+            kw = dict(metric=metric, db_tile=fused_knn.DB_TILE, r1=r1)
+            bias = ((sqn + maskadd) if metric == "l2" else maskadd)[:, None].contiguous()
+            for name, arg, side in (("fast", hw, {"hw": hw}), ("masked", bias, {"bias": bias})):
+                fn = getattr(fused_knn, "_window_mins_" + name)
+                ref = getattr(fused_knn, "_window_mins_" + name + "_ref")
+                _, ratio = _check_budget(
+                    fn(data, qt, qn, arg, **kw), ref(data, qt, qn, arg, **kw),
+                    fused_knn._phase1_budget(data, qt, qn, **side, **kw),
+                    f"{name}{tag} Dp={WIDE_DP} {metric}")
+                worst[name] = max(worst[name], ratio)
+        zt, zn = qz.T.to(rows).float().contiguous(), (qz * qz).sum(-1)[None, :].contiguous()
+        kw = dict(metric="l2", db_tile=fused_knn.DB_TILE, r1=r1, n_live=B)
+        for name, arg in (("fast", WIDE_ROWS), ("masked", (sqn + maskadd)[:, None].contiguous())):
+            key, a = name + tag, (data, zt, zn, arg)
+            times, cols = _time_b4(key, "_window_mins_" + name, a, kw)
+            bound, full = _b4_bound(a, kw), _b4_bound(a, kw, full_batch=True)
+            out[key] = {"dim": WIDE_DP, "rows": WIDE_ROWS, "r1": r1, "live_columns": cols,
+                        "ms": times[key], "full_launch_ms": times[key + "_full"],
+                        "plain_ms": times[key + "_plain"], "bound_ms": bound[0],
+                        "bound_by": bound[1], "bound_full_batch_ms": full[0],
+                        "max_err_over_budget": worst[name]}
+            print(f"  Dp={WIDE_DP}, {WIDE_ROWS:,} {rows} rows: {name} within "
+                  f"{worst[name]:.4f} of the budget (l2/ip/cosine, B=512); {cols} live columns "
+                  f"of 512 {times[key]:.4f} ms, full launch {times[key + '_full']:.4f} ms, plain "
+                  f"{times[key + '_plain']:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}) "
+                  f"[{full[0]:.4f}], the kernel at {bound[0] / times[key]:.1%} of it")
+            if cols != B:
+                raise AssertionError(f"{key} Dp={WIDE_DP}: {cols} columns computed, not {B}")
+        del data
+    return out
 
 
 # ---- phases 8 and 9: the int8 and f32 mirrors (kernel B3) -------------------------------
@@ -1011,6 +1118,66 @@ def _b3_bound(args, kw, outs, full_batch=False):
                   2.0 * args[2].shape[0] * args[2].shape[1] * cols * passes, peak)
 
 
+# ---- B4/B5 at the engine's operands (phases 6 and 11) ------------------------------------
+
+def _capture_b4(data, valid, sq_norms, q_pad, masked):
+    """B4's (``masked``: B5's) operands in the engine's l2 search of B = 128 queries padded
+    to the 512 bucket, k bucket 16: exact_knn_fused with n_live = B, r1 from the padded
+    batch.  Returns (wrapper name, args, kwargs)."""
+    name = "_window_mins_masked" if masked else "_window_mins_fast"
+    a, kw = _capture(name, lambda: fused_knn.exact_knn_fused(
+        q_pad, data, valid, sq_norms, k=16, metric="l2",
+        live_prefix=None if masked else data.shape[0], n_live=B), module=fused_knn)
+    if kw.get("n_live") != B or kw["r1"] != fused_knn._pick_r1(q_pad.shape[0], data.shape[0], 16):
+        raise AssertionError(f"{name}: not the engine's live launch: {kw}")
+    return name, a, kw
+
+
+def _time_b4(key, name, a, kw):
+    """Times of a B4/B5 call at the engine's operands: the kernel on the live columns as
+    the engine runs it, its plain version on the same columns, the kernel's full launch
+    over every column of the bucket (the parent's work); and the live launch bit-equal to
+    those columns of the full one.  Returns ({time name: ms}, the query columns the live
+    launch computed, read from the wrapper's ``.cols``)."""
+    fn, ref = getattr(fused_knn, name), getattr(fused_knn, name + "_ref")
+    n_c = fused_knn_t._live_columns(a[1].shape[1], kw["n_live"])
+    plain_args = (a[0], a[1][:, :n_c], a[2][:, :n_c], a[3])
+    cols = fn.cols
+    live = fn(*a, **kw)
+    cols = fn.cols - cols
+    if not _bits_equal(live, fn(*a, **_full(kw))[:, :n_c]):
+        raise AssertionError(f"{key}: the live-column launch differs from the full one")
+    return {key: _time_ms(lambda: fn(*a, **kw)),
+            key + "_plain": _time_ms(lambda: ref(*plain_args, **_full(kw))),
+            key + "_full": _time_ms(lambda: fn(*a, **_full(kw)))}, cols
+
+
+def _b4_bound(a, kw, full_batch=False, route="split"):
+    """B4/B5's bound at ``a``, ``kw``: the rows, queries, bias and outputs read or written
+    once over the HBM rate, or the products over the peak of the route's type: "split",
+    the kernel's bf16 tensor-core passes (6 for f32 rows, 1 for bf16 rows), or "fma", f32
+    FMA on the CUDA cores.  The products and outputs of the live query columns the call
+    needs (``full_batch``: of every column of the padded batch)."""
+    data, qt = a[0], a[1]
+    n, d = data.shape
+    cols = qt.shape[1] if full_batch else fused_knn_t._live_columns(qt.shape[1], kw.get("n_live"))
+    bias = a[3] if torch.is_tensor(a[3]) else None
+    nbytes = _nbytes(data, bias) + cols * (d + 1) * 4 + n // kw["r1"] * cols * 4
+    if route == "fma":
+        return _bound(nbytes, 2.0 * n * d * cols, F32_FLOPS)
+    passes = 6 if data.dtype == torch.float32 else 1   # the split's six products, or one
+    return _bound(nbytes, 2.0 * n * d * cols * passes, BF16_FLOPS)
+
+
+def _matmul_ms(data, q_live):
+    """The product alone as one PyTorch call, a yardstick the port never calls: the rows
+    against the live queries in the rows' type (f32 with TF32 off, as the port keeps it)."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the f32 yardstick would not be f32")
+    ql = q_live.to(data.dtype)
+    return _time_ms(lambda: torch.matmul(data, ql.T))
+
+
 # ---- phase 10: probe B7 (int8 convert vs int8 tensor cores vs the stream floor) ----------
 
 INT8_PEAK = 1979e12  # dense int8 tensor-core operations per second, H100 SXM at 700 W
@@ -1131,13 +1298,18 @@ def _deleted(qp, namespace, ids, dead):
 _BF16_COUNTERS = ((fused_knn._window_mins_fast, "launches"),
                   (fused_knn._window_mins_fast, "launches_bf16"),
                   (fused_knn._window_mins_masked, "launches"),
-                  (fused_knn._window_mins_masked, "launches_bf16"))
+                  (fused_knn._window_mins_masked, "launches_bf16"),
+                  (fused_knn._window_mins_fast, "cols"),
+                  (fused_knn._window_mins_masked, "cols"))
 
 
-def run_bf16_row_major(db_np, q_np, dead, self_row, q512):
+def run_bf16_row_major(db_np, q_np, dead, self_row, q_pad):
     """Phase 11: QueryProcessor(dtype="bfloat16") on the phase-3 corpus, row-major.  The
     launch counts are zeroed just before the searches and read just after (the outer
-    counts put back).  Returns (launch counts, {time name: ms}, {bound name: bound})."""
+    counts put back); each search computes its live query columns alone.  B4/B5 over the
+    bf16 rows timed at the engine's operands (``q_pad``: the phase-3 queries padded to
+    the 512 bucket).  Returns (launch counts, {time name: ms}, {bound name: bound}, {kernel:
+    query columns its timed live launch computed})."""
     dev = torch.device("cuda")
     rows = torch.from_numpy(db_np).to(dev).to(torch.bfloat16)
     oracle = DeviceOracle(rows, q_np)
@@ -1169,52 +1341,49 @@ def run_bf16_row_major(db_np, q_np, dead, self_row, q512):
                 raise AssertionError(f"bf16 row-major {metric}: a deleted id was returned")
             _check_recall(res, oracle.sets(metric, nq, dead_rows), ids,
                           f"bf16 row-major {metric} B={nq} {when} (bf16-row oracle)")
-    counts = dict(zip(("fast", "fast_bf16", "masked", "masked_bf16"),
-                      [getattr(fn, a) for fn, a in _BF16_COUNTERS]))
+    counts = dict(zip(("fast", "fast_bf16", "masked", "masked_bf16", "fast_cols",
+                       "masked_cols"), [getattr(fn, a) for fn, a in _BF16_COUNTERS]))
     for (fn, a), v, n in zip(_BF16_COUNTERS, outer, counts.values()):
         setattr(fn, a, v + n)
     print(f"  launches on the bf16 row-major path: {counts}")
     if (counts["fast_bf16"] < 1 or counts["masked_bf16"] < 1
-            or counts["fast"] != counts["fast_bf16"] or counts["masked"] != counts["masked_bf16"]):
-        raise AssertionError(f"a bf16 kernel of the path never launched: {counts}")
+            or counts["fast"] != counts["fast_bf16"] or counts["masked"] != counts["masked_bf16"]
+            or counts["fast_cols"] != B + 32 or counts["masked_cols"] != B + 32):
+        raise AssertionError(f"a bf16 kernel of the path never launched, or it computed other "
+                             f"than the live {B} + 16 + 16 query columns: {counts}")
     self_hit = qp.find_similar(VectorDTO(db_np[self_row]), 1, "sift", "l2")
     print(f"  self query (row {self_row}): score {self_hit[0]['score']} (|x - bf16(x)|^2)")
     if self_hit[0]["id"] != ids[self_row] or not self_hit[0]["score"] < 1e-3:
         raise AssertionError(f"stored row {self_row} queried as itself returned {self_hit[:1]}")
 
-    # B4/B5 over bf16 rows at the operands phase 6 times the f32 kernels at (B=512, r1 of
-    # k bucket 16), on the tombstoned namespace
+    # B4/B5 over bf16 rows at the operands the engine's l2 B=128 search gives them (bucket
+    # 512, k bucket 16, the 128 live columns), on the tombstoned namespace
     st = ns.device_state()
     data = st.data
-    qt, qn = q512.T.to(torch.bfloat16).float().contiguous(), (q512 * q512).sum(-1)[None, :]
-    qn = qn.contiguous()
-    bias = (st.sq_norms + torch.where(st.valid, 0.0, float(MASKED)))[:, None].contiguous()
-    kw = dict(metric="l2", db_tile=fused_knn.DB_TILE, r1=fused_knn._pick_r1(512, N, 16))
-    times = {
-        "fast_bf16": _time_ms(lambda: fused_knn._window_mins_fast(data, qt, qn, N, **kw)),
-        "fast_bf16_plain": _time_ms(
-            lambda: fused_knn._window_mins_fast_ref(data, qt, qn, N, **kw)),
-        "masked_bf16": _time_ms(lambda: fused_knn._window_mins_masked(data, qt, qn, bias, **kw)),
-        "masked_bf16_plain": _time_ms(
-            lambda: fused_knn._window_mins_masked_ref(data, qt, qn, bias, **kw)),
-    }
-    q_pad = torch.zeros((512, D), device=dev)
-    q_pad[:B] = torch.from_numpy(q_np).to(dev)
+    times, bounds, cols = {}, {}, {}
+    for key, masked in (("fast_bf16", False), ("masked_bf16", True)):
+        name, a, k_ = _capture_b4(data, st.valid, st.sq_norms, q_pad, masked)
+        t, cols[key] = _time_b4(key, name, a, k_)
+        times.update(t)
+        bounds[key] = _b4_bound(a, k_)
+        bounds[key + "_full_batch"] = _b4_bound(a, k_, full_batch=True)
+    times["matmul_bf16"] = _matmul_ms(data, q_pad[:B])
     times["exact_knn_fused_bf16_masked"] = _time_ms(lambda: fused_knn.exact_knn_fused(
-        q_pad, data, st.valid, st.sq_norms, k=16, metric="l2", live_prefix=None))
+        q_pad, data, st.valid, st.sq_norms, k=16, metric="l2", live_prefix=None, n_live=B))
     wall = _engine_wall(qp, q_np)
     times["engine_wall_bf16_masked_median"] = statistics.median(wall)
     split = _engine_split(qp, q_np)
-    flop = 2.0 * N * 512 * D
-    out = N // kw["r1"] * 512 * 4
-    bounds = {"fast_bf16": _bound(_nbytes(data, qt, qn) + out, flop, BF16_FLOPS),
-              "masked_bf16": _bound(_nbytes(data, qt, qn, bias) + out, flop, BF16_FLOPS)}
+    flop = 2.0 * N * B * D
     for name, ms in times.items():
-        extra = f", {flop / ms / 1e9:.1f} TFLOP/s" if name in ("fast_bf16", "masked_bf16") else ""
+        extra = (f", {flop / ms / 1e9:.1f} TFLOP/s on the {B} live queries"
+                 if name in ("fast_bf16", "masked_bf16") else "")
         print(f"  {name}: {ms:.4f} ms{extra}")
     print(f"  engine wall runs (ms), B={B} l2 k={K}, tombstoned bf16 store: {wall}")
     print(f"  engine split, median ms (host clock): {split}")
-    return counts, times, bounds
+    print(f"  query columns of the timed live launches: {cols}")
+    if any(c != B for c in cols.values()):
+        raise AssertionError(f"a timed B4/B5 launch computed other than {B} columns: {cols}")
+    return counts, times, bounds, cols
 
 
 def _slack_rows(st, q, metric):
@@ -1488,6 +1657,34 @@ def check_tc_error(rows, rng):
     return errs, bar
 
 
+def check_b4_tc_error(db_np, deep_rows, rng):
+    """Phase 14: kernel B4's dots against float64 (probes/tc_error.b4_max_rel_err), as
+    max |dot - exact| / (|q| |x|) over every row and query at B = 128: f32 rows (the
+    three-way split's six products) over the phase-3 gaussian corpus and 2^20 hard f32 rows
+    (exponents 2^-20 .. 2^10 within a row, full significands, cancelling signs); bf16 rows
+    (one pass) over the DEEP rows.  Each must be at most Dp * 2^-23: the bar under which f32
+    rows take the split body.  Returns {case: max}."""
+    from mlvectordb_tpu_torch.probes import tc_error
+
+    dev = torch.device("cuda")
+    bar = D * 2.0 ** -23
+    q = torch.from_numpy(rng.standard_normal((B, D), dtype=np.float32)).to(dev)
+    cases = {"f32_gaussian": lambda: (q, torch.from_numpy(db_np).to(dev)),
+             "f32_hard": lambda: (tc_error.hard_queries_f32(rng, B, D).to(dev),
+                                  tc_error.hard_rows_f32(rng, 1 << 20, D).to(dev)),
+             "bf16_deep_rows": lambda: (q, deep_rows)}
+    errs = {}
+    for name, make in cases.items():
+        qq, m = make()
+        errs[name] = tc_error.b4_max_rel_err(qq, m)
+        print(f"  B4 {name}: {m.shape[0]:,} x {D} {m.dtype}, B={B}: max |dot - float64 dot| / "
+              f"(|q||x|) = {errs[name]:.4e}, {errs[name] / bar:.4f} of the bar Dp*2^-23")
+        del qq, m
+    if any(e > bar for e in errs.values()):
+        raise AssertionError(f"B4's tensor-core dots exceed Dp*2^-23: {errs}")
+    return errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA GPU",
@@ -1509,10 +1706,12 @@ def main() -> int:
         print(f"  ptxas: {_short(name)}: {regs} registers, spill stores {st} B, loads {ld} B, "
               f"{smem} B shared")
     mma = _mma_counts(lib)
-    print(f"  mma.sync (HMMA) instructions per tensor-core sweep kernel: "
+    print(f"  mma.sync (HMMA) instructions per tensor-core kernel: "
           f"{ {_short(k): v for k, v in mma.items()} }")
-    if not mma or min(mma.values()) == 0:
-        raise AssertionError(f"a tensor-core sweep kernel holds no mma.sync: {mma}")
+    if (not mma or min(mma.values()) == 0
+            or sum("window_mma_kernel" in k for k in mma) != 6):
+        raise AssertionError(f"a tensor-core kernel holds no mma.sync, or B4/B5 lacks one of "
+                             f"its six instantiations (2 row types x 3 query tiles): {mma}")
 
     rng = np.random.default_rng(SEED)
     db_np = rng.standard_normal((N, D), dtype=np.float32)
@@ -1522,14 +1721,15 @@ def main() -> int:
 
     # ---- 2. row-major kernels against their plain versions ---------------------------
     print("phase 2 row-major kernels vs plain on the card")
-    worst = check_kernels(db_np)
+    worst, b4_ratio = check_kernels(db_np)
     check_window_min_nan(db_np)
+    wide = check_wide_dims()
 
     # ---- 3. the row-major main path at SIFT-1M shape ---------------------------------
     print(f"phase 3 row-major path: QueryProcessor at {N:,} x {D} f32")
     dev = torch.device("cuda")
-    fused_knn._window_mins_fast.launches = 0
-    fused_knn._window_mins_masked.launches = 0
+    for fn in (fused_knn._window_mins_fast, fused_knn._window_mins_masked):
+        fn.launches = fn.cols = 0
 
     qp = QueryProcessor(EngineConfig(), device=dev)
     t0 = time.perf_counter()
@@ -1575,10 +1775,20 @@ def main() -> int:
 
     launches = {"fast": fused_knn._window_mins_fast.launches,
                 "masked": fused_knn._window_mins_masked.launches}
+    row_cols = {"fast": fused_knn._window_mins_fast.cols,
+                "masked": fused_knn._window_mins_masked.cols}
+    # the live columns of every search: B=128, 16, 16 and the 5 + 5 timed B=128 batches
+    # before the deletes (fast), B=128, 16, 16 and the self query (8) after them (masked)
+    want_cols = {"fast": 11 * B + 32, "masked": B + 32 + 8}
     print(f"  kernel launches on the row-major path: fast_launches={launches['fast']} "
-          f"masked_launches={launches['masked']} (fast before delete: {fast_after_search})")
+          f"masked_launches={launches['masked']} (fast before delete: {fast_after_search}); "
+          f"query columns computed {row_cols} (the buckets': 11 x 512 + 2 x 64 = 5760 and "
+          f"512 + 2 x 64 + 8 = 648)")
     if launches["fast"] < 1 or launches["masked"] < 1:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
+    if row_cols != want_cols:
+        raise AssertionError(f"the row-major path computed {row_cols} query columns, not the "
+                             f"live {want_cols}")
 
     # ---- 4. sweep kernels against their plain versions ---------------------------------
     print("phase 4 certified sweep kernels vs plain on the card")
@@ -1611,25 +1821,27 @@ def main() -> int:
     print(f"phase 6 times on {gpu} (CUDA events, mean of 10 after a warm call)")
     state = ns.device_state()
     data = state.data
-    q512 = torch.from_numpy(rng.standard_normal((512, D), dtype=np.float32)).to(dev)
-    qt, qn = q512.T.contiguous(), (q512 * q512).sum(-1)[None, :].contiguous()
-    maskadd = torch.where(state.valid, 0.0, float(MASKED))
-    bias = (state.sq_norms + maskadd)[:, None].contiguous()
-    kw = dict(metric="l2", db_tile=fused_knn.DB_TILE, r1=fused_knn._pick_r1(512, N, 16))
-    times = {
-        "fast": _time_ms(lambda: fused_knn._window_mins_fast(data, qt, qn, N, **kw)),
-        "fast_plain": _time_ms(lambda: fused_knn._window_mins_fast_ref(data, qt, qn, N, **kw)),
-        "masked": _time_ms(lambda: fused_knn._window_mins_masked(data, qt, qn, bias, **kw)),
-        "masked_plain": _time_ms(
-            lambda: fused_knn._window_mins_masked_ref(data, qt, qn, bias, **kw)),
-    }
-    # one search at B=128 padded to the 512 bucket, as the engine runs it (k bucket 16)
+    rng.standard_normal((512, D), dtype=np.float32)   # (keeps the later phases' draws)
+    # B4/B5 at the operands the engine's l2 B=128 search gives them (bucket 512, k bucket
+    # 16: r1 = 8, the 128 live columns), on the tombstoned namespace (the fast kernel as if
+    # it had none); the plain version on the same columns, the full 512-column launch and
+    # the f32 product alone (TF32 off) as a yardstick
     q_pad = torch.zeros((512, D), device=dev)
     q_pad[:B] = torch.from_numpy(q_np).to(dev)
+    row_ops, times, b4_cols = {}, {}, {}
+    for key, masked in (("fast", False), ("masked", True)):
+        name, a, k_ = _capture_b4(data, state.valid, state.sq_norms, q_pad, masked)
+        row_ops[key] = (a, k_)
+        t, b4_cols[key] = _time_b4(key, name, a, k_)
+        times.update(t)
+    times["matmul_f32"] = _matmul_ms(data, q_pad[:B])
+    # one search at B=128 padded to the 512 bucket, as the engine runs it (k bucket 16)
     times["exact_knn_fused_masked"] = _time_ms(lambda: fused_knn.exact_knn_fused(
-        q_pad, data, state.valid, state.sq_norms, k=16, metric="l2", live_prefix=None))
+        q_pad, data, state.valid, state.sq_norms, k=16, metric="l2", live_prefix=None,
+        n_live=B))
     times["exact_knn_fused_fast"] = _time_ms(lambda: fused_knn.exact_knn_fused(
-        q_pad, data, state.valid, state.sq_norms, k=16, metric="l2", live_prefix=N))
+        q_pad, data, state.valid, state.sq_norms, k=16, metric="l2", live_prefix=N,
+        n_live=B))
     wall_masked = _engine_wall(qp, q_np)
     split_masked = _engine_split(qp, q_np)
     times["engine_wall_fast_median"] = statistics.median(wall_fast)
@@ -1668,8 +1880,10 @@ def main() -> int:
     flop = 2.0 * N * 512 * D
     for name, ms in times.items():
         extra = ""
-        if name in ("fast", "masked", "sweep_light_full"):
+        if name in ("fast_full", "masked_full", "sweep_light_full"):
             extra = f", {flop / ms / 1e9:.1f} TFLOP/s"
+        elif name in ("fast", "masked"):
+            extra = f", {flop / 4 / ms / 1e9:.1f} TFLOP/s of f32 products on the {B} live queries"
         elif name == "sweep_light":
             extra = f", {flop / 4 / ms / 1e9:.1f} TFLOP/s on the {B} live queries"
         elif name == "sweep_heavy":
@@ -1677,6 +1891,9 @@ def main() -> int:
         elif name == "gather_score":
             extra = f", {gather_rows * D * 4 / ms / 1e6:.1f} GB/s of gathered rows"
         print(f"  {name}: {ms:.4f} ms{extra}")
+    print(f"  query columns of the timed live B4/B5 launches: {b4_cols}")
+    if any(c != B for c in b4_cols.values()):
+        raise AssertionError(f"a timed B4/B5 launch computed other than {B} columns: {b4_cols}")
     print(f"  engine wall runs (ms), B={B} l2: fast path {wall_fast}, masked path "
           f"{wall_masked}, sweep path (tombstoned) {wall_sweep} on {gpu}")
     print(f"  engine split, median ms (host clock): fast path {split_fast}, masked path "
@@ -1799,11 +2016,14 @@ def main() -> int:
     # ---- 11. a bf16 store, row-major -------------------------------------------------------
     print(f"phase 11 bf16 store, row-major (dtype='bfloat16'): kernels B4/B5 over bf16 rows vs "
           f"plain, QueryProcessor at {N:,} x {D}, on {gpu}")
-    for name, err in check_kernels(db_np, torch.bfloat16).items():
+    errs, ratios = check_kernels(db_np, torch.bfloat16)
+    for name, err in errs.items():
         worst[name + "_bf16"] = err
+        b4_ratio[name + "_bf16"] = ratios[name]
     check_window_min_nan(db_np, torch.bfloat16)
-    c11, t11, b11 = run_bf16_row_major(db_np, q_np, dead, self_row, q512)
+    c11, t11, b11, k11 = run_bf16_row_major(db_np, q_np, dead, self_row, q_pad)
     times.update(t11)
+    b4_cols.update(k11)
 
     # ---- 12. DEEP: the same-dtype certified sweep ----------------------------------------
     print(f"phase 12 DEEP: QueryProcessor(dtype='bfloat16', sweep_dtype='bfloat16') at "
@@ -1827,15 +2047,18 @@ def main() -> int:
     if any(c != B for c in live_cols.values()):
         raise AssertionError(f"a launch computed other than the live columns: {live_cols}")
     tc_err, tc_bar = check_tc_error(deep_rows, rng)
+    b4_err = check_b4_tc_error(db_np, deep_rows, rng)
 
     # each kernel's bound at the operands timed above: every input read once, every
-    # output written once; the products over the peak for their type (B1/B3: of the live
-    # queries, and of the whole padded batch beside it)
-    out_fast = N // kw["r1"] * 512 * 4
-    bounds = {
-        "fast": _bound(_nbytes(data, qt, qn) + out_fast, flop, F32_FLOPS),
-        "masked": _bound(_nbytes(data, qt, qn, bias) + out_fast, flop, F32_FLOPS),
-    }
+    # output written once; the products over the peak for their type (B1/B3 and B4/B5:
+    # of the live queries, and of the whole padded batch beside it; B4/B5 over f32 rows
+    # by the split's six bf16 passes, with the f32 FMA route's beside it)
+    bounds = {}
+    for key, (a, k_) in row_ops.items():
+        bounds[key] = _b4_bound(a, k_)
+        bounds[key + "_full_batch"] = _b4_bound(a, k_, full_batch=True)
+    fma_bounds = {key: _b4_bound(a, k_, route="fma")[0] for key, (a, k_) in row_ops.items()}
+    print(f"  B4/B5 f32 rows on the f32 FMA route instead: bound {fma_bounds} ms")
     for name in b1_names:
         a, k_ = operands[name]
         outs = fused_knn_t._window_mins_t(*a, **k_)
@@ -1864,10 +2087,25 @@ def main() -> int:
              # window mins or a window gather with two reductions
              "library_ms": None}
         if key + "_full_batch" in bounds:
-            # B1/B3: the bound at the engine's padded batch, and the kernel's time when it
-            # computes every column of it
+            # B1/B3 and B4/B5: the bound at the engine's padded batch, and the kernel's
+            # time when it computes every column of it
             e.update({"bound_full_batch_ms": bounds[key + "_full_batch"][0],
                       "full_launch_ms": times[key + "_full"]})
+        return e
+
+    def row_entry(name, replaces, launches_, key, rows):
+        """B4/B5: the budget ratio, the route its bound assumes, the product alone as one
+        PyTorch call (a yardstick the port never calls), the live columns."""
+        e = entry(name, "window_min.cu", replaces, launches_, worst[key], key)
+        e.update({"max_err_over_budget": b4_ratio[key],
+                  "bound_route": ("bf16 tensor cores, 6 passes of the 3-way split"
+                                  if rows == "f32" else "bf16 tensor cores, one pass"),
+                  "matmul_ms": times["matmul_" + rows], "live_columns": b4_cols[key],
+                  "wide_dp": wide[key],
+                  "tc_error_max": b4_err["f32_gaussian" if rows == "f32" else "bf16_deep_rows"]})
+        if rows == "f32":
+            e.update({"bound_fma_ms": fma_bounds[key],
+                      "tc_error_max_hard_rows": b4_err["f32_hard"], "tc_error_bar": tc_bar})
         return e
 
     sweep = entry("sweep_min", "sweep_min.cu", "mlvectordb_tpu/ops/pallas_knn_t.py:221",
@@ -1889,10 +2127,10 @@ def main() -> int:
         "matmul_ms": times["matmul_light"], "live_columns": live_cols,
         "tc_error_max": tc_err, "tc_error_bar": tc_bar})
     record = {"kernels": [
-        entry("window_min_fast", "window_min.cu", "mlvectordb_tpu/ops/pallas_knn.py:102",
-              launches["fast"], worst["fast"], "fast"),
-        entry("window_min_masked", "window_min.cu", "mlvectordb_tpu/ops/pallas_knn.py:131",
-              launches["masked"], worst["masked"], "masked"),
+        row_entry("window_min_fast", "mlvectordb_tpu/ops/pallas_knn.py:102", launches["fast"],
+                  "fast", "f32"),
+        row_entry("window_min_masked", "mlvectordb_tpu/ops/pallas_knn.py:131",
+                  launches["masked"], "masked", "f32"),
         sweep,
         entry("gather_score", "gather_score.cu", "mlvectordb_tpu/ops/pallas_gather.py:33",
               launches["gather"], worst["gather"], "gather_score"),
@@ -1926,11 +2164,13 @@ def main() -> int:
             # torch._int_mm gives the int8 product alone, no window min: no single call
             "library_ms": None})
     # bf16 storage: B4/B5 and B2 over bf16 rows, B1 over a bf16 store's own rows
+    for name, replaces, launches_, key in (
+            ("window_min_fast_bf16", "mlvectordb_tpu/ops/pallas_knn.py:102", c11["fast_bf16"],
+             "fast_bf16"),
+            ("window_min_masked_bf16", "mlvectordb_tpu/ops/pallas_knn.py:131",
+             c11["masked_bf16"], "masked_bf16")):
+        record["kernels"].append(row_entry(name, replaces, launches_, key, "bf16"))
     for name, source, replaces, launches_, key in (
-            ("window_min_fast_bf16", "window_min.cu", "mlvectordb_tpu/ops/pallas_knn.py:102",
-             c11["fast_bf16"], "fast_bf16"),
-            ("window_min_masked_bf16", "window_min.cu", "mlvectordb_tpu/ops/pallas_knn.py:131",
-             c11["masked_bf16"], "masked_bf16"),
             ("gather_score_bf16", "gather_score.cu", "mlvectordb_tpu/ops/pallas_gather.py:33",
              c12["gather_bf16"], "gather_bf16"),
             ("sweep_min_same_dtype", "sweep_min.cu", "mlvectordb_tpu/ops/pallas_knn_t.py:221",

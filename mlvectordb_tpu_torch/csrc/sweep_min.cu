@@ -89,6 +89,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_common.cuh"
+
 namespace {
 
 constexpr int WLANE = 128;      // windows per output block of a tile
@@ -358,29 +360,10 @@ fma_kernel(const float* __restrict__ qh_t, const float* __restrict__ mirror,
 constexpr int MMA_PAIRS = 8;       // warp pairs: a pair streams one run of rows
 constexpr int MMA_WARPS = 2 * MMA_PAIRS;
 constexpr int NSTAGE = 3;          // cp.async ring depth, per pair
-constexpr int KC = 128;            // dimensions per stage
 constexpr int RES_LD = WLANE + 4;  // padded row of the staged window mins
 constexpr int RUN_MAX = 16;        // running pool entries per query (m <= 16 where g > 1)
 constexpr int NT_NARROW = 1;       // n-tiles a warp takes in the narrow tile (16 queries)
 constexpr int SMEM_MAX = 232448;   // a block's dynamic shared memory on an H100
-
-__device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(NSTAGE - 2));
-}
 
 // two int8 codes (bits sh .. sh + 15 of u, the lower dimension in the low byte) -> one
 // bf16x2 register, exact: a code has at most 7 significant bits, so its f32 value's low
@@ -391,17 +374,7 @@ __device__ __forceinline__ uint32_t i8x2_bf16x2(uint32_t u, int sh) {
   return (__float_as_uint(hi) & 0xffff0000u) | (__float_as_uint(lo) >> 16);
 }
 
-// A stage: 16 rows x KC dimensions of the mirror, 16-byte chunks XOR-swizzled by row so
-// that one fragment load of a warp touches every bank once.  load(): the 8 consecutive
-// dimensions 32j + 8t .. +7 of row `row` as four bf16x2 registers.
-template <typename MT> struct MmaRows;
-template <> struct MmaRows<uint16_t> {  // bf16 bits: 256 bytes a row
-  static constexpr int ROW_BYTES = KC * 2;
-  static __device__ __forceinline__ int swz(int row, int chunk) { return chunk ^ ((row & 1) << 2); }
-  static __device__ __forceinline__ uint4 load(const char* st, int row, int j, int t) {
-    return *reinterpret_cast<const uint4*>(st + row * ROW_BYTES + swz(row, 4 * j + t) * 16);
-  }
-};
+// The int8 stage loader beside the header's bf16 one (mma_common.cuh).
 template <> struct MmaRows<int8_t> {  // int8 codes: 128 bytes a row, widened to bf16 here
   static constexpr int ROW_BYTES = KC;
   static __device__ __forceinline__ int swz(int row, int chunk) { return chunk ^ ((row & 3) << 1); }
@@ -527,7 +500,7 @@ __global__ void __launch_bounds__(MMA_WARPS * 32, 1) sweep_mma_kernel(const MmaA
     cp_async_commit();
   }
   for (int z = 0; z < total; ++z) {
-    cp_async_wait();
+    cp_async_wait<NSTAGE - 2>();
     // both warps' copies of step z are visible to both, and both have left step z - 1,
     // whose buffer is refilled here
     asm volatile("bar.sync %0, 64;\n" ::"r"(pair + 1));

@@ -1,55 +1,98 @@
-// Phase 1 of the fused exact k-NN: distance + strided window-min, f32, for Hopper (sm_90a).
+// Phase 1 of the fused exact k-NN: distance + strided window-min on the tensor cores, for
+// Hopper (sm_90a).
 //
 // Replaces the two Pallas kernels of mlvectordb_tpu/ops/pallas_knn.py:
 //   _fast_kernel   (no tombstones: row norms from the resident tile, rows >= hw masked)
 //   _masked_kernel (a per-row bias column carries the tombstone mask; l2 puts the row
 //                   norms in it too, cosine recomputes them)
-// Both compute, for data [N, D] and queries qt [D, B], the distances of every row to every
-// query and write only the min over each window of r1 rows: out [N / r1, B].  Window w
-// covers rows (w / W) * db_tile + w % W + r * W for r < r1, with W = db_tile / r1 (the JAX
-// package's strided layout, so the two outputs compare element by element).  The [N, B]
-// distance matrix never exists in device memory.
+// Both compute, for data [N, D] and the first Bc queries, the distances of every row to
+// every query and write only the min over each window of r1 rows: out [N / r1, Bc].
+// Window w covers rows (w / W) * db_tile + w % W + r * W for r < r1, with W = db_tile / r1
+// (the JAX package's strided layout, so the outputs compare element by element).  The
+// [N, B] distance matrix never exists in device memory.  Every column is computed on its
+// own (no value of one query enters another's), so a column's bits do not depend on how
+// many columns a launch computes: the caller launches only its live queries.
 //
-// The row type is a template parameter: f32 rows (the default store) or bf16 rows (a
-// dtype="bfloat16" store, where the JAX kernels multiply at DEFAULT precision, bf16 x bf16
-// with f32 accumulation, pallas_knn.py:93-99).  bf16 rows are converted to f32 on load,
-// which is exact; the caller rounds the queries to bf16 and passes them as f32, so every
-// product is exact and the sums are the f32 kernel's.  Row norms come from the loaded
-// (bf16) rows, as the JAX kernels compute them; qn comes from the f32 query.
+// The products.  The JAX kernels multiply bf16 rows at DEFAULT precision (one bf16 pass,
+// f32 sums) and f32 rows at HIGHEST (pallas_knn.py:93-99), which XLA computes on the MXU as
+// a multi-pass bf16 product.  Here both run mma.sync.m16n8k16 bf16 x bf16 -> f32:
+//   bf16 rows: one pass against the bf16-rounded query (the caller rounds it);
+//   f32 rows:  each row element splits in the kernel into hi = bf16_rn(x),
+//              mid = bf16_rn(x - hi), lo = bf16(x - hi - mid) (the remainders are exact
+//              in f32, and hi + mid + lo == x for |x| from 2^-110 to bf16's largest
+//              finite value), the query the same way once per launch (the caller's three
+//              bf16 operands), and the six products hi.hi, hi.mid, mid.hi, hi.lo, lo.hi
+//              and mid.mid are summed into one f32 accumulator.
 //
-// What bounds it: the dots must be true f32.  The selection margin s = min(2k, k + 16)
-// that phase 2 applies to these window mins is a sound bound only because the window
-// ranking and the rescan are both f32 (pallas_knn.py:93-99), so this kernel uses f32 FMA
-// on the CUDA cores: no TF32, no tensor cores, no library product.  At the main-path
-// shapes (N = 2^20, D = 128, B = 512) that is 2 * 2^20 * 512 * 128 = 137 GFLOP against
-// 512 MB of data (256 MB as bf16) read once per 128-query tile: compute-bound on the f32
-// pipes (67 TFLOP/s peak on an H100 SXM at 700 W), for either row type.
+// The error, against the exact dot q.x.  Model (Fasi, Higham, Mikaitis and Pranesh,
+// "Numerical behavior of NVIDIA tensor cores", PeerJ CS 2021): bf16 products are exact;
+// the s products of one k-group and the running sum are aligned to the largest exponent
+// among them and truncated to 24 significant bits.  bf16 rows: each of Dp / s groups
+// loses under s * 2^-23 of its largest magnitude, at most |q||x|, so
+//     |tc - exact| <= Dp * 2^-23 * |q||x|                                  (one pass).
+// f32 rows: the dropped terms mid.lo + lo.mid + lo.lo are at most (2 * 2^-24 + 2^-32) of
+// sum_i |q_i||x_i| <= |q||x| (|mid| <= 2^-8 |x|, |lo| <= 2^-16 |x| element by element), and
+// the six kept passes make 6 * Dp / s groups, each losing under s * 2^-23 of the running
+// sum, so on paper
+//     |tc - exact| <= (6 * Dp + 1) * 2^-23 * |q||x|.
+// The five cross passes add terms at or under 2^-8 of the running sum, so the model's
+// worst case (every term truncated by a whole unit of the sum's last place) is far from
+// what the card does: the measured maxima against float64 (probes/tc_error.py over
+// gaussian and hard f32 rows, chip_smoke.py phase 14, PERF.md) are held to the bar
+// Dp * 2^-23 * |q||x|, the bf16 pass's own bound, and f32 rows run the split body only
+// because they stay under it.  The phase-2 margin s = min(2k, k + 16) absorbs differences
+// of that size between the window mins and the f32 rescan, as it absorbs the TPU's
+// multi-pass HIGHEST product.  The epilogue adds JAX's formulas in JAX's order with
+// __fadd_rn / __fmul_rn (no contraction), so each column's value is the same in every
+// launch.
 //
-// What the design does about it: a register-tiled f32 product.  A block of 256 threads
-// owns 128 windows x 128 queries; each thread keeps an 8 x 8 tile of dot accumulators
-// plus an 8 x 8 tile of running window mins.  The block walks the r1 rows of its windows
-// (row r * W + j of the tile), forms the [128, 128] dot block over D in stages of 8
-// through double-buffered shared memory (one barrier per stage, 16 floats read from
-// shared memory for 64 FMAs), applies the metric and the mask in registers and folds the
-// result into the window mins.  Row norms are summed from the same loads, so they cost no
-// extra traffic.  Making it faster (split-f32 on the tensor cores, TMA, wgmma) is later work.
+// What bounds it.  At the engine's shapes (N = 2^20, D = 128, B = 128 live in the 512
+// bucket, r1 = 8) bf16 rows move 268 MB of rows and 67 MB of window mins (0.10 ms at
+// 3.35 TB/s) against 34 GFLOP of bf16 products (0.035 ms): bytes.  f32 rows move 537 MB
+// (0.18 ms) against 6 x 34 = 206 GFLOP of bf16 products (0.21 ms): operations; the f32
+// FMA route would need 0.51 ms at 67 TFLOP/s.
+//
+// What the design does about it.  A block of 16 warps owns 128 consecutive windows of a
+// tile and a tile of 128 queries (64 or 16 where the launch computes no more), at any Dp.
+// The warps work in pairs: pair p owns windows 16p .. 16p + 15 and streams, for each of the
+// r1 steps, rows r * W + 16p .. +15 (window j's r-th row) through a 3-stage ring of
+// cp.async copies, 256 bytes of each row a stage (64 f32 or 128 bf16 dimensions); each
+// warp of the pair multiplies the stage by its half of the query tile.  The query tile (all
+// its bf16 parts) is held in shared memory by chunks of the same dimensions, in QSLOTS
+// slots: where every chunk fits (Dp <= 128 for f32 rows, <= 512 for bf16 rows) chunk c
+// stays in slot c for the whole block, copied once during the first step; past that, each
+// stage's chunk is copied from L2 one stage ahead into slot z % QSLOTS and the block's
+// warps advance together.  So the rows are read from device memory once per query tile at
+// every Dp, and the queries once per block (resident) or once per step (streamed, from
+// L2: 1.5x the rows' bytes for f32 rows, 1x for bf16 rows).  A thread reads 8 consecutive
+// dimensions of a row and of a query with 16-byte loads: the k order inside an mma is
+// permuted the same way on both operands, which changes no product.  The row's squares are
+// summed in f32 from the same values (each thread a quarter of the dimensions, then two
+// shuffles).  Element e of a C fragment is the same (window, query) pair at every step, so
+// each thread keeps its running window min in registers across the r1 steps, with no
+// exchange between threads, and writes it once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_common.cuh"
+
 namespace {
 
-constexpr int BM = 128;      // windows per block (= rows per r-step)
-constexpr int BN = 128;      // queries per block
-constexpr int BK = 8;        // depth of one shared-memory stage
-constexpr int THREADS = 256;
-constexpr float MASKED = 3.0e38f;  // == ops/distances.MASKED
+constexpr int PAIRS = 8;          // warp pairs: pair p owns windows 16p .. 16p + 15
+constexpr int WARPS = 2 * PAIRS;
+constexpr int BM = 16 * PAIRS;    // windows per block (= rows per r-step)
+constexpr int NSTAGE = 3;         // cp.async ring depth, per pair
+constexpr int ROW_BYTES = 256;    // bytes of each row a stage holds
+constexpr int STAGE = 16 * ROW_BYTES;
+constexpr int SMEM_MAX = 232448;  // a block's dynamic shared memory on an H100
+constexpr float MASKED = 3.0e38f; // == ops/distances.MASKED
 
 enum Metric { L2 = 0, IP = 1, COSINE = 2 };
 
 // jnp.minimum's and jnp.maximum's rule: a NaN operand gives NaN (fminf / fmaxf would drop
 // it), so a NaN query's window mins are NaN where the JAX kernels' are.  One instruction
-// each (PTX min.NaN / max.NaN, sm_80 on): a compare-and-select form cost B4 1.4%.
+// each (PTX min.NaN / max.NaN, sm_80 on).
 __device__ __forceinline__ float nan_min(float a, float b) {
   float r;
   asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
@@ -61,224 +104,350 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return r;
 }
 
-// 4 consecutive elements of one row, as f32: the only code that differs by row type
-template <typename RT> struct Row;
-template <> struct Row<float> {
-  using Reg = float4;
-  static __device__ __forceinline__ float4 cvt(Reg u) { return u; }
+// cp_async16, with zeros written instead where !valid (src-size 0: gmem is not read)
+__device__ __forceinline__ void cp_async16_or_zero(void* smem, const void* gmem, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 16 : 0));
+}
+
+// the low and high bf16 of a bf16x2 register, as f32 (exact)
+__device__ __forceinline__ float bf_lo(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
+
+// x0 and x1 rounded to nearest bf16, packed with x0 in the low half
+__device__ __forceinline__ uint32_t pack_rn(float x0, float x1) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(x1), "f"(x0));
+  return r;
+}
+
+// (x0, x1) -> hi, mid, lo bf16x2 registers with hi + mid + lo == x element by element
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t& h, uint32_t& m,
+                                       uint32_t& l) {
+  h = pack_rn(x0, x1);
+  const float r0 = __fsub_rn(x0, bf_lo(h)), r1 = __fsub_rn(x1, bf_hi(h));  // exact
+  m = pack_rn(r0, r1);
+  l = pack_rn(__fsub_rn(r0, bf_lo(m)), __fsub_rn(r1, bf_hi(m)));
+}
+
+__device__ __forceinline__ float sq4(uint32_t u, uint32_t v, float s) {
+  s = fmaf(bf_lo(u), bf_lo(u), s);
+  s = fmaf(bf_hi(u), bf_hi(u), s);
+  s = fmaf(bf_lo(v), bf_lo(v), s);
+  return fmaf(bf_hi(v), bf_hi(v), s);
+}
+
+// The row types.  load(): the 8 consecutive dimensions 32j + 8t .. +7 of rows g (lo) and
+// g + 8 (hi) of a stage as P bf16 parts of four bf16x2 registers each; with `need_sq`
+// their squares are added to sq[0] (row g) and sq[1] (row g + 8) in f32.  QSLOTS: the
+// query tile's chunks of DIMS dimensions shared memory holds beside the ring.
+template <typename RT> struct Rows;
+template <> struct Rows<uint16_t> {  // bf16 rows: one part, the values themselves
+  static constexpr int P = 1;
+  static constexpr int DIMS = KC;    // dimensions of a row a stage holds
+  static constexpr int QSLOTS = 4;
+  static __device__ __forceinline__ int swz(int row, int chunk) {
+    return MmaRows<uint16_t>::swz(row, chunk);
+  }
+  static __device__ __forceinline__ void load(const char* st, int g, int j, int t,
+                                              uint4 (&lo)[1], uint4 (&hi)[1], float* sq,
+                                              bool need_sq) {
+    lo[0] = MmaRows<uint16_t>::load(st, g, j, t);
+    hi[0] = MmaRows<uint16_t>::load(st, g + 8, j, t);
+    if (need_sq) {
+      sq[0] = sq4(lo[0].z, lo[0].w, sq4(lo[0].x, lo[0].y, sq[0]));
+      sq[1] = sq4(hi[0].z, hi[0].w, sq4(hi[0].x, hi[0].y, sq[1]));
+    }
+  }
 };
-template <> struct Row<uint16_t> {  // bf16 bits: the high half of an f32
-  using Reg = uint2;
-  static __device__ __forceinline__ float4 cvt(Reg u) {
-    return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                       __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+template <> struct Rows<float> {  // f32 rows: hi, mid, lo split here
+  static constexpr int P = 3;
+  static constexpr int DIMS = ROW_BYTES / 4;
+  static constexpr int QSLOTS = 2;
+  // 16-byte chunk c of row r at c ^ (r & 1): rows g and g + 1 of a load phase hit
+  // different banks
+  static __device__ __forceinline__ int swz(int row, int chunk) { return chunk ^ (row & 1); }
+  static __device__ __forceinline__ void one(const char* st, int row, int j, int t, uint4* p,
+                                             float& sq, bool need_sq) {
+    const float4 a = *reinterpret_cast<const float4*>(st + row * ROW_BYTES +
+                                                      swz(row, 8 * j + 2 * t) * 16);
+    const float4 b = *reinterpret_cast<const float4*>(st + row * ROW_BYTES +
+                                                      swz(row, 8 * j + 2 * t + 1) * 16);
+    if (need_sq) {
+      sq = fmaf(a.x, a.x, sq);
+      sq = fmaf(a.y, a.y, sq);
+      sq = fmaf(a.z, a.z, sq);
+      sq = fmaf(a.w, a.w, sq);
+      sq = fmaf(b.x, b.x, sq);
+      sq = fmaf(b.y, b.y, sq);
+      sq = fmaf(b.z, b.z, sq);
+      sq = fmaf(b.w, b.w, sq);
+    }
+    split3(a.x, a.y, p[0].x, p[1].x, p[2].x);
+    split3(a.z, a.w, p[0].y, p[1].y, p[2].y);
+    split3(b.x, b.y, p[0].z, p[1].z, p[2].z);
+    split3(b.z, b.w, p[0].w, p[1].w, p[2].w);
+  }
+  static __device__ __forceinline__ void load(const char* st, int g, int j, int t,
+                                              uint4 (&lo)[3], uint4 (&hi)[3], float* sq,
+                                              bool need_sq) {
+    one(st, g, j, t, lo, sq[0], need_sq);
+    one(st, g + 8, j, t, hi, sq[1], need_sq);
   }
 };
 
-template <typename RT, int METRIC, bool BIAS>
-__global__ void __launch_bounds__(THREADS, 1)
-window_min_kernel(const RT* __restrict__ data, const float* __restrict__ qt,
-                  const float* __restrict__ qn, const float* __restrict__ bias, int hw,
-                  float* __restrict__ out, int D, int B, int db_tile, int r1, int n_qtiles) {
-  constexpr bool NEED_SQN = (METRIC == COSINE) || (METRIC == L2 && !BIAS);
-  __shared__ __align__(16) float As[2][BK][BM];  // data stage, transposed: [k][row]
-  __shared__ __align__(16) float Bs[2][BK][BN];  // query stage: [k][query]
-  __shared__ float row_sqn[BM];
-  __shared__ float row_bias[BM];
+// one product of a 16-row fragment (lo: row g, hi: row g + 8) with an 8-query fragment b,
+// over the 32 dimensions the three registers pairs hold
+__device__ __forceinline__ void mma32(float* c, const uint4& lo, const uint4& hi, const uint4& b) {
+  mma_bf16(c, lo.x, hi.x, lo.y, hi.y, b.x, b.y);
+  mma_bf16(c, lo.z, hi.z, lo.w, hi.w, b.z, b.w);
+}
 
-  const int tid = threadIdx.x;
-  const int group = blockIdx.x / n_qtiles;           // 128 consecutive windows of one tile
-  const int q0 = (blockIdx.x % n_qtiles) * BN;
-  const int W = db_tile / r1;
-  const int groups_per_tile = W / BM;
-  // row of window (group * BM + i) at step r: row0 + r * W + i
+struct WArgs {
+  const void* data;      // [n_rows, D] f32 or bf16 bits
+  const uint16_t* q;     // P parts, each bf16 [Bq, D] (zero past the live queries)
+  const float* qn;       // [Bq]: |q|^2 of the f32 query
+  const float* bias;     // [n_rows] or null (the fast variant: rows >= hw masked)
+  float* out;            // [n_rows / r1, Bc]
+  long long hw;
+  int D, Bc, Bq, db_tile, r1, metric;
+};
+
+// the row ring, QSLOTS slots of the query tile (every part of 16 * nt queries by DIMS
+// dimensions) and the tile's |q|^2
+template <typename RT>
+constexpr int smem_bytes_of(int nt) {
+  using R = Rows<RT>;
+  return PAIRS * NSTAGE * STAGE + R::QSLOTS * R::P * 16 * nt * R::DIMS * 2 + 16 * nt * 4;
+}
+static_assert(smem_bytes_of<float>(8) <= SMEM_MAX && smem_bytes_of<uint16_t>(8) <= SMEM_MAX,
+              "the 128-query tile does not fit");
+
+template <typename RT, int NT>
+__global__ void __launch_bounds__(WARPS * 32, 1) window_mma_kernel(const WArgs a) {
+  using R = Rows<RT>;
+  constexpr int P = R::P, BN = 16 * NT;  // queries a block owns: NT n-tiles for each warp
+  // bytes of one query row of one part in a slot, of one slot, 16-byte chunks of a row
+  constexpr int QROW = R::DIMS * 2, SLOT = P * BN * QROW, CPR = QROW / 16;
+  extern __shared__ __align__(16) char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int pair = warp >> 1, n0 = (warp & 1) * NT;  // the pair's rows, this warp's n-tiles
+  const int g = lane >> 2, t = lane & 3;             // the fragment's group and thread
+  const int n_qt = (a.Bq + BN - 1) / BN;
+  const long long group = blockIdx.x / n_qt;         // 128 consecutive windows of one tile
+  const int q0 = (blockIdx.x % n_qt) * BN;
+  const int bn = min(BN, a.Bq - q0);
+  const int W = a.db_tile / a.r1, gpt = W / BM;
+  // the pair's first row at step r: row0 + r * W
   const long long row0 =
-      (long long)(group / groups_per_tile) * db_tile + (long long)(group % groups_per_tile) * BM;
+      (group / gpt) * a.db_tile + (group % gpt) * (long long)BM + pair * 16;
+  const int kc = a.D / R::DIMS;  // stages per step
+  const bool resident = kc <= R::QSLOTS;  // every chunk of the query tile fits
+  const bool biased = a.bias != nullptr;
+  const bool need_sq = a.metric == COSINE || (a.metric == L2 && !biased);
 
-  // compute mapping: rows ty*4+{0..3}, 64+ty*4+{0..3}; queries tx*4+{0..3}, 64+tx*4+{0..3}
-  const int ty = tid / 16, tx = tid % 16;
-  // load mapping: data stage [128 rows x 8], query stage [8 x 128 queries], one float4 each
-  const int a_row = tid >> 1, a_col = (tid & 1) * 4;
-  const int b_row = tid >> 5, b_col = (tid & 31) * 4;
-  const bool b_ok = q0 + b_col < B;  // B % 4 == 0: a float4 is all in or all out
+  char* ring = smem + pair * NSTAGE * STAGE;
+  // slot s, part p, row r: qs + s * SLOT + (p * BN + r) * QROW
+  char* qs = smem + PAIRS * NSTAGE * STAGE;
+  float* qn_s = reinterpret_cast<float*>(qs + R::QSLOTS * SLOT);
+  for (int i = threadIdx.x; i < BN; i += blockDim.x) qn_s[i] = i < bn ? a.qn[q0 + i] : 0.f;
 
-  float qn_r[8];
+  const int total = a.r1 * kc;  // stages of the pair: r1 steps of kc chunks
+  // the query chunk of stage z, copied by the whole block (resident: during the first step
+  // only, into slot c), zero past the block's queries: row r's 16-byte chunk ch at
+  // ch ^ ((r & 1) << 2)
+  auto issue_q = [&](int z) {
+    if (z >= total || (resident && z >= kc)) return;
+    const int c = z % kc;
+    char* slot = qs + (resident ? c : z % R::QSLOTS) * SLOT;
+    for (int i = threadIdx.x; i < P * BN * CPR; i += blockDim.x) {
+      const int pr = i / CPR, ch = i % CPR, p = pr / BN, r = pr % BN;
+      cp_async16_or_zero(slot + pr * QROW + (ch ^ ((r & 1) << 2)) * 16,
+                         a.q + ((long long)p * a.Bq + q0 + min(r, bn - 1)) * a.D +
+                             c * R::DIMS + ch * 8,
+                         r < bn);
+    }
+  };
+  auto issue = [&](int z) {
+    const int r = z / kc, c = z % kc;
+    const char* src = static_cast<const char*>(a.data) +
+                      (row0 + (long long)r * W) * a.D * (long long)sizeof(RT) +
+                      (long long)c * ROW_BYTES;
+    char* st = ring + (z % NSTAGE) * STAGE;
+    // the pair's 64 threads share the 16 rows' 16 chunks
+    for (int i = (warp & 1) * 32 + lane; i < 16 * (ROW_BYTES / 16); i += 64) {
+      const int rr = i / (ROW_BYTES / 16), ch = i % (ROW_BYTES / 16);
+      cp_async16(st + rr * ROW_BYTES + R::swz(rr, ch) * 16,
+                 src + (long long)rr * a.D * (long long)sizeof(RT) + ch * 16);
+    }
+  };
+
+  float acc[NT][4], best[NT][4], sq[2];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = q0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
-    qn_r[j] = c < B ? qn[c] : 0.f;
-  }
-
-  float best[8][8];
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) best[i][j] = __int_as_float(0x7f800000);  // +inf
+    for (int e = 0; e < 4; ++e) best[n][e] = __int_as_float(0x7f800000);  // +inf
 
-  const int nk = D / BK;
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int r = 0; r < r1; ++r) {
-    using AReg = typename Row<RT>::Reg;
-    const long long step_row0 = row0 + (long long)r * W;
-    const RT* a_src = data + (step_row0 + a_row) * D + a_col;
-    const float* b_src = qt + (long long)b_row * B + q0 + b_col;
-
-    float acc[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    float sq = 0.f;
-
-    AReg a_raw = *reinterpret_cast<const AReg*>(a_src);
-    float4 b_reg = b_ok ? *reinterpret_cast<const float4*>(b_src) : zero4;
-    int buf = 0;
-    for (int kc = 0; kc < nk; ++kc) {
-      const float4 a_reg = Row<RT>::cvt(a_raw);
-      if (NEED_SQN) {
-        sq = fmaf(a_reg.x, a_reg.x, sq);
-        sq = fmaf(a_reg.y, a_reg.y, sq);
-        sq = fmaf(a_reg.z, a_reg.z, sq);
-        sq = fmaf(a_reg.w, a_reg.w, sq);
-      }
-      As[buf][a_col + 0][a_row] = a_reg.x;
-      As[buf][a_col + 1][a_row] = a_reg.y;
-      As[buf][a_col + 2][a_row] = a_reg.z;
-      As[buf][a_col + 3][a_row] = a_reg.w;
-      *reinterpret_cast<float4*>(&Bs[buf][b_row][b_col]) = b_reg;
+  // commit groups: rows of stage 0, the query chunk of stage 0, rows of stage 1; then at
+  // stage z the query chunk of z + 1 and the rows of z + 2, so that waiting for all but
+  // the newest group finds stage z's rows and query chunk in place
+  static_assert(NSTAGE == 3, "the commit order below assumes a 3-stage ring");
+  issue(0);
+  cp_async_commit();
+  issue_q(0);
+  cp_async_commit();
+  if (1 < total) issue(1);
+  cp_async_commit();
+  for (int z = 0; z < total; ++z) {
+    cp_async_wait<1>();
+    // every copy of stage z is visible, and the warps have left stage z - 1, whose row
+    // buffer is refilled here: the pair's warps wait for each other, and the whole block
+    // where stage z's query chunk was just copied (its slot is refilled at z + 1 when the
+    // chunks stream)
+    if (!resident || z < kc)
       __syncthreads();
-      if (kc + 1 < nk) {  // next stage's loads are in flight during this stage's FMAs
-        a_raw = *reinterpret_cast<const AReg*>(a_src + (kc + 1) * BK);
-        b_reg = b_ok ? *reinterpret_cast<const float4*>(b_src + (long long)(kc + 1) * BK * B)
-                     : zero4;
-      }
+    else
+      asm volatile("bar.sync %0, 64;\n" ::"r"(pair + 1));
+    issue_q(z + 1);
+    cp_async_commit();
+    if (z + 2 < total) issue(z + 2);
+    cp_async_commit();
+    const int r = z / kc, c = z % kc;
+    const char* st = ring + (z % NSTAGE) * STAGE;
+    const char* qslot = qs + (resident ? c : z % R::QSLOTS) * SLOT;
+    if (c == 0) {
 #pragma unroll
-      for (int k = 0; k < BK; ++k) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][k][ty * 4]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&As[buf][k][64 + ty * 4]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][k][tx * 4]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&Bs[buf][k][64 + tx * 4]);
-        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      // Double buffering makes one barrier per stage enough: the next store goes to the
-      // other buffer, whose readers all passed this stage's barrier.
-      buf ^= 1;
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+      sq[0] = sq[1] = 0.f;
     }
-
-    if (NEED_SQN) {
-      sq += __shfl_xor_sync(0xffffffffu, sq, 1);  // the two halves of row a_row
-      if ((tid & 1) == 0) row_sqn[a_row] = sq;
-    }
-    if (BIAS && tid < BM) row_bias[tid] = bias[step_row0 + tid];
-    // Every thread is past its last stage and the row terms are visible.  The next
-    // step's first store (buffer 0) and its row-term writes come after this barrier and
-    // after the next step's own barriers, so no second barrier is needed.
-    __syncthreads();
-
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int lr = i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4);
-      const float s = NEED_SQN ? row_sqn[lr] : 0.f;
-      const float bi = BIAS ? row_bias[lr] : 0.f;
-      const bool live = BIAS || step_row0 + lr < hw;
+    for (int j = 0; j < R::DIMS / 32; ++j) {
+      uint4 lo[P], hi[P];
+      R::load(st, g, j, t, lo, hi, sq, need_sq);
+      // query row (n0 + n) * 8 + g, dimensions c * DIMS + 32j + 8t .. +7: the slot's
+      // 16-byte chunk 4j + t, swizzled as the copy stored it (rows g + 8n share g's parity)
+      const char* qb = qslot + (n0 * 8 + g) * QROW + ((4 * j + t) ^ ((g & 1) << 2)) * 16;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float dot = acc[i][j];
-        float d;
-        if (METRIC == L2) {
-          d = nan_max((BIAS ? bi : s) + qn_r[j] - 2.f * dot, 0.f);
-        } else if (METRIC == IP) {
-          d = 1.f - dot;
-          if (BIAS) d += bi;
+      for (int n = 0; n < NT; ++n) {
+        const char* qn_at = qb + n * 8 * QROW;
+        if constexpr (P == 1) {
+          mma32(acc[n], lo[0], hi[0], *reinterpret_cast<const uint4*>(qn_at));
         } else {
-          d = 1.f - dot * rsqrtf(nan_max(s * qn_r[j], 1e-30f));
-          if (BIAS) d += bi;
+          // the smaller products first: hi.lo; mid.mid, hi.mid; lo.hi, mid.hi, hi.hi
+          const uint4 bl = *reinterpret_cast<const uint4*>(qn_at + 2 * BN * QROW);
+          mma32(acc[n], lo[0], hi[0], bl);
+          const uint4 bm = *reinterpret_cast<const uint4*>(qn_at + BN * QROW);
+          mma32(acc[n], lo[1], hi[1], bm);
+          mma32(acc[n], lo[0], hi[0], bm);
+          const uint4 bh = *reinterpret_cast<const uint4*>(qn_at);
+          mma32(acc[n], lo[2], hi[2], bh);
+          mma32(acc[n], lo[1], hi[1], bh);
+          mma32(acc[n], lo[0], hi[0], bh);
         }
-        if (!live) d = MASKED;  // a dead row is MASKED even when d is NaN (jnp.where)
-        best[i][j] = nan_min(best[i][j], d);
       }
     }
+    if (c != kc - 1) continue;
+
+    // the step's epilogue: element e of n-tile n is row g + 8 * (e >> 1) of the pair,
+    // query column (n0 + n) * 8 + 2t + (e & 1); JAX's formulas in JAX's order, unfused
+    const long long rg = row0 + (long long)r * W + g;
+    float s[2] = {0.f, 0.f}, bi[2] = {0.f, 0.f};
+    bool live[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (need_sq) {  // the four threads of a group hold a quarter of the dimensions each
+        s[h] = sq[h] + __shfl_xor_sync(0xffffffffu, sq[h], 1);
+        s[h] += __shfl_xor_sync(0xffffffffu, s[h], 2);
+      }
+      if (biased) bi[h] = a.bias[rg + 8 * h];
+      live[h] = biased || rg + 8 * h < a.hw;
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const float qv = qn_s[(n0 + n) * 8 + 2 * t + (e & 1)];
+        const float dot = acc[n][e];
+        float d;
+        if (a.metric == L2) {
+          d = nan_max(__fsub_rn(__fadd_rn(biased ? bi[h] : s[h], qv), __fmul_rn(2.f, dot)), 0.f);
+        } else if (a.metric == IP) {
+          d = __fsub_rn(1.f, dot);
+          if (biased) d = __fadd_rn(d, bi[h]);
+        } else {
+          d = __fsub_rn(1.f, __fmul_rn(dot, rsqrtf(nan_max(__fmul_rn(s[h], qv), 1e-30f))));
+          if (biased) d = __fadd_rn(d, bi[h]);
+        }
+        if (!live[h]) d = MASKED;  // a dead row is MASKED even when d is NaN (jnp.where)
+        best[n][e] = nan_min(best[n][e], d);
+      }
   }
 
-  const long long out_row0 = (long long)group * BM;
+  // window group * 128 + 16 * pair + g (+ 8): columns 2t, 2t + 1 of each n-tile
+  const long long out_row = group * BM + pair * 16 + g;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int lr = i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4);
-    float* o = out + (out_row0 + lr) * B + q0;
-    if (q0 + tx * 4 < B)
-      *reinterpret_cast<float4*>(o + tx * 4) =
-          make_float4(best[i][0], best[i][1], best[i][2], best[i][3]);
-    if (q0 + 64 + tx * 4 < B)
-      *reinterpret_cast<float4*>(o + 64 + tx * 4) =
-          make_float4(best[i][4], best[i][5], best[i][6], best[i][7]);
+  for (int n = 0; n < NT; ++n) {
+    const int col = q0 + (n0 + n) * 8 + 2 * t;
+    if (col < a.Bc) {  // Bc is even, so col + 1 < Bc too
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(a.out + (out_row + 8 * h) * a.Bc + col) =
+            make_float2(best[n][2 * h], best[n][2 * h + 1]);
+    }
   }
 }
 
-template <typename RT, bool BIAS>
-int launch(const void* data_v, const float* qt, const float* qn, const float* bias, int hw,
-           float* out, long long n_rows, int D, int B, int db_tile, int r1, int metric,
-           cudaStream_t stream) {
-  if (n_rows <= 0 || D <= 0 || B <= 0 || r1 <= 0 || db_tile <= 0 || D % BK || B % 4 ||
-      db_tile % r1 || (db_tile / r1) % BM || n_rows % db_tile || metric < 0 || metric > 2)
-    return (int)cudaErrorInvalidValue;
-  const RT* data = static_cast<const RT*>(data_v);
-  const int n_qtiles = (B + BN - 1) / BN;
-  const long long blocks = n_rows / ((long long)r1 * BM) * n_qtiles;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)blocks), block(THREADS);
-  switch (metric) {
-    case L2:
-      window_min_kernel<RT, L2, BIAS><<<grid, block, 0, stream>>>(data, qt, qn, bias, hw, out, D,
-                                                                 B, db_tile, r1, n_qtiles);
-      break;
-    case IP:
-      window_min_kernel<RT, IP, BIAS><<<grid, block, 0, stream>>>(data, qt, qn, bias, hw, out, D,
-                                                                 B, db_tile, r1, n_qtiles);
-      break;
-    default:
-      window_min_kernel<RT, COSINE, BIAS><<<grid, block, 0, stream>>>(data, qt, qn, bias, hw, out,
-                                                                     D, B, db_tile, r1, n_qtiles);
-  }
+template <typename RT, int NT>
+int launch_nt(const WArgs& a, long long n_rows, cudaStream_t stream) {
+  constexpr int smem = smem_bytes_of<RT>(NT);
+  const long long blocks = n_rows / ((long long)a.r1 * BM) * ((a.Bq + 16 * NT - 1) / (16 * NT));
+  if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  auto kernel = window_mma_kernel<RT, NT>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)blocks, WARPS * 32, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <bool BIAS>
-int launch_rows(int row_type, const void* data, const float* qt, const float* qn,
-                const float* bias, int hw, float* out, long long n_rows, int D, int B,
-                int db_tile, int r1, int metric, cudaStream_t stream) {
-  switch (row_type) {
-    case 0:
-      return launch<float, BIAS>(data, qt, qn, bias, hw, out, n_rows, D, B, db_tile, r1, metric,
-                                 stream);
-    case 1:
-      return launch<uint16_t, BIAS>(data, qt, qn, bias, hw, out, n_rows, D, B, db_tile, r1,
-                                    metric, stream);
-  }
-  return (int)cudaErrorInvalidValue;
+// The query tile follows the live count: 16 queries for a batch that needs no more, 64
+// for one of up to 64, else 128, at any Dp.
+template <typename RT>
+int launch(const WArgs& a, long long n_rows, cudaStream_t stream) {
+  if (a.Bq > 64) return launch_nt<RT, 8>(a, n_rows, stream);
+  if (a.Bq > 16) return launch_nt<RT, 4>(a, n_rows, stream);
+  return launch_nt<RT, 1>(a, n_rows, stream);
 }
 
 }  // namespace
 
-// Plain C entry points (bound with ctypes).  Each returns cudaGetLastError() after the
-// launch; 0 means the launch was accepted.  data: [n_rows, D] of row_type 0 = f32, 1 = bf16
-// bits; qt: f32 [D, B] (bf16-rounded values for bf16 rows); metric: 0 = l2, 1 = ip,
-// 2 = cosine.
-extern "C" int mlvdb_window_min_fast(const void* data, const float* qt, const float* qn, int hw,
-                                     float* out, long long n_rows, int D, int B, int db_tile,
-                                     int r1, int metric, int row_type, void* stream) {
-  return launch_rows<false>(row_type, data, qt, qn, nullptr, hw, out, n_rows, D, B, db_tile, r1,
-                            metric, static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int mlvdb_window_min_masked(const void* data, const float* qt, const float* qn,
-                                       const float* bias, float* out, long long n_rows, int D,
-                                       int B, int db_tile, int r1, int metric, int row_type,
-                                       void* stream) {
-  return launch_rows<true>(row_type, data, qt, qn, bias, 0, out, n_rows, D, B, db_tile, r1,
-                           metric, static_cast<cudaStream_t>(stream));
+// Plain C entry point (bound with ctypes).  data: [n_rows, D] of row_type 0 = f32, 1 = bf16
+// bits; q: bf16 [P, Bq, D], P = 3 parts (hi, mid, lo) for f32 rows and 1 (the bf16-rounded
+// query) for bf16 rows, Bq a multiple of 8, zero past the live queries; qn: f32 [Bq]; bias:
+// f32 [n_rows] (the masked variant) or null (the fast one: rows >= hw masked); out: f32
+// [n_rows / r1, Bc], Bc even and <= Bq.  metric: 0 = l2, 1 = ip, 2 = cosine.  D % 128 == 0,
+// (db_tile / r1) % 128 == 0, n_rows % db_tile == 0.  Returns cudaGetLastError() after the
+// launch; 0 means it was accepted.
+extern "C" int mlvdb_window_min(const void* data, const void* q, const float* qn,
+                                const float* bias, long long hw, float* out, long long n_rows,
+                                int D, int Bc, int Bq, int db_tile, int r1, int metric,
+                                int row_type, void* stream) {
+  if (n_rows <= 0 || D <= 0 || D % KC || Bc <= 0 || Bc % 2 || Bq % 8 || Bc > Bq || r1 <= 0 ||
+      db_tile <= 0 || db_tile % r1 || (db_tile / r1) % BM || n_rows % db_tile || metric < 0 ||
+      metric > 2)
+    return (int)cudaErrorInvalidValue;
+  const WArgs a{data, static_cast<const uint16_t*>(q), qn, bias, out, hw, D, Bc, Bq,
+                db_tile, r1, metric};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (row_type) {
+    case 0:
+      return launch<float>(a, n_rows, s);
+    case 1:
+      return launch<uint16_t>(a, n_rows, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -25,13 +25,27 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
-# the row_type argument of mlvdb_window_min_* and mlvdb_gather_score: f32 rows, or bf16
+# the row_type argument of mlvdb_window_min and mlvdb_gather_score: f32 rows, or bf16
 # rows (a dtype="bfloat16" store)
 ROW_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _sources() -> list:
+    """The translation units: one nvcc each."""
     return sorted(_CSRC.glob("*.cu"))
+
+
+def _hashed_files() -> list:
+    """Everything the library is built from: the sources and the shared headers."""
+    return sorted([*_CSRC.glob("*.cu"), *_CSRC.glob("*.cuh")])
+
+
+def library_path() -> Path:
+    """The library's path for the sources as they stand (built or not)."""
+    digest = hashlib.sha256()
+    for src in _hashed_files():
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"kernels_{digest.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:
@@ -53,10 +67,7 @@ def _check(cmd, res) -> None:
 def build() -> Path:
     """Compile the kernels (when not yet built for these sources) and return the library."""
     sources = _sources()
-    digest = hashlib.sha256()
-    for src in sources:
-        digest.update(src.name.encode() + b"\0" + src.read_bytes())
-    lib = BUILD_DIR / f"kernels_{digest.hexdigest()[:16]}.so"
+    lib = library_path()
     if lib.exists():
         return lib
     nvcc = _nvcc()
@@ -85,15 +96,15 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, with every entry point's argument types declared."""
     lib = ctypes.CDLL(str(build()))
-    lib.mlvdb_window_min_fast.argtypes = [_P, _P, _P, _I, _P, _LL, _I, _I, _I, _I, _I, _I, _P]
-    lib.mlvdb_window_min_masked.argtypes = [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _P]
+    lib.mlvdb_window_min.argtypes = [_P, _P, _P, _P, _LL, _P, _LL, _I, _I, _I, _I, _I, _I, _I,
+                                     _P]
     lib.mlvdb_sweep_min.argtypes = [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I,
         _I, _P]
     lib.mlvdb_gather_score.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
     lib.mlvdb_int8_mma_min.argtypes = [_P, _P, _P, _LL, _I, _I, _P]
     lib.mlvdb_int8_stream_sum.argtypes = [_P, _P, _LL, _I, _I, _P]
-    for fn in (lib.mlvdb_window_min_fast, lib.mlvdb_window_min_masked, lib.mlvdb_sweep_min,
+    for fn in (lib.mlvdb_window_min, lib.mlvdb_sweep_min,
                lib.mlvdb_gather_score, lib.mlvdb_int8_mma_min, lib.mlvdb_int8_stream_sum):
         fn.restype = _I
     return lib

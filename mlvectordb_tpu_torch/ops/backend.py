@@ -13,9 +13,9 @@ kernel that cannot build or launch raises.
 
 ``report_tier`` adds the certificate tier that served the batch (-1: no certificate ran).
 ``sweep_defer`` (sweep path only) returns the device-side ``fused_knn_t.SweepResult``, so
-the caller can bring the tier-1 result and its proof down in one copy.  ``n_live`` (sweep
-path only) is the caller's batch before its zero padding: phase 1 computes the live query
-columns alone.
+the caller can bring the tier-1 result and its proof down in one copy.  ``n_live`` is the
+caller's batch before its zero padding: phase 1 computes the live query columns alone on
+both fused paths, and the row-major one returns the live rows alone.
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ def _make_fused_backend(certify: bool):
             )
         d, i = exact_knn_fused(
             q, data, valid, sq_norms, k=k, metric=metric, db_tile=db_tile,
-            live_prefix=live_prefix,
+            live_prefix=live_prefix, n_live=n_live,
         )
         if report_tier:
             return d, i, -1  # row-major margin kernel: no certificate

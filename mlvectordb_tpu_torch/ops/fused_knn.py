@@ -1,11 +1,14 @@
 """Fused exact k-NN in torch + CUDA: the counterpart of ``mlvectordb_tpu/ops/pallas_knn.py``.
 
 Phase 1 (hand-written CUDA kernels, ``csrc/window_min.cu``): one pass over the database
-computes the distance of every row to every query in f32 and writes only the min over
-each window of r1 rows, a [N/r1, B] matrix; the [N, B] distance matrix never exists.
-The rows are f32, or bf16 for a ``dtype="bfloat16"`` store: then the query is rounded to
-bf16 as the JAX package rounds it (pallas_knn.py:333), so every product is exact and
-summed in f32 (its DEFAULT precision), while ``qn`` stays the f32 query's.
+computes the distance of every row to every query and writes only the min over each
+window of r1 rows, a [N/r1, B] matrix; the [N, B] distance matrix never exists.  The
+products run on the tensor cores, as the JAX kernels' run on the MXU (pallas_knn.py:93-99):
+bf16 rows (a ``dtype="bfloat16"`` store) in one bf16 pass against the query rounded to
+bf16 as the JAX package rounds it (pallas_knn.py:333), f32 sums, while ``qn`` stays the
+f32 query's; f32 rows as six bf16 passes of a three-way split (hi + mid + lo, the TPU's
+multi-pass HIGHEST product), whose dots stay within Dp * 2^-23 * |q||x| of the exact ones
+(``_phase1_budget``; the kernel's note gives the argument).
 Two variants, as in the JAX package:
   * fast   — no per-row input: row norms are summed in the kernel from the loaded rows,
     and rows >= the high-water mark are masked arithmetically.  Used when the namespace
@@ -13,7 +16,10 @@ Two variants, as in the JAX package:
   * masked — adds a per-row bias column (l2: sq_norms + mask; ip/cosine: mask) carrying
     the tombstones.
 Each kernel wrapper launches its kernel for a CUDA tensor and runs its plain torch
-version (``_window_mins_*_ref``) for a CPU tensor; the CPU tests use the plain versions.
+version (``_window_mins_*_ref``, f32) for a CPU tensor; the CPU tests use the plain versions.
+``n_live``: the caller's queries from ``n_live`` on are padding; the wrappers compute only
+the first ``n_live`` columns (rounded up to the tensor-core product's n of 8), and
+``exact_knn_fused`` selects and rescans the live rows alone.
 
 Phase 2 (torch, small tensors): two-level window selection, then an exact f32 rescan of
 the candidate rows (read as f32, scored against the f32 query with the JAX package's
@@ -22,7 +28,8 @@ formulas, the l2 expansion ``qn + ||row||^2 - 2 q.row`` included) and the final 
 Exactness: if a true top-k element lived in a window that selection dropped, then >= s
 selected windows each contain an element closer than it — contradiction with its rank
 (s >= k).  The margin s = min(2k, k+16) absorbs rounding differences between the phase-1
-window mins and the rescan, which holds because both are f32 (no TF32 anywhere).
+window mins and the f32 rescan: both are f32-level (phase 1 within Dp * 2^-23 of |q||x|,
+as the TPU's HIGHEST product; TF32 alone, at 2^-11, would not be).
 
 Window layout: window w covers rows (w // W)*T + (w % W) + r*W for r < R1, where
 W = T/R1 — the JAX package's strided layout, kept so the window-min matrices compare
@@ -37,6 +44,7 @@ import torch
 
 from . import _kernels
 from .distances import MASKED, require_f32_matmul
+from .fused_knn_t import _live_columns
 from .topk import exact_knn
 
 
@@ -62,6 +70,17 @@ Q_TILE = 256
 _METRIC_CODE = {"l2": 0, "ip": 1, "cosine": 2}
 # rows per chunk of the plain versions' [rows, B] distance block
 _REF_CHUNK_ELEMS = 1 << 25
+
+
+def _split3(x: torch.Tensor):
+    """f32 ``x`` as three bf16 parts (hi, mid, lo) with hi + mid + lo == x, as the kernel
+    splits each row element: hi = bf16_rn(x), mid = bf16_rn(x - hi), lo = bf16(x - hi -
+    mid); the remainders are exact in f32.  Exact for |x| from 2^-110 to bf16's largest
+    finite value, and 0."""
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
 
 
 def _window_mins_ref(data, qt, qn, *, metric, db_tile, r1, hw=None, bias=None):
@@ -108,8 +127,49 @@ def _window_mins_masked_ref(data, qt, qn, bias, *, metric, db_tile, r1):
     return _window_mins_ref(data, qt, qn, metric=metric, db_tile=db_tile, r1=r1, bias=bias)
 
 
+def _phase1_budget(data, qt, qn, *, metric, db_tile, r1, hw=None, bias=None):
+    """Per-element bound on |kernel - plain| of B4/B5's window mins, shaped as they are
+    ([N/r1, B] for qt [D, B]; ``hw`` for the fast variant, ``bias`` for the masked one).
+
+    Each dot is within Dp * 2^-23 * |q||x| of the exact one on the tensor cores (the bar
+    ``chip_smoke.py`` measures, for the bf16 pass and the f32 split alike) and within
+    Dp * 2^-24 * |q||x| in the plain version's f32 sums; each side's f32 row norm within
+    Dp * 2^-24 * |x|^2; the epilogue's roundings (rsqrt's approximation included) within
+    2^-21 of each term's magnitude.  A window min moves by at most the largest of its live
+    rows' bounds (min is 1-Lipschitz); dead rows (>= hw, or a bias >= MASKED / 2) never
+    hold a live window's min, and a window of dead rows is MASKED on both sides."""
+    N, Dp = data.shape
+    W = db_tile // r1
+    tc, eps = Dp * (2.0 ** -23 + 2.0 ** -24), 2.0 ** -21
+    dev = data.device
+    x = torch.cat([torch.linalg.vector_norm(data[i:i + (1 << 20)].float(), dim=1)
+                   for i in range(0, N, 1 << 20)])                        # |x| [N]
+    rows = torch.arange(N, device=dev)
+    live = rows < hw if bias is None else bias.reshape(-1) < MASKED / 2
+
+    def wmax(v):    # [N] -> the largest over each window's live rows, [N/r1, 1]
+        v = torch.where(live, v, torch.zeros_like(v))
+        return v.reshape(-1, r1, W).amax(1).reshape(-1, 1)
+
+    q = torch.linalg.vector_norm(qt.float(), dim=0)[None, :]             # |q| [1, B]
+    qn = qn.reshape(1, -1).float()
+    if metric == "cosine":
+        # |dot| * rsqrt(|x|^2 |q_f32|^2) <= |q| / |q_f32|; the rsqrt and the norms
+        # relative errors scale it
+        ratio = torch.where(qn > 0, q / qn.clamp_min(1e-30).sqrt(), torch.zeros_like(q))
+        col = ratio * (tc + Dp * 2.0 ** -24 + 6 * 2.0 ** -22) + 2 * eps
+        return torch.where(wmax(torch.ones_like(x)) > 0, col, torch.zeros_like(col))
+    if metric == "ip":
+        return q * (tc + eps) * wmax(x) + eps
+    s = x * x if bias is None else bias.reshape(-1).abs()
+    out = 2 * q * (tc + eps) * wmax(x) + eps * (wmax(s) + qn)
+    if bias is None:
+        out = out + 2 * Dp * 2.0 ** -24 * wmax(x * x)
+    return out
+
+
 def _check_operands(data, qt, qn, row_input, *, metric, db_tile, r1):
-    """Raise on anything the CUDA kernels do not take; returns (N, D, B)."""
+    """Raise on anything the CUDA kernel does not take; returns (N, D, B)."""
     N, D = data.shape
     B = qt.shape[1]
     if data.dtype not in _kernels.ROW_TYPES:
@@ -130,58 +190,82 @@ def _check_operands(data, qt, qn, row_input, *, metric, db_tile, r1):
         )
     if metric not in _METRIC_CODE:
         raise ValueError(f"unknown metric {metric!r}")
-    if D % 8 or B % 4 or db_tile % r1 or (db_tile // r1) % 128 or N % db_tile:
+    if D % 128 or B % 4 or db_tile % r1 or (db_tile // r1) % 128 or N % db_tile:
         raise ValueError(
-            f"kernel needs D % 8 == 0, B % 4 == 0, (db_tile / r1) % 128 == 0 and N % db_tile"
-            f" == 0; got N={N} D={D} B={B} db_tile={db_tile} r1={r1}"
+            f"kernel needs D % 128 == 0, B % 4 == 0, (db_tile / r1) % 128 == 0 and "
+            f"N % db_tile == 0; got N={N} D={D} B={B} db_tile={db_tile} r1={r1}"
         )
     return N, D, B
 
 
-def _window_mins_fast(data, qt, qn, hw, *, metric, db_tile, r1):
-    """[N/r1, B] window mins of the fast variant (rows >= hw masked): the CUDA kernel
-    for a CUDA tensor, the plain version for a CPU tensor."""
-    if data.device.type == "cpu":
-        return _window_mins_fast_ref(data, qt, qn, hw, metric=metric, db_tile=db_tile, r1=r1)
-    N, D, B = _check_operands(data, qt, qn, None, metric=metric, db_tile=db_tile, r1=r1)
-    out = torch.empty((N // r1, B), dtype=torch.float32, device=data.device)
-    with torch.cuda.device(data.device):  # the C launch uses the runtime's current device
-        rc = _kernels.library().mlvdb_window_min_fast(
-            data.data_ptr(), qt.data_ptr(), qn.data_ptr(), int(hw), out.data_ptr(),
-            N, D, B, db_tile, r1, _METRIC_CODE[metric], _kernels.ROW_TYPES[data.dtype],
-            torch.cuda.current_stream(data.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"window_min_fast launch failed: cudaError {rc}")
-    _window_mins_fast.launches += 1
-    _window_mins_fast.launches_bf16 += int(data.dtype == torch.bfloat16)
-    return out
+def _kernel_queries(qt, qn, n_c, dtype):
+    """The kernel's query operands for the first ``n_c`` columns of qt [D, B] and qn
+    [1, B]: bf16 parts [P, Bq, D] (f32 rows: the split hi, mid, lo; bf16 rows: the values,
+    which the caller has rounded to bf16) and qn [Bq], Bq = n_c rounded up to 8, zero past
+    n_c."""
+    D = qt.shape[0]
+    bq = -(-n_c // 8) * 8
+    rows = qt[:, :n_c].T
+    parts = _split3(rows) if dtype == torch.float32 else (rows.to(torch.bfloat16),)
+    q = torch.zeros((len(parts), bq, D), dtype=torch.bfloat16, device=qt.device)
+    for p, part in enumerate(parts):
+        q[p, :n_c] = part
+    qn_k = torch.zeros(bq, dtype=torch.float32, device=qt.device)
+    qn_k[:n_c] = qn.reshape(-1)[:n_c]
+    return q, qn_k, bq
 
 
-def _window_mins_masked(data, qt, qn, bias, *, metric, db_tile, r1):
-    """[N/r1, B] window mins of the masked variant (per-row bias column): the CUDA kernel
-    for a CUDA tensor, the plain version for a CPU tensor."""
-    if data.device.type == "cpu":
-        return _window_mins_masked_ref(data, qt, qn, bias, metric=metric, db_tile=db_tile, r1=r1)
+def _launch(fn, data, qt, qn, hw, bias, *, metric, db_tile, r1, n_live):
+    """Launch kernel B4 (``bias`` None) or B5 on the first ``_live_columns(B, n_live)``
+    query columns, counted on the wrapper ``fn``; returns [N/r1, n_c]."""
     N, D, B = _check_operands(data, qt, qn, bias, metric=metric, db_tile=db_tile, r1=r1)
-    out = torch.empty((N // r1, B), dtype=torch.float32, device=data.device)
-    with torch.cuda.device(data.device):
-        rc = _kernels.library().mlvdb_window_min_masked(
-            data.data_ptr(), qt.data_ptr(), qn.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            N, D, B, db_tile, r1, _METRIC_CODE[metric], _kernels.ROW_TYPES[data.dtype],
+    n_c = _live_columns(B, n_live)
+    q, qn_k, bq = _kernel_queries(qt, qn, n_c, data.dtype)
+    out = torch.empty((N // r1, n_c), dtype=torch.float32, device=data.device)
+    with torch.cuda.device(data.device):  # the C launch uses the runtime's current device
+        rc = _kernels.library().mlvdb_window_min(
+            data.data_ptr(), q.data_ptr(), qn_k.data_ptr(),
+            None if bias is None else bias.data_ptr(), int(hw), out.data_ptr(), N, D, n_c, bq,
+            db_tile, r1, _METRIC_CODE[metric], _kernels.ROW_TYPES[data.dtype],
             torch.cuda.current_stream(data.device).cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(f"window_min_masked launch failed: cudaError {rc}")
-    _window_mins_masked.launches += 1
-    _window_mins_masked.launches_bf16 += int(data.dtype == torch.bfloat16)
+        raise RuntimeError(f"window_min launch failed: cudaError {rc}")
+    fn.launches += 1
+    fn.launches_bf16 += int(data.dtype == torch.bfloat16)
+    fn.cols += n_c
     return out
 
 
-# kernel launches so far, and those over bf16 rows (a run resets and reads these to show
-# which kernels it used)
-_window_mins_fast.launches = _window_mins_fast.launches_bf16 = 0
-_window_mins_masked.launches = _window_mins_masked.launches_bf16 = 0
+def _window_mins_fast(data, qt, qn, hw, *, metric, db_tile, r1, n_live=None):
+    """[N/r1, n_c] window mins of the fast variant (rows >= hw masked) for the first
+    n_c = ``_live_columns(B, n_live)`` queries of qt [D, B]: the CUDA kernel for a CUDA
+    tensor, the plain version for a CPU tensor.  For bf16 rows qt holds bf16 values."""
+    if data.device.type == "cpu":
+        n_c = _live_columns(qt.shape[1], n_live)
+        return _window_mins_fast_ref(data, qt[:, :n_c], qn[:, :n_c], hw, metric=metric,
+                                     db_tile=db_tile, r1=r1)
+    return _launch(_window_mins_fast, data, qt, qn, hw, None, metric=metric, db_tile=db_tile,
+                   r1=r1, n_live=n_live)
+
+
+def _window_mins_masked(data, qt, qn, bias, *, metric, db_tile, r1, n_live=None):
+    """[N/r1, n_c] window mins of the masked variant (per-row bias column) for the first
+    n_c = ``_live_columns(B, n_live)`` queries of qt [D, B]: the CUDA kernel for a CUDA
+    tensor, the plain version for a CPU tensor.  For bf16 rows qt holds bf16 values."""
+    if data.device.type == "cpu":
+        n_c = _live_columns(qt.shape[1], n_live)
+        return _window_mins_masked_ref(data, qt[:, :n_c], qn[:, :n_c], bias, metric=metric,
+                                       db_tile=db_tile, r1=r1)
+    return _launch(_window_mins_masked, data, qt, qn, 0, bias, metric=metric, db_tile=db_tile,
+                   r1=r1, n_live=n_live)
+
+
+# kernel launches so far, those over bf16 rows, and the query columns they computed (a run
+# resets and reads these to show which kernels it used)
+for _fn in (_window_mins_fast, _window_mins_masked):
+    _fn.launches = _fn.launches_bf16 = _fn.cols = 0
+del _fn
 
 
 def _select_and_rescan(q, qn_row, data, maskadd, hw, wmin1t, *, k, metric, db_tile, masked, r1):
@@ -253,6 +337,7 @@ def exact_knn_fused(
     metric: str,
     db_tile: int = DB_TILE,
     live_prefix: int | None = None,
+    n_live: int | None = None,
 ):
     """Drop-in fused backend for ops.topk.exact_knn (same contract).
 
@@ -260,11 +345,17 @@ def exact_knn_fused(
     (no tombstones) — enables the fast no-mask kernel.  None => the masked kernel driven
     by ``valid``.
 
+    ``n_live``: the caller's batch before it padded ``q`` with zero rows (None: every row
+    is live).  Phase 1 computes the live query columns alone (rounded up to 8), selection
+    and rescan run on the live rows alone, and the result has ``n_live`` rows.  r1 and the
+    gate below read the padded batch, as the JAX package's do.
+
     Falls back to the tiled scan for shapes the fused path does not cover (small
     namespaces, capacities not tileable, oversized k), as the JAX version does.
     """
     cap = data.shape[0]
     B = q.shape[0]
+    nq = B if n_live is None else min(B, max(int(n_live), 1))   # the live rows
     tile = DB_TILE
     qt_w = min(Q_TILE, B)
     r1 = _pick_r1(B, cap, k)
@@ -275,7 +366,7 @@ def exact_knn_fused(
         or q.shape[1] % 128 != 0
         or k * r1 > cap
     ):
-        return exact_knn(q, data, valid, sq_norms, k=k, metric=metric, db_tile=db_tile)
+        return exact_knn(q[:nq], data, valid, sq_norms, k=k, metric=metric, db_tile=db_tile)
 
     q32 = q.float()
     Bk = -(-B // 4) * 4  # the kernels take query batches in multiples of 4
@@ -284,12 +375,13 @@ def exact_knn_fused(
     qn = qn_k.reshape(1, Bk)                                      # [1, Bk]
     # rounded to the rows' type (a no-op for f32), carried to the kernel as f32
     qtarr = qk.T.to(data.dtype).float().contiguous()              # [Dp, Bk]
-    qn_row = qn_k[:B, None]                                       # [B, 1]
+    qn_row = qn_k[:nq, None]                                      # [nq, 1]
+    kw = dict(metric=metric, db_tile=tile, r1=r1, n_live=None if n_live is None else nq)
 
     if live_prefix is not None:
-        wmin1t = _window_mins_fast(data, qtarr, qn, live_prefix, metric=metric, db_tile=tile, r1=r1)
+        wmin1t = _window_mins_fast(data, qtarr, qn, live_prefix, **kw)
         return _select_and_rescan(
-            q32, qn_row, data, None, live_prefix, wmin1t[:, :B],
+            q32[:nq], qn_row, data, None, live_prefix, wmin1t[:, :nq],
             k=k, metric=metric, db_tile=tile, masked=False, r1=r1,
         )
 
@@ -298,8 +390,8 @@ def exact_knn_fused(
         bias = (sq_norms.float() + maskadd).reshape(cap, 1)
     else:
         bias = maskadd.reshape(cap, 1)
-    wmin1t = _window_mins_masked(data, qtarr, qn, bias, metric=metric, db_tile=tile, r1=r1)
+    wmin1t = _window_mins_masked(data, qtarr, qn, bias, **kw)
     return _select_and_rescan(
-        q32, qn_row, data, maskadd, cap, wmin1t[:, :B],
+        q32[:nq], qn_row, data, maskadd, cap, wmin1t[:, :nq],
         k=k, metric=metric, db_tile=tile, masked=True, r1=r1,
     )

@@ -836,13 +836,24 @@ def _cert_plan(*, certify, light, mixed, lossy_sweep, int8_sweep, use_resid,
                has_sweep_err, has_err1, metric):
     """Static certificate plan (pallas_knn_t.py:911-955): ``(wb_sources, q_tags,
     err_tags)`` — the per-row bound arrays the kernel folds in, the per-query scale of
-    each, and the scalar error terms beyond the f32 accumulation slack."""
+    each, and the scalar error terms beyond the f32 accumulation slack.
+
+    One intended divergence (ROADMAP C2): the same-dtype sweep (a bf16 mirror of bf16
+    rows) ranks with bias and cosine scale rows made from ``sq_norms``, which hold the
+    written f32 rows' norms until a compaction, while the rescan scores the stored bf16
+    rows.  JAX's plan carries only the query's rounding, so on near-ties whose two norms
+    differ it can certify a wrong set at tier 0 (tests/test_torch_row_live.py shows both
+    answers).  The port adds the gap: "norm_gap" per row, |sqn - |bf16 row|^2| for l2
+    (scale 1: "one") and ||x| - |bf16 row|| / |x| for cosine (scale |q|: "qh"); ip ranks
+    no norm."""
     if not certify:
         return (), (), ()
     if not mixed:
         if lossy_sweep:
             if metric == "cosine":
-                return (), (), ("qres",)
+                return ("norm_gap",), ("qh",), ("qres",)
+            if metric == "l2":
+                return ("sqn_sqrt", "norm_gap"), ("qres", "one"), ()
             return ("sqn_sqrt",), ("qres",), ()
         return (), (), ()
     if light and (has_err1 or has_sweep_err):
@@ -861,12 +872,13 @@ def _cert_plan(*, certify, light, mixed, lossy_sweep, int8_sweep, use_resid,
 
 
 def _prep_terms(valid, sq_norms, hw, rscale, sweep_err, err1, *, cap, metric, masked,
-                use_resid, wb_sources, rscale2=None, int8_sweep=False):
+                use_resid, wb_sources, rscale2=None, int8_sweep=False, rows=None):
     """Query-independent prep (pallas_knn_t.py:958-1012) in store-row order: the bias
     and scale rows, the residual multiplier row, the live-max norm and the
     certificate's per-row bound rows.  ``int8_sweep``: ``rscale`` is the primary dequant
     scale s1, folded into the scale row, and the residual multiplier is s2 / s1
-    (``rscale2`` = s2), so that (z1.q + (z2.q)*(s2/s1)) * s1 = s1*z1.q + s2*z2.q."""
+    (``rscale2`` = s2), so that (z1.q + (z2.q)*(s2/s1)) * s1 = s1*z1.q + s2*z2.q.
+    ``rows``: the stored rows the rescan scores, for the "norm_gap" bound row."""
     dev = sq_norms.device
     sqn = sq_norms.float()
     if masked:
@@ -892,8 +904,15 @@ def _prep_terms(valid, sq_norms, hw, rscale, sweep_err, err1, *, cap, metric, ma
             e = e * inv_norm
         return torch.where(live, e, torch.zeros_like(e)).contiguous()
 
+    def norm_gap():   # the rank's norm against the rows' own (see _cert_plan)
+        own = torch.cat([(r.float() * r.float()).sum(-1)
+                         for r in torch.split(rows, 1 << 20)])
+        if metric == "l2":
+            return (sqn - own).abs()
+        return (torch.sqrt(sqn) - torch.sqrt(own)).abs()   # times inv_norm in eb_row
+
     srcs = {"sqn_sqrt": lambda: torch.sqrt(sqn), "sweep_err": lambda: sweep_err,
-            "err1": lambda: err1}
+            "err1": lambda: err1, "norm_gap": norm_gap}
     return {"bias_row": bias.contiguous(), "scale_row": scale, "rscale_row": rscale_row,
             "maxd": maxd, "eb_rows": tuple(eb_row(srcs[s]()) for s in wb_sources)}
 
@@ -940,7 +959,7 @@ def search_prep(mirror, valid, sq_norms, *, metric, live_prefix, certify=True, l
     return _prep_terms(valid, sq_norms, cap if masked else live_prefix, rscale, sweep_err,
                        err1, cap=cap, metric=metric, masked=masked, use_resid=use_resid,
                        wb_sources=wb_sources, rscale2=rscale2,
-                       int8_sweep=mirror.dtype == torch.int8)
+                       int8_sweep=mirror.dtype == torch.int8, rows=mirror)
 
 
 # ------------------------------------------------------------------ the search
@@ -1063,7 +1082,7 @@ def _fused_t(q, mirror, rescan, valid, sq_norms, hw, resid, prep, *, k, metric, 
     maxd = prep["maxd"]
     slack = (Dp * 2.0 ** -22) * qh_l2 * (1.0 if metric == "cosine" else maxd)
     qres_l2 = torch.sqrt((qres_f32 * qres_f32).sum(-1))
-    q_scales = {"qh": qh_l2, "qres": qres_l2}
+    q_scales = {"qh": qh_l2, "qres": qres_l2, "one": torch.ones_like(qh_l2)}
     eb_rows = tuple(prep["eb_rows"])
     qe = torch.stack([q_scales[t] for t in q_tags], dim=1).contiguous() if eb_rows else None
     err = slack
@@ -1190,7 +1209,7 @@ def exact_knn_t(q, mirror, rescan_data, valid, sq_norms, *, k, metric, live_pref
                 prep = _prep_terms(valid, sq_norms, hw, rscale, sweep_err, err1, cap=cap,
                                    metric=metric, masked=masked, use_resid=use_resid,
                                    wb_sources=wb_sources, rscale2=rscale2,
-                                   int8_sweep=mirror.dtype == torch.int8)
+                                   int8_sweep=mirror.dtype == torch.int8, rows=mirror)
                 if prep_cache is not None:
                     prep_cache[key] = prep  # GIL-atomic; a racing reader recomputes
         res = _fused_t(q, mirror, rescan_data, valid, sq_norms, hw, resid, prep, k=k,

@@ -11,6 +11,15 @@ Dp * 2^-24 inside the certificate's Dp * 2^-22 slack.  ``hard_rows`` and
 within a row, and signs that cancel within a k-group and across the two halves of a row;
 ``int8_extremes`` gives codes of +-127.  Each operand is exact in bf16, so float64 gives
 the exact dots.
+
+``b4_dots`` does the same for the row-major kernel B4 (``csrc/window_min.cu``) over f32 rows
+(the three-way bf16 split, six passes) or bf16 rows (one pass): ip with one-row windows
+and every row live, so each window min is 1 - dot, rounded once in f32; the dot comes back
+as 1 - d in float64, within 2^-24 * (1 + |dot|) of the kernel's.  ``b4_max_rel_err`` is the
+largest |dot - float64 dot| / (|q| |x|) over the rows and queries; with |q||x| >= 2^8, as
+the inputs below give, that rounding adds under 2^-23 to it.  ``hard_rows_f32`` and
+``hard_queries_f32`` are ``hard_rows`` / ``hard_queries`` with full 24-bit significands
+(f32, not bf16), so every part of the split carries bits.
 """
 
 from __future__ import annotations
@@ -18,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.fused_knn import DB_TILE, _window_mins_fast
 from ..ops.fused_knn_t import R1MAX, SWEEP_TILE, WLANE, _window_mins_t
 
 
@@ -73,3 +83,48 @@ def hard_queries(rng: np.random.Generator, b: int, d: int) -> torch.Tensor:
 def int8_extremes(rng: np.random.Generator, n: int, d: int) -> torch.Tensor:
     """[n, d] int8 codes of +-127 with random signs."""
     return torch.from_numpy((rng.choice([-127, 127], (n, d))).astype(np.int8))
+
+
+def b4_dots(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """[N, B] float64 dots of the f32 queries q [B, D] (rounded to bf16 first for bf16
+    rows, as the engine rounds them) with rows [N, D] (f32 or bf16), as kernel B4 sums
+    them: ip, one-row windows, every row live; dot = 1 - window min."""
+    qt = q.T.to(rows.dtype).float().contiguous()
+    qn = (qt * qt).sum(0)[None, :].contiguous()
+    d = _window_mins_fast(rows, qt, qn, rows.shape[0], metric="ip", db_tile=DB_TILE, r1=1)
+    return 1.0 - d.double()
+
+
+def b4_max_rel_err(q: torch.Tensor, rows: torch.Tensor, chunk: int = 1 << 20) -> float:
+    """max |B4 dot - float64 dot| / (|q| |x|) over every row and query, ``chunk`` rows (a
+    multiple of 4096) at a time; the query as B4 multiplies it (bf16-rounded for bf16 rows)."""
+    q64 = q.to(rows.dtype).double()
+    qn = torch.linalg.vector_norm(q64, dim=1)
+    worst = 0.0
+    for lo in range(0, rows.shape[0], chunk):
+        x64 = rows[lo:lo + chunk].double()
+        want = x64 @ q64.T
+        got = b4_dots(q, rows[lo:lo + chunk])
+        denom = torch.linalg.vector_norm(x64, dim=1)[:, None] * qn[None, :]
+        worst = max(worst, float(((got - want).abs() / denom).max()))
+        del x64, want, got, denom
+    return worst
+
+
+def hard_rows_f32(rng: np.random.Generator, n: int, d: int) -> torch.Tensor:
+    """``hard_rows`` in f32: magnitudes 2^-20 .. 2^10 with full significands, random signs,
+    the same cancelling halves and pairs."""
+    x = (rng.choice([-1.0, 1.0], (n, d)) * rng.uniform(1.0, 2.0, (n, d))
+         * np.exp2(rng.integers(-20, 11, (n, d))))
+    x[::2, d // 2:] = -x[::2, : d // 2]
+    x[1::4, 1::2] = -x[1::4, 0::2]
+    return torch.from_numpy(x.astype(np.float32))
+
+
+def hard_queries_f32(rng: np.random.Generator, b: int, d: int) -> torch.Tensor:
+    """``hard_queries`` in f32 (magnitudes 2^-4 .. 2^4, full significands)."""
+    q = (rng.choice([-1.0, 1.0], (b, d)) * rng.uniform(1.0, 2.0, (b, d))
+         * np.exp2(rng.integers(-4, 5, (b, d))))
+    quarter = q[: b // 2, : d // 4]
+    q[: b // 2] = np.tile(np.repeat(quarter, 2, axis=1), (1, 2))
+    return torch.from_numpy(q.astype(np.float32))

@@ -242,7 +242,10 @@ def test_same_dtype_sweep_k100_matches_jax(metric):
 
 def test_same_dtype_plan_fold_and_prep():
     """The same-dtype plan (pallas_knn_t.py:928-936): l2/ip fold one bound row sqrt(sqn)
-    scaled by |qres|; cosine carries |qres| as a scalar term; no compensation pass."""
+    scaled by |qres|; cosine carries |qres| as a scalar term; no compensation pass.  The
+    port adds the gap between the norms the rank uses and the stored rows' own (ROADMAP
+    C2): l2 a second bound row |sqn - |bf16 row|^2| at scale 1, cosine one row
+    ||x| - |bf16 row|| / |x| at scale |q|; ip ranks no norm and keeps JAX's plan."""
     n = 2 * TILE
     _, db, q = _gaussian(360, n, 4)
     rows = _t(db).to(torch.bfloat16)
@@ -254,17 +257,21 @@ def test_same_dtype_plan_fold_and_prep():
         want = J._cert_plan(certify=True, light=False, mixed=False, lossy_sweep=True,
                             int8_sweep=False, use_resid=False, has_sweep_err=False,
                             has_err1=False, metric=metric)
-        assert plan == (False, *want)
-        assert plan[1:] == ((), (), ("qres",)) if metric == "cosine" else (
-            ("sqn_sqrt",), ("qres",), ())
+        gap = {"l2": (("sqn_sqrt", "norm_gap"), ("qres", "one"), ()),
+               "ip": want, "cosine": (("norm_gap",), ("qh",), ("qres",))}[metric]
+        assert plan == (False, *gap)
+        assert want == (((), (), ("qres",)) if metric == "cosine" else (
+            ("sqn_sqrt",), ("qres",), ()))
         qh, qres, qres_f32 = T._fold_query(_t(q), metric, False, torch.bfloat16, mixed=False)
         assert qh.dtype == torch.bfloat16 and qres is None and bool((qres_f32 != 0).any())
         # the mixed program's compensation operand is still there for a bf16 mirror of f32
         assert T._fold_query(_t(q), metric, False, torch.bfloat16)[1] is not None
     prep = T.search_prep(rows, torch.ones(n, dtype=torch.bool), sq, metric="l2",
                          live_prefix=n, rescan_dtype=torch.bfloat16)
-    assert prep["rscale_row"] is None and len(prep["eb_rows"]) == 1
+    assert prep["rscale_row"] is None and len(prep["eb_rows"]) == 2
     assert torch.equal(prep["eb_rows"][0], torch.sqrt(sq))
+    own = (rows.float() * rows.float()).sum(-1)
+    assert torch.equal(prep["eb_rows"][1], (sq - own).abs())
     mixed = T.search_prep(rows, torch.ones(n, dtype=torch.bool), sq, metric="l2",
                           live_prefix=n)            # f32 rows by default: the light-less plan
     assert mixed["eb_rows"] == ()

@@ -3,8 +3,12 @@
 Marked ``gpu``: each test skips without CUDA (decided inside the fixture, never at
 import).  Run on a machine with an H100, without the JAX test harness of
 tests/conftest.py:  python -m pytest --noconftest tests/test_torch_gpu.py -q
-Row-major window-min kernels (csrc/window_min.cu): on live windows |kernel - plain| <=
-1e-5 * |plain| + 1e-3 (the same f32 arithmetic in another summation order).  The sweep
+Row-major window-min kernels (csrc/window_min.cu, on the tensor cores: bf16 rows one pass,
+f32 rows a three-way bf16 split): live windows within the per-element budget
+``fused_knn._phase1_budget`` of the plain f32 version (Dp * 2^-23 of |q||x| per dot for the
+tensor cores, Dp * 2^-24 for the plain sums, the norms and the epilogue's roundings); a
+launch of the live columns alone bit-equal to the same columns of the full launch; the
+dots against float64 within Dp * 2^-23 of |q||x|.  The sweep
 kernel (csrc/sweep_min.cu): live window mins within the per-element phase-1 budget
 (``fused_knn_t._phase1_budget``: Dp * 2^-23 of |a||b| per pass for the tensor cores'
 sums, Dp * 2^-24 for the plain version's, the largest over the window's rows), which sits
@@ -33,12 +37,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _close(got, want):
-    got, want = got.cpu().numpy(), want.cpu().numpy()
+def _close(got, want, budget):
+    """Live windows within the per-element budget, fully masked windows exactly 3e38."""
     dead = want == MASKED
-    np.testing.assert_array_equal(got[dead], want[dead])
-    err = np.abs(got[~dead] - want[~dead])
-    assert (err <= 1e-5 * np.abs(want[~dead]) + 1e-3).all(), float(err.max())
+    assert torch.equal(got[dead], want[dead])
+    err = torch.where(dead, torch.zeros_like(got), (got - want).abs())
+    assert bool((err <= budget).all()), float((err / budget).max())
 
 
 @pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
@@ -56,7 +60,8 @@ def test_kernels_match_plain(cuda, metric, r1, b):
     got = fused_knn._window_mins_fast(data, qt, qn, hw, **kw)
     torch.cuda.synchronize()
     assert fused_knn._window_mins_fast.launches == before + 1
-    _close(got, fused_knn._window_mins_fast_ref(data, qt, qn, hw, **kw))
+    _close(got, fused_knn._window_mins_fast_ref(data, qt, qn, hw, **kw),
+           fused_knn._phase1_budget(data, qt, qn, hw=hw, **kw))
 
     valid = torch.from_numpy(rng.random(n) > 0.01).to(cuda)
     valid[-fused_knn.DB_TILE:] = False
@@ -64,7 +69,8 @@ def test_kernels_match_plain(cuda, metric, r1, b):
     bias = ((data * data).sum(-1) + maskadd if metric == "l2" else maskadd)[:, None].contiguous()
     got = fused_knn._window_mins_masked(data, qt, qn, bias, **kw)
     torch.cuda.synchronize()
-    _close(got, fused_knn._window_mins_masked_ref(data, qt, qn, bias, **kw))
+    _close(got, fused_knn._window_mins_masked_ref(data, qt, qn, bias, **kw),
+           fused_knn._phase1_budget(data, qt, qn, bias=bias, **kw))
 
 
 def test_kernel_rejects_bad_operands(cuda):
@@ -75,23 +81,27 @@ def test_kernel_rejects_bad_operands(cuda):
                                     metric="l2", db_tile=4096, r1=8)
 
 
+@pytest.mark.parametrize("b", [16, 128])
 @pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
-def test_engine_on_cuda_matches_cpu(cuda, metric):
+def test_engine_on_cuda_matches_cpu(cuda, metric, b):
+    """The default config's row-major path: B = 16 (64 bucket) and B = 128 (512 bucket),
+    each computing its live columns alone; the same ids on the card as on the CPU."""
     rng = np.random.default_rng(7)
     x = rng.standard_normal((20000, 128), dtype=np.float32)
-    q = [VectorDTO(v) for v in rng.standard_normal((16, 128), dtype=np.float32)]
+    q = [VectorDTO(v) for v in rng.standard_normal((b, 128), dtype=np.float32)]
+    fn = fused_knn._window_mins_fast
     out = []
     for device in ("cpu", cuda):
         qp = QueryProcessor(EngineConfig(), device=device)
         ids = qp.bulk_load(x, "ns", ids=None if not out else out[0][0])
-        before = fused_knn._window_mins_fast.launches
+        before = (fn.launches, fn.cols)
         res = qp.find_similar_batch(q, 10, "ns", metric)
-        launched = fused_knn._window_mins_fast.launches - before
+        launched = (fn.launches - before[0], fn.cols - before[1])
         qp.delete(ids[::50], "ns")
         res2 = qp.find_similar_batch(q, 10, "ns", metric)
         out.append((ids, res, res2, launched))
     (_, c1, c2, _), (_, g1, g2, launched) = out
-    assert launched == 1
+    assert launched == (1, b)
     for a, b in ((c1, g1), (c2, g2)):
         for ra, rb in zip(a, b):
             assert [r["id"] for r in ra] == [r["id"] for r in rb]
@@ -371,10 +381,12 @@ def test_window_min_nan_query_matches_plain(cuda, variant, metric):
     q[3, 11] = float("nan")
     qt, qn = q.T.contiguous(), (q * q).sum(-1)[None, :].contiguous()
     kw = dict(metric=metric, db_tile=fused_knn.DB_TILE, r1=8)
+    live = [b for b in range(8) if b != 3]
     if variant == "fast":
         hw = n - fused_knn.DB_TILE - 1234
         got = fused_knn._window_mins_fast(data, qt, qn, hw, **kw)
         want = fused_knn._window_mins_fast_ref(data, qt, qn, hw, **kw)
+        budget = fused_knn._phase1_budget(data, qt[:, live], qn[:, live], hw=hw, **kw)
     else:
         valid = torch.from_numpy(rng.random(n) > 0.01).to(cuda)
         valid[-fused_knn.DB_TILE:] = False
@@ -383,10 +395,10 @@ def test_window_min_nan_query_matches_plain(cuda, variant, metric):
         bias = bias[:, None].contiguous()
         got = fused_knn._window_mins_masked(data, qt, qn, bias, **kw)
         want = fused_knn._window_mins_masked_ref(data, qt, qn, bias, **kw)
+        budget = fused_knn._phase1_budget(data, qt[:, live], qn[:, live], bias=bias, **kw)
     torch.cuda.synchronize()
     assert torch.equal(torch.isnan(got), torch.isnan(want)) and bool(torch.isnan(want[:, 3]).any())
-    live = [b for b in range(8) if b != 3]
-    _close(got[:, live], want[:, live])
+    _close(got[:, live], want[:, live], budget)
 
 
 # ------------------------------------------------------------------ B3: int8 and f32 mirrors
@@ -493,7 +505,8 @@ def test_int8_probe_kernels_match_plain(cuda, b):
 @pytest.mark.parametrize("b", [8, 512])
 def test_bf16_rows_kernels_match_plain(cuda, metric, r1, b):
     """B4/B5 over bf16 rows and a bf16-rounded query (carried as f32): every product is
-    exact, so the kernel and its plain version differ only in summation order."""
+    exact, so the kernel (tensor-core sums) and its plain version (f32 sums) differ only
+    in how they sum: within the budget."""
     rng = np.random.default_rng(r1 * 1000 + b + 3)
     n = 65536
     data = torch.from_numpy(rng.standard_normal((n, 128), dtype=np.float32)).to(cuda)
@@ -514,8 +527,10 @@ def test_bf16_rows_kernels_match_plain(cuda, metric, r1, b):
     torch.cuda.synchronize()
     assert (fused_knn._window_mins_fast.launches_bf16,
             fused_knn._window_mins_masked.launches_bf16) == (before[0] + 1, before[1] + 1)
-    _close(got, fused_knn._window_mins_fast_ref(rows, qt, qn, hw, **kw))
-    _close(got_m, fused_knn._window_mins_masked_ref(rows, qt, qn, bias, **kw))
+    _close(got, fused_knn._window_mins_fast_ref(rows, qt, qn, hw, **kw),
+           fused_knn._phase1_budget(rows, qt, qn, hw=hw, **kw))
+    _close(got_m, fused_knn._window_mins_masked_ref(rows, qt, qn, bias, **kw),
+           fused_knn._phase1_budget(rows, qt, qn, bias=bias, **kw))
 
 
 @pytest.mark.parametrize("r1", [32, 4])
@@ -549,16 +564,18 @@ def _same_dtype_operands(dev, n, b, metric, seed, n_live=None):
     valid = torch.from_numpy(rng.random(n) > 0.01).to(dev)
     valid[-fused_knn_t.SWEEP_TILE:] = False
     rows = data.to(torch.bfloat16)
-    _, wb, _, _ = fused_knn_t._plan(certify=True, light=False, metric=metric,
-                                    mirror_dtype=torch.bfloat16, rescan_dtype=torch.bfloat16,
-                                    sweep_err=None, resid=None, rscale=None, err1=None,
-                                    rscale2=None)
+    _, wb, tags, _ = fused_knn_t._plan(certify=True, light=False, metric=metric,
+                                       mirror_dtype=torch.bfloat16,
+                                       rescan_dtype=torch.bfloat16, sweep_err=None,
+                                       resid=None, rscale=None, err1=None, rscale2=None)
     prep = fused_knn_t._prep_terms(valid, (data * data).sum(-1), n, None, None, None, cap=n,
                                    metric=metric, masked=True, use_resid=False,
-                                   wb_sources=wb)
+                                   wb_sources=wb, rows=rows)
     qh, qres, qres_f32 = fused_knn_t._fold_query(q, metric, False, torch.bfloat16, mixed=False)
     assert qres is None
-    qe = torch.linalg.vector_norm(qres_f32, dim=1)[:, None].contiguous() if wb else None
+    scales = {"qres": torch.linalg.vector_norm(qres_f32, dim=1), "one": torch.ones(b, device=dev),
+              "qh": torch.linalg.vector_norm(q, dim=1) * (2.0 if metric == "l2" else 1.0)}
+    qe = torch.stack([scales[t] for t in tags], 1).contiguous() if wb else None
     args = (qh, None, rows, None, None, prep["scale_row"], prep["bias_row"])
     qn = torch.linalg.vector_norm(q, dim=1) * (2.0 if metric == "l2" else 1.0)
     slack = 128 * 2.0 ** -22 * qn * (1.0 if metric == "cosine" else prep["maxd"])
@@ -711,3 +728,108 @@ def test_tensor_core_dots_within_the_bar(cuda, kind):
         qh = tc_error.hard_queries(rng, b, 128)
     err = tc_error.max_rel_err(qh.to(cuda), rows.to(cuda))
     assert 0.0 <= err <= 128 * 2.0 ** -23, err
+
+
+# ------------------------------------------------------------------ B4/B5: live columns, tensor cores
+
+
+def _row_operands(dev, rows, metric, bucket, n_live, seed, d=128, n=65536):
+    """B4/B5's operands as exact_knn_fused builds them for a batch of ``n_live`` queries
+    padded with zero rows to ``bucket`` (the query rounded to the rows' type), ~1%
+    tombstones and a dead last tile in B5's bias: (data, qt, qn, hw, bias, kw)."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(dev)
+    q = torch.zeros((bucket, d), device=dev)
+    q[:n_live] = torch.from_numpy(rng.standard_normal((n_live, d), dtype=np.float32)).to(dev)
+    qt = q.T.to(rows).float().contiguous()
+    qn = (q * q).sum(-1)[None, :].contiguous()
+    valid = torch.from_numpy(rng.random(n) > 0.01).to(dev)
+    valid[-fused_knn.DB_TILE:] = False
+    maskadd = torch.where(valid, 0.0, float(MASKED))
+    bias = ((x * x).sum(-1) + maskadd if metric == "l2" else maskadd)[:, None].contiguous()
+    kw = dict(metric=metric, db_tile=fused_knn.DB_TILE, r1=fused_knn._pick_r1(bucket, n, 16))
+    return x.to(rows), qt, qn, n - 1234, bias, kw
+
+
+@pytest.mark.parametrize("metric,bucket,n_live", [("l2", 512, 128), ("ip", 64, 16),
+                                                  ("cosine", 64, 16), ("l2", 512, 5)])
+@pytest.mark.parametrize("variant", ["fast", "masked"])
+@pytest.mark.parametrize("rows", [torch.float32, torch.bfloat16])
+def test_row_live_launch_bit_equal_to_full(cuda, rows, variant, metric, bucket, n_live):
+    """At the engine's operand sets of the row-major path (l2 at B = 128 in the 512 bucket,
+    ip and cosine at B = 16 in the 64 bucket; before the deletes the fast kernel, after
+    them the masked one): a launch of the live columns (n_live rounded up to 8) equals the
+    same columns of the full launch bit for bit, and counts those columns."""
+    data, qt, qn, hw, bias, kw = _row_operands(cuda, rows, metric, bucket, n_live, n_live)
+    fn = fused_knn._window_mins_fast if variant == "fast" else fused_knn._window_mins_masked
+    arg = hw if variant == "fast" else bias
+    full = fn(data, qt, qn, arg, **kw)
+    before = (fn.launches, fn.cols)
+    live = fn(data, qt, qn, arg, **kw, n_live=n_live)
+    torch.cuda.synchronize()
+    n_c = -(-n_live // 8) * 8
+    assert live.shape == (data.shape[0] // kw["r1"], n_c)
+    assert (fn.launches, fn.cols) == (before[0] + 1, before[1] + n_c)
+    assert torch.equal(live.view(torch.int32), full[:, :n_c].view(torch.int32))
+
+
+@pytest.mark.parametrize("d", [384, 1408, 1536])
+@pytest.mark.parametrize("bucket,n_live", [(512, 128), (64, 16)])
+@pytest.mark.parametrize("rows", [torch.float32, torch.bfloat16])
+def test_wide_dims_kernels_match_plain(cuda, rows, bucket, n_live, d):
+    """Past the chunks of the query tile that stay in shared memory (f32 rows past Dp =
+    128, bf16 rows past 512) the kernel streams them, one per stage: at Dp = 384, 1408 and
+    1536, B4 and B5 (l2, ip, cosine) stay within the per-element budget of their plain
+    versions, and a launch of the live columns is bit-equal to the full launch's."""
+    for metric in ("l2", "ip", "cosine"):
+        data, qt, qn, hw, bias, kw = _row_operands(cuda, rows, metric, bucket, n_live, d,
+                                                   d=d, n=16384)
+        for fn, ref, arg, side in (
+                (fused_knn._window_mins_fast, fused_knn._window_mins_fast_ref, hw, {"hw": hw}),
+                (fused_knn._window_mins_masked, fused_knn._window_mins_masked_ref, bias,
+                 {"bias": bias})):
+            full = fn(data, qt, qn, arg, **kw)
+            live = fn(data, qt, qn, arg, **kw, n_live=n_live)
+            torch.cuda.synchronize()
+            _close(full, ref(data, qt, qn, arg, **kw),
+                   fused_knn._phase1_budget(data, qt, qn, **side, **kw))
+            n_c = -(-n_live // 8) * 8
+            assert torch.equal(live.view(torch.int32), full[:, :n_c].view(torch.int32))
+
+
+@pytest.mark.parametrize("kind", ["f32_gaussian", "f32_hard", "bf16_gaussian", "bf16_hard"])
+def test_b4_tensor_core_dots_within_the_bar(cuda, kind):
+    """B4's dots against float64 (f32 rows: the six products of the split; bf16 rows:
+    one pass): max |dot - exact| / (|q| |x|) at most Dp * 2^-23."""
+    from mlvectordb_tpu_torch.probes import tc_error
+
+    rng = np.random.default_rng(53)
+    n, b = 16384, 128
+    if kind.endswith("gaussian"):
+        q = torch.from_numpy(rng.standard_normal((b, 128), dtype=np.float32)) * 64
+        x = torch.from_numpy(rng.standard_normal((n, 128), dtype=np.float32)) * 64
+    else:
+        q, x = tc_error.hard_queries_f32(rng, b, 128), tc_error.hard_rows_f32(rng, n, 128)
+    if kind.startswith("bf16"):
+        x = x.to(torch.bfloat16)
+    err = tc_error.b4_max_rel_err(q.to(cuda), x.to(cuda))
+    assert 0.0 <= err <= 128 * 2.0 ** -23, err
+
+
+@pytest.mark.parametrize("kind", ["f32_gaussian", "f32_hard", "bf16_hard"])
+def test_b4_tensor_core_dots_within_the_bar_at_dp_1536(cuda, kind):
+    """The same at Dp = 1536, where the kernel streams its query chunks: max |dot - exact|
+    / (|q| |x|) at most Dp * 2^-23."""
+    from mlvectordb_tpu_torch.probes import tc_error
+
+    rng = np.random.default_rng(59)
+    n, b, d = 8192, 128, 1536
+    if kind.endswith("gaussian"):
+        q = torch.from_numpy(rng.standard_normal((b, d), dtype=np.float32)) * 64
+        x = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)) * 64
+    else:
+        q, x = tc_error.hard_queries_f32(rng, b, d), tc_error.hard_rows_f32(rng, n, d)
+    if kind.startswith("bf16"):
+        x = x.to(torch.bfloat16)
+    err = tc_error.b4_max_rel_err(q.to(cuda), x.to(cuda))
+    assert 0.0 <= err <= d * 2.0 ** -23, err

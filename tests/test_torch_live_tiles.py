@@ -62,7 +62,7 @@ def _operands(n_live, metric, program, seed, special=None):
                               mirror_dtype=torch.bfloat16, rescan_dtype=torch.bfloat16,
                               sweep_err=None, resid=None, rscale=None, err1=None, rscale2=None)
         prep = T._prep_terms(valid, sq, N, None, None, None, cap=N, metric=metric,
-                             masked=True, use_resid=False, wb_sources=wb)
+                             masked=True, use_resid=False, wb_sources=wb, rows=mirror)
         qh, qres, qres_f32 = T._fold_query(q, metric, False, torch.bfloat16, mixed=False)
         z = None
     else:
