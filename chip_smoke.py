@@ -28,8 +28,10 @@ one line per phase:
      N = 65,536 and 1,048,576, B = 512, ~1% tombstones in the bias row, each window min
      within the per-element phase-1 budget (fused_knn_t._phase1_budget), the block mins
      the kernel's own; B = 512 with 128 live queries computing 128 columns, every column
-     bit-equal to the full launch; the gather-score rescan at the main path's B = 512, 32
-     windows of 32 rows;
+     bit-equal to the full launch; the gather-score rescan B2 at the main path's B = 512,
+     32 windows of 32 rows, and its launch over the 128 live queries and the first padded
+     one bit-equal to the full launch; B2 at Dp = 1536 over 2^18 rows made on the card (f32
+     and bf16), within the bound of plain, the live launch bit-equal, timed with its bound;
   5. the certified sweep path (EngineConfig(sweep_dtype="bfloat16")) at the same shape
      and with the same checks as phase 3, the light program serving at tier 0; then a
      clustered namespace of 131,072 rows where the light proof fails, the exact scan
@@ -38,7 +40,10 @@ one line per phase:
   6. times on the card (CUDA events; informative only): B4/B5 at the engine's operands
      (128 live columns of the 512 bucket, r1 from the padded batch), their plain
      versions, their full 512-column launch and the f32 product alone (torch.matmul, TF32
-     off) as a yardstick;
+     off) as a yardstick; B2 at the engine's operands (its full launch within the bound
+     of plain, its live launch bit-equal to the full one, the candidate rows it computed, the live launch, the full launch, plain and
+     data.index_select of the same rows, the kernels timed with the L2 cache flushed); the
+     engine's search (light and heavy) with n_live equal to the one without it;
   7. the k-bucket-128 certified sweep program: the sweep kernel's per-tile top-m pool
      (N = 65,536 and 1,048,576, B = 512 pool only and B = 8 window mins plus pool, r1 =
      16, m = 8, light and heavy, l2/ip/cosine) bit-equal to the plain pool of the
@@ -50,7 +55,9 @@ one line per phase:
      scan with (1, 2); the pool launched and no window-min matrix written); range_search
      (limit 100 and 1000) and similarity_search against the oracle's hits within the
      radius; a batch holding a NaN query (NaN mins where the plain version has them, and
-     tier 2 as on the CPU); times;
+     tier 2 as on the CPU); times, B2 checked and timed at the k-bucket-128 operands as
+     in phase 6, and the
+     search with n_live equal to the one without it;
   8. the int8 mirror (EngineConfig(sweep_dtype="int8"): two int8 streams): the sweep
      kernel over int8 codes (one pass, two_pass, two_pass with the second stream; the
      k = 10 and k = 100 programs at 2^20 rows, B = 512, and B = 8 at 2^16; l2/ip/cosine)
@@ -58,7 +65,8 @@ one line per phase:
      find_similar_batch at the same shape (l2 at B=128, ip and cosine at B=16, k = 10 and
      100, before and after 1,000 deletes; set-exact recall = 1.0; tiers and transfers
      printed, tier 0 only with (1, 1), no light_ tier); the launch counts showing the
-     heavy int8 kernel served every search and computed only the live query columns; one
+     heavy int8 kernel served every search and computed only the live query columns; each
+     search (k = 10, 100) with n_live equal to the one without it; one
      l2 batch with one int8 stream (sweep_resid=False); times and the engine wall beside
      the bf16 sweep's;
   9. the f32 mirror (sweep_dtype="float32", the store's own rows): the same checks, the
@@ -78,7 +86,9 @@ one line per phase:
      set-exact against the bf16-row oracle (computed on the card in chunks) with its
      tier and transfers and the query columns computed; the sweep and gather kernels
      against their plain versions at the engine's operands (the budget; the live-column
-     launch bit-equal to the full one); device bytes; the rows' rounding gap beside the
+     launch bit-equal to the full one); B2 checked and timed as in phase 6 at the cosine
+     searches' k buckets 16 and 128; each search with n_live
+     equal to the one without it; device bytes; the rows' rounding gap beside the
      query's; times, torch.matmul of the rows against the live queries as a yardstick,
      and the engine wall;
  13. probe B6 over the phase-12 rows (B = 128, r1 = 32): the sweep kernel writing its
@@ -116,6 +126,7 @@ import torch
 from mlvectordb_tpu_torch import EngineConfig, QueryProcessor, VectorDTO
 from mlvectordb_tpu_torch.ops import _kernels, fused_knn, fused_knn_t
 from mlvectordb_tpu_torch.ops.distances import MASKED
+from mlvectordb_tpu_torch.probes.time_gather import time_ms as _time_cold_ms
 
 N, D, K, B = 1 << 20, 128, 10, 128
 K100 = 100
@@ -505,21 +516,158 @@ def check_sweep_kernels(db_np):
     data = torch.from_numpy(db_np).to(dev)
     q = torch.from_numpy(rng.standard_normal((512, D), dtype=np.float32)).to(dev)
     f = torch.sort(torch.randint(0, N // 32, (512, 32), device=dev), 1).values.to(torch.int32)
-    dots, sqn = fused_knn_t._gather_score(q, data, f, r1=32)
-    want_dots, want_sqn = fused_knn_t._gather_score_ref(q, data, f, r1=32)
-    torch.cuda.synchronize()
-    bound = D * 2.0 ** -24 * (torch.linalg.vector_norm(q, dim=1)[:, None] * want_sqn.sqrt()
-                              + want_sqn)
-    for got, want in ((dots, want_dots), (sqn, want_sqn)):
-        err = (got - want).abs()
-        if not bool((err <= bound).all()):
-            raise AssertionError(f"gather_score: |err| / bound {float((err / bound).max())}")
-        worst["gather"] = max(worst["gather"], float(err.max()))
+    worst["gather"] = _check_gather((q, data, f), {"r1": 32}, "gather_score")
+    # the engine's padding of B=128 to 512: zero queries over one row's windows
+    q[B:] = 0.0
+    f[B:] = f[B]
+    _check_gather_live((q, data, f), {"r1": 32, "n_live": B}, "gather_score B=512, 128 live")
     print(f"  max |kernel - plain|: sweep light {worst['light']} ({worst['light_ratio']:.3f} "
           f"of the budget), sweep heavy {worst['heavy']} ({worst['heavy_ratio']:.3f}) (live "
           f"windows; masked exactly 3e38); gather_score {worst['gather']} (bound "
-          f"Dp*2^-24*(|q||row| + |row|^2))")
+          f"Dp*2^-24*(|q||row| + |row|^2)); the live-row launch bit-equal to the full one")
     return worst
+
+
+# ---- kernel B2, the rescan ----------------------------------------------------------------
+
+def _check_gather(a, kw, label):
+    """B2 against its plain version on the same call: dots and norms within
+    Dp * 2^-24 * (|q||row| + |row|^2) (the same f32 sums in another order).  Returns
+    max |err|."""
+    dots, sqn = fused_knn_t._gather_score(*a, **kw)
+    want_dots, want_sqn = fused_knn_t._gather_score_ref(*a, **kw)
+    torch.cuda.synchronize()
+    q = a[0]
+    bound = q.shape[1] * 2.0 ** -24 * (torch.linalg.vector_norm(q, dim=1)[:, None]
+                                       * want_sqn.sqrt() + want_sqn)
+    worst = 0.0
+    for got, want in ((dots, want_dots), (sqn, want_sqn)):
+        err = (got - want).abs()
+        if not bool((err <= bound).all()):
+            raise AssertionError(f"{label}: |err| / bound {float((err / bound).max())}")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def _check_gather_live(a, kw, label):
+    """B2's launch over the live rows (and the first padded one, copied to the rest)
+    against its launch over every row: bit-equal.  Returns the candidate rows the live
+    launch computed (its ``.rows`` delta)."""
+    fn = fused_knn_t._gather_score
+    full = fn(*a, **{k: v for k, v in kw.items() if k != "n_live"})
+    rows = fn.rows
+    live = fn(*a, **kw)
+    rows = fn.rows - rows
+    torch.cuda.synchronize()
+    if not all(_bits_equal(x, y) for x, y in zip(live, full)):
+        raise AssertionError(f"{label}: the live-row launch differs from the full one")
+    return rows
+
+
+def _gather_bound(a, kw, full_batch=False):
+    """B2's bound: each candidate row of the live queries (``full_batch``: of every query
+    of the padded batch) read once, its dot and norm written once, the queries and window
+    ids read once, over the HBM rate; or its 4 flops a row element (the dot's and the
+    norm's FMA) over the f32 peak."""
+    q, data, f = a
+    n_q = f.shape[0] if full_batch or kw.get("n_live") is None else kw["n_live"]
+    rows = n_q * f.shape[1] * kw["r1"]
+    return _bound(n_q * (q.shape[1] * 4 + f.shape[1] * 4)
+                  + rows * (data.shape[1] * data.element_size() + 8),
+                  4.0 * rows * data.shape[1], F32_FLOPS)
+
+
+# the candidate rows each timed live B2 launch computed (its .rows delta), and the max
+# |kernel - plain| of its full launch, by time name
+TIMED_ROWS, GATHER_ERR = {}, {}
+
+
+def time_gather(name, a, kw):
+    """B2 at the operands ``a``, ``kw`` the engine gave it (the live count included): the
+    full launch within Dp * 2^-24 * (|q||row| + |row|^2) of its plain version (every row
+    computed), the live launch bit-equal to the full one, the candidate rows the timed live
+    launch
+    computed, the times of the live launch, of the full launch (every row of the padded
+    batch), of the plain version on the same call and of ``data.index_select`` over the
+    same rows (the gather alone, a yardstick the port never calls), and the bound at the
+    live queries and at the padded batch.  The kernels' and index_select's times are
+    taken with the L2 cache flushed before each call, as the engine's rescan finds it
+    after phase 1 streamed the mirror (``_hot``: back to back).  Returns ({time name: ms},
+    {bound name: bound}, rows computed, max |err|)."""
+    q, data, f = a
+    r1 = kw["r1"]
+    err = GATHER_ERR[name] = _check_gather(a, {"r1": r1}, name)
+    rows = TIMED_ROWS[name] = _check_gather_live(a, kw, name)
+    n_c = fused_knn_t._gather_rows(f.shape[0], kw.get("n_live"))
+    if rows != n_c * f.shape[1] * r1:
+        raise AssertionError(f"{name}: the live launch computed {rows} rows")
+    w = torch.clamp(f[:n_c].long(), 0, data.shape[0] // r1 - 1)
+    idx = (w[:, :, None] * r1 + torch.arange(r1, device=f.device)).reshape(-1)
+    full_kw = {k: v for k, v in kw.items() if k != "n_live"}
+    times = {name: _time_cold_ms(lambda: fused_knn_t._gather_score(*a, **kw)),
+             name + "_full": _time_cold_ms(lambda: fused_knn_t._gather_score(*a, **full_kw)),
+             name + "_plain": _time_ms(lambda: fused_knn_t._gather_score_ref(*a, **kw)),
+             name + "_index_select": _time_cold_ms(lambda: data.index_select(0, idx)),
+             name + "_hot": _time_ms(lambda: fused_knn_t._gather_score(*a, **kw))}
+    bounds = {name: _gather_bound(a, kw), name + "_full_batch": _gather_bound(a, kw, True)}
+    ms, bd, bf = times[name], bounds[name], bounds[name + "_full_batch"]
+    print(f"  B2 {name}: {f.shape[0]} queries ({kw.get('n_live')} live), s1={f.shape[1]}, "
+          f"r1={r1}, D={data.shape[1]}, {data.dtype} rows: max |kernel - plain| {err} (within "
+          f"the bound), {rows} candidate rows computed (.rows); live {ms:.4f} ms ({bd[2] / ms / 1e6:.1f} GB/s), full "
+          f"{times[name + '_full']:.4f} ms ({bf[2] / times[name + '_full'] / 1e6:.1f} GB/s), "
+          f"plain {times[name + '_plain']:.4f} ms, index_select of the live rows "
+          f"{times[name + '_index_select']:.4f} ms (L2 flushed before each call; the live "
+          f"launch back to back {times[name + '_hot']:.4f} ms); bound {bd[0]:.4f} ms ({bd[1]}) "
+          f"[{bf[0]:.4f} at the padded batch], the live launch at {bd[0] / ms:.1%} of it, "
+          f"the full at {bf[0] / times[name + '_full']:.1%} of its own")
+    return times, bounds, rows, err
+
+
+def check_gather_wide():
+    """B2 at Dp = 1536 over 2^18 gaussian rows made on the card (f32, and the same rounded
+    to bf16), where a row is wider than a stage's share: B = 512 with 128 live queries
+    (the rest zero over one row's windows), 32 windows of 32 rows a query (repeats and
+    out-of-range ids included): within the bound of the plain version, the live launch
+    bit-equal to the full one, timed with its bound.  Returns {kernel key: record}."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    x = torch.randn((WIDE_ROWS, WIDE_DP), generator=g, device=dev)
+    q = torch.randn((512, WIDE_DP), generator=g, device=dev)
+    q[B:] = 0.0
+    f = torch.randint(-2, WIDE_ROWS // 32 + 2, (512, 32), generator=g, device=dev)
+    f[:, 1] = f[:, 0]
+    f = torch.sort(f, 1).values.to(torch.int32)
+    f[B:] = f[B]
+    out = {}
+    for rows, key in ((torch.float32, "gather_score"), (torch.bfloat16, "gather_bf16")):
+        a, kw = (q, x.to(rows), f.contiguous()), {"r1": 32, "n_live": B}
+        times, bounds, n_rows, err = time_gather(f"{key}_dp{WIDE_DP}", a, kw)
+        name = f"{key}_dp{WIDE_DP}"
+        out[key] = {"dim": WIDE_DP, "rows": WIDE_ROWS, "r1": 32, "s1": 32, "max_abs_err": err,
+                    "rows_computed": n_rows, "ms": times[name],
+                    "full_launch_ms": times[name + "_full"], "plain_ms": times[name + "_plain"],
+                    "index_select_ms": times[name + "_index_select"],
+                    "hot_ms": times[name + "_hot"],
+                    "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                    "bound_full_batch_ms": bounds[name + "_full_batch"][0]}
+        del a
+    return out
+
+
+def _check_result_live(search, label):
+    """The engine's search with the live count (phase 1 on the live columns, B2 on the
+    live rows) against the same search without it: every row's distances, the live rows'
+    ids, the per-query proof and the tier equal; then the same after the proof is read
+    (escalation included).  ``search(n_live)`` returns the deferred SweepResult."""
+    live, full = search(B), search(None)
+    same = (_bits_equal(live.dist, full.dist) and torch.equal(live.idx[:B], full.idx[:B])
+            and live.tier == full.tier and (live.okq is None) == (full.okq is None)
+            and (full.okq is None or torch.equal(live.okq, full.okq)))
+    (ld, li, lt), (fd, fi, ft) = live.resolve(), full.resolve()
+    if not (same and _bits_equal(ld, fd) and torch.equal(li[:B], fi[:B]) and lt == ft):
+        raise AssertionError(f"{label}: the search with the live count differs from the one "
+                             f"without it")
+    print(f"  {label}: the SweepResult with n_live={B} equals the one without (tier {lt})")
 
 
 def _check_kdists(results, db64, q, label):
@@ -649,11 +797,12 @@ _SWEEP_COUNTERS = ((fused_knn_t._window_mins_t, "launches"),
                    (fused_knn_t._gather_score, "launches_bf16"),
                    (fused_knn_t._window_mins_t, "launches_bp"),
                    (fused_knn_t._window_mins_t, "cols"),
-                   (fused_knn_t._window_mins_t, "launches_zero"))
+                   (fused_knn_t._window_mins_t, "launches_zero"),
+                   (fused_knn_t._gather_score, "rows"))
 # "cols": the query columns the sweep kernel's launches computed; "zero": the launches that
-# filled a snapshot's zero-query cache
+# filled a snapshot's zero-query cache; "gather_rows": the candidate rows B2 computed
 _COUNT_NAMES = ("sweep", "sweep_heavy", "topm", "gather", "int8", "f32", "gather_bf16", "bp",
-                "cols", "zero")
+                "cols", "zero", "gather_rows")
 
 
 def _sweep_counts():
@@ -1072,18 +1221,19 @@ def time_mirror_kernels(qp, q_pad, name, light_variants):
     operands.  Returns ({time name: ms}, {time name: (args, kwargs)})."""
     st = qp.storage.namespace("sift").device_state()
 
-    def search(k):
+    def search(k, n_live=B, defer=False):
         return fused_knn_t.exact_knn_t(
             q_pad, st.mirror, st.data, st.valid, st.sq_norms, k=k, metric="l2",
             live_prefix=None, sweep_err=st.sweep_err, resid=st.sweep_resid,
             rscale=st.sweep_rscale, err1=st.sweep_err1, rscale2=st.sweep_rscale2,
-            prep_cache=st.prep_cache, report_tier=True, n_live=B)
+            prep_cache=st.prep_cache, report_tier=True, n_live=n_live, defer=defer)
 
     times, operands = {}, {}
     for k, suffix in ((16, ""), (128, "_k128")):
         a, kw = operands[name + suffix] = _capture("_window_mins_t", lambda: search(k))
         times.update(_time_b1(name + suffix, a, kw))
         times[f"exact_knn_t_{name}{suffix}"] = _time_ms(lambda: search(k))
+        _check_result_live(lambda n: search(k, n, defer=True), f"{name} l2, k bucket {k}")
     if light_variants:
         a, kw = operands[name]
         for variant, args in (("_two_pass", (a[0], a[1], a[2], None, None) + a[5:]),
@@ -1397,13 +1547,13 @@ def _slack_rows(st, q, metric):
 def check_same_dtype_kernels(st, q_pad, search):
     """Phase 12: kernel B1 over the bf16 rows (one pass) at the operands the engine's
     searches give it: cosine and l2 at k bucket 16 (r1 = 32, block mins), cosine at k
-    bucket 128 (the pool); kernel B2 over the bf16 rows at the cosine search's.  The
+    bucket 128 (the pool); kernel B2's operands over the bf16 rows at the cosine searches'
+    (k buckets 16 and 128), checked where ``run_deep`` times them.  The
     window mins (the kernel's own, where it wrote the pool only) within the phase-1
     budget of the plain version's (the plain version of the same call: live columns,
     padding from its own zero query), block mins too, the pool bit-equal to the plain
-    pool of the kernel's own mins; the live-column launch bit-equal to the full one; B2
-    within Dp * 2^-24 * (|q||row| + |row|^2).  Returns (max |err| of B1, of B2,
-    {program: (args, kwargs)})."""
+    pool of the kernel's own mins; the live-column launch bit-equal to the full one.
+    Returns (max |err| of B1, {program: (args, kwargs)})."""
     worst, operands = 0.0, {}
     for metric, k in (("cosine", 16), ("l2", 16), ("cosine", 128)):
         a, kw = operands[f"{metric}_k{k}"] = _capture("_window_mins_t",
@@ -1433,23 +1583,12 @@ def check_same_dtype_kernels(st, q_pad, search):
               f"bound rows {len(kw['eb_rows'])}: within the budget of plain; {cols} of "
               f"{a[0].shape[0]} columns computed, every column bit-equal to the full launch")
         del got, want, own
-    a, kw = operands["gather"] = _capture("_gather_score", lambda: search("cosine", 16))
-    if a[1].dtype != torch.bfloat16:
-        raise AssertionError("the same-dtype rescan did not read the bf16 rows")
-    dots, sqn = fused_knn_t._gather_score(*a, **kw)
-    want_dots, want_sqn = fused_knn_t._gather_score_ref(*a, **kw)
-    torch.cuda.synchronize()
-    bound = D * 2.0 ** -24 * (torch.linalg.vector_norm(a[0], dim=1)[:, None] * want_sqn.sqrt()
-                              + want_sqn)
-    gworst = 0.0
-    for got, want in ((dots, want_dots), (sqn, want_sqn)):
-        err = (got - want).abs()
-        if not bool((err <= bound).all()):
-            raise AssertionError(f"gather_score bf16: |err| / bound {float((err / bound).max())}")
-        gworst = max(gworst, float(err.max()))
-    print(f"  max |kernel - plain|: B1 same-dtype {worst} (within the phase-1 budget), B2 over "
-          f"bf16 rows {gworst} (bound Dp*2^-24*(|q||row| + |row|^2))")
-    return worst, gworst, operands
+    for k in (16, 128):
+        a, _ = operands[f"gather_k{k}"] = _capture("_gather_score", lambda: search("cosine", k))
+        if a[1].dtype != torch.bfloat16:
+            raise AssertionError("the same-dtype rescan did not read the bf16 rows")
+    print(f"  max |kernel - plain|: B1 same-dtype {worst} (within the phase-1 budget)")
+    return worst, operands
 
 
 def run_deep():
@@ -1531,21 +1670,27 @@ def run_deep():
     q_pad = torch.zeros((512, D), device=dev)
     q_pad[:B] = torch.from_numpy(qd).to(dev)
 
-    def search(metric, k):
+    def search(metric, k, n_live=B, defer=False):
         return fused_knn_t.exact_knn_t(q_pad, st.mirror, st.data, st.valid, st.sq_norms, k=k,
                                        metric=metric, live_prefix=None,
-                                       prep_cache=st.prep_cache, report_tier=True, n_live=B)
+                                       prep_cache=st.prep_cache, report_tier=True,
+                                       n_live=n_live, defer=defer)
 
-    worst, gworst, operands = check_same_dtype_kernels(st, q_pad, search)
+    worst, operands = check_same_dtype_kernels(st, q_pad, search)
     times = {}
     for name, key in (("sweep_same_dtype", "cosine_k16"), ("sweep_same_dtype_l2", "l2_k16"),
                       ("sweep_same_dtype_k128", "cosine_k128")):
         times.update(_time_b1(name, *operands[key]))
     a, _ = operands["cosine_k16"]
     times["matmul_deep"] = _time_ms(lambda: torch.matmul(a[2], a[0][:B].T))
-    a, kw = operands["gather"]
-    times["gather_bf16"] = _time_ms(lambda: fused_knn_t._gather_score(*a, **kw))
-    times["gather_bf16_plain"] = _time_ms(lambda: fused_knn_t._gather_score_ref(*a, **kw))
+    t, gather_bounds, gather_rows, gworst = time_gather("gather_bf16", *operands["gather_k16"])
+    times.update(t)
+    t, b, _, _ = time_gather("gather_bf16_k128", *operands["gather_k128"])
+    times.update(t)
+    gather_bounds.update(b)
+    for metric, k in (("cosine", 16), ("l2", 16), ("ip", 16), ("cosine", 128)):
+        _check_result_live(lambda n: search(metric, k, n, defer=True),
+                           f"DEEP {metric} k bucket {k}")
     times["exact_knn_t_deep"] = _time_ms(lambda: search("cosine", 16))
     times["exact_knn_t_deep_k128"] = _time_ms(lambda: search("cosine", 128))
     wall = _engine_wall(qp, qd, namespace="deep", metric="cosine")
@@ -1559,19 +1704,16 @@ def run_deep():
         bounds[name] = _b3_bound(a, kw, outs)
         bounds[name + "_full_batch"] = _b3_bound(a, kw, outs, full_batch=True)
         del outs
-    a, kw = operands["gather"]
-    gathered = a[2].numel() * kw["r1"]
-    bounds["gather_bf16"] = _bound(_nbytes(a[0], a[2]) + gathered * (D * 2 + 2 * 4),
-                                   4.0 * gathered * D, F32_FLOPS)
+    bounds.update(gather_bounds)
     flop = 2.0 * N_DEEP * 512 * D
     for name, ms in times.items():
         extra = ""
-        if name + "_full_batch" in bounds:
+        if name == "gather_bf16":
+            extra = f", {gather_rows * D * 2 / ms / 1e6:.1f} GB/s of the computed rows"
+        elif name.startswith("sweep") and name + "_full_batch" in bounds:
             extra = (f", {flop / 4 / ms / 1e9:.1f} TFLOP/s on the {B} live queries, bound "
                      f"{bounds[name][0]:.4f} ms ({bounds[name + '_full_batch'][0]:.4f} at all "
                      f"512)")
-        elif name == "gather_bf16":
-            extra = f", {gathered * D * 2 / ms / 1e6:.1f} GB/s of gathered rows"
         print(f"  {name}: {ms:.4f} ms{extra}")
     print(f"  engine wall runs (ms), B={B} cosine k={K}, tombstoned DEEP store: {wall}")
     print(f"  engine split, median ms (host clock): {split}")
@@ -1793,12 +1935,13 @@ def main() -> int:
     # ---- 4. sweep kernels against their plain versions ---------------------------------
     print("phase 4 certified sweep kernels vs plain on the card")
     worst.update(check_sweep_kernels(db_np))
+    gather_wide = check_gather_wide()
 
     # ---- 5. the certified sweep path ----------------------------------------------------
     print(f"phase 5 certified sweep path: QueryProcessor(sweep_dtype='bfloat16') at {N:,} x {D}")
     fused_knn_t._window_mins_t.launches = 0
     fused_knn_t._window_mins_t.launches_heavy = 0
-    fused_knn_t._gather_score.launches = 0
+    fused_knn_t._gather_score.launches = fused_knn_t._gather_score.rows = 0
     k100 = {}
 
     def before_delete(qp_, ids_):
@@ -1810,9 +1953,11 @@ def main() -> int:
     launches["sweep"] = fused_knn_t._window_mins_t.launches
     launches["sweep_heavy"] = fused_knn_t._window_mins_t.launches_heavy
     launches["gather"] = fused_knn_t._gather_score.launches
+    launches["gather_rows"] = fused_knn_t._gather_score.rows
     print(f"  kernel launches on the sweep path: sweep_min={launches['sweep']} (heavy "
           f"{launches['sweep_heavy']}, light {launches['sweep'] - launches['sweep_heavy']}) "
-          f"gather_score={launches['gather']}")
+          f"gather_score={launches['gather']}, computing {launches['gather_rows']} candidate "
+          f"rows (the live queries' and one padded row's)")
     if (launches["sweep_heavy"] < 1 or launches["sweep"] - launches["sweep_heavy"] < 1
             or launches["gather"] < 1):
         raise AssertionError(f"a kernel of the sweep path never launched: {launches}")
@@ -1851,12 +1996,12 @@ def main() -> int:
     # 512, k bucket 16: r1 = 32, block mins, two bound rows), on the tombstoned namespace
     sst = qps.storage.namespace("sift").device_state()
 
-    def sweep_search(light):
+    def sweep_search(light, n_live=B, defer=False):
         return fused_knn_t.exact_knn_t(
             q_pad, sst.mirror, sst.data, sst.valid, sst.sq_norms, k=16, metric="l2",
             live_prefix=None, sweep_err=sst.sweep_err, resid=sst.sweep_resid,
             rscale=sst.sweep_rscale, err1=sst.sweep_err1, light=light,
-            prep_cache=sst.prep_cache, report_tier=True, n_live=B)
+            prep_cache=sst.prep_cache, report_tier=True, n_live=n_live, defer=defer)
 
     operands = {}
     for light in (True, False):
@@ -1870,9 +2015,12 @@ def main() -> int:
     a, _ = operands["sweep_light"]
     times["matmul_light"] = _time_ms(lambda: torch.matmul(a[2], a[0][:B].T))
     a, k_ = operands["gather_score"] = _capture("_gather_score", lambda: sweep_search(True))
-    times["gather_score"] = _time_ms(lambda: fused_knn_t._gather_score(*a, **k_))
-    times["gather_score_plain"] = _time_ms(lambda: fused_knn_t._gather_score_ref(*a, **k_))
-    gather_rows = a[2].numel() * k_["r1"]
+    t, gather_bounds, gather_rows, _ = time_gather("gather_score", a, k_)
+    times.update(t)
+    for light in (True, False):
+        _check_result_live(lambda n: sweep_search(light, n, defer=True),
+                           f"phase 5's namespace, bf16 {'light' if light else 'heavy'} l2, "
+                           f"k bucket 16")
     wall_sweep = _engine_wall(qps, q_np)
     split_sweep = _engine_split(qps, q_np)
     times["engine_wall_sweep_masked_median"] = statistics.median(wall_sweep)
@@ -1889,7 +2037,7 @@ def main() -> int:
         elif name == "sweep_heavy":
             extra = f", {3 * flop / 4 / ms / 1e9:.1f} TFLOP/s on the {B} live queries"
         elif name == "gather_score":
-            extra = f", {gather_rows * D * 4 / ms / 1e6:.1f} GB/s of gathered rows"
+            extra = f", {gather_rows * D * 4 / ms / 1e6:.1f} GB/s of the computed rows"
         print(f"  {name}: {ms:.4f} ms{extra}")
     print(f"  query columns of the timed live B4/B5 launches: {b4_cols}")
     if any(c != B for c in b4_cols.values()):
@@ -1907,13 +2055,14 @@ def main() -> int:
     range_wall = check_range_search(qps, sweep_ids, q_np, oracle, dead)
     check_nan_query(db_np)
 
-    def k128_search(light, tuning=fused_knn_t.DEFAULT_TUNING):
+    def k128_search(light, tuning=fused_knn_t.DEFAULT_TUNING, n_live=B, defer=False):
         """The engine's k=100 l2 B=128 search: bucket 512, k bucket 128, pool only."""
         return fused_knn_t.exact_knn_t(
             q_pad, sst.mirror, sst.data, sst.valid, sst.sq_norms, k=128, metric="l2",
             live_prefix=None, sweep_err=sst.sweep_err, resid=sst.sweep_resid,
             rscale=sst.sweep_rscale, err1=sst.sweep_err1, light=light,
-            prep_cache=sst.prep_cache, report_tier=True, tuning=tuning, n_live=B)
+            prep_cache=sst.prep_cache, report_tier=True, tuning=tuning, n_live=n_live,
+            defer=defer)
 
     t7 = {}
     for light in (True, False):
@@ -1939,6 +2088,13 @@ def main() -> int:
             if _capture("_window_mins_t", lambda: k128_search(True, off))[1]["emit_topm"]:
                 raise AssertionError("Tuning(topm_enable=False) still ran the pool")
             t7["exact_knn_t_k128_light_pool_off"] = _time_ms(lambda: k128_search(True, off))
+    a, k_ = operands["gather_k128"] = _capture("_gather_score", lambda: k128_search(True))
+    t, b, _, _ = time_gather("gather_k128", a, k_)
+    t7.update(t)
+    gather_bounds.update(b)
+    for light in (True, False):
+        _check_result_live(lambda n: k128_search(light, n_live=n, defer=True),
+                           f"phase 7, bf16 {'light' if light else 'heavy'} l2, k bucket 128")
     wall_k100 = _engine_wall(qps, q_np, k=K100)
     split_k100 = _engine_split(qps, q_np, k=K100)
     t7["engine_wall_k100_median"] = statistics.median(wall_k100)
@@ -2065,10 +2221,7 @@ def main() -> int:
         bounds[name] = _b3_bound(a, k_, outs)
         bounds[name + "_full_batch"] = _b3_bound(a, k_, outs, full_batch=True)
         del outs
-    a, k_ = operands["gather_score"]
-    rows = a[2].numel() * k_["r1"]
-    bounds["gather_score"] = _bound(_nbytes(a[0], a[2]) + rows * (D * 4 + 2 * 4),
-                                    4.0 * rows * D, F32_FLOPS)
+    bounds.update(gather_bounds)
     bounds.update(b11)
     bounds.update(b12)
     for name, (ms, by, nbytes, ops) in bounds.items():
@@ -2091,6 +2244,22 @@ def main() -> int:
             # time when it computes every column of it
             e.update({"bound_full_batch_ms": bounds[key + "_full_batch"][0],
                       "full_launch_ms": times[key + "_full"]})
+        return e
+
+    def gather_entry(e, key, main_rows, k128=None):
+        """B2: the candidate rows its main-path launches and its timed live launch
+        computed, the gather alone (index_select, a yardstick the port never calls), the
+        k-bucket-128 operands and Dp = 1536."""
+        e.update({"rows": main_rows, "timed_launch_rows": TIMED_ROWS[key],
+                  "index_select_ms": times[key + "_index_select"],
+                  "hot_ms": times[key + "_hot"], "wide_dp": gather_wide[key]})
+        if k128:
+            e.update({f"k128_{f}": times[k128 + s] for f, s in (
+                ("ms", ""), ("plain_ms", "_plain"), ("full_launch_ms", "_full"),
+                ("index_select_ms", "_index_select"))})
+            e.update({"k128_bound_ms": bounds[k128][0],
+                      "k128_bound_full_batch_ms": bounds[k128 + "_full_batch"][0],
+                      "k128_max_abs_err": GATHER_ERR[k128]})
         return e
 
     def row_entry(name, replaces, launches_, key, rows):
@@ -2132,8 +2301,10 @@ def main() -> int:
         row_entry("window_min_masked", "mlvectordb_tpu/ops/pallas_knn.py:131",
                   launches["masked"], "masked", "f32"),
         sweep,
-        entry("gather_score", "gather_score.cu", "mlvectordb_tpu/ops/pallas_gather.py:33",
-              launches["gather"], worst["gather"], "gather_score"),
+        gather_entry(entry("gather_score", "gather_score.cu",
+                           "mlvectordb_tpu/ops/pallas_gather.py:33", launches["gather"],
+                           worst["gather"], "gather_score"), "gather_score",
+                     launches["gather_rows"], "gather_k128"),
     ]}
     # kernel B3: the engine's int8 program (two_pass + the second stream) and the f32 one
     for name, key, counts, programs in (("sweep_min_int8", "b3_int8", c8["int8"],
@@ -2177,6 +2348,8 @@ def main() -> int:
              c12["sweep"], "sweep_same_dtype")):
         err = worst["same_dtype" if key == "sweep_same_dtype" else key]
         e = entry(name, source, replaces, launches_, err, key)
+        if key == "gather_bf16":
+            e = gather_entry(e, key, c12["gather_rows"], "gather_bf16_k128")
         if key == "sweep_same_dtype":
             e.update({f"{v}_{f}": times[f"sweep_same_dtype_{v}" + ("_plain" if f == "plain_ms"
                                                                    else "")]

@@ -572,18 +572,32 @@ _window_mins_t.launches_zero = 0
 
 # ------------------------------------------------------------------ kernel B2
 
-def _gather_score_ref(q32, data, f, *, r1):
+def _gather_rows(B, n_live):
+    """The query rows kernel B2 computes: the live ones and the first padded row (every
+    row when ``n_live`` is None or covers the batch)."""
+    return B if n_live is None or n_live >= B else n_live + 1
+
+
+def _gather_score_ref(q32, data, f, *, r1, n_live=None):
     """Plain torch version of kernel B2 (pallas_knn_t._rescan_windows._score): gather
     the r1 rows (f32 or bf16, read as f32) of each candidate window ``f`` [B, s1] and
-    return per-row ``(q . row, ||row||^2)`` [B, s1*r1] in f32."""
+    return per-row ``(q . row, ||row||^2)`` [B, s1*r1] in f32.  ``n_live``: rows from it
+    on are the engine's zero padding, zero queries over one row's windows (raises if they
+    are not); only the first of them is computed, and the rest are its copies."""
     require_f32_matmul()
+    n_c = _gather_rows(f.shape[0], n_live)
     B, s1 = f.shape
-    w = torch.clamp(f.long(), 0, data.shape[0] // r1 - 1)   # as XLA's gather clamps
+    if n_c < B and (bool(q32[n_live:].any()) or not bool((f[n_live:] == f[n_live]).all())):
+        raise ValueError("gather_score: rows from n_live on must be zero queries over one "
+                         "row's windows")
+    w = torch.clamp(f[:n_c].long(), 0, data.shape[0] // r1 - 1)   # as XLA's gather clamps
     rows = (w[:, :, None] * r1 + torch.arange(r1, device=f.device)).reshape(-1)
-    sub = data.index_select(0, rows).float().reshape(B, s1 * r1, -1)
-    dots = (sub * q32[:, None, :]).sum(-1)
-    sqn = (sub * sub).sum(-1)
-    return dots, sqn
+    sub = data.index_select(0, rows).float().reshape(n_c, s1 * r1, -1)
+    out = torch.empty((2, B, s1 * r1), dtype=torch.float32, device=f.device)
+    out[0, :n_c] = (sub * q32[:n_c, None, :]).sum(-1)
+    out[1, :n_c] = (sub * sub).sum(-1)
+    out[:, n_c:] = out[:, n_c - 1:n_c]
+    return out[0], out[1]
 
 
 def _check_gather_operands(q32, data, f, r1):
@@ -599,34 +613,39 @@ def _check_gather_operands(q32, data, f, r1):
         raise ValueError(f"gather_score needs q32 [B, Dp] with Dp % 128 == 0 and cap % r1 "
                          f"== 0; got q32 {tuple(q32.shape)}, data {tuple(data.shape)}, "
                          f"f {tuple(f.shape)}, r1={r1}")
+    if data.data_ptr() % 16 or q32.data_ptr() % 16:
+        raise ValueError("gather_score's 16-byte loads need q32 and data 16-byte aligned")
 
 
-def _gather_score(q32, data, f, *, r1):
+def _gather_score(q32, data, f, *, r1, n_live=None):
     """Kernel B2 (the port of pallas_gather.gather_score): ``(dots, sqn)`` [B, s1*r1],
-    column j*r1 + i = row i of window f[:, j].  The CUDA kernel for a CUDA tensor, the
-    plain version for a CPU tensor."""
+    column j*r1 + i = row i of window f[:, j].  ``n_live``: rows from it on are the
+    engine's zero padding, whose windows are one row's copies; only the first padded row
+    is computed, and the kernel copies its outputs to the rest.  The CUDA kernel for a CUDA
+    tensor, the plain version for a CPU tensor."""
     if data.device.type == "cpu":
-        return _gather_score_ref(q32, data, f, r1=r1)
+        return _gather_score_ref(q32, data, f, r1=r1, n_live=n_live)
     _check_gather_operands(q32, data, f, r1)
     cap, Dp = data.shape
     B, s1 = f.shape
-    dots = torch.empty((B, s1 * r1), dtype=torch.float32, device=data.device)
-    sqn = torch.empty_like(dots)
+    n_c = _gather_rows(B, n_live)
+    out = torch.empty((2, B, s1 * r1), dtype=torch.float32, device=data.device)
     with torch.cuda.device(data.device):
         rc = _kernels.library().mlvdb_gather_score(
-            q32.data_ptr(), data.data_ptr(), f.data_ptr(), dots.data_ptr(), sqn.data_ptr(),
-            B, s1, r1, Dp, cap // r1, _kernels.ROW_TYPES[data.dtype],
+            q32.data_ptr(), data.data_ptr(), f.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+            n_c, B, s1, r1, Dp, cap // r1, _kernels.ROW_TYPES[data.dtype],
             torch.cuda.current_stream(data.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"gather_score launch failed: cudaError {rc}")
     _gather_score.launches += 1
     _gather_score.launches_bf16 += int(data.dtype == torch.bfloat16)
-    return dots, sqn
+    _gather_score.rows += n_c * s1 * r1
+    return out[0], out[1]
 
 
-# launches so far, and those over bf16 rows
-_gather_score.launches = _gather_score.launches_bf16 = 0
+# launches so far, those over bf16 rows, and the candidate rows the launches computed
+_gather_score.launches = _gather_score.launches_bf16 = _gather_score.rows = 0
 
 
 # ------------------------------------------------------------------ phase 2 selection
@@ -686,10 +705,12 @@ def _topk_spec(x, kk: int, tuning: Tuning):
 
 
 def _select_and_rescan(q32, qn_row, rescan, maskadd, hw, wmin_t, *, k, metric, r1, masked,
-                       s_sel=None, r2=R2, spec_l2=False, wmin2=None, tuning=DEFAULT_TUNING):
+                       s_sel=None, r2=R2, spec_l2=False, wmin2=None, tuning=DEFAULT_TUNING,
+                       n_live=None):
     """Hierarchical window selection on the tile-major window mins + exact rescan
     (pallas_knn_t.py:624-789).  Returns ``(best_d, best_i, thresh)``: every window not
-    rescanned has (optimistic) window-min >= thresh; +inf when every window was."""
+    rescanned has (optimistic) window-min >= thresh; +inf when every window was.
+    ``n_live``: handed to the rescan (``_rescan_windows``)."""
     nt, B, out_w = wmin_t.shape
     P = nt * out_w
     dev = q32.device
@@ -763,18 +784,19 @@ def _select_and_rescan(q32, qn_row, rescan, maskadd, hw, wmin_t, *, k, metric, r
 
     f = _pos_to_window(p, g)                              # [B, s1] fine windows
     best_d, best_i = _rescan_windows(q32, qn_row, rescan, maskadd, hw, f, k=k,
-                                     metric=metric, r1=r1, masked=masked, tuning=tuning)
+                                     metric=metric, r1=r1, masked=masked, tuning=tuning,
+                                     n_live=n_live)
     return best_d, best_i, thresh
 
 
 def _select_topm_and_rescan(q32, qn_row, rescan, maskadd, hw, topm, *, k, metric, r1,
-                            masked, s_sel, m, tuning=DEFAULT_TUNING):
+                            masked, s_sel, m, tuning=DEFAULT_TUNING, n_live=None):
     """Selection from the sweep kernel's per-tile top-m pool ``topm`` [nt, SUB, B] + the
     exact rescan (pallas_knn_t.py:864-906): one narrow top-s over the [B, nt*m]
     candidates.  A window never rescanned is either in the pool and not selected (>= the
     s-th selected value) or outside its tile's top m (>= that tile's m-th min >= the pool
     floor); both fold into ``thresh``, so a tile hiding more than m candidates escalates
-    the certificate."""
+    the certificate.  ``n_live``: handed to the rescan (``_rescan_windows``)."""
     nt, _, B = topm.shape
     g = R1MAX // r1
     out_w = g * WLANE
@@ -794,19 +816,25 @@ def _select_topm_and_rescan(q32, qn_row, rescan, maskadd, hw, topm, *, k, metric
     thresh = tile_floor if s1 >= pool else torch.minimum(v1[:, -1], tile_floor)
     f = _pos_to_window(p, g)
     best_d, best_i = _rescan_windows(q32, qn_row, rescan, maskadd, hw, f, k=k,
-                                     metric=metric, r1=r1, masked=masked, tuning=tuning)
+                                     metric=metric, r1=r1, masked=masked, tuning=tuning,
+                                     n_live=n_live)
     return best_d, best_i, thresh
 
 
 def _rescan_windows(q32, qn_row, rescan, maskadd, hw, f, *, k, metric, r1, masked,
-                    tuning=DEFAULT_TUNING):
+                    tuning=DEFAULT_TUNING, n_live=None):
     """Exact f32 rescan of the selected windows ``f`` [B, s1] (pallas_knn_t.py:792-861)
     of the rows ``rescan`` (f32, or a bf16 store's own rows read as f32) through kernel
     B2, then the metric formula, the mask and the final top-k.  The kernel writes only
-    (dots, sqn) per row, so nothing is chunked."""
+    (dots, sqn) per row, so nothing is chunked.  ``n_live``: rows from it on are zero
+    queries whose windows were selected from one zero-query column; they all take row
+    ``n_live``'s windows (the same up to ties), and B2 computes that row only
+    (``_gather_score``), so each padded row's ids and dots come from the same windows."""
     B, s1 = f.shape
     f = torch.sort(f, dim=1).values.to(torch.int32).contiguous()
-    dots, sqn_c = _gather_score(q32, rescan, f, r1=r1)
+    if n_live is not None and n_live + 1 < B:
+        f[n_live + 1:] = f[n_live]
+    dots, sqn_c = _gather_score(q32, rescan, f, r1=r1, n_live=n_live)
     rws = (f[:, :, None] * r1 + torch.arange(r1, dtype=torch.int32, device=f.device)).reshape(
         B, s1 * r1)
     if metric == "l2":
@@ -1034,8 +1062,13 @@ def _fused_t(q, mirror, rescan, valid, sq_norms, hw, resid, prep, *, k, metric, 
     """Phase 1, tier-1 selection and rescan, and the per-query certificate
     (pallas_knn_t._fused_t, :1022-1347), with the escalation packed into the result.
     ``n_live``: rows from it on are the engine's zero padding; phase 1 computes only the
-    live columns and takes the padding's from the zero-query outputs cached in ``prep``.
-    Everything after phase 1 sees the padded batch, as the JAX package does."""
+    live columns and takes the padding's from the zero-query outputs cached in ``prep``,
+    and the rescan of tier 1 and of the widened (non-contained) tier 2 computes the live
+    rows and the first padded row, whose outputs the other padded rows take (their window
+    mins are one column's copies, so they select the same windows).  Everything else sees
+    the padded batch with the values a full computation gives, as the JAX package does:
+    the proof ``okq``, ``thresh``, ``best_d``, the tier-2 gate and the contained
+    escalation, which re-proves a subset of the rows and so computes all of them."""
     cap, Dp = mirror.shape
     B = q.shape[0]
     g = R1MAX // r1
@@ -1116,20 +1149,22 @@ def _fused_t(q, mirror, rescan, valid, sq_norms, hw, resid, prep, *, k, metric, 
     maskadd = torch.where(valid, 0.0, float(MASKED)).to(torch.float32) if masked else None
     qn_col = qn_row[:, None]
 
-    def select(s_sel, sub=slice(None)):
-        """Selection and rescan at width s_sel for the queries ``sub``."""
+    def select(s_sel, sub=slice(None), live=None):
+        """Selection and rescan at width s_sel for the queries ``sub`` (``live``: the
+        rescan's live count, for the whole batch only)."""
         return _select_and_rescan(
             q32[sub], qn_col[sub], rescan, maskadd, hw, wmin_t[:, sub, :], k=k,
             metric=metric, r1=r1, masked=masked, s_sel=s_sel, r2=r2, spec_l2=certify,
-            wmin2=None if wmin2_pre is None else wmin2_pre[sub], tuning=tuning)
+            wmin2=None if wmin2_pre is None else wmin2_pre[sub], tuning=tuning,
+            n_live=live)
 
     if use_topm:
         # tier 1 from the pool: a tile hiding more than m candidates lowers thresh
         d1, i1, th1 = _select_topm_and_rescan(
             q32, qn_col, rescan, maskadd, hw, topm, k=k, metric=metric, r1=r1,
-            masked=masked, s_sel=s1_w, m=m_top, tuning=tuning)
+            masked=masked, s_sel=s1_w, m=m_top, tuning=tuning, n_live=n_live)
     else:
-        d1, i1, th1 = select(s1_w)
+        d1, i1, th1 = select(s1_w, live=n_live)
     if not certify:
         return SweepResult(d1, i1, None, 0)
     okq = check_exact(d1, th1)                            # [B] per-query proof
@@ -1156,7 +1191,7 @@ def _fused_t(q, mirror, rescan, valid, sq_norms, hw, resid, prep, *, k, metric, 
             i_m = i1.index_copy(0, fidx, i_f)
             d, i, ok = fetch_(d_m, i_m, ok_f)
         else:
-            d2, i2, th2 = select(s2_w)
+            d2, i2, th2 = select(s2_w, live=n_live)
             d, i, ok = fetch_(d2, i2, check_exact(d2, th2).all())
         if bool(ok):
             return d, i, 1

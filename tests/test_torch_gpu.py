@@ -15,7 +15,9 @@ sums, Dp * 2^-24 for the plain version's, the largest over the window's rows), w
 inside the certificate's slack Dp * 2^-22 * |qh| * maxd; its pool and block mins
 bit-equal to the plain pool and min of the kernel's own window mins; a launch of the live
 columns alone bit-equal to the full launch.  The rescan (csrc/gather_score.cu): dots and
-norms within Dp * 2^-24 of |q| |row| + |row|^2.  Fully masked windows are exactly 3e38
+norms within Dp * 2^-24 of |q| |row| + |row|^2 at Dp = 128, 384 and 1536; a launch of the
+live rows (and the first padded one) bit-equal to the full launch; the engine's results
+the same with the rescan on the live rows as on every row.  Fully masked windows are exactly 3e38
 everywhere.
 """
 
@@ -194,23 +196,40 @@ def test_sweep_kernel_matches_plain(cuda, heavy, metric, r1, b):
         assert torch.equal(_bits(bm), _bits(got.amin(-1)))
 
 
-@pytest.mark.parametrize("r1", [32, 4])
-def test_gather_score_kernel_matches_plain(cuda, r1):
-    rng = np.random.default_rng(r1)
-    data = torch.from_numpy(rng.standard_normal((65536, 128), dtype=np.float32)).to(cuda)
-    q = torch.from_numpy(rng.standard_normal((132, 128), dtype=np.float32)).to(cuda)
-    f = torch.sort(torch.randint(0, 65536 // r1, (132, 37), device=cuda), 1).values
-    f = f.to(torch.int32).contiguous()
-    before = fused_knn_t._gather_score.launches
-    dots, sqn = fused_knn_t._gather_score(q, data, f, r1=r1)
-    torch.cuda.synchronize()
-    assert fused_knn_t._gather_score.launches == before + 1
+def _gather_operands(dev, rows, r1, d, seed, b=132, s1=37, cap=65536):
+    """Kernel B2's operands: ``cap`` x ``d`` rows of type ``rows``, b queries, s1 sorted
+    window ids a query with repeats and out-of-range ids (the kernel clamps them); b and
+    s1 divide no stage or CTA shape of the kernel."""
+    rng = np.random.default_rng(seed)
+    data = torch.from_numpy(rng.standard_normal((cap, d), dtype=np.float32)).to(dev)
+    q = torch.from_numpy(rng.standard_normal((b, d), dtype=np.float32)).to(dev)
+    f = torch.randint(-2, cap // r1 + 2, (b, s1), device=dev)
+    f[:, 1] = f[:, 0]
+    return q, data.to(rows), torch.sort(f, 1).values.to(torch.int32).contiguous()
+
+
+def _check_gather(q, data, f, r1, got):
+    """B2's dots and norms within D * 2^-24 of |q| |row| + |row|^2 of the plain version's
+    (the same f32 sums in another order)."""
+    dots, sqn = got
     want_dots, want_sqn = fused_knn_t._gather_score_ref(q, data, f, r1=r1)
-    # the same f32 sums in another order: D * 2^-24 relative to |q| |row| and |row|^2
-    bound = 128 * 2.0 ** -24 * (torch.linalg.vector_norm(q, dim=1)[:, None]
-                                * want_sqn.sqrt() + want_sqn)
+    bound = q.shape[1] * 2.0 ** -24 * (torch.linalg.vector_norm(q, dim=1)[:, None]
+                                       * want_sqn.sqrt() + want_sqn)
     assert bool(((dots - want_dots).abs() <= bound).all())
     assert bool(((sqn - want_sqn).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("d", [128, 384, 1536])
+@pytest.mark.parametrize("r1", [32, 16, 8, 4])
+def test_gather_score_kernel_matches_plain(cuda, r1, d):
+    q, data, f = _gather_operands(cuda, torch.float32, r1, d, r1 + d,
+                                  cap=65536 if d == 128 else 16384)
+    c = fused_knn_t._gather_score
+    before = (c.launches, c.rows)
+    got = c(q, data, f, r1=r1)
+    torch.cuda.synchronize()
+    assert (c.launches, c.rows) == (before[0] + 1, before[1] + f.numel() * r1)
+    _check_gather(q, data, f, r1, got)
 
 
 @pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
@@ -533,23 +552,82 @@ def test_bf16_rows_kernels_match_plain(cuda, metric, r1, b):
            fused_knn._phase1_budget(rows, qt, qn, bias=bias, **kw))
 
 
-@pytest.mark.parametrize("r1", [32, 4])
-def test_gather_score_bf16_rows_match_plain(cuda, r1):
-    rng = np.random.default_rng(r1 + 40)
-    data = torch.from_numpy(rng.standard_normal((65536, 128), dtype=np.float32)).to(cuda)
-    rows = data.to(torch.bfloat16)
-    q = torch.from_numpy(rng.standard_normal((132, 128), dtype=np.float32)).to(cuda)
-    f = torch.sort(torch.randint(0, 65536 // r1, (132, 37), device=cuda), 1).values
-    f = f.to(torch.int32).contiguous()
+@pytest.mark.parametrize("d", [128, 384, 1536])
+@pytest.mark.parametrize("r1", [32, 16, 8, 4])
+def test_gather_score_bf16_rows_match_plain(cuda, r1, d):
+    q, rows, f = _gather_operands(cuda, torch.bfloat16, r1, d, r1 + d + 40,
+                                  cap=65536 if d == 128 else 16384)
     before = fused_knn_t._gather_score.launches_bf16
-    dots, sqn = fused_knn_t._gather_score(q, rows, f, r1=r1)
+    got = fused_knn_t._gather_score(q, rows, f, r1=r1)
     torch.cuda.synchronize()
     assert fused_knn_t._gather_score.launches_bf16 == before + 1
-    want_dots, want_sqn = fused_knn_t._gather_score_ref(q, rows, f, r1=r1)
-    bound = 128 * 2.0 ** -24 * (torch.linalg.vector_norm(q, dim=1)[:, None]
-                                * want_sqn.sqrt() + want_sqn)
-    assert bool(((dots - want_dots).abs() <= bound).all())
-    assert bool(((sqn - want_sqn).abs() <= bound).all())
+    _check_gather(q, rows, f, r1, got)
+
+
+@pytest.mark.parametrize("n", [1, 5, 127, 128, 200])
+@pytest.mark.parametrize("d", [128, 1536])
+@pytest.mark.parametrize("rows", [torch.float32, torch.bfloat16])
+def test_gather_score_live_launch_bit_equal_to_full(cuda, rows, d, n):
+    """B = 256 with the engine's padding from ``n`` on (zero queries over one row's
+    windows): the launch over the live rows and the first padded one, with its outputs
+    copied to the rest, equals the full launch bit for bit."""
+    q, data, f = _gather_operands(cuda, rows, 16, d, n + d, b=256, s1=40, cap=16384)
+    q[n:] = 0.0
+    f[n:] = f[n]
+    c = fused_knn_t._gather_score
+    full = c(q, data, f, r1=16)
+    before = c.rows
+    live = c(q, data, f, r1=16, n_live=n)
+    torch.cuda.synchronize()
+    assert c.rows - before == (n + 1) * 40 * 16
+    for g, w in zip(live, full):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+def test_gather_score_rejects_misaligned_rows(cuda):
+    q, data, f = _gather_operands(cuda, torch.float32, 4, 128, 3, b=8, s1=5, cap=4096)
+    with pytest.raises(ValueError):
+        fused_knn_t._gather_score(q, data.view(-1)[1:1 + 4092 * 128].view(4092, 128), f, r1=4)
+
+
+@pytest.mark.parametrize("cfg", [dict(sweep_dtype="bfloat16"), dict(sweep_dtype="int8"),
+                                 dict(sweep_dtype="float32"),
+                                 dict(dtype="bfloat16", sweep_dtype="bfloat16")],
+                         ids=["bf16", "int8", "f32", "bf16_store"])
+@pytest.mark.parametrize("k", [10, 100])
+def test_engine_rescan_live_rows_match_all_rows(cuda, monkeypatch, cfg, k):
+    """The engine's searches (B = 100 in the 512 bucket: the live count reaches B2) give
+    the same ids, distances, tiers and transfers when B2 computes every row."""
+    rng = np.random.default_rng(k + len(cfg))
+    x = rng.standard_normal((65536, 128), dtype=np.float32)
+    q = [VectorDTO(v) for v in rng.standard_normal((100, 128), dtype=np.float32)]
+    out = []
+    for live in (True, False):
+        real = fused_knn_t._gather_score
+        seen = []
+
+        def spy(q32, data, f, *, r1, n_live=None):
+            seen.append(n_live)
+            return real(q32, data, f, r1=r1, n_live=n_live if live else None)
+
+        spy.__dict__.update(real.__dict__)     # the wrapper counts on the module's name
+        monkeypatch.setattr(fused_knn_t, "_gather_score", spy)
+        qp = QueryProcessor(EngineConfig(**cfg), device=cuda)
+        ids = qp.bulk_load(x, "ns", ids=None if not out else out[0][0])
+        qp.delete(ids[::97], "ns")
+        x0 = dict(qp.transfer_counts)
+        res = [qp.find_similar_batch(q, k, "ns", metric) for metric in ("l2", "ip", "cosine")]
+        xfer = (qp.transfer_counts["h2d"] - x0["h2d"], qp.transfer_counts["d2h"] - x0["d2h"])
+        monkeypatch.setattr(fused_knn_t, "_gather_score", real)
+        real.__dict__.update(spy.__dict__)
+        assert seen and seen[0] == 100
+        out.append((ids, res, xfer, qp.cert_tier_counts("ns")))
+    (_, r_live, x_live, t_live), (_, r_all, x_all, t_all) = out
+    assert x_live == x_all and t_live == t_all
+    for a, b in zip(r_live, r_all):
+        for ra, rb in zip(a, b):
+            assert [r["id"] for r in ra] == [r["id"] for r in rb]
+            assert [r["score"] for r in ra] == [r["score"] for r in rb]
 
 
 def _same_dtype_operands(dev, n, b, metric, seed, n_live=None):

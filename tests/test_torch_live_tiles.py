@@ -10,7 +10,8 @@ rest from one zero-query column, cached per program.  Held here:
     order), the pool's positions equal;
   * rows that make 0 * x differ from 0: a mirror row holding +inf or NaN, an inf scale;
   * the engine with the live count against the JAX engine (interpret mode): the same ids
-    and the same certificate tiers at B = 5, 70 and 128.
+    and the same certificate tiers at B = 5, 70 and 128, over bf16, int8 and f32 mirrors
+    and a bf16 store's same-dtype sweep (the rescan B2 on the live rows too).
 """
 
 import types
@@ -213,20 +214,28 @@ def test_live_columns_without_padding_compute_every_column():
 # ------------------------------------------------------------------ the engine
 
 
+# the engines' configurations: a mirror over an f32 store, or a bf16 store's own rows
+SWEEPS = {"bfloat16": dict(sweep_dtype="bfloat16"), "int8": dict(sweep_dtype="int8"),
+          "float32": dict(sweep_dtype="float32"),
+          "bf16_store": dict(dtype="bfloat16", sweep_dtype="bfloat16")}
+
+
 @pytest.fixture(scope="module")
 def engines():
-    """The same 12,000-row namespace in the JAX engine and in the port's, for a bf16 and
-    an int8 mirror over an f32 store.  The JAX engine picks its certified sweep only on a
-    TPU; here it is told it runs on one, and its Pallas kernels run in interpret mode."""
+    """The same 12,000-row namespace in the JAX engine and in the port's, for a bf16, an
+    int8 and an f32 mirror over an f32 store, and a bf16 store's same-dtype sweep.  The
+    JAX engine picks its certified sweep only on a TPU; here it is told it runs on one,
+    and its Pallas kernels run in interpret mode."""
     rng = np.random.default_rng(2026)
     x = rng.standard_normal((12_000, D), dtype=np.float32)
     ids = [uuid.UUID(int=int(v)) for v in rng.integers(1, 2**62, len(x))]
     out = {}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax_backend, "jax", types.SimpleNamespace(default_backend=lambda: "tpu"))
-        for sweep in ("bfloat16", "int8"):
-            jqp = JaxQueryProcessor(config=JaxConfig(sweep_dtype=sweep))
-            tqp = QueryProcessor(EngineConfig(sweep_dtype=sweep), device="cpu")
+        for sweep in SWEEPS:
+            kw = dict(SWEEPS[sweep])
+            jqp = JaxQueryProcessor(config=JaxConfig(**kw))
+            tqp = QueryProcessor(EngineConfig(**kw), device="cpu")
             jqp.bulk_load(x, "ns", ids=ids)
             tqp.bulk_load(x, "ns", ids=ids)
             out[sweep] = (jqp, tqp)
@@ -234,7 +243,7 @@ def engines():
 
 
 @pytest.mark.parametrize("b", [5, 70, 128])
-@pytest.mark.parametrize("sweep", ["bfloat16", "int8"])
+@pytest.mark.parametrize("sweep", list(SWEEPS))
 def test_engine_with_live_count_matches_jax(engines, sweep, b):
     jqp, tqp = engines[sweep]
     queries = np.random.default_rng(b).standard_normal((b, D), dtype=np.float32)

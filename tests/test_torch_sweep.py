@@ -240,7 +240,8 @@ def test_gather_score_operand_checks():
     f = torch.zeros((8, 20), dtype=torch.int32)
     T._check_gather_operands(q, data, f, 4)
     bad = [(q.double(), data, f, 4), (q, data, f.long(), 4), (q[:, :64], data, f, 4),
-           (q, data[:, :100], f, 4), (q, data, f, 3), (q, data, f.T.contiguous().T, 4)]
+           (q, data[:, :100], f, 4), (q, data, f, 3), (q, data, f.T.contiguous().T, 4),
+           (q, data.view(-1)[1:1 + 8188 * D].view(8188, D), f, 4)]   # not 16-byte aligned
     for args in bad:
         with pytest.raises(ValueError):
             T._check_gather_operands(*args)
