@@ -8,7 +8,9 @@ one line per phase:
   1. device: the card's name and power limit; each kernel's registers and spills
      (-Xptxas -v) and the mma.sync (HMMA) instructions of each tensor-core kernel: the
      sweep kernel's bf16 and int8 bodies and the six row-major window-min instantiations
-     (cuobjdump of the built library; none is a failure);
+     (cuobjdump of the built library; none is a failure); the native host runtime
+     (native/metafilter.cpp, native/hydrate.c) built beside the kernels into
+     build/native/ (the metadata filter must build; whether _hydrate built is printed);
   2. the row-major window-min kernels (the tensor cores: f32 rows as a three-way bf16
      split) against their plain torch versions on the card (l2/ip/cosine, N = 65,536 and
      1,048,576, D = 128, B = 512, r1 in {8, 32}), each live window within the
@@ -98,7 +100,19 @@ one line per phase:
      (128 of 512 columns) bit-equal to the full launch on every column; the tensor-core
      dots against float64 over the DEEP rows, hard rows and int8 codes of +-127, and B4's
      (f32 rows: the phase-3 corpus and hard f32 rows; bf16 rows: the DEEP rows), each
-     max |dot - exact| / (|q||x|) printed against the bar Dp * 2^-23.
+     max |dot - exact| / (|q||x|) printed against the bar Dp * 2^-23;
+ 15. hybrid search at the GloVe-1.2M shape (BASELINE.json config #3): 1,183,514 x 100 f32
+     rows of default_rng(60) with their metadata (parity, bucket, language; a 5-row
+     field), cosine, EngineConfig(sweep_dtype="bfloat16"): B=128 k=10 under the 50%, 1%,
+     25% and 5-row filters, k=100 under the 50% one and a filtered similarity_search,
+     before and after 1,000 deletes, each set-exact against a float64 oracle over the
+     matching live rows, with no hit outside its filter, its tier and transfers; every
+     mask from the native evaluator and one mask upload per (snapshot, filter); B1 over
+     the 50% filter's masked bias row and B2 on its rescan against their plain versions,
+     timed with their bounds; exact_knn_t light and heavy; the engine wall and its split
+     (mask build, _raw_search, hydration); the mask build natively and in Python; then
+     B5 over a filter: the default config on the first 2^18 rows, l2 and cosine, and B5
+     against plain at those operands, timed.
 Any failure raises, so the process exits non-zero.  The last two lines are the kernels'
 JSON record (with each kernel's bound: bytes over 3.35 TB/s or operations over the peak
 for their type, whichever is larger; for the sweep kernel and B4/B5 the products of the
@@ -117,13 +131,15 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from mlvectordb_tpu_torch import EngineConfig, QueryProcessor, VectorDTO
+from mlvectordb_tpu_torch import EngineConfig, QueryProcessor, VectorDTO, filters, native
+from mlvectordb_tpu_torch.engine import query_processor as qp_mod
 from mlvectordb_tpu_torch.ops import _kernels, fused_knn, fused_knn_t
 from mlvectordb_tpu_torch.ops.distances import MASKED
 from mlvectordb_tpu_torch.probes.time_gather import time_ms as _time_cold_ms
@@ -222,35 +238,50 @@ def _time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _engine_wall(qp, q_np, runs: int = 5, k: int = K, namespace="sift", metric="l2"):
+def _engine_wall(qp, q_np, runs: int = 5, k: int = K, namespace="sift", metric="l2",
+                 filter=None):
     """Host wall times (ms) of find_similar_batch at B=128, l2, k=10 (or ``k``, the
-    ``namespace`` and ``metric`` given): distinct queries per run, so the result cache
-    cannot serve them; each run ends in its device->host copy."""
+    ``namespace``, ``metric`` and ``filter`` given): distinct queries per run, so the
+    result cache cannot serve them; each run ends in its device->host copy."""
     wall = []
     for i in range(runs):
         qs = [VectorDTO(v) for v in q_np + np.float32(i + 1) * np.float32(1e-3)]
         t0 = time.perf_counter()
-        qp.find_similar_batch(qs, k, namespace, metric)
+        qp.find_similar_batch(qs, k, namespace, metric, filter)
         wall.append((time.perf_counter() - t0) * 1e3)
     return wall
 
 
-def _engine_split(qp, q_np, runs: int = 5, k: int = K, namespace="sift", metric="l2"):
-    """Median host ms of the three parts of find_similar_batch at B=128, l2, k=10 (or
-    ``k``, the ``namespace`` and ``metric`` given): stacking the query DTOs, _raw_search
-    (h2d, kernel, selection and rescan, d2h) and hydration of the result dicts."""
+def _engine_split(qp, q_np, runs: int = 5, k: int = K, namespace="sift", metric="l2",
+                  filter=None):
+    """Median host ms of the parts of find_similar_batch at B=128, l2, k=10 (or ``k``,
+    the ``namespace``, ``metric`` and ``filter`` given): stacking the query DTOs,
+    _raw_search (h2d, kernel, selection and rescan, d2h; with a filter, its mask from the
+    engine's cache) and hydration of the result dicts; with a filter first the mask
+    build a search pays after each write (the cache emptied, the engine's mask_for)."""
     parts = {"stack": [], "raw_search": [], "hydrate": []}
+    if filter:
+        parts = {"mask_build": [], **parts}
+    ns = qp.storage.namespace(namespace)
     for i in range(runs):
         qs = [VectorDTO(v) for v in q_np + np.float32(i + 11) * np.float32(1e-3)]
+        ms = []
+        if filter:
+            qp._filter_masks._cache.clear()
+            t0 = time.perf_counter()
+            with ns._lock:
+                qp._filter_masks.mask_for(ns, filter)
+            ms.append((time.perf_counter() - t0) * 1e3)
         t0 = time.perf_counter()
         q = np.stack([np.asarray(x.values, np.float32).reshape(-1) for x in qs])
         t1 = time.perf_counter()
-        dist, slots, _, tables = qp._raw_search(q, namespace, k, metric)
+        dist, slots, _, tables = qp._raw_search(q, namespace, k, metric, filter)
         t2 = time.perf_counter()
         qp._hydrate_batch(qp._to_user_score(dist, metric), dist, slots, tables)
         t3 = time.perf_counter()
-        for name, ms in zip(parts, ((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3)):
-            parts[name].append(ms)
+        ms += [(t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3]
+        for name, m in zip(parts, ms):
+            parts[name].append(m)
     return {name: statistics.median(v) for name, v in parts.items()}
 
 
@@ -1827,6 +1858,321 @@ def check_b4_tc_error(db_np, deep_rows, rng):
     return errs
 
 
+# ---- phase 15: filtered (hybrid) search at the GloVe-1.2M shape ---------------------------
+
+# ann-benchmarks' glove-100-angular train set (BASELINE.json config #3), made from a seed:
+# 100-d rows padded to 128 by the store, cosine
+N_GLOVE, D_GLOVE = 1_183_514, 100
+N_ROW_FILTER = 1 << 18          # B5's filtered search: the first 2^18 rows (B5 at 2^20: phase 3)
+LANGS = ("en", "de", "fr", "ja")
+PICK = (3, 77_777, 500_001, 900_000, N_GLOVE - 1)   # the rows of the 5-row filter
+HYBRID_FILTERS = (("half", {"parity": 0}), ("1%", {"bucket": {"$lt": 1}}),
+                  ("quarter", {"$and": [{"parity": 0}, {"lang": {"$in": ["en", "de"]}}]}),
+                  ("5 rows", {"pick": 1}))
+
+
+def _glove_metas(n):
+    """The rows' metadata: parity, bucket (i % 100) and language of row i, and on the five
+    PICK rows a "pick" field (the 5-row filter)."""
+    metas = [{"parity": i % 2, "bucket": i % 100, "lang": LANGS[i % 4]} for i in range(n)]
+    for i in PICK:
+        if i < n:
+            metas[i]["pick"] = 1
+    return metas
+
+
+def _glove_allowed(n, spec_name):
+    """[n] bool: the rows each HYBRID_FILTERS entry matches, from the row numbers."""
+    i = np.arange(n)
+    return {"half": i % 2 == 0, "1%": i % 100 < 1, "quarter": i % 4 == 0,
+            "5 rows": np.isin(i, PICK)}[spec_name]
+
+
+def _filtered_oracle(rows, q, allowed, metric, k):
+    """The float64 brute force over the f32 rows on the card among the ``allowed`` rows
+    ([n] bool, on the card): per query the (ids, distances) of its min(k, allowed) nearest,
+    nearest first, and the distance of the next one (inf where none)."""
+    q64 = q.double()
+    qn = (q64 * q64).sum(-1)[:, None]
+    vals, found = [], []
+    for lo in range(0, rows.shape[0], DeviceOracle.CHUNK):
+        x = rows[lo:lo + DeviceOracle.CHUNK].double()
+        dots, sq = q64 @ x.T, (x * x).sum(-1)[None, :]
+        d = (sq - 2.0 * dots + qn if metric == "l2"
+             else 1.0 - dots / torch.sqrt(torch.clamp_min(sq * qn, 1e-30)))
+        d = torch.where(allowed[lo:lo + x.shape[0]][None, :], d, torch.inf)
+        v, i = torch.topk(d, min(k + 1, d.shape[1]), dim=1, largest=False)
+        vals.append(v)
+        found.append(i + lo)
+    v, p = torch.topk(torch.cat(vals, 1), k + 1, dim=1, largest=False)
+    ids = torch.gather(torch.cat(found, 1), 1, p)
+    n_ok = min(k, int(allowed.sum()))
+    return ids[:, :n_ok].cpu().numpy(), v[:, :n_ok].cpu().numpy(), v[:, n_ok].cpu().numpy()
+
+
+def _check_filtered(res, want, ids, spec, label):
+    """Set-exact against the oracle's rows (recall 1.0, exactly min(k, matching) hits)
+    and no hit outside the filter."""
+    index_of = {u: i for i, u in enumerate(ids)}
+    hits = 0
+    for rs, w in zip(res, want):
+        got = {index_of[r["id"]] for r in rs}
+        hits += len(got & set(w.tolist()))
+        if len(rs) != len(w) or any(not filters.matches_filter(r["metadata"], spec)
+                                    for r in rs):
+            raise AssertionError(f"{label}: {len(rs)} hits for {len(w)}, or one outside "
+                                 f"the filter")
+    recall = hits / max(1, sum(len(w) for w in want))
+    if recall != 1.0:
+        raise AssertionError(f"{label}: recall {recall}")
+    return recall
+
+
+def run_hybrid(gpu):
+    """Phase 15: filtered (hybrid) search at the GloVe-1.2M shape (BASELINE.json config
+    #3; benchmarks/suite.py:241-320): 1,183,514 x 100 f32 rows of default_rng(60),
+    cosine, EngineConfig(sweep_dtype="bfloat16"), bulk-loaded with their metadata.  B=128
+    k=10 under four filters (50%, 1%, 25%, 5 rows), k=100 under the 50% one, a filtered
+    similarity_search, before and after 1,000 deletes: set-exact against a float64
+    oracle over the matching live rows, no hit outside the filter, every mask from the
+    native evaluator, one mask upload per (snapshot, filter).  Then times at the 50%
+    filter: engine wall and split, exact_knn_t light and heavy, B1 over the masked bias
+    row and B2 at the engine's operands (against plain), the mask build native and in
+    Python; and B5 over a filter: the default config on the first 2^18 rows, l2 and
+    cosine.  Launch counts are zeroed just before the searches and read just after.
+    Returns (launch counts, {kernel: max |err|}, times, bounds, record extras)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(60)
+    t0 = time.perf_counter()
+    db = rng.standard_normal((N_GLOVE, D_GLOVE), dtype=np.float32)
+    qg = rng.standard_normal((B, D_GLOVE), dtype=np.float32)
+    metas = _glove_metas(N_GLOVE)
+    print(f"  corpus: {N_GLOVE:,} x {D_GLOVE} gaussian f32 and its metadata made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    qp = QueryProcessor(SWEEP, device=dev)
+    t0 = time.perf_counter()
+    ids = qp.bulk_load(db, "glove", metadatas=metas)
+    torch.cuda.synchronize()
+    ns = qp.storage.namespace("glove")
+    print(f"  bulk_load with metadata: {len(ids)} rows in {time.perf_counter() - t0:.2f} s, "
+          f"capacity {ns.capacity}, dpad {ns.dpad}, device bytes {ns.nbytes:,}; native "
+          f"metadata columns: {ns.meta_columns is not None}")
+    if ns.meta_columns is None:
+        raise AssertionError("the native metadata columns did not build")
+    rows = torch.from_numpy(db).to(dev)
+    q_dev = torch.from_numpy(qg).to(dev)
+
+    # spies: the native evaluator's calls, the Python evaluator's walk (iter_slots) and
+    # the mask uploads, with the (snapshot, filter) pairs the searches used
+    native_calls, python_walks, uploads, pairs, states = [0], [0], [0], set(), []
+    real_eval, real_walk, real_upload = ns.meta_columns.eval, ns.iter_slots, qp_mod._upload_mask
+
+    def eval_spy(*a, **kw):
+        native_calls[0] += 1
+        return real_eval(*a, **kw)
+
+    def walk_spy():
+        python_walks[0] += 1
+        return real_walk()
+
+    def upload_spy(mask, device):
+        uploads[0] += 1
+        return real_upload(mask, device)
+
+    ns.meta_columns.eval, ns.iter_slots, qp_mod._upload_mask = eval_spy, walk_spy, upload_spy
+    outer = _sweep_counts()
+    _set_sweep_counts([0] * len(outer))
+    served, dead, dead_ids, alive = {}, None, set(), torch.ones(N_GLOVE, dtype=torch.bool,
+                                                                 device=dev)
+    for when in ("before delete", "after delete"):
+        if when == "after delete":
+            # 1,000 deletes, among them each query's nearest row under the 50% filter
+            half = torch.from_numpy(_glove_allowed(N_GLOVE, "half")).to(dev)
+            near = sorted({int(r[0]) for r in _filtered_oracle(rows, q_dev, half, "cosine",
+                                                                 1)[0]})
+            others = rng.choice(np.setdiff1d(np.arange(0, N_GLOVE, 2), near),
+                                1000 - len(near), replace=False)
+            dead = np.asarray(sorted(near + others.tolist()))
+            dead_ids = _deleted(qp, "glove", ids, dead)
+            alive[torch.from_numpy(dead).to(dev)] = False
+        searches = [(name, spec, K) for name, spec in HYBRID_FILTERS] + [
+            ("half", HYBRID_FILTERS[0][1], K100)]
+        for name, spec, k in searches:
+            allowed = torch.from_numpy(_glove_allowed(N_GLOVE, name)).to(dev) & alive
+            x0, t_0 = dict(qp.transfer_counts), qp.cert_tier_counts("glove")
+            res = qp.find_similar_batch([VectorDTO(v) for v in qg], k, "glove", "cosine",
+                                        filter=spec)
+            xfer = (qp.transfer_counts["h2d"] - x0["h2d"], qp.transfer_counts["d2h"] - x0["d2h"])
+            tier = [t for t, c in qp.cert_tier_counts("glove").items() if c != t_0.get(t, 0)]
+            states.append(ns.device_state())        # kept alive: their ids stay distinct
+            pairs.add((id(states[-1]), filters.filter_cache_key(spec)))
+            if any(r["id"] in dead_ids for rs in res for r in rs):
+                raise AssertionError(f"hybrid {name} k={k} {when}: a deleted id was returned")
+            want = _filtered_oracle(rows, q_dev, allowed, "cosine", k)[0]
+            _check_filtered(res, want, ids, spec, f"hybrid {name} k={k} {when}")
+            served[f"{name} k={k} {when}"] = (tier, xfer, len(res[0]))
+            if xfer[0] != 1 or len(tier) != 1 or (tier[0].endswith("fast") and xfer != (1, 1)):
+                raise AssertionError(f"hybrid {name} k={k} {when}: {tier} {xfer}")
+            print(f"  hybrid {name} {spec} cosine B={B} k={k} {when}: set-exact against "
+                  f"the oracle over {int(allowed.sum()):,} matching live rows, "
+                  f"{len(res[0])} hits a query, none outside the filter; tier {tier}, "
+                  f"transfers {xfer}")
+        # a filtered similarity search: the threshold between the 30th and 31st matching
+        # row of one query
+        spec = HYBRID_FILTERS[2][1]
+        allowed = torch.from_numpy(_glove_allowed(N_GLOVE, "quarter")).to(dev) & alive
+        w_ids, w_d, _ = _filtered_oracle(rows, q_dev[:1], allowed, "cosine", 31)
+        threshold = float(1.0 - (w_d[0, 29] + w_d[0, 30]) / 2)
+        hits = qp.similarity_search(VectorDTO(qg[0]), threshold, "glove", filter=spec)
+        states.append(ns.device_state())
+        pairs.add((id(states[-1]), filters.filter_cache_key(spec)))
+        _check_filtered([hits], w_ids[:, :30], ids, spec,
+                        f"hybrid similarity_search {when}")
+        print(f"  similarity_search {spec} threshold {threshold:.6f} {when}: the oracle's "
+              f"30 rows, none outside the filter")
+    counts = dict(zip(_COUNT_NAMES, _sweep_counts()))
+    _set_sweep_counts([o + c for o, c in zip(outer, counts.values())])
+    print(f"  launches on the filtered path: {counts}; native mask evaluations "
+          f"{native_calls[0]}, Python evaluator walks {python_walks[0]}; mask uploads "
+          f"{uploads[0]} for {len(pairs)} (snapshot, filter) pairs")
+    if python_walks[0] or not native_calls[0]:
+        raise AssertionError("a filtered search's mask did not come from the native columns")
+    if uploads[0] != len(pairs):
+        raise AssertionError(f"{uploads[0]} mask uploads for {len(pairs)} (snapshot, filter)")
+    if counts["sweep"] < 1 or counts["gather"] < 1 or counts["int8"] or counts["f32"]:
+        raise AssertionError(f"B1 and B2 did not serve the filtered searches: {counts}")
+
+    # ---- times at the 50% filter, on the tombstoned namespace
+    spec = HYBRID_FILTERS[0][1]
+    st = ns.device_state()
+    scope = st.prep_cache[("filter", filters.filter_cache_key(spec))]
+    valid_f = scope["valid"]
+    q_pad = torch.zeros((512, ns.dpad), device=dev)
+    q_pad[:B, :D_GLOVE] = q_dev
+
+    def search(light, k=16, n_live=B, defer=False):
+        return fused_knn_t.exact_knn_t(
+            q_pad, st.mirror, st.data, valid_f, st.sq_norms, k=k, metric="cosine",
+            live_prefix=None, sweep_err=st.sweep_err, resid=st.sweep_resid,
+            rscale=st.sweep_rscale, err1=st.sweep_err1, light=light, prep_cache=scope,
+            report_tier=True, n_live=n_live, defer=defer)
+
+    times, bounds, worst = {}, {}, {}
+    a, kw = _capture("_window_mins_t", lambda: search(True))
+    if kw.get("n_live") != B or a[1] is not None or int((a[6] >= float(MASKED)).sum()) < (
+            ns.capacity // 2):
+        raise AssertionError("the hybrid search did not run the light program over a bias "
+                             "row masking half the store")
+    got = fused_knn_t._window_mins_t(*a, **kw)
+    want = fused_knn_t._window_mins_t_plain(*a, **{**kw, "zero_cache": {}})
+    torch.cuda.synchronize()
+    budget = _budget(a, kw)
+    worst["b1"] = _check_budget(got[0], want[0], budget, "hybrid B1")[0]
+    if got[1] is not None:
+        worst["b1"] = max(worst["b1"], _check_budget(got[1], want[1], budget.amax(-1),
+                                                     "hybrid B1 block mins")[0])
+    cols = _check_live_tiles(a, kw, B, "hybrid B1")
+    del got, want
+    times.update(_time_b1("hybrid_sweep", a, kw))
+    outs = fused_knn_t._window_mins_t(*a, **kw)
+    bounds["hybrid_sweep"] = _b3_bound(a, kw, outs)
+    bounds["hybrid_sweep_full_batch"] = _b3_bound(a, kw, outs, full_batch=True)
+    del outs
+    masked_rows = int((a[6] >= float(MASKED)).sum())
+    print(f"  B1 at the 50% filter: r1={kw['r1']}, block mins {kw['emit_block_mins']}, "
+          f"bound rows {len(kw['eb_rows'])}, {masked_rows:,} of {ns.capacity:,} bias rows "
+          f"masked; within the budget of plain, {cols} columns computed, each bit-equal to "
+          f"the full launch")
+    ga, gkw = _capture("_gather_score", lambda: search(True))
+    t, b, _, worst["b2"] = time_gather("hybrid_gather", ga, gkw)
+    times.update(t)
+    bounds.update(b)
+    for light in (True, False):
+        times["exact_knn_t_hybrid_" + ("light" if light else "heavy")] = _time_ms(
+            lambda: search(light))
+        _check_result_live(lambda n: search(light, n_live=n, defer=True),
+                           f"hybrid 50% {'light' if light else 'heavy'} cosine k bucket 16")
+    wall = _engine_wall(qp, qg, namespace="glove", metric="cosine", filter=spec)
+    split = _engine_split(qp, qg, namespace="glove", metric="cosine", filter=spec)
+    times["engine_wall_hybrid_median"] = statistics.median(wall)
+    wall100 = _engine_wall(qp, qg, namespace="glove", metric="cosine", filter=spec, k=K100)
+    times["engine_wall_hybrid_k100_median"] = statistics.median(wall100)
+    native_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        real_eval(spec, ns.capacity)
+        native_ms.append((time.perf_counter() - t0) * 1e3)
+    py_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        [filters.matches_filter(m, spec) for m in metas[:1 << 16]]
+        py_ms.append((time.perf_counter() - t0) * 1e3)
+    times["mask_native_median"] = statistics.median(native_ms)
+    times["mask_python_2e16_median"] = statistics.median(py_ms)
+    ns.meta_columns.eval, ns.iter_slots, qp_mod._upload_mask = real_eval, real_walk, real_upload
+    hydrate_built = qp_mod._hydrate_native() is not None
+    for name in ("hybrid_sweep", "exact_knn_t_hybrid_light", "exact_knn_t_hybrid_heavy",
+                 "hybrid_gather", "engine_wall_hybrid_median", "engine_wall_hybrid_k100_median",
+                 "mask_native_median", "mask_python_2e16_median"):
+        extra = ""
+        if name == "hybrid_sweep":
+            extra = (f" (plain {times[name + '_plain']:.4f}, full launch "
+                     f"{times[name + '_full']:.4f}); bound {bounds[name][0]:.4f} ms "
+                     f"({bounds[name][1]}), the kernel at {bounds[name][0] / times[name]:.1%}")
+        print(f"  {name}: {times[name]:.4f} ms{extra}")
+    print(f"  engine wall runs (ms), B={B} cosine k={K} at the 50% filter: {wall}; k={K100}: "
+          f"{wall100} on {gpu}")
+    print(f"  engine split, median ms (host clock; mask_build: the native mask after a "
+          f"write): {split}; native hydration extension (_hydrate) built: {hydrate_built}")
+    print(f"  mask build: native over {ns.capacity:,} slots {native_ms} ms; Python "
+          f"matches_filter over 2^16 rows {py_ms} ms (x{N_GLOVE / 65536:.1f} for the corpus)")
+
+    # ---- B5 over a filter: the default config's row-major path on the first 2^18 rows
+    qpr = QueryProcessor(EngineConfig(), device=dev)
+    idr = qpr.bulk_load(db[:N_ROW_FILTER], "glove_rows", metadatas=metas[:N_ROW_FILTER])
+    fm = fused_knn._window_mins_masked
+    before = (fm.launches, fm.cols)
+    half = torch.from_numpy(_glove_allowed(N_ROW_FILTER, "half")).to(dev)
+    for metric in ("l2", "cosine"):
+        res = qpr.find_similar_batch([VectorDTO(v) for v in qg], K, "glove_rows", metric,
+                                     filter=spec)
+        want = _filtered_oracle(rows[:N_ROW_FILTER], q_dev, half, metric, K)[0]
+        _check_filtered(res, want, idr, spec, f"row-major {metric} 50% filter")
+    b5 = (fm.launches - before[0], fm.cols - before[1])
+    print(f"  row-major (B5) at {N_ROW_FILTER:,} rows, 50% filter, l2 and cosine B={B}: "
+          f"set-exact, none outside the filter; B5 launches {b5[0]}, query columns {b5[1]}")
+    if b5 != (2, 2 * B):
+        raise AssertionError(f"B5 did not serve the filtered row-major searches: {b5}")
+    str_ = qpr.storage.namespace("glove_rows").device_state()
+    valid_r = str_.prep_cache[("filter", filters.filter_cache_key(spec))]["valid"]
+    qr_pad = torch.zeros((512, D), device=dev)
+    qr_pad[:B, :D_GLOVE] = q_dev
+    a5, kw5 = _capture("_window_mins_masked", lambda: fused_knn.exact_knn_fused(
+        qr_pad, str_.data, valid_r, str_.sq_norms, k=16, metric="l2", live_prefix=None,
+        n_live=B), module=fused_knn)
+    n_c = fused_knn_t._live_columns(a5[1].shape[1], kw5["n_live"])
+    plain_args = (a5[0], a5[1][:, :n_c], a5[2][:, :n_c], a5[3])
+    got = fm(*a5, **kw5)
+    want = fused_knn._window_mins_masked_ref(*plain_args, **_full(kw5))
+    torch.cuda.synchronize()
+    worst["b5"] = _check_budget(got, want, fused_knn._phase1_budget(
+        *plain_args[:3], bias=a5[3], **_full(kw5)), "hybrid B5")[0]
+    t, _ = _time_b4("hybrid_masked", "_window_mins_masked", a5, kw5)
+    times.update(t)
+    bounds["hybrid_masked"] = _b4_bound(a5, kw5)
+    bounds["hybrid_masked_full_batch"] = _b4_bound(a5, kw5, full_batch=True)
+    print(f"  B5 at the filtered row-major operands ({N_ROW_FILTER:,} rows, l2, r1="
+          f"{kw5['r1']}): within the budget of plain, {times['hybrid_masked']:.4f} ms (plain "
+          f"{times['hybrid_masked_plain']:.4f}, full launch {times['hybrid_masked_full']:.4f}); "
+          f"bound {bounds['hybrid_masked'][0]:.4f} ms ({bounds['hybrid_masked'][1]})")
+    counts["masked"] = b5[0]
+    extras = {"served": served, "split": split, "hydrate_built": hydrate_built,
+              "mask_uploads": uploads[0], "snapshot_filter_pairs": len(pairs),
+              "native_mask_calls": native_calls[0]}
+    del qp, qpr, rows
+    return counts, worst, times, bounds, extras
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA GPU",
@@ -1842,8 +2188,19 @@ def main() -> int:
     print(gpu)
     t0 = time.perf_counter()
     ptxas = _start_ptxas_report()
+    # the native host runtime (metadata filter, hydration) builds beside the kernels
+    host = {}
+    host_build = threading.Thread(target=lambda: host.update(
+        metafilter=native.available(), hydrate=native.hydrate_module() is not None,
+        seconds=time.perf_counter() - t0))
+    host_build.start()
     lib = _kernels.build()
     print(f"  kernels built: {lib.name} in {time.perf_counter() - t0:.1f} s")
+    host_build.join()
+    print(f"  native host runtime in {native.BUILD_DIR}: metafilter {host['metafilter']}, "
+          f"_hydrate {host['hydrate']} ({host['seconds']:.1f} s)")
+    if not host["metafilter"]:
+        raise AssertionError("native/metafilter.cpp did not build")
     for name, regs, st, ld, smem in _ptxas_report(ptxas):
         print(f"  ptxas: {_short(name)}: {regs} registers, spill stores {st} B, loads {ld} B, "
               f"{smem} B shared")
@@ -2204,6 +2561,17 @@ def main() -> int:
         raise AssertionError(f"a launch computed other than the live columns: {live_cols}")
     tc_err, tc_bar = check_tc_error(deep_rows, rng)
     b4_err = check_b4_tc_error(db_np, deep_rows, rng)
+    del deep_rows
+
+    # ---- 15. filtered (hybrid) search at the GloVe-1.2M shape -----------------------------
+    print(f"phase 15 hybrid: QueryProcessor(sweep_dtype='bfloat16') at {N_GLOVE:,} x "
+          f"{D_GLOVE} with metadata filters (B1 over a masked bias row, B2; B5 over a "
+          f"filter), on {gpu}")
+    c15, w15, t15, b15, x15 = run_hybrid(gpu)
+    times.update(t15)
+    print(f"  B1 light at the 50% filter {times['hybrid_sweep']:.4f} ms over "
+          f"{b15['hybrid_sweep'][2] / 1e6:.0f} MB beside phase 6's {times['sweep_light']:.4f} "
+          f"ms (2^20 rows, 0.1% tombstones)")
 
     # each kernel's bound at the operands timed above: every input read once, every
     # output written once; the products over the peak for their type (B1/B3 and B4/B5:
@@ -2224,6 +2592,7 @@ def main() -> int:
     bounds.update(gather_bounds)
     bounds.update(b11)
     bounds.update(b12)
+    bounds.update(b15)
     for name, (ms, by, nbytes, ops) in bounds.items():
         base = name.removesuffix("_full_batch")
         timed = times[name] if base == name else times[base + "_full"]
@@ -2356,6 +2725,27 @@ def main() -> int:
                       for v in ("l2", "k128") for f in ("ms", "plain_ms")})
             e.update({"launches_topm": c12["topm"], "matmul_ms": times["matmul_deep"],
                       "live_columns": c12["cols"]})
+        record["kernels"].append(e)
+    # phase 15: B1 over the 50% filter's masked bias row, B2 on its rescan, B5 over a filter
+    for name, source, replaces, launches_, key, err in (
+            ("sweep_min_hybrid", "sweep_min.cu", "mlvectordb_tpu/ops/pallas_knn_t.py:221",
+             c15["sweep"], "hybrid_sweep", w15["b1"]),
+            ("gather_score_hybrid", "gather_score.cu", "mlvectordb_tpu/ops/pallas_gather.py:33",
+             c15["gather"], "hybrid_gather", w15["b2"]),
+            ("window_min_masked_hybrid", "window_min.cu", "mlvectordb_tpu/ops/pallas_knn.py:131",
+             c15["masked"], "hybrid_masked", w15["b5"])):
+        e = entry(name, source, replaces, launches_, err, key)
+        if key == "hybrid_sweep":
+            e.update({"exact_knn_t_light_ms": times["exact_knn_t_hybrid_light"],
+                      "exact_knn_t_heavy_ms": times["exact_knn_t_hybrid_heavy"],
+                      "engine_wall_ms": times["engine_wall_hybrid_median"],
+                      "engine_wall_k100_ms": times["engine_wall_hybrid_k100_median"],
+                      "engine_split_ms": x15["split"], "mask_native_ms":
+                      times["mask_native_median"], "mask_python_2e16_ms":
+                      times["mask_python_2e16_median"], "mask_uploads": x15["mask_uploads"],
+                      "snapshot_filter_pairs": x15["snapshot_filter_pairs"],
+                      "native_mask_calls": x15["native_mask_calls"],
+                      "hydrate_native": x15["hydrate_built"], "launches_topm": c15["topm"]})
         record["kernels"].append(e)
     for name, line in (("out_layout_2d", 54), ("out_layout_3d", 75)):
         r = b6[name[-2:]]

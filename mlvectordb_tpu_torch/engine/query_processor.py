@@ -1,11 +1,14 @@
 """Query engine: the counterpart of ``mlvectordb_tpu/engine/query_processor.py``.
 
 The ported slice: insert / upsert_many / bulk_load / delete / delete_namespace, exact
-batched search with hydration and the result cache, and range / similarity search, on the
-row-major path or, with a ``sweep_dtype`` ("bfloat16", "int8" or "float32"), the
-certified sweep with its certificate-tier counters and, for a bf16 mirror, the
-per-namespace light -> heavy dispatch.  Reference behaviors
-kept:
+batched search with hydration and the result cache, range / similarity search, metadata
+filters on every search (hybrid search) and ``query_by_metadata``, on the row-major path
+or, with a ``sweep_dtype`` ("bfloat16", "int8" or "float32"), the certified sweep with
+its certificate-tier counters and, for a bf16 mirror, the per-namespace light -> heavy
+dispatch.  A filter's mask (native columnar evaluator where it builds) is ANDed into the
+liveness mask of one snapshot, and its search prep is scoped inside that snapshot's prep
+dict.  Hydration runs in the native ``_hydrate`` extension where it builds.  Reference
+behaviors kept:
   * k clamped to the live count (index.py:103-107)
   * search of a missing namespace returns [] (index.py:98-99)
   * result dicts {id, values, metadata, score}, silently dropping hits that vanished from
@@ -13,8 +16,8 @@ kept:
   * score convention: l2/ip -> raw distance (lower better), cosine -> similarity = 1 - dist
     (index.py:121-128)
 
-Not ported yet: metadata filters and hybrid search (ROADMAP A19), IVF (A13), the WAL and
-snapshots (A20), explain and statistics (A7).  ``filter=`` and ``nprobe=`` raise.
+Not ported yet: IVF (A13), the WAL and snapshots (A20), explain and statistics (A7).
+``nprobe=`` raises.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_CONFIG, HIGHER_IS_BETTER, EngineConfig, canonical_metric
+from ..filters import filter_cache_key
 from ..interfaces.vector import VectorDTO
 from ..ops.backend import knn_backend
 from ..ops.distances import MASKED
@@ -36,6 +40,24 @@ from ..ops.fused_knn_t import SweepResult, fetch
 from ..store.storage import StorageEngine
 from ..store.vector import Vector
 from ..utils.tracing import trace_span
+from .filters import FilterMaskCache
+
+# filter-scoped prep dicts one snapshot keeps; past that a search gets a throwaway dict
+_FILTER_SCOPES = 32
+
+
+def _hydrate_native():
+    """The native row-hydration extension, or None (pure-Python fallback)."""
+    from ..native import hydrate_module
+
+    return hydrate_module()
+
+
+def _upload_mask(mask: np.ndarray, device) -> torch.Tensor:
+    """A filter's [capacity] bool mask on the device: one host->device copy of capacity
+    bytes, made once per (snapshot, filter).  Not counted in ``transfer_counts``, which
+    count the query and the result as the JAX package does."""
+    return torch.from_numpy(mask).to(device)
 
 
 class QueryProcessor:
@@ -50,6 +72,7 @@ class QueryProcessor:
         self.config = config
         self.device = torch.device(device)
         self.storage = StorageEngine(config, device=self.device)
+        self._filter_masks = FilterMaskCache()
         self._write_lock = threading.RLock()  # single-writer discipline
         # query-result cache, keyed by namespace VERSION (any mutation invalidates
         # implicitly); stores the final hydrated result lists, LRU-evicted
@@ -67,14 +90,15 @@ class QueryProcessor:
         self._cert_tiers: Dict[str, Dict[str, int]] = {}
         self._cert_mode: Dict[Any, str] = {}
 
-    def _result_cache_key(self, q_np, top_k, namespace, metric):
+    def _result_cache_key(self, q_np, top_k, namespace, metric, filter=None):
         ns = self.storage.namespace(namespace)
         if ns is None or self.config.result_cache_size <= 0:
             return None
         h = hashlib.blake2b(q_np.tobytes(), digest_size=16).hexdigest()
+        fk = filter_cache_key(filter) if filter else ""
         # ns.incarnation: version counters restart at 0 when a namespace is GC'd and
         # recreated, so (name, version) alone can resurrect a dead incarnation's results
-        return (namespace, ns.incarnation, ns.version, h, top_k, metric)
+        return (namespace, ns.incarnation, ns.version, h, top_k, metric, fk)
 
     # ------------------------------------------------------------------ writes
 
@@ -132,7 +156,8 @@ class QueryProcessor:
 
     # ------------------------------------------------------------------ search core
 
-    def _raw_search(self, q_np: np.ndarray, namespace: str, k: int, metric: str):
+    def _raw_search(self, q_np: np.ndarray, namespace: str, k: int, metric: str,
+                    filter: Optional[Dict[str, Any]] = None):
         """Returns (dist [B, k'] np, slots [B, k'] np, ns_store, tables) with
         k' = min(k, live); tables is the snapshot's host slot tables (one generation,
         for torn-free hydration).  Empty namespace / k<=0 -> (None, None, None, None)."""
@@ -143,10 +168,67 @@ class QueryProcessor:
             raise ValueError(
                 f"query dim {q_np.shape[1]} != namespace {namespace!r} dim {ns.dim}"
             )
-        return self._search_snapshot(q_np, ns, namespace, k, metric)
+        # Snapshot read with an RCU-style retry: a published DeviceState is never
+        # mutated, but a filter's mask is built from the live host tables, so a
+        # republish before the mask build, or a capacity or version that moves during
+        # it, raises "snapshot deleted" and the search re-snapshots.  The last attempt
+        # holds the namespace lock throughout, so it always makes progress.
+        attempts = 6
+        for attempt in range(attempts):
+            try:
+                if attempt == attempts - 1:
+                    with ns._lock:
+                        return self._search_snapshot(q_np, ns, namespace, k, metric, filter)
+                return self._search_snapshot(q_np, ns, namespace, k, metric, filter)
+            except RuntimeError as e:
+                if "deleted" not in str(e):
+                    raise
+        raise RuntimeError("unreachable")  # pragma: no cover
 
-    def _search_snapshot(self, q_np, ns, namespace, k, metric):
+    def _filter_scope(self, state, mask: np.ndarray, spec: Dict[str, Any]):
+        """(valid & mask on the device, the filter's prep dict) for one snapshot.
+
+        Masked prep (and the zero-query column of the padded rows) depends on the
+        filtered liveness, so it is scoped INSIDE the snapshot's own prep dict under
+        ("filter", key): it lives and dies with the snapshot's arrays, and an unfiltered
+        or other-filter search of the same snapshot never reads it.  The device form of
+        valid & mask is kept in the same dict, so a repeated filter uploads its mask
+        once per snapshot.  Bounded: past _FILTER_SCOPES entries a search gets a
+        throwaway dict instead of pinning device memory for the snapshot's lifetime."""
+        fk = ("filter", filter_cache_key(spec))
+        if fk in state.prep_cache or len(state.prep_cache) < _FILTER_SCOPES:
+            scope = state.prep_cache.setdefault(fk, {})
+        else:
+            scope = {}
+        valid = scope.get("valid")
+        if valid is None:
+            valid = state.valid & _upload_mask(mask, state.valid.device)
+            scope["valid"] = valid  # GIL-atomic; a racing reader uploads its own
+        return valid, scope
+
+    def _search_snapshot(self, q_np, ns, namespace, k, metric, filter=None):
+        v0 = ns.version            # read BEFORE the snapshot: brackets the mask build
         state = ns.device_state()  # snapshot: writers replace tensors, never mutate them
+        valid, prep_cache = state.valid, state.prep_cache
+        if filter:
+            # Writers mutate the host tables and metadata columns, bump the version and
+            # publish under the namespace lock; a compaction bumps the version BEFORE it
+            # rebuilds the tables, so a mask built without the lock could come from a
+            # half-rebuilt layout and pass the version check.  Under the lock, the
+            # tables are those of the published snapshot, which must be ours.
+            with ns._lock:
+                if ns._state is not state:
+                    raise RuntimeError("snapshot deleted (republished before the mask build)")
+                with trace_span("filter_mask", namespace=namespace):
+                    mask = self._filter_masks.mask_for(ns, filter)
+            if mask.shape[0] != state.valid.shape[0]:  # capacity changed mid-snapshot
+                raise RuntimeError("snapshot deleted (capacity changed)")
+            if ns.version != v0:
+                # a write published between the version read and the mask build: the
+                # mask (live tables, keyed by the live version) may not match the
+                # snapshot's arrays, so re-snapshot
+                raise RuntimeError("snapshot deleted (version moved during mask build)")
+            valid, prep_cache = self._filter_scope(state, mask, filter)
         # counters come from the SNAPSHOT, never the live store attributes: a concurrent
         # upsert bumps host tables before publishing the scattered arrays, and pairing
         # old data with the new high-water would admit never-written all-zero rows
@@ -163,9 +245,10 @@ class QueryProcessor:
         self.transfer_counts["h2d"] += 1
         q_dev = torch.from_numpy(q_pad).to(self.device)
         # rows [0, high_water) are exactly the live rows iff no slot below the
-        # high-water mark is dead => the fast kernel can skip all mask traffic
+        # high-water mark is dead and no filter is active => the fast kernel can skip all
+        # mask traffic
         live_prefix = None
-        if state.live_count == state.high_water:
+        if not filter and state.live_count == state.high_water:
             live_prefix = state.high_water
         backend = knn_backend(self.config)
         # request the certificate tier on certified configs: it rides in the SAME copy
@@ -174,13 +257,13 @@ class QueryProcessor:
         use_light = self._use_light(namespace, state, metric, masked=masked)
         with trace_span("knn_kernel", namespace=namespace, k=kb, batch=Bb):
             out = backend(
-                q_dev, state.data, state.valid, state.sq_norms,
+                q_dev, state.data, valid, state.sq_norms,
                 k=kb, metric=metric, db_tile=self.config.db_tile, live_prefix=live_prefix,
                 report_tier=want_tier, mirror=state.mirror, sweep_err=state.sweep_err,
                 sweep_resid=state.sweep_resid, sweep_rscale=state.sweep_rscale,
                 sweep_err1=state.sweep_err1, sweep_rscale2=state.sweep_rscale2,
                 sweep_light=use_light,
-                sweep_prep=state.prep_cache, sweep_defer=True, n_live=B,
+                sweep_prep=prep_cache, sweep_defer=True, n_live=B,
             )
             if isinstance(out, SweepResult):
                 # ONE device->host transfer: the int32 ids travel bit-cast beside the
@@ -202,7 +285,8 @@ class QueryProcessor:
                 # metric, variant) to the heavy program.  Eager torch compiles nothing,
                 # so the switch is synchronous (the JAX package warms the heavy program
                 # in a background thread first).  Results stayed exact: escalation costs
-                # speed, never correctness.
+                # speed, never correctness.  Nothing is warmed, so a filtered flip
+                # files no prep anywhere but the filter's own dict.
                 with self._cert_lock:
                     self._cert_mode[(namespace, metric, masked)] = "heavy"
         return dist[:B, :k_eff], idx[:B, :k_eff], ns, state.host_tables
@@ -268,15 +352,15 @@ class QueryProcessor:
         filter: Optional[Dict[str, Any]] = None,
         nprobe: Optional[int] = None,
     ) -> List[List[Dict[str, Any]]]:
-        """Batched exact kNN — the QPS path; recall is 1.0."""
-        if filter is not None:
-            raise NotImplementedError("filter= is not ported yet (ROADMAP A19: filters/hybrid)")
+        """Batched exact kNN — the QPS path; recall is 1.0.  ``filter``: a metadata filter
+        spec (filters.py); only matching live rows are ranked, and a query gets fewer
+        than ``top_k`` results when fewer rows match."""
         if nprobe is not None:
             raise NotImplementedError("nprobe= is not ported yet (ROADMAP A13: IVF)")
         m = canonical_metric(metric or self.config.default_metric)
         q_np = np.stack([np.asarray(q.values, np.float32).reshape(-1) for q in queries])
 
-        cache_key = self._result_cache_key(q_np, top_k, namespace, m)
+        cache_key = self._result_cache_key(q_np, top_k, namespace, m, filter)
         if cache_key is not None:
             with self._result_cache_lock:
                 hit = self._result_cache.get(cache_key)
@@ -288,7 +372,7 @@ class QueryProcessor:
                 # poison later cache reads
                 return [[dict(r) for r in rs] for rs in hit]
 
-        dist, slots, ns, tables = self._raw_search(q_np, namespace, top_k, m)
+        dist, slots, ns, tables = self._raw_search(q_np, namespace, top_k, m, filter)
         if ns is None:
             results: List[List[Dict[str, Any]]] = [[] for _ in queries]
         else:
@@ -309,10 +393,22 @@ class QueryProcessor:
         One vectorized numpy mask prefilters the block, then a single flat pass reads the
         snapshot's slot tables (one atomic capture, so a racing compaction cannot pair
         one generation's ids with another's values).  Metadata dicts are copied; values
-        alias the host mirror.
+        alias the host mirror.  The native extension (native/hydrate.c) builds the same
+        lists in one C pass where it loads.
         """
         ids, metas, vals = tables
         n_slots = len(ids)
+        native = _hydrate_native()
+        if native is not None:
+            # ONE C pass: mask, row construction, delete-after-snapshot drops and
+            # per-query chunking together
+            return native.build_nested(
+                ids, vals, metas,
+                np.ascontiguousarray(slots).reshape(-1),
+                np.ascontiguousarray(user).reshape(-1),
+                np.ascontiguousarray(dist).reshape(-1),
+                float(MASKED) / 2, user.shape[0], slots.shape[1],
+            )
         keep = (dist < float(MASKED) / 2) & (slots >= 0) & (slots < n_slots)
         counts = keep.sum(axis=1).tolist()
         fs = slots[keep].tolist()
@@ -351,11 +447,9 @@ class QueryProcessor:
         """All vectors within ``radius`` of the query (query_processor.py:828-858): one
         k = ``limit`` search, best first, then the radius in user-score units: l2/ip ->
         distance <= radius; cosine -> similarity >= radius."""
-        if filter is not None:
-            raise NotImplementedError("filter= is not ported yet (ROADMAP A19: filters/hybrid)")
         m = canonical_metric(metric or self.config.default_metric)
         q_np = np.asarray(query.values, np.float32).reshape(1, -1)
-        dist, slots, ns, tables = self._raw_search(q_np, namespace, limit, m)
+        dist, slots, ns, tables = self._raw_search(q_np, namespace, limit, m, filter)
         if ns is None:
             return []
         hits = self._hydrate_batch(self._to_user_score(dist, m), dist, slots, tables)[0]
@@ -373,6 +467,15 @@ class QueryProcessor:
     ) -> List[Dict[str, Any]]:
         """Cosine-similarity threshold search (query_processor.py:860-869)."""
         return self.range_search(query, threshold, namespace, "cosine", filter, limit)
+
+    def query_by_metadata(
+        self, filter: Dict[str, Any], namespace: str = "default", limit: int = 1000
+    ) -> List[Dict[str, Any]]:
+        """Pure metadata query (query_processor.py:871-882): the first ``limit`` matching
+        vectors as result dicts with score 0.0."""
+        vecs = self.storage.query_by_metadata(filter, namespace)[:limit]
+        return [{"id": v.id, "values": v.values, "metadata": v.metadata, "score": 0.0}
+                for v in vecs]
 
     # ------------------------------------------------------------------ helpers
     # (parity with reference query_processor.py:64-82)

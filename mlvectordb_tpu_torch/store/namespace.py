@@ -23,19 +23,22 @@ Over a bf16 store (config.dtype="bfloat16") the bf16 mirror is data itself for t
 reason (the same-dtype sweep: no certificate arrays); a bf16 store takes no int8 or f32
 mirror yet (ROADMAP A24).
 
-Host state: slot -> uuid / metadata / float32 values, uuid -> slot map, free-slot stack.
-Hydration returns the written f32 values, whatever the storage dtype.  Writes scatter
-into free slots (upsert by id overwrites in place); deletes clear the mask.  Compaction
-repacks live rows and is strictly per-namespace.
+Host state: slot -> uuid / metadata / float32 values, uuid -> slot map, free-slot stack,
+and, where the native library builds, ``meta_columns``: the slot-aligned columnar copy of
+the metadata that filter masks are evaluated on (native.MetaColumns), kept in step with
+every write, delete, growth and compaction.  Hydration returns the written f32 values,
+whatever the storage dtype.  Writes scatter into free slots (upsert by id overwrites in
+place); deletes clear the mask.  Compaction repacks live rows and is strictly
+per-namespace.
 
-Not ported yet: host offload and the native metadata columns.
+Not ported yet: host offload.
 """
 
 from __future__ import annotations
 
 import threading
 import uuid as uuid_mod
-from typing import Any, Dict, List, NamedTuple, Optional, Sequence
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -194,6 +197,10 @@ class NamespaceStore:
         self._high_water = 0          # slots ever used (never reused slots beyond this)
         self._tombstones = 0          # deletes since last compaction
         self.version = 0              # bumped on every mutation (result-cache key)
+        # native columnar metadata mirror (filters); stood up lazily at the first write,
+        # None without a toolchain or once some metadata is not representable natively
+        self.meta_columns = None
+        self._meta_columns_tried = False
 
     # ------------------------------------------------------------------ properties
 
@@ -328,6 +335,21 @@ class NamespaceStore:
         self._slot_ids.extend([None] * (new_cap - len(self._slot_ids)))
         self._slot_meta.extend([None] * (new_cap - len(self._slot_meta)))
         self._slot_values.extend([None] * (new_cap - len(self._slot_values)))
+        if self.meta_columns is not None and new_cap > self.meta_columns.capacity:
+            self.meta_columns.resize(new_cap)
+
+    def _ensure_meta_columns(self):
+        """Lazily stand up the C++ columnar metadata mirror (None if no toolchain)."""
+        if self.meta_columns is None and not self._meta_columns_tried:
+            self._meta_columns_tried = True
+            try:
+                from ..native import MetaColumns, available
+
+                if available():
+                    self.meta_columns = MetaColumns(max(self.capacity, 1))
+            except Exception:  # pragma: no cover - native unavailable
+                self.meta_columns = None
+        return self.meta_columns
 
     def _alloc_slot(self) -> int:
         if self._free:
@@ -406,6 +428,13 @@ class NamespaceStore:
                 self._slot_meta[slot] = v.metadata
                 self._slot_values[slot] = v.values
 
+            mc = self._ensure_meta_columns()
+            if mc is not None and not mc.set_many([int(s) for s in slots],
+                                                  [v.metadata for v in vectors]):
+                # metadata not representable natively: drop the mirror entirely (filters
+                # fall back to Python for this namespace)
+                self.meta_columns = None
+
             vals = np.zeros((len(vectors), self.dpad), np.float32)
             for i, v in enumerate(vectors):
                 vals[i, : self.dim] = v.values
@@ -445,6 +474,11 @@ class NamespaceStore:
                 self._slot_meta[slot] = dict(metas[i]) if metas[i] else {}
                 self._slot_values[slot] = values[i]
 
+            mc = self._ensure_meta_columns()
+            if mc is not None and not mc.set_many(
+                    [int(s) for s in slots], [self._slot_meta[s] for s in slots]):
+                self.meta_columns = None
+
             vals = np.zeros((n, self.dpad), np.float32)
             vals[:, : self.dim] = values
             slots, vals = _last_write_wins(slots, vals)
@@ -466,6 +500,8 @@ class NamespaceStore:
                 self._slot_ids[slot] = None
                 self._slot_meta[slot] = None
                 self._slot_values[slot] = None
+                if self.meta_columns is not None:
+                    self.meta_columns.clear(slot)
                 self._free.append(slot)
                 self._tombstones += 1
             if not slots:
@@ -524,7 +560,24 @@ class NamespaceStore:
             self._slot_ids = new_ids + [None] * (new_cap - n)
             self._slot_meta = new_meta + [None] * (new_cap - n)
             self._slot_values = new_vals + [None] * (new_cap - n)
+            self._rebuild_meta_columns()
             self._publish()  # new generation visible only after everything is rebuilt
+
+    def _rebuild_meta_columns(self) -> None:
+        """Recreate the native metadata mirror after slots moved (compaction)."""
+        if self.meta_columns is None:
+            return
+        try:
+            from ..native import MetaColumns
+
+            mc = MetaColumns(max(self.capacity, 1))
+            for slot in self._id_to_slot.values():
+                if not mc.set(slot, self._slot_meta[slot]):
+                    self.meta_columns = None
+                    return
+            self.meta_columns = mc
+        except Exception:  # pragma: no cover
+            self.meta_columns = None
 
     # ------------------------------------------------------------------ reads
 
@@ -540,9 +593,23 @@ class NamespaceStore:
     def _vector_at(self, slot: int, vid: uuid_mod.UUID) -> Vector:
         return Vector(self._slot_values[slot], self._slot_meta[slot] or {}, id=vid)
 
+    def slot_to_id(self, slot: int) -> Optional[uuid_mod.UUID]:
+        if 0 <= slot < len(self._slot_ids):
+            return self._slot_ids[slot]
+        return None
+
+    def slot_metadata(self, slot: int) -> Optional[Dict[str, Any]]:
+        if 0 <= slot < len(self._slot_meta):
+            return self._slot_meta[slot]
+        return None
+
     def all_vectors(self) -> List[Vector]:
         with self._lock:
             return [self._vector_at(s, vid) for vid, s in self._id_to_slot.items()]
+
+    def iter_slots(self) -> List[Tuple[int, uuid_mod.UUID, Optional[Dict[str, Any]]]]:
+        """(slot, id, metadata) for every live row: filter compilation walks this."""
+        return [(s, vid, self._slot_meta[s]) for vid, s in self._id_to_slot.items()]
 
     # ------------------------------------------------------------------ persistence
 

@@ -3,8 +3,8 @@
 The StorageEngine protocol surface of the reference's in-memory engine
 (reference: src/mlvectordb/implementations/storage_engine_in_memory.py:11-86) with the
 same observable semantics (delete garbage-collects an emptied namespace; exists scans all
-namespaces; read of a missing id returns None).  ``query_by_metadata`` waits for the
-filters port (ROADMAP A19).
+namespaces; read of a missing id returns None), and ``query_by_metadata`` over the
+native metadata columns where they exist.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from typing import Any, Dict, Iterable, Iterator, List, Optional, Sequence
 import torch
 
 from ..config import DEFAULT_CONFIG, EngineConfig
+from ..filters import _validate_spec_ops, matches_filter
 from .namespace import NamespaceStore, check_supported
 from .vector import Vector
 
@@ -110,6 +111,28 @@ class StorageEngine:
 
     def exists(self, vector_id: uuid_mod.UUID) -> bool:
         return any(ns.contains(vector_id) for ns in self._namespaces.values())
+
+    def query_by_metadata(
+        self, filter: Dict[str, Any], namespace: str = "default"
+    ) -> List[Vector]:
+        """The live vectors whose metadata match ``filter``, in slot-map order: the native
+        mask where the namespace has metadata columns (unknown operators still raise),
+        the Python evaluator otherwise."""
+        ns = self._namespaces.get(namespace)
+        if ns is None:
+            return []
+        mc = ns.meta_columns
+        if mc is not None:
+            try:
+                mask = mc.eval(filter, ns.capacity)
+            except (TypeError, ValueError):
+                mask = None
+            if mask is not None:
+                _validate_spec_ops(filter)
+                return [ns._vector_at(slot, vid)
+                        for slot, vid, _meta in ns.iter_slots() if mask[slot]]
+        return [ns._vector_at(slot, vid)
+                for slot, vid, meta in ns.iter_slots() if matches_filter(meta or {}, filter)]
 
     def iterate_vectors(self, namespace: str = "default") -> Iterator[Vector]:
         ns = self._namespaces.get(namespace)

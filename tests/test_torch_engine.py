@@ -175,10 +175,31 @@ def test_unported_options_raise():
         QueryProcessor(EngineConfig(dtype="bfloat16", sweep_dtype=sweep), device="cpu")
     tqp = QueryProcessor(EngineConfig(), device="cpu")
     q = [VectorDTO(np.ones(4, np.float32))]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tqp.find_similar_batch(q, 3, "ns", filter={"a": 1})
+    # filter= is served (tests/test_torch_filters.py): a missing namespace answers []
+    assert tqp.find_similar_batch(q, 3, "ns", filter={"a": 1}) == [[]]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tqp.find_similar_batch(q, 3, "ns", nprobe=4)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_filtered_search_matches_jax(pair, corpus, metric):
+    """filter= on the default config's row-major path (kernel B5 over the filtered
+    liveness), before and after deletes: JAX's ids in JAX's order, only matching rows."""
+    rng, _, ids, _, queries = corpus
+    jqp, tqp = pair
+    spec = {"i": {"$gte": N // 2}}
+    for when in ("fresh", "deleted"):
+        if when == "deleted":
+            gone = [ids[i] for i in rng.choice(N, 300, replace=False)]
+            assert sorted(map(str, jqp.delete(gone, "ns"))) == sorted(
+                map(str, tqp.delete(gone, "ns")))
+        jr = jqp.find_similar_batch([JaxDTO(q) for q in queries], 10, "ns", metric,
+                                    filter=spec)
+        tr = tqp.find_similar_batch([VectorDTO(q) for q in queries], 10, "ns", metric,
+                                    filter=spec)
+        _assert_same_results(jr, tr)
+        assert all(len(r) == 10 and all(h["metadata"]["i"] >= N // 2 for h in r)
+                   for r in tr)
 
 
 def test_scan_backend_config_matches_fused(corpus):
@@ -262,7 +283,18 @@ def test_repeated_id_in_one_write_batch_keeps_the_last_write(path):
 
 
 def test_package_never_imports_jax():
-    code = "import sys, mlvectordb_tpu_torch; sys.exit(1 if 'jax' in sys.modules else 0)"
+    """Every module of the port (the filters, the native loader and the probes included)
+    imports neither jax nor the JAX package, not even its framework-free modules."""
+    code = (
+        "import importlib, pkgutil, sys, mlvectordb_tpu_torch as p\n"
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "assert {'mlvectordb_tpu_torch.filters', 'mlvectordb_tpu_torch.native',\n"
+        "        'mlvectordb_tpu_torch.engine.filters'} <= set(mods), mods\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'mlvectordb_tpu.'))\n"
+        "       or m == 'mlvectordb_tpu']\n"
+        "sys.exit(1 if bad else 0)"
+    )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=120, check=False)
     assert proc.returncode == 0, proc.stderr

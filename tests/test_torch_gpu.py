@@ -911,3 +911,55 @@ def test_b4_tensor_core_dots_within_the_bar_at_dp_1536(cuda, kind):
         x = x.to(torch.bfloat16)
     err = tc_error.b4_max_rel_err(q.to(cuda), x.to(cuda))
     assert 0.0 <= err <= d * 2.0 ** -23, err
+
+
+# ------------------------------------------------------------------ filtered (hybrid) search
+
+
+@pytest.mark.parametrize("cfg", [{}, {"dtype": "bfloat16"}, {"sweep_dtype": "bfloat16"},
+                                 {"sweep_dtype": "int8"},
+                                 {"dtype": "bfloat16", "sweep_dtype": "bfloat16"}])
+def test_filtered_engine_on_cuda_matches_cpu(cuda, cfg):
+    """Filtered searches (half the rows, 3 rows, none) at k = 10 and 100, before and after
+    deletes: the same ids and tiers on the card as on the CPU, B5 (row-major) or B1 over a
+    masked bias row and B2 (sweep) launched, no hit outside its filter."""
+    rng = np.random.default_rng(23)
+    n = 20000
+    x = rng.standard_normal((n, 128), dtype=np.float32)
+    metas = [{"p": i % 2, "r": int(v)} for i, v in enumerate(rng.permutation(n))]
+    q = [VectorDTO(v) for v in rng.standard_normal((16, 128), dtype=np.float32)]
+    specs = ({"p": 0}, {"r": {"$lt": 3}}, {"r": -1})
+    sweep = cfg.get("sweep_dtype") is not None
+    out = []
+    for device in ("cpu", cuda):
+        qp = QueryProcessor(EngineConfig(**cfg), device=device)
+        ids = qp.bulk_load(x, "ns", ids=None if not out else out[0][0], metadatas=metas)
+        before = (fused_knn._window_mins_masked.launches, fused_knn_t._window_mins_t.launches,
+                  fused_knn_t._gather_score.launches)
+        res = []
+        for when in ("fresh", "deleted"):
+            if when == "deleted":
+                qp.delete(ids[::50], "ns")
+            for k in (10, 100):
+                for spec in specs:
+                    res.append(qp.find_similar_batch(q, k, "ns", "l2", filter=spec))
+        launched = (fused_knn._window_mins_masked.launches - before[0],
+                    fused_knn_t._window_mins_t.launches - before[1],
+                    fused_knn_t._gather_score.launches - before[2])
+        out.append((ids, res, launched, qp.cert_tier_counts("ns")))
+    (_, cres, _, ccpu), (_, gres, launched, cgpu) = out
+    assert ccpu == cgpu
+    assert (launched[1] > 0 and launched[2] > 0) if sweep else launched[0] > 0
+    for a, b, spec in zip(cres, gres, specs * 4):
+        for ra, rb in zip(a, b):
+            assert {r["id"] for r in ra} == {r["id"] for r in rb}
+            assert all(r["metadata"]["p"] == 0 for r in rb) if spec == {"p": 0} else True
+            np.testing.assert_allclose(sorted(r["score"] for r in ra),
+                                       sorted(r["score"] for r in rb), rtol=1e-4, atol=1e-4)
+
+
+def test_filtered_searches_race_writes_on_cuda(cuda):
+    """tests/test_torch_concurrency.py's race on the card: Python threads on one stream."""
+    from .test_torch_concurrency import _race
+
+    _race({"sweep_dtype": "bfloat16"}, cuda, n0=8200)

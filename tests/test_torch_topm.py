@@ -266,8 +266,9 @@ def engines():
         mp.setattr(jax_backend, "jax", types.SimpleNamespace(default_backend=lambda: "tpu"))
         jqp = JaxQueryProcessor(config=JaxConfig(sweep_dtype="bfloat16"))
         tqp = QueryProcessor(EngineConfig(sweep_dtype="bfloat16"), device="cpu")
-        jqp.bulk_load(x, "ns", ids=ids)
-        tqp.bulk_load(x, "ns", ids=ids)
+        metas = [{"p": i % 2} for i in range(n)]
+        jqp.bulk_load(x, "ns", ids=ids, metadatas=metas)
+        tqp.bulk_load(x, "ns", ids=ids, metadatas=metas)
         assert tqp.storage.namespace("ns").capacity == n
         yield rng, x, jqp, tqp
 
@@ -326,6 +327,20 @@ def test_engine_range_and_similarity_search_match_jax(engines):
         np.testing.assert_allclose([r["score"] for r in tr], [r["score"] for r in jr],
                                    rtol=1e-5, atol=1e-4)
     assert tqp.cert_tier_counts("ns") == jqp.cert_tier_counts("ns")
-    with pytest.raises(NotImplementedError, match="A19"):
-        tqp.range_search(VectorDTO(qv), 1.0, "ns", filter={"a": 1})
+    # with a filter (the masked sweep program): the same hits within the radius, none
+    # outside the filter
+    spec = {"p": 1}
+    for kind, kw in (("range", dict(radius=radius, limit=100)),
+                     ("similarity", dict(threshold=threshold, limit=100))):
+        if kind == "range":
+            jr = jqp.range_search(JaxDTO(qv), namespace="ns", filter=spec, **kw)
+            tr = tqp.range_search(VectorDTO(qv), namespace="ns", filter=spec, **kw)
+        else:
+            jr = jqp.similarity_search(JaxDTO(qv), namespace="ns", filter=spec, **kw)
+            tr = tqp.similarity_search(VectorDTO(qv), namespace="ns", filter=spec, **kw)
+        assert 10 < len(tr) < 50 and all(r["metadata"]["p"] == 1 for r in tr), (kind, len(tr))
+        assert [r["id"] for r in tr] == [r["id"] for r in jr], kind
+        np.testing.assert_allclose([r["score"] for r in tr], [r["score"] for r in jr],
+                                   rtol=1e-5, atol=1e-4)
+    assert tqp.cert_tier_counts("ns") == jqp.cert_tier_counts("ns")
     assert tqp.range_search(VectorDTO(qv), 1.0, "missing") == []
