@@ -112,7 +112,24 @@ one line per phase:
      timed with their bounds; exact_knn_t light and heavy; the engine wall and its split
      (mask build, _raw_search, hydration); the mask build natively and in Python; then
      B5 over a filter: the default config on the first 2^18 rows, l2 and cosine, and B5
-     against plain at those operands, timed.
+     against plain at those operands, timed;
+ 16. durability and operations on phase 6's namespace (1,048,576 x 128 f32 rows of
+     default_rng(42), sweep_dtype="bfloat16", after its 1,000 deletes), its files under
+     build/durability/: save (seconds, bytes on disk, MB/s) and QueryProcessor.load on the
+     card (seconds), the loaded namespace's nbytes and live count equal to the source's,
+     the phase-6 batches (B=128 l2, k=10 and 100) with the live processor's ids and
+     scores, set-exact against the float64 oracle, at tier 0 with transfers (1, 1), B1 and
+     B2 launched; crash recovery: the snapshot reloaded with a WAL (fsync), 10,000 rows
+     acknowledged in 100 upsert_many batches, 1,000 deletes and one batch overwriting 100
+     ids, the processor abandoned (no save, no close) and recovered with
+     QueryProcessor.load(..., wal_path=...): every acknowledged write read back, no
+     deleted id present, the abandoned processor's answers, set-exact against an oracle
+     over the recovered rows (replay seconds and records/s); offload: device memory
+     freed by at least 0.9 x nbytes, the namespace listed as offloaded, the next search
+     paging it in (ms) with the same answers and nbytes; warmup(detail=True) with the
+     kernel launches it caused, explain_query, get_statistics, deep_health, render_metrics,
+     plan_capacity for 100M x 1536 bf16 against the card's memory, and a PROFILER trace
+     around one search.
 Any failure raises, so the process exits non-zero.  The last two lines are the kernels'
 JSON record (with each kernel's bound: bytes over 3.35 TB/s or operations over the peak
 for their type, whichever is larger; for the sweep kernel and B4/B5 the products of the
@@ -140,6 +157,11 @@ import torch
 
 from mlvectordb_tpu_torch import EngineConfig, QueryProcessor, VectorDTO, filters, native
 from mlvectordb_tpu_torch.engine import query_processor as qp_mod
+from mlvectordb_tpu_torch.store.namespace import NamespaceStore
+from mlvectordb_tpu_torch.utils.capacity import plan_capacity
+from mlvectordb_tpu_torch.utils.health import deep_health
+from mlvectordb_tpu_torch.utils.metrics import render_metrics
+from mlvectordb_tpu_torch.utils.tracing import PROFILER, RECORDER
 from mlvectordb_tpu_torch.ops import _kernels, fused_knn, fused_knn_t
 from mlvectordb_tpu_torch.ops.distances import MASKED
 from mlvectordb_tpu_torch.probes.time_gather import time_ms as _time_cold_ms
@@ -2173,6 +2195,282 @@ def run_hybrid(gpu):
     return counts, worst, times, bounds, extras
 
 
+# ---- phase 16: durability and operations on phase 6's namespace ---------------------------
+
+DURABLE_DIR = Path(__file__).resolve().parent / "build" / "durability"
+N_NEW, N_DEL16, N_OVER = 10_000, 1_000, 100
+
+
+@contextlib.contextmanager
+def _timed_method(cls, name, record):
+    """Time each call of ``cls.name`` into ``record`` (seconds, and its return value)."""
+    real = getattr(cls, name)
+
+    def timed(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = real(self, *a, **kw)
+        record.append((time.perf_counter() - t0, out))
+        return out
+
+    setattr(cls, name, timed)
+    try:
+        yield
+    finally:
+        setattr(cls, name, real)
+
+
+def _served16(qp, qs, k, label):
+    """One search of the phase-6 batch: (results, launch counts, tiers added, transfers),
+    the counts zeroed just before it and read just after; tier 0 with transfers (1, 1)
+    and B1 and B2 launched, else it raises."""
+    outer = _sweep_counts()
+    _set_sweep_counts([0] * len(outer))
+    before, x0 = qp.cert_tier_counts("sift"), dict(qp.transfer_counts)
+    res = qp.find_similar_batch(qs, k, "sift", "l2")
+    counts = dict(zip(_COUNT_NAMES, _sweep_counts()))
+    _set_sweep_counts(outer)
+    after = qp.cert_tier_counts("sift")
+    tiers = {t: n - before.get(t, 0) for t, n in after.items() if n != before.get(t, 0)}
+    xfer = (qp.transfer_counts["h2d"] - x0["h2d"], qp.transfer_counts["d2h"] - x0["d2h"])
+    print(f"  {label} k={k}: tiers {tiers}, transfers {xfer}, B1 launches {counts['sweep']}, "
+          f"B2 launches {counts['gather']}")
+    if xfer != (1, 1) or set(tiers) - {"fast", "light_fast"} or counts["sweep"] < 1 or (
+            counts["gather"] < 1):
+        raise AssertionError(f"{label} k={k}: not served by B1 and B2 at tier 0 with one copy "
+                             f"each way: {tiers} {xfer} {counts}")
+    return res, counts
+
+
+def _same_answers(got, want, label):
+    """Each query's ids equal as sets, each id's score equal to f32 rounding."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        sa, sb = {r["id"]: r["score"] for r in a}, {r["id"]: r["score"] for r in b}
+        if sa.keys() != sb.keys():
+            raise AssertionError(f"{label}: the ids differ from the reference processor's")
+        for i, v in sa.items():
+            worst = max(worst, abs(v - sb[i]) / max(abs(sb[i]), 1e-30))
+    print(f"  {label}: the same ids as the reference processor, scores within {worst:.3e} "
+          f"relative")
+    if worst > 1e-6:
+        raise AssertionError(f"{label}: scores differ by {worst} relative")
+
+
+def _recovered_oracle(oracle, gone, extra_rows, extra_keys, q_np, k):
+    """Each query's k nearest keys over the recovered rows (float64): the original
+    corpus's kept nearest rows without ``gone``, merged with ``extra_rows`` (keys
+    ``extra_keys``).  Raises if a kept list ran short of the merge's k-th distance."""
+    rows, dists = oracle.nearest("l2", B)
+    q64, x64 = q_np.astype(np.float64), extra_rows.astype(np.float64)
+    d_extra = ((q64 * q64).sum(1)[:, None] + (x64 * x64).sum(1)[None, :] - 2 * q64 @ x64.T)
+    out = []
+    for i in range(B):
+        keep = [(d, int(r)) for r, d in zip(rows[i], dists[i]) if int(r) not in gone]
+        cand = keep + [(d, key) for d, key in zip(d_extra[i].tolist(), extra_keys)]
+        cand.sort(key=lambda c: c[0])
+        if cand[k - 1][0] > dists[i][-1]:
+            raise AssertionError(f"oracle: query {i} needs more than the kept rows")
+        out.append({key for _, key in cand[:k]})
+    return out
+
+
+def run_durability(qps, ids, db_np, q_np, oracle, dead, gpu):
+    """Phase 16 (see the module docstring).  Returns the launch counts of its searches, the
+    printed figures and the warmup's launches."""
+    shutil.rmtree(DURABLE_DIR, ignore_errors=True)
+    DURABLE_DIR.mkdir(parents=True)
+    snap, wal = str(DURABLE_DIR / "snapshot"), str(DURABLE_DIR / "wal")
+    dev = torch.device("cuda")
+    qs = [VectorDTO(v) for v in q_np]
+    src = qps.storage.namespace("sift")
+    want = {k: qps.find_similar_batch(qs, k, "sift", "l2") for k in (K, K100)}
+    figs, launches = {}, {"sweep": 0, "gather": 0}
+
+    def add(counts):
+        launches["sweep"] += counts["sweep"]
+        launches["gather"] += counts["gather"]
+
+    # ---- 1. snapshot round trip
+    t0 = time.perf_counter()
+    qps.save(snap)
+    figs["save_s"] = time.perf_counter() - t0
+    disk = sum(f.stat().st_size for f in Path(snap).iterdir())
+    figs["snapshot_bytes"] = disk
+    print(f"  save: {figs['save_s']:.3f} s, {disk:,} B on disk ({len(qps.list_namespaces())} "
+          f"namespaces), {disk / figs['save_s'] / 1e6:.1f} MB/s")
+    t0 = time.perf_counter()
+    qp1 = QueryProcessor.load(snap, SWEEP, device=dev)
+    torch.cuda.synchronize()
+    figs["load_s"] = time.perf_counter() - t0
+    ns1 = qp1.storage.namespace("sift")
+    print(f"  load on the card: {figs['load_s']:.3f} s; nbytes {ns1.nbytes:,} (source "
+          f"{src.nbytes:,}), live {ns1.live_count:,} (source {src.live_count:,})")
+    if (ns1.nbytes, ns1.live_count) != (src.nbytes, src.live_count):
+        raise AssertionError("the loaded namespace differs from the source in bytes or rows")
+    for k in (K, K100):
+        res, counts = _served16(qp1, qs, k, "loaded")
+        add(counts)
+        _same_answers(res, want[k], f"loaded k={k}")
+        _check_recall(res, oracle.sets("l2", B, dead, k=k), ids, f"loaded l2 B={B}", k=k)
+    del qp1, ns1, res
+
+    # ---- 2. crash recovery from the snapshot and the WAL
+    live = QueryProcessor.load(snap, SWEEP, wal_path=wal, wal_fsync=True, device=dev)
+    rng = np.random.default_rng(SEED + 16)
+    new = rng.standard_normal((N_NEW, D), dtype=np.float32)
+    new[:B] = q_np + np.float32(0.3) * rng.standard_normal((B, D), dtype=np.float32)
+    added = []
+    t0 = time.perf_counter()
+    for b in range(N_NEW // 100):
+        added += live.upsert_many(
+            [VectorDTO(new[j], {"batch": b, "j": j}) for j in range(b * 100, b * 100 + 100)],
+            "sift")
+    # the deletes: each query's nearest surviving row first, then random surviving rows
+    alive = np.setdiff1d(np.arange(N), dead)
+    first = sorted({next(iter(s)) for s in oracle.sets("l2", B, dead, k=1)})
+    pool = np.setdiff1d(alive, first)
+    del16 = np.asarray(first + rng.choice(pool, N_DEL16 - len(first), replace=False).tolist())
+    removed = live.delete([ids[i] for i in del16], "sift")
+    # one batch overwriting 100 surviving ids, with values near the first 100 queries
+    over_idx = rng.choice(np.setdiff1d(pool, del16), N_OVER, replace=False)
+    over_vals = (q_np[:N_OVER] + np.float32(0.2) * rng.standard_normal((N_OVER, D),
+                                                                     dtype=np.float32))
+    live.upsert_many([VectorDTO(over_vals[i], {"over": i}, id=ids[over_idx[i]])
+                      for i in range(N_OVER)], "sift")
+    figs["acked_writes_s"] = time.perf_counter() - t0
+    wal_bytes = sum(f.stat().st_size for f in Path(wal).iterdir() if f.is_file())
+    print(f"  acknowledged with fsync: {N_NEW:,} rows in {N_NEW // 100} upsert_many batches, "
+          f"{len(removed)} deletes, {N_OVER} overwrites in {figs['acked_writes_s']:.2f} s; "
+          f"WAL {wal_bytes:,} B")
+    if len(removed) != N_DEL16:
+        raise AssertionError(f"{len(removed)} of {N_DEL16} deletes acknowledged")
+    acked = {k: live.find_similar_batch(qs, k, "sift", "l2") for k in (K, K100)}
+    del live   # abandoned: no save(), no close()
+
+    replays = []
+    t0 = time.perf_counter()
+    with _timed_method(QueryProcessor, "replay_wal", replays):
+        rec = QueryProcessor.load(snap, SWEEP, wal_path=wal, device=dev)
+    torch.cuda.synchronize()
+    figs["recover_s"] = time.perf_counter() - t0
+    figs["replay_s"], figs["replay_records"] = replays[0]
+    figs["replay_records_per_s"] = figs["replay_records"] / figs["replay_s"]
+    print(f"  recovered with QueryProcessor.load(snapshot, wal_path=...): "
+          f"{figs['recover_s']:.3f} s, of which the replay {figs['replay_s']:.3f} s for "
+          f"{figs['replay_records']} records ({figs['replay_records_per_s']:.1f} records/s, "
+          f"{(N_NEW + N_DEL16 + N_OVER) / figs['replay_s']:.0f} row operations/s)")
+    n_rec = N - len(dead) + N_NEW - N_DEL16
+    if rec.get_namespace_count("sift") != n_rec:
+        raise AssertionError(f"recovered {rec.get_namespace_count('sift')} rows, not {n_rec}")
+    for v in added:
+        got = rec.storage.read(v.id, "sift")
+        if got is None or not np.array_equal(got.values, v.values) or got.metadata != v.metadata:
+            raise AssertionError(f"acknowledged upsert {v.id} did not read back")
+    for i in range(N_OVER):
+        got = rec.storage.read(ids[over_idx[i]], "sift")
+        if not np.array_equal(got.values, over_vals[i]) or got.metadata != {"over": i}:
+            raise AssertionError(f"overwrite of {ids[over_idx[i]]} did not read back")
+    if any(rec.storage.read(ids[i], "sift") is not None for i in np.concatenate([dead, del16])):
+        raise AssertionError("a deleted id is present after the recovery")
+    print(f"  every acknowledged write read back: {N_NEW:,} upserts, {N_OVER} overwrites; none "
+          f"of the {len(dead) + N_DEL16:,} deleted ids present")
+    keys = [("new", j) for j in range(N_NEW)] + [int(i) for i in over_idx]
+    uuid_of = {("new", j): added[j].id for j in range(N_NEW)}
+    uuid_of.update({i: ids[i] for i in range(N)})
+    gone = set(np.concatenate([dead, del16, over_idx]).tolist())
+    for k in (K, K100):
+        res, counts = _served16(rec, qs, k, "recovered")
+        add(counts)
+        _same_answers(res, acked[k], f"recovered k={k}")
+        want_sets = _recovered_oracle(oracle, gone, np.concatenate([new, over_vals]), keys,
+                                      q_np, k)
+        hits = sum(len({r["id"] for r in rs} & {uuid_of[x] for x in w})
+                   for rs, w in zip(res, want_sets))
+        print(f"  recovered l2 B={B}: recall@{k} = {hits / (B * k)} against the oracle over "
+              f"the recovered rows")
+        if hits != B * k or any(len(rs) != k for rs in res):
+            raise AssertionError(f"recovered k={k}: recall@{k} = {hits / (B * k)}")
+
+    # ---- 3. offload and page-in
+    ns = rec.storage.namespace("sift")
+    nbytes = ns.nbytes
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    if not rec.offload_namespace("sift"):
+        raise AssertionError("offload_namespace returned False")
+    figs["offload_s"] = time.perf_counter() - t0
+    figs["offload_freed_bytes"] = m0 - torch.cuda.memory_allocated()
+    offloaded = rec.get_storage_info()["offloaded_namespaces"]
+    print(f"  offload: {figs['offload_s']:.3f} s, device memory freed "
+          f"{figs['offload_freed_bytes']:,} B of nbytes {nbytes:,} "
+          f"({figs['offload_freed_bytes'] / nbytes:.3f}); offloaded {offloaded}")
+    if figs["offload_freed_bytes"] < 0.9 * nbytes or "sift" not in offloaded:
+        raise AssertionError("offload did not free the namespace's device memory")
+    rec._result_cache.clear()   # the batch's cached answers would serve without a page-in
+    pageins = []
+    t0 = time.perf_counter()
+    with _timed_method(NamespaceStore, "ensure_resident", pageins):
+        res, counts = _served16(rec, qs, K, "paged in")
+    figs["first_search_after_offload_ms"] = (time.perf_counter() - t0) * 1e3
+    figs["page_in_ms"] = pageins[0][0] * 1e3
+    add(counts)
+    print(f"  page-in {figs['page_in_ms']:.1f} ms inside the first search "
+          f"({figs['first_search_after_offload_ms']:.1f} ms); nbytes {ns.nbytes:,}")
+    _same_answers(res, acked[K], "paged in k=10")
+    if ns.nbytes != nbytes or ns.offloaded:
+        raise AssertionError("the paged-in namespace differs in bytes")
+
+    # ---- 4. operations
+    outer = _sweep_counts()
+    _set_sweep_counts([0] * len(outer))
+    t0 = time.perf_counter()
+    n_prog, report = rec.warmup("sift", detail=True)
+    torch.cuda.synchronize()
+    figs["warmup_s"] = time.perf_counter() - t0
+    warm = dict(zip(_COUNT_NAMES, _sweep_counts()))
+    _set_sweep_counts(outer)
+    print(f"  warmup: {n_prog} programs in {figs['warmup_s']:.3f} s, B1 launches "
+          f"{warm['sweep']} (heavy {warm['sweep_heavy']}, pool {warm['topm']}, zero-query "
+          f"fills {warm['zero']}), B2 launches {warm['gather']}; seconds per program {report}")
+    if n_prog != 24 or warm["sweep"] < n_prog:
+        raise AssertionError(f"warmup ran {n_prog} programs with {warm} launches")
+    plan = rec.explain_query(qs[0], K, "sift")
+    stats = rec.get_statistics()
+    print(f"  explain_query: {plan}")
+    print(f"  get_statistics: {stats}")
+    if "tiers_by_namespace" not in stats["exactness"] or plan["certificate_dispatch"] != "light":
+        raise AssertionError("statistics without tiers, or a namespace not on the light program")
+    health = deep_health(rec)
+    print(f"  deep_health: {health}")
+    if (health["status"] != "healthy" or health["device"]["platform"] != "gpu"
+            or health["device"]["devices"][0] != torch.cuda.get_device_name(0)):
+        raise AssertionError("deep_health did not report the card healthy")
+    text = render_metrics(rec, RECORDER)
+    print(f"  render_metrics: {len(text.splitlines())} lines, e.g. "
+          f"{[line for line in text.splitlines() if 'device_memory' in line and '#' not in line]}")
+    if "vectordb_device_memory_bytes" not in text or "vectordb_queries_total" not in text:
+        raise AssertionError("render_metrics lacks the device memory or query metrics")
+    cap = plan_capacity(100_000_000, 1536, EngineConfig(dtype="bfloat16", sweep_dtype="bfloat16"))
+    print(f"  plan_capacity 100M x 1536 bf16 same-dtype on {gpu}: {cap}")
+    if cap.hbm_per_chip != torch.cuda.get_device_properties(0).total_memory:
+        raise AssertionError("plan_capacity did not detect the card's memory")
+    PROFILER.start(str(DURABLE_DIR / "profile"))
+    rec.find_similar_batch([VectorDTO(v) for v in q_np + np.float32(7e-3)], K, "sift", "l2")
+    trace = PROFILER.stop()
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    print(f"  PROFILER: {trace} ({Path(trace).stat().st_size:,} B), {kernels} kernel events, "
+          f"spans {sorted({e['name'] for e in events if e.get('name') in RECORDER.summary()})}")
+    if kernels < 1 or not any(e.get("name") == "knn_kernel" for e in events):
+        raise AssertionError("the profiler trace holds no kernel or no knn_kernel span")
+    figs.update({"warmup_programs": n_prog, "warmup_sweep_launches": warm["sweep"],
+                 "warmup_gather_launches": warm["gather"]})
+    del rec, ns
+    return launches, figs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA GPU",
@@ -2573,6 +2871,12 @@ def main() -> int:
           f"{b15['hybrid_sweep'][2] / 1e6:.0f} MB beside phase 6's {times['sweep_light']:.4f} "
           f"ms (2^20 rows, 0.1% tombstones)")
 
+    # ---- 16. durability and operations on phase 6's namespace ----------------------------
+    print(f"phase 16 durability and operations: snapshot, WAL crash recovery, offload, "
+          f"warmup and the operations surface on phase 6's namespace ({N:,} x {D}, bf16 "
+          f"mirror, after its deletes), on {gpu}")
+    c16, f16 = run_durability(qps, sweep_ids, db_np, q_np, oracle, dead, gpu)
+
     # each kernel's bound at the operands timed above: every input read once, every
     # output written once; the products over the peak for their type (B1/B3 and B4/B5:
     # of the live queries, and of the whole padded batch beside it; B4/B5 over f32 rows
@@ -2663,17 +2967,23 @@ def main() -> int:
         "topm_heavy_full_launch_ms": times["topm_heavy_full"],
         "topm_heavy_bound_full_batch_ms": bounds["topm_heavy_full_batch"][0],
         "matmul_ms": times["matmul_light"], "live_columns": live_cols,
-        "tc_error_max": tc_err, "tc_error_bar": tc_bar})
+        "tc_error_max": tc_err, "tc_error_bar": tc_bar,
+        # phase 16: the loaded, recovered and paged-in namespaces' searches, and warmup
+        "launches_durability": c16["sweep"], "launches_warmup": f16["warmup_sweep_launches"],
+        "durability": f16})
+    gather = gather_entry(entry("gather_score", "gather_score.cu",
+                                "mlvectordb_tpu/ops/pallas_gather.py:33", launches["gather"],
+                                worst["gather"], "gather_score"), "gather_score",
+                          launches["gather_rows"], "gather_k128")
+    gather.update({"launches_durability": c16["gather"],
+                   "launches_warmup": f16["warmup_gather_launches"]})
     record = {"kernels": [
         row_entry("window_min_fast", "mlvectordb_tpu/ops/pallas_knn.py:102", launches["fast"],
                   "fast", "f32"),
         row_entry("window_min_masked", "mlvectordb_tpu/ops/pallas_knn.py:131",
                   launches["masked"], "masked", "f32"),
         sweep,
-        gather_entry(entry("gather_score", "gather_score.cu",
-                           "mlvectordb_tpu/ops/pallas_gather.py:33", launches["gather"],
-                           worst["gather"], "gather_score"), "gather_score",
-                     launches["gather_rows"], "gather_k128"),
+        gather,
     ]}
     # kernel B3: the engine's int8 program (two_pass + the second stream) and the f32 one
     for name, key, counts, programs in (("sweep_min_int8", "b3_int8", c8["int8"],

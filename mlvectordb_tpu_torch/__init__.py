@@ -7,13 +7,22 @@ sweep (a bf16 mirror with int8 residual codes, int8 codes in one or two streams,
 rows themselves, or a bf16 store's own rows, ranked by the sweep window-min kernel; the
 gather-score rescan kernel; a per-query exactness certificate with escalation).  The same
 code runs on the CPU with the kernels' plain torch versions.
-Every tensor lives on the ``torch.device`` the caller passes.  This package never imports
-JAX.
+Snapshots and the write-ahead log use the JAX package's formats, so a deployment moves
+between the two packages in either direction; a cold namespace can be offloaded to host
+memory.  Every tensor lives on the ``torch.device`` the caller passes; entry points default
+to ``"cuda"``.  This package never imports JAX.
 """
 
 from .config import DEFAULT_CONFIG, EngineConfig, canonical_metric
-from .interfaces import VectorDTO, VectorProtocol
-from .store import DeviceState, NamespaceStore, StorageEngine, Vector
+from .interfaces import (
+    QueryProcessorProtocol,
+    SearchIndexProtocol,
+    SearchResultProtocol,
+    StorageEngineProtocol,
+    VectorDTO,
+    VectorProtocol,
+)
+from .store import DeviceState, NamespaceStore, SearchIndex, SearchResult, StorageEngine, Vector
 from .engine import QueryProcessor
 
 __version__ = "0.1.0"
@@ -25,8 +34,14 @@ __all__ = [
     "Vector",
     "VectorDTO",
     "VectorProtocol",
+    "SearchResultProtocol",
+    "SearchIndexProtocol",
+    "StorageEngineProtocol",
+    "QueryProcessorProtocol",
     "DeviceState",
     "NamespaceStore",
     "StorageEngine",
+    "SearchIndex",
+    "SearchResult",
     "QueryProcessor",
 ]

@@ -17,7 +17,6 @@ same codes; for a bf16 store's same-dtype mirror the result equals the port's ``
 
 from __future__ import annotations
 
-import uuid as uuid_mod
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -28,17 +27,9 @@ from .ops.fused_knn_t import R1MAX, SWEEP_TILE, WLANE
 from .store.namespace import NamespaceStore
 
 
-def store_from_jax_snapshot(snap: Dict[str, Any], config: EngineConfig, device) -> NamespaceStore:
-    ns = NamespaceStore(snap["name"], config, device=device)
-    if len(snap["ids"]):
-        ns.bulk_upsert(
-            np.asarray(snap["values"], np.float32),
-            [uuid_mod.UUID(x) for x in snap["ids"]],
-            snap["metadata"],
-        )
-    elif snap.get("dim"):
-        ns._ensure_dim(int(snap["dim"]))
-    return ns
+def store_from_jax_snapshot(snap: Dict[str, Any], config: EngineConfig,
+                            device="cuda") -> NamespaceStore:
+    return NamespaceStore.from_snapshot(snap, config, device=device)
 
 
 def rows_from_sweep_layout(arr_t: np.ndarray) -> np.ndarray:

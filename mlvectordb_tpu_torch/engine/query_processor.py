@@ -7,8 +7,14 @@ or, with a ``sweep_dtype`` ("bfloat16", "int8" or "float32"), the certified swee
 its certificate-tier counters and, for a bf16 mirror, the per-namespace light -> heavy
 dispatch.  A filter's mask (native columnar evaluator where it builds) is ANDed into the
 liveness mask of one snapshot, and its search prep is scoped inside that snapshot's prep
-dict.  Hydration runs in the native ``_hydrate`` extension where it builds.  Reference
-behaviors kept:
+dict.  Hydration runs in the native ``_hydrate`` extension where it builds.
+
+Durability and operations: snapshots in the JAX package's format (``save`` / ``load``,
+``engine/persist.py``; the auto-snapshot thread swaps a finished snapshot in atomically),
+the write-ahead log (``enable_wal``: every mutation logged before it applies;
+``load(..., wal_path=...)`` replays it; ``engine/wal.py``, the JAX package's format),
+namespace offload to host memory, warmup, ``explain_query`` and ``get_statistics``.
+Reference behaviors kept:
   * k clamped to the live count (index.py:103-107)
   * search of a missing namespace returns [] (index.py:98-99)
   * result dicts {id, values, metadata, score}, silently dropping hits that vanished from
@@ -16,14 +22,18 @@ behaviors kept:
   * score convention: l2/ip -> raw distance (lower better), cosine -> similarity = 1 - dist
     (index.py:121-128)
 
-Not ported yet: IVF (A13), the WAL and snapshots (A20), explain and statistics (A7).
-``nprobe=`` raises.
+Not ported yet: IVF (ROADMAP A13).  ``nprobe=`` raises, and so do a snapshot's IVF entry
+and a logged ``build_ivf`` / ``drop_ivf`` record (``load_storage``, ``replay_wal``).
 """
 
 from __future__ import annotations
 
 import hashlib
+import logging
+import os
+import shutil
 import threading
+import time
 import uuid as uuid_mod
 from collections import OrderedDict
 from typing import Any, Dict, Iterable, List, Optional, Sequence
@@ -36,11 +46,13 @@ from ..filters import filter_cache_key
 from ..interfaces.vector import VectorDTO
 from ..ops.backend import knn_backend
 from ..ops.distances import MASKED
-from ..ops.fused_knn_t import SweepResult, fetch
+from ..ops.fused_knn_t import SWEEP_TILE, SweepResult, fetch
 from ..store.storage import StorageEngine
 from ..store.vector import Vector
 from ..utils.tracing import trace_span
 from .filters import FilterMaskCache
+
+logger = logging.getLogger(__name__)
 
 # filter-scoped prep dicts one snapshot keeps; past that a search gets a throwaway dict
 _FILTER_SCOPES = 32
@@ -60,19 +72,71 @@ def _upload_mask(mask: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(mask).to(device)
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """One device: the same type, and the same index where both name one."""
+    return a.type == b.type and (a.index is None or b.index is None or a.index == b.index)
+
+
+class QueryStats:
+    """Query-type counters and latency accumulators (what ``get_statistics`` reports)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.counts: Dict[str, int] = {}
+        self.total_ms: Dict[str, float] = {}
+        self._stage_counts: Dict[str, int] = {}
+        self._stage_ms: Dict[str, float] = {}
+
+    def record(self, kind: str, elapsed_ms: float) -> None:
+        with self._lock:
+            self.counts[kind] = self.counts.get(kind, 0) + 1
+            self.total_ms[kind] = self.total_ms.get(kind, 0.0) + elapsed_ms
+
+    def record_stage(self, stage: str, elapsed_ms: float) -> None:
+        """Per-stage latency (device dispatch, hydration), not counted as queries."""
+        with self._lock:
+            self._stage_counts[stage] = self._stage_counts.get(stage, 0) + 1
+            self._stage_ms[stage] = self._stage_ms.get(stage, 0.0) + elapsed_ms
+
+    def as_dict(self) -> Dict[str, Any]:
+        with self._lock:
+            return {
+                "total_queries": sum(self.counts.values()),
+                "queries_by_type": dict(self.counts),
+                "avg_latency_ms_by_type": {
+                    k: (self.total_ms[k] / c if c else 0.0) for k, c in self.counts.items()
+                },
+                "stage_budget_ms": {
+                    k: round(self._stage_ms[k] / c, 4)
+                    for k, c in self._stage_counts.items() if c
+                },
+            }
+
+
 class QueryProcessor:
-    """Composes the device store with the fused search kernels."""
+    """Composes the device store with the fused search kernels.
+
+    ``storage``: serve an existing engine (e.g. one ``load_storage`` restored); the
+    processor then runs on that engine's device, which must be ``device``."""
 
     def __init__(
         self,
         config: EngineConfig = DEFAULT_CONFIG,
         *,
-        device,
+        device="cuda",
+        storage: Optional[StorageEngine] = None,
     ):
         self.config = config
         self.device = torch.device(device)
-        self.storage = StorageEngine(config, device=self.device)
+        if storage is None:
+            storage = StorageEngine(config, device=self.device)
+        elif not _same_device(storage.device, self.device):
+            raise ValueError(f"storage lives on {storage.device}, the processor on {self.device}")
+        else:
+            self.device = storage.device
+        self.storage = storage
         self._filter_masks = FilterMaskCache()
+        self.stats = QueryStats()
         self._write_lock = threading.RLock()  # single-writer discipline
         # query-result cache, keyed by namespace VERSION (any mutation invalidates
         # implicitly); stores the final hydrated result lists, LRU-evicted
@@ -89,6 +153,11 @@ class QueryProcessor:
         self._cert_lock = threading.Lock()
         self._cert_tiers: Dict[str, Dict[str, int]] = {}
         self._cert_mode: Dict[Any, str] = {}
+        # optional write-ahead log (enable_wal): mutations are logged, then applied
+        self._wal = None
+        self._wal_checkpoint_bytes: Optional[int] = None
+        self._wal_replaying = False
+        self._snap_thread: Optional[threading.Thread] = None
 
     def _result_cache_key(self, q_np, top_k, namespace, metric, filter=None):
         ns = self.storage.namespace(namespace)
@@ -100,11 +169,63 @@ class QueryProcessor:
         # recreated, so (name, version) alone can resurrect a dead incarnation's results
         return (namespace, ns.incarnation, ns.version, h, top_k, metric, fk)
 
+    # ------------------------------------------------------------------ durability
+
+    def enable_wal(
+        self, path: str, fsync: bool = False, checkpoint_bytes: Optional[int] = None
+    ) -> None:
+        """Log every mutation to ``path`` BEFORE applying it (crash durability between
+        snapshots).  Recover with ``QueryProcessor.load(snap, wal_path=...)``; ``save()``
+        rotates and prunes the covered segments.
+
+        ``checkpoint_bytes``: for WAL-only deployments (no snapshot schedule prunes the
+        log): when the segments exceed it, the engine writes a snapshot to
+        ``<path>/checkpoint`` (atomic swap) and prunes the covered segments inline on the
+        mutating call; ``load(wal_path=...)`` finds the checkpoint."""
+        from .wal import WriteAheadLog
+
+        if self._wal is not None:
+            raise RuntimeError("WAL already enabled for this processor")
+        self._wal = WriteAheadLog(path, fsync=fsync)
+        self._wal_checkpoint_bytes = checkpoint_bytes
+
+    def _maybe_checkpoint_wal(self) -> None:
+        """WAL-only growth bound: snapshot into <wal>/checkpoint and prune once the log
+        exceeds checkpoint_bytes (under the write lock: mutations pause for the copy)."""
+        w, limit = self._wal, self._wal_checkpoint_bytes
+        if w is None or self._wal_replaying or not limit or w.total_bytes() < limit:
+            return
+        ckpt = os.path.join(w.path, "checkpoint")
+        tmp, old = ckpt + ".tmp", ckpt + ".old"
+        with self._write_lock:
+            shutil.rmtree(tmp, ignore_errors=True)
+            sealed = self._save_snapshot(tmp)
+            shutil.rmtree(old, ignore_errors=True)
+            if os.path.isdir(ckpt):
+                os.rename(ckpt, old)
+            os.rename(tmp, ckpt)
+            shutil.rmtree(old, ignore_errors=True)
+            w.prune(sealed)
+        self.stats.record("wal_checkpoint", 0.0)
+
+    def _wal_upsert(self, vs: Sequence[Vector], namespace: str) -> None:
+        """Log an upsert batch once the store has checked that it applies: a write the
+        store refuses (a dimension mismatch, max_capacity) is never logged, so a replay
+        never meets it."""
+        if self._wal is None or self._wal_replaying or not vs:
+            return
+        self.storage.check_write([v.dim for v in vs], [v.id for v in vs], namespace)
+        self._wal.append("upsert", namespace, ids=[v.id for v in vs],
+                         values=np.stack([v.values for v in vs]),
+                         metadatas=[v.metadata for v in vs])
+        self._maybe_checkpoint_wal()
+
     # ------------------------------------------------------------------ writes
 
     def insert(self, vector: VectorDTO, namespace: str = "default") -> Vector:
         with self._write_lock:
             v = Vector(vector.values, vector.metadata, id=vector.id)
+            self._wal_upsert([v], namespace)
             self.storage.write(v, namespace)
             return v
 
@@ -114,6 +235,7 @@ class QueryProcessor:
         """True upsert: DTOs carrying an id overwrite in place; id-less DTOs mint uuid4."""
         with self._write_lock, trace_span("upsert", namespace=namespace, count=len(vectors)):
             vs = [Vector(d.values, d.metadata, id=d.id) for d in vectors]
+            self._wal_upsert(vs, namespace)
             self.storage.write_vectors(vs, namespace)
             return vs
 
@@ -121,11 +243,33 @@ class QueryProcessor:
         self, vector_ids: Iterable[uuid_mod.UUID], namespace: str = "default"
     ) -> List[uuid_mod.UUID]:
         with self._write_lock, trace_span("delete", namespace=namespace):
-            return self.storage.delete_vectors(list(vector_ids), namespace)
+            ids = list(vector_ids)
+            if self._wal is not None and not self._wal_replaying and ids:
+                self._wal.append("delete", namespace, ids=ids)
+                self._maybe_checkpoint_wal()
+            return self.storage.delete_vectors(ids, namespace)
 
     def delete_namespace(self, namespace: str) -> bool:
         with self._write_lock:
+            if self._wal is not None and not self._wal_replaying:
+                self._wal.append("delete_namespace", namespace)
             return self.storage.delete_namespace(namespace)
+
+    # ------------------------------------------------------------------ offload
+
+    def offload_namespace(self, namespace: str) -> bool:
+        """Move a cold namespace's device arrays to host memory, freeing the device for
+        hot ones.  Host-table reads keep working; the first search or write pages it back
+        in."""
+        ns = self.storage.namespace(namespace)
+        if ns is None:
+            return False
+        with self._write_lock:
+            return ns.offload()
+
+    def restore_namespace(self, namespace: str) -> bool:
+        ns = self.storage.namespace(namespace)
+        return ns.ensure_resident() if ns is not None else False
 
     def bulk_load(
         self,
@@ -138,7 +282,7 @@ class QueryProcessor:
         """High-throughput vectorized ingestion (no per-vector Python objects).
 
         Returns the list of uuids.  Batches bound peak host memory and the size of each
-        device scatter.
+        device scatter; each batch is logged (with the WAL on) once its ids are known.
         """
         values = np.ascontiguousarray(values, np.float32)
         n = values.shape[0]
@@ -147,11 +291,18 @@ class QueryProcessor:
             ns = self.storage.namespace(namespace, create=True)
             for lo in range(0, n, batch_rows):
                 hi = min(lo + batch_rows, n)
-                out.extend(ns.bulk_upsert(
+                got = ns.bulk_upsert(
                     values[lo:hi],
                     ids[lo:hi] if ids is not None else None,
                     metadatas[lo:hi] if metadatas is not None else None,
-                ))
+                )
+                if self._wal is not None and not self._wal_replaying:
+                    self._wal.append(
+                        "upsert", namespace, ids=got, values=values[lo:hi],
+                        metadatas=list(metadatas[lo:hi]) if metadatas is not None else None,
+                    )
+                    self._maybe_checkpoint_wal()
+                out.extend(got)
         return out
 
     # ------------------------------------------------------------------ search core
@@ -319,12 +470,17 @@ class QueryProcessor:
         residual codes has both programs: an int8 mirror's band is too wide for the light
         proof by construction, and an f32 mirror has one program (query_processor.py:
         568-588 of the JAX package)."""
-        if not (self.config.certify_exact and self.config.adaptive_certify):
-            return False
-        if (state.sweep_resid is None or state.mirror is None
-                or state.mirror.dtype != torch.bfloat16):
+        if not self._has_light(state.mirror, state.sweep_resid):
             return False
         return self._cert_mode.get((namespace, metric, masked), "light") == "light"
+
+    def _has_light(self, mirror, resid) -> bool:
+        """Whether a namespace with this sweep mirror and these residual codes is served
+        by the adaptive light/heavy switch: both certified programs exist only for a bf16
+        mirror with its residual codes."""
+        return (self.config.certify_exact and self.config.adaptive_certify
+                and resid is not None and mirror is not None
+                and mirror.dtype == torch.bfloat16)
 
     def _to_user_score(self, dist: np.ndarray, metric: str) -> np.ndarray:
         # reference convention (index.py:121-128): cosine -> 1 - dist; else raw distance
@@ -357,6 +513,7 @@ class QueryProcessor:
         than ``top_k`` results when fewer rows match."""
         if nprobe is not None:
             raise NotImplementedError("nprobe= is not ported yet (ROADMAP A13: IVF)")
+        t0 = time.perf_counter()
         m = canonical_metric(metric or self.config.default_metric)
         q_np = np.stack([np.asarray(q.values, np.float32).reshape(-1) for q in queries])
 
@@ -368,17 +525,23 @@ class QueryProcessor:
                     self._result_cache.move_to_end(cache_key)  # LRU touch
                     self._result_cache_hits += 1
             if hit is not None:
+                self.stats.record("cache_hit", (time.perf_counter() - t0) * 1e3)
                 # shallow-copy the result dicts so a caller mutating a hit can't
                 # poison later cache reads
                 return [[dict(r) for r in rs] for rs in hit]
 
+        t_dev = time.perf_counter()
         dist, slots, ns, tables = self._raw_search(q_np, namespace, top_k, m, filter)
+        self.stats.record_stage("device", (time.perf_counter() - t_dev) * 1e3)
         if ns is None:
             results: List[List[Dict[str, Any]]] = [[] for _ in queries]
         else:
             user = self._to_user_score(dist, m)
+            t_hyd = time.perf_counter()
             with trace_span("hydrate", namespace=namespace, batch=len(queries)):
                 results = self._hydrate_batch(user, dist, slots, tables)
+            self.stats.record_stage("hydrate", (time.perf_counter() - t_hyd) * 1e3)
+        self.stats.record("hybrid" if filter else "knn", (time.perf_counter() - t0) * 1e3)
         if cache_key is not None:
             # store a private copy: the caller owns the returned dicts
             with self._result_cache_lock:
@@ -447,15 +610,18 @@ class QueryProcessor:
         """All vectors within ``radius`` of the query (query_processor.py:828-858): one
         k = ``limit`` search, best first, then the radius in user-score units: l2/ip ->
         distance <= radius; cosine -> similarity >= radius."""
+        t0 = time.perf_counter()
         m = canonical_metric(metric or self.config.default_metric)
         q_np = np.asarray(query.values, np.float32).reshape(1, -1)
         dist, slots, ns, tables = self._raw_search(q_np, namespace, limit, m, filter)
-        if ns is None:
-            return []
-        hits = self._hydrate_batch(self._to_user_score(dist, m), dist, slots, tables)[0]
+        hits = [] if ns is None else self._hydrate_batch(
+            self._to_user_score(dist, m), dist, slots, tables)[0]
         if HIGHER_IS_BETTER[m]:
-            return [h for h in hits if h["score"] >= radius]
-        return [h for h in hits if h["score"] <= radius]
+            hits = [h for h in hits if h["score"] >= radius]
+        else:
+            hits = [h for h in hits if h["score"] <= radius]
+        self.stats.record("range", (time.perf_counter() - t0) * 1e3)
+        return hits
 
     def similarity_search(
         self,
@@ -473,9 +639,162 @@ class QueryProcessor:
     ) -> List[Dict[str, Any]]:
         """Pure metadata query (query_processor.py:871-882): the first ``limit`` matching
         vectors as result dicts with score 0.0."""
+        t0 = time.perf_counter()
         vecs = self.storage.query_by_metadata(filter, namespace)[:limit]
-        return [{"id": v.id, "values": v.values, "metadata": v.metadata, "score": 0.0}
-                for v in vecs]
+        out = [{"id": v.id, "values": v.values, "metadata": v.metadata, "score": 0.0}
+               for v in vecs]
+        self.stats.record("metadata", (time.perf_counter() - t0) * 1e3)
+        return out
+
+    # ------------------------------------------------------------------ operations
+
+    def _explain_dispatch(self, ns, namespace, metric, *, masked, fused_active):
+        """The dispatch label for explain_query, read from the store's attributes (an
+        empty or offloaded namespace neither raises nor pages in)."""
+        if ns is not None and self._has_light(ns._mirror, ns._sweep_resid):
+            return self._cert_mode.get((namespace, metric, masked), "light")
+        return "heavy" if fused_active else "exact-scan"
+
+    def explain_query(
+        self,
+        query: VectorDTO,
+        top_k: int = 10,
+        namespace: str = "default",
+        metric: Optional[str] = None,
+        filter: Optional[Dict[str, Any]] = None,
+    ) -> Dict[str, Any]:
+        """Describe the execution plan without running it.  The fused sweep engages on
+        any device here (the kernels' plain versions serve CPU tensors), so its
+        ``fused_active`` reads the config and the capacity alone (ROADMAP §C)."""
+        m = canonical_metric(metric or self.config.default_metric)
+        ns = self.storage.namespace(namespace)
+        live = ns.live_count if ns else 0
+        cap = ns.capacity if ns else 0
+        kb = min(self.config.bucket_k(min(top_k, max(live, 1))), max(cap, 1))
+        fused_active = (self.config.use_pallas and self.config.sweep_dtype is not None
+                        and cap >= 2 * SWEEP_TILE)
+        margin_mode = fused_active and not self.config.certify_exact
+        if self.config.certify_exact:
+            contract = (
+                "certified: per-query on-device proof that no pruned window can "
+                "hold a true neighbour; escalates to wider selection / exact scan"
+            )
+        elif margin_mode:
+            contract = (
+                "margin: fast selection tier returned unconditionally; exactness "
+                "rests on the empirical selection margin + benchmark recall gates "
+                "(certify_exact=False)"
+            )
+        else:
+            contract = "exact by construction (full scan / fused kernel disengaged)"
+        return {
+            "query_type": "hybrid" if filter else "knn",
+            "namespace": namespace,
+            "metric": m,
+            "higher_is_better": HIGHER_IS_BETTER[m],
+            "exact": not margin_mode,
+            "certified": bool(self.config.certify_exact),
+            "exactness_contract": contract,
+            "certificate_tiers": self.cert_tier_counts(namespace),
+            "certificate_dispatch": self._explain_dispatch(
+                ns, namespace, m, masked=bool(filter), fused_active=fused_active)
+            if self.config.certify_exact
+            else "margin" if margin_mode else "exact-scan",
+            "expected_recall": None if margin_mode else 1.0,
+            "live_vectors": live,
+            "scanned_slots": cap,
+            "k_requested": top_k,
+            "k_effective": min(top_k, live),
+            "k_kernel_bucket": kb,
+            "db_tile": min(self.config.db_tile, cap) if cap else 0,
+            "backend": getattr(knn_backend(self.config), "__name__", "exact_knn"),
+            "filter": filter,
+        }
+
+    def get_statistics(self) -> Dict[str, Any]:
+        out = self.stats.as_dict()
+        out["exactness"] = {
+            "certify_exact": bool(self.config.certify_exact),
+            "contract": "certified" if self.config.certify_exact else "margin",
+        }
+        with self._cert_lock:
+            if self._cert_tiers:
+                # which certificate tier served each batch, per namespace
+                out["exactness"]["tiers_by_namespace"] = {
+                    ns: dict(d) for ns, d in self._cert_tiers.items()
+                }
+        return out
+
+    def warmup(
+        self,
+        namespace: str = "default",
+        ks: Sequence[int] = (10, 100),
+        batches: Optional[Sequence[int]] = None,
+        metrics: Sequence[str] = ("l2", "cosine"),
+        detail: bool = False,
+        include_masked: Optional[bool] = None,
+    ):
+        """Run each search program a serving deployment will hit once before traffic.
+
+        Eager torch compiles nothing per shape, so what warmup takes off the first
+        queries is the build and load of the kernel library (on a CUDA device) and of the
+        native host runtime, the device's first launches, and each program's
+        query-independent prep, filed in the snapshot's prep dict as a search files it.
+        Each (batch bucket, k bucket, metric, variant) program is launched once, serially,
+        through the backend call the search makes, with one zero query in the bucket; no
+        data, version or capacity changes.  Returns the programs run, with ``detail=True``
+        a ``(count, {"b{B}_k{kb}_{metric}_{fast|masked}": seconds})`` pair.
+
+        ``batches`` defaults to every config batch bucket up to 512.  ``include_masked``:
+        also run the masked variant (tombstones or filters present); None = only when the
+        namespace carries tombstones."""
+        ns = self.storage.namespace(namespace)
+        if ns is None or ns.live_count == 0:
+            return (0, {}) if detail else 0
+        if self.device.type == "cuda":
+            from ..ops import _kernels
+
+            _kernels.library()
+        from ..native import available as native_available
+
+        native_available()
+        _hydrate_native()
+        if batches is None:
+            batches = [b for b in self.config.query_buckets if b <= 512] or [8]
+        state = ns.device_state()
+        if include_masked is None:
+            include_masked = state.live_count != state.high_water
+        variants = (None, state.high_water) if include_masked else (state.high_water,)
+        backend = knn_backend(self.config)
+        want_tier = bool(self.config.certify_exact) and state.mirror is not None
+        report: Dict[str, float] = {}
+        for m in metrics:
+            mc = canonical_metric(m)
+            for b in batches:
+                Bb = self.config.bucket_batch(b)
+                for k in ks:
+                    kb = min(self.config.bucket_k(min(k, state.live_count)),
+                             state.valid.shape[0])
+                    for live_prefix in variants:
+                        key = f"b{Bb}_k{kb}_{mc}_{'masked' if live_prefix is None else 'fast'}"
+                        if key in report:
+                            continue
+                        t0 = time.perf_counter()
+                        out = backend(
+                            torch.zeros((Bb, ns.dpad), dtype=torch.float32, device=self.device),
+                            state.data, state.valid, state.sq_norms,
+                            k=kb, metric=mc, db_tile=self.config.db_tile,
+                            live_prefix=live_prefix, report_tier=want_tier,
+                            mirror=state.mirror, sweep_err=state.sweep_err,
+                            sweep_resid=state.sweep_resid, sweep_rscale=state.sweep_rscale,
+                            sweep_err1=state.sweep_err1, sweep_rscale2=state.sweep_rscale2,
+                            sweep_light=self._use_light(namespace, state, mc,
+                                                        masked=live_prefix is None),
+                            sweep_prep=state.prep_cache, n_live=1,
+                        )
+                        fetch(out[0][:1, :1])   # a readback: the program ran to its end
+                        report[key] = round(time.perf_counter() - t0, 3)
+        return (len(report), report) if detail else len(report)
 
     # ------------------------------------------------------------------ helpers
     # (parity with reference query_processor.py:64-82)
@@ -493,3 +812,144 @@ class QueryProcessor:
 
     def get_storage_info(self) -> Dict[str, Any]:
         return self.storage.get_storage_info()
+
+    # ------------------------------------------------------------------ persistence
+
+    def _save_snapshot(self, path: str) -> List[str]:
+        """Rotate the WAL (if enabled) under the write lock, so every record the snapshot
+        covers is in a sealed segment, then write the snapshot.  Returns the sealed
+        segments: the CALLER prunes them once the snapshot is in its final,
+        recovery-visible place.  Writes landing in the fresh segment during the snapshot
+        replay idempotently."""
+        from .persist import save_storage
+
+        sealed: List[str] = []
+        if self._wal is not None:
+            with self._write_lock:
+                sealed = self._wal.rotate()
+        save_storage(self.storage, path)
+        return sealed
+
+    def save(self, path: str) -> None:
+        sealed = self._save_snapshot(path)
+        if self._wal is not None:
+            self._wal.prune(sealed)
+
+    @classmethod
+    def load(
+        cls,
+        path: str,
+        config: EngineConfig = DEFAULT_CONFIG,
+        wal_path: Optional[str] = None,
+        wal_fsync: bool = False,
+        wal_checkpoint_bytes: Optional[int] = None,
+        *,
+        device="cuda",
+    ) -> "QueryProcessor":
+        """Restore from a snapshot directory onto ``device``; with ``wal_path``, replay
+        the write-ahead log on top (everything after the snapshot) and keep logging to
+        it.  With no snapshot at ``path``, a ``<wal_path>/checkpoint`` written by WAL-only
+        checkpointing is loaded before the remaining segments replay."""
+        from .persist import load_storage, resolve_snapshot_dir
+
+        snap = resolve_snapshot_dir(path) or (path if os.path.isdir(path) else None)
+        if snap is None and wal_path:   # WAL-only recovery
+            snap = resolve_snapshot_dir(os.path.join(wal_path, "checkpoint"))
+        storage = None if snap is None else load_storage(snap, config, device=device)
+        qp = cls(config=config, device=device, storage=storage)
+        if wal_path is not None:
+            qp.replay_wal(wal_path)
+            qp.enable_wal(wal_path, fsync=wal_fsync, checkpoint_bytes=wal_checkpoint_bytes)
+        return qp
+
+    def replay_wal(self, wal_path: str) -> int:
+        """Re-apply logged mutations (idempotent); returns the records applied.  A
+        ``build_ivf`` or ``drop_ivf`` record raises: IVF is not ported yet (ROADMAP A13),
+        and skipping the record would drop an acknowledged index change."""
+        from .wal import WriteAheadLog
+
+        applied = 0
+        self._wal_replaying = True
+        try:
+            for rec in WriteAheadLog.replay(wal_path):
+                op, ns = rec["op"], rec["ns"]
+                if op == "upsert":
+                    self.bulk_load(rec["values"], ns,
+                                   ids=[uuid_mod.UUID(x) for x in rec["ids"]],
+                                   metadatas=rec.get("meta"))
+                elif op == "delete":
+                    self.delete([uuid_mod.UUID(x) for x in rec["ids"]], ns)
+                elif op == "delete_namespace":
+                    self.storage.delete_namespace(ns)
+                elif op in ("build_ivf", "drop_ivf"):
+                    raise NotImplementedError(
+                        f"WAL {wal_path}: a {op} record for namespace {ns!r} after {applied} "
+                        "applied records; IVF is not ported yet (ROADMAP A13)")
+                else:
+                    raise ValueError(f"WAL {wal_path}: unknown record op {op!r}")
+                applied += 1
+        finally:
+            self._wal_replaying = False
+        return applied
+
+    # the reference README's persistence surface, mapped onto snapshots
+
+    def save_index(self, path: str) -> None:
+        self.save(path)
+
+    def load_index(self, path: str) -> None:
+        from .persist import load_storage
+
+        self.storage = load_storage(path, self.config, device=self.device)
+
+    def create_backup(self, path: str) -> None:
+        self.save(path)
+
+    def restore_from_backup(self, path: str) -> None:
+        self.load_index(path)
+
+    def start_auto_snapshot(self, path: str, interval_s: float = 300.0) -> None:
+        """Periodic background checkpointing (recover with ``QueryProcessor.load(path)``).
+        Each snapshot is written to ``path + ".tmp"`` and swapped in by renames, so
+        ``path`` (or ``path + ".old"`` between the two renames) always holds a complete
+        one; skipped when no namespace changed."""
+        if self._snap_thread is not None:
+            raise RuntimeError("auto-snapshot already running")
+        self._snap_stop = threading.Event()
+
+        def versions() -> tuple:
+            return tuple(sorted((name, ns.version) for name in self.storage.list_namespaces()
+                                if (ns := self.storage.namespace(name)) is not None))
+
+        def loop():
+            last = None
+            while not self._snap_stop.wait(interval_s):
+                try:
+                    cur = versions()
+                    if cur == last:
+                        continue
+                    tmp, old = path + ".tmp", path + ".old"
+                    shutil.rmtree(tmp, ignore_errors=True)
+                    sealed = self._save_snapshot(tmp)
+                    shutil.rmtree(old, ignore_errors=True)
+                    if os.path.isdir(path):
+                        os.rename(path, old)
+                    os.rename(tmp, path)
+                    shutil.rmtree(old, ignore_errors=True)
+                    # only now is the snapshot recovery-visible: drop the segments it covers
+                    if self._wal is not None:
+                        self._wal.prune(sealed)
+                    last = cur
+                    self.stats.record("auto_snapshot", 0.0)
+                except Exception:  # keep checkpointing alive
+                    logger.exception("auto-snapshot failed")
+
+        self._snap_thread = threading.Thread(target=loop, daemon=True, name="auto-snapshot")
+        self._snap_thread.start()
+
+    def stop_auto_snapshot(self) -> None:
+        t = self._snap_thread
+        if t is not None:
+            self._snap_stop.set()
+            t.join(timeout=10)
+            self._snap_thread = None

@@ -57,6 +57,9 @@ def _make_fused_backend(certify: bool):
             return d, i, -1  # row-major margin kernel: no certificate
         return d, i
 
+    # the name explain_query reports (the JAX package names its fused backend
+    # "exact_knn_pallas")
+    fused_backend.__name__ = "exact_knn_fused"
     return fused_backend
 
 

@@ -3,5 +3,13 @@
 from .vector import Vector
 from .namespace import DeviceState, NamespaceStore
 from .storage import StorageEngine
+from .index import SearchIndex, SearchResult
 
-__all__ = ["Vector", "DeviceState", "NamespaceStore", "StorageEngine"]
+__all__ = [
+    "Vector",
+    "DeviceState",
+    "NamespaceStore",
+    "StorageEngine",
+    "SearchIndex",
+    "SearchResult",
+]

@@ -31,7 +31,11 @@ whatever the storage dtype.  Writes scatter into free slots (upsert by id overwr
 place); deletes clear the mask.  Compaction repacks live rows and is strictly
 per-namespace.
 
-Not ported yet: host offload.
+Offload (``offload`` / ``ensure_resident``): a cold namespace moves data, valid and
+sq_norms to host tensors and drops every device array, the mirror and the certificate
+arrays included, so its device memory is freed; host-table reads keep working, and the
+first search or write pages it back in, rebuilding the sweep arrays from the rows and
+publishing a new snapshot.  Neither bumps the version.
 """
 
 from __future__ import annotations
@@ -159,7 +163,7 @@ def _grow(t: torch.Tensor, rows: int) -> torch.Tensor:
 class NamespaceStore:
     """One namespace's vectors, device-resident and exactly searchable."""
 
-    def __init__(self, name: str, config: EngineConfig = DEFAULT_CONFIG, *, device):
+    def __init__(self, name: str, config: EngineConfig = DEFAULT_CONFIG, *, device="cuda"):
         check_supported(config)
         self.name = name
         self.config = config
@@ -201,6 +205,8 @@ class NamespaceStore:
         # None without a toolchain or once some metadata is not representable natively
         self.meta_columns = None
         self._meta_columns_tried = False
+        # host copies of data / valid / sq_norms while offloaded (offload()), else None
+        self._offloaded: Optional[Dict[str, torch.Tensor]] = None
 
     # ------------------------------------------------------------------ properties
 
@@ -214,6 +220,9 @@ class NamespaceStore:
         mirror and its certificate arrays when kept (an f32 mirror is data: counted
         once)."""
         if self._data is None:
+            # an offloaded namespace holds no device memory: count its host copy
+            if self._offloaded is not None:
+                return sum(t.numel() * t.element_size() for t in self._offloaded.values())
             return 0
         total = self.capacity * (self.dpad * self._data.element_size() + 1 + 4)
         for t in self._sweep_arrays():
@@ -235,10 +244,18 @@ class NamespaceStore:
             return self._data
         return self._mirror
 
+    @property
+    def ids(self) -> List[uuid_mod.UUID]:
+        return list(self._id_to_slot.keys())
+
     def device_state(self) -> DeviceState:
         state = self._state  # single attribute read = atomic under the GIL
         if state is None:
-            raise ValueError(f"namespace {self.name!r} is empty")
+            if self._offloaded is not None:
+                self.ensure_resident()
+                state = self._state
+            if state is None:
+                raise ValueError(f"namespace {self.name!r} is empty")
         return state
 
     def _publish(self) -> None:
@@ -251,6 +268,42 @@ class NamespaceStore:
             prep_cache={},
         )
 
+    # ------------------------------------------------------------------ offload
+
+    @property
+    def offloaded(self) -> bool:
+        return self._offloaded is not None
+
+    def offload(self) -> bool:
+        """Move data, valid and sq_norms to host tensors and drop every device array of
+        the namespace (the mirror, the residual codes and the per-row vectors are rebuilt
+        from the rows on the way back).  Returns False if there is nothing to offload."""
+        with self._lock:
+            if self._data is None or self._offloaded is not None:
+                return False
+            self._offloaded = {"data": self._data.cpu(), "valid": self._valid.cpu(),
+                               "sq_norms": self._sq_norms.cpu()}
+            self._data = self._valid = self._sq_norms = None
+            self._mirror = self._sweep_err = self._sweep_resid = None
+            self._sweep_rscale = self._sweep_err1 = self._sweep_rscale2 = None
+            self._state = None   # readers page the namespace in through device_state()
+            return True
+
+    def ensure_resident(self) -> bool:
+        """Page an offloaded namespace back in (False when it is resident): upload the
+        host copies, rebuild the sweep arrays from the rows, publish a new snapshot."""
+        with self._lock:
+            if self._offloaded is None:
+                return False
+            host = self._offloaded
+            self._data = host["data"].to(self.device)
+            self._valid = host["valid"].to(self.device)
+            self._sq_norms = host["sq_norms"].to(self.device)
+            self._build_sweep()
+            self._offloaded = None
+            self._publish()
+            return True
+
     # ------------------------------------------------------------------ allocation
 
     def _ensure_dim(self, dim: int) -> None:
@@ -261,6 +314,26 @@ class NamespaceStore:
             raise ValueError(
                 f"dimension mismatch in namespace {self.name!r}: store is {self.dim}-d, got {dim}-d"
             )
+
+    def check_write(self, dims: Sequence[int], ids: Sequence[uuid_mod.UUID]) -> None:
+        """Raise the error an upsert of rows of these dims and ids would raise (a
+        dimension mismatch, or growth past max_capacity), changing nothing: the processor
+        checks a write before it logs it."""
+        with self._lock:
+            dim = self.dim if self.dim is not None else (dims[0] if dims else None)
+            for d in dims:
+                if d != dim:
+                    raise ValueError(
+                        f"dimension mismatch in namespace {self.name!r}: store is "
+                        f"{dim}-d, got {d}-d"
+                    )
+            fresh = sum(1 for vid in ids if vid not in self._id_to_slot)
+            needed = self._high_water + max(0, fresh - len(self._free))
+            if needed > self.capacity and (
+                    self.config.round_capacity(needed) > self.config.max_capacity):
+                raise MemoryError(
+                    f"namespace {self.name!r} would exceed max_capacity={self.config.max_capacity}"
+                )
 
     # ------------------------------------------------------------------ sweep mirror
 
@@ -407,13 +480,10 @@ class NamespaceStore:
         if not vectors:
             return
         with self._lock:
+            if self._offloaded is not None:
+                self.ensure_resident()
+            self.check_write([v.dim for v in vectors], [v.id for v in vectors])
             self._ensure_dim(vectors[0].dim)
-            for v in vectors:
-                if v.dim != self.dim:
-                    raise ValueError(
-                        f"dimension mismatch in namespace {self.name!r}: store is "
-                        f"{self.dim}-d, got {v.dim}-d"
-                    )
             fresh = sum(1 for v in vectors if v.id not in self._id_to_slot)
             self._ensure_capacity(fresh)
 
@@ -456,6 +526,8 @@ class NamespaceStore:
         if n == 0:
             return []
         with self._lock:
+            if self._offloaded is not None:
+                self.ensure_resident()
             self._ensure_dim(int(values.shape[1]))
             if ids is None:
                 ids = [uuid_mod.uuid4() for _ in range(n)]
@@ -490,6 +562,8 @@ class NamespaceStore:
     def delete(self, ids: Sequence[uuid_mod.UUID]) -> List[uuid_mod.UUID]:
         """Tombstone-delete; returns the ids actually removed."""
         with self._lock:
+            if self._offloaded is not None:
+                self.ensure_resident()
             slots, removed = [], []
             for vid in ids:
                 slot = self._id_to_slot.pop(vid, None)
@@ -527,6 +601,8 @@ class NamespaceStore:
         (namespace.py:786): a float64 sum cast to f32, so on a bf16 store they become
         ||bf16(row)||^2."""
         with self._lock:
+            if self._offloaded is not None:
+                self.ensure_resident()
             live = sorted(self._id_to_slot.items(), key=lambda kv: kv[1])
             n = len(live)
             new_ids = [vid for vid, _ in live]
@@ -615,12 +691,14 @@ class NamespaceStore:
 
     def snapshot_arrays(self) -> Dict[str, Any]:
         """Host-side snapshot in the JAX package's format (live rows in slot order,
-        string ids, metadata): one device->host copy of the live rows."""
+        string ids, metadata): one device->host copy of the live rows, or a read of the
+        host copy while offloaded (no page-in)."""
         with self._lock:
             live = sorted(self._id_to_slot.items(), key=lambda kv: kv[1])
-            if self._data is not None and live:
-                slots = torch.as_tensor([s for _, s in live], dtype=torch.int64).to(self.device)
-                rows = self._data.index_select(0, slots)[:, : self.dim].float().cpu().numpy()
+            src = self._data if self._offloaded is None else self._offloaded["data"]
+            if src is not None and live:
+                slots = torch.as_tensor([s for _, s in live], dtype=torch.int64).to(src.device)
+                rows = src.index_select(0, slots)[:, : self.dim].float().cpu().numpy()
             else:
                 rows = np.zeros((0, self.dim or 0), np.float32)
             return {
@@ -630,6 +708,24 @@ class NamespaceStore:
                 "values": rows,
                 "metadata": [self._slot_meta[s] for _, s in live],
             }
+
+    def load_snapshot(self, snap: Dict[str, Any]) -> "NamespaceStore":
+        """Ingest a snapshot payload (``snapshot_arrays``' dict, or one namespace of a
+        snapshot directory) into this fresh store through ``bulk_upsert``."""
+        if len(snap["ids"]):
+            self.bulk_upsert(
+                np.asarray(snap["values"], np.float32),
+                [uuid_mod.UUID(x) for x in snap["ids"]],
+                snap["metadata"],
+            )
+        elif snap.get("dim"):
+            self._ensure_dim(int(snap["dim"]))
+        return self
+
+    @classmethod
+    def from_snapshot(cls, snap: Dict[str, Any], config: EngineConfig = DEFAULT_CONFIG,
+                      *, device="cuda") -> "NamespaceStore":
+        return cls(snap["name"], config, device=device).load_snapshot(snap)
 
 
 # rows per float64 chunk of compaction's norm sums

@@ -24,7 +24,7 @@ from .vector import Vector
 class StorageEngine:
     """Dict of NamespaceStores; all vector payloads live on ``device``."""
 
-    def __init__(self, config: EngineConfig = DEFAULT_CONFIG, *, device):
+    def __init__(self, config: EngineConfig = DEFAULT_CONFIG, *, device="cuda"):
         check_supported(config)
         self.config = config
         self.device = torch.device(device)
@@ -72,6 +72,15 @@ class StorageEngine:
     def write_vectors(self, vectors: Sequence[Vector], namespace: str = "default") -> None:
         if vectors:
             self.namespace(namespace, create=True).upsert(list(vectors))
+
+    def check_write(self, dims: Sequence[int], ids: Sequence[uuid_mod.UUID],
+                    namespace: str = "default") -> None:
+        """Raise what writing rows of these dims and ids to ``namespace`` would raise,
+        changing nothing (a missing namespace is checked as a fresh one, not created)."""
+        ns = self._namespaces.get(namespace)
+        if ns is None:
+            ns = NamespaceStore(namespace, self.config, device=self.device)
+        ns.check_write(dims, ids)
 
     def delete(self, vector_id: uuid_mod.UUID, namespace: str = "default") -> bool:
         return bool(self.delete_vectors([vector_id], namespace))
@@ -152,7 +161,7 @@ class StorageEngine:
 
     def get_storage_info(self) -> Dict[str, Any]:
         # same shape as the reference (storage_engine_in_memory.py:61-69), extended with
-        # the device and, on CUDA, the caching allocator's counters
+        # the device, the offloaded namespaces and, on CUDA, the allocator's counters
         per_ns = {name: ns.live_count for name, ns in self._namespaces.items()}
         info = {
             "storage_type": f"torch_{self.device.type}",
@@ -162,11 +171,16 @@ class StorageEngine:
             "namespaces": list(self._namespaces.keys()),
             "vectors_per_namespace": per_ns,
             "namespace_count": len(self._namespaces),
+            "offloaded_namespaces": [
+                name for name, ns in self._namespaces.items() if ns.offloaded
+            ],
         }
         if self.device.type == "cuda":
+            stats = torch.cuda.memory_stats(self.device)
             info["device_memory"] = {
-                "bytes_in_use": torch.cuda.memory_allocated(self.device),
-                "bytes_reserved": torch.cuda.memory_reserved(self.device),
-                "peak_bytes_in_use": torch.cuda.max_memory_allocated(self.device),
+                "bytes_in_use": stats.get("allocated_bytes.all.current", 0),
+                "bytes_limit": torch.cuda.get_device_properties(self.device).total_memory,
+                "peak_bytes_in_use": stats.get("allocated_bytes.all.peak", 0),
+                "bytes_reserved": stats.get("reserved_bytes.all.current", 0),
             }
         return info

@@ -283,14 +283,19 @@ def test_repeated_id_in_one_write_batch_keeps_the_last_write(path):
 
 
 def test_package_never_imports_jax():
-    """Every module of the port (the filters, the native loader and the probes included)
-    imports neither jax nor the JAX package, not even its framework-free modules."""
+    """Every module of the port (the filters, the native loader, the probes, and the WAL,
+    snapshots, utilities, protocols, index and compat layer copied or ported from the JAX
+    package included) imports neither jax nor the JAX package, not even its
+    framework-free modules."""
     code = (
         "import importlib, pkgutil, sys, mlvectordb_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert {'mlvectordb_tpu_torch.filters', 'mlvectordb_tpu_torch.native',\n"
-        "        'mlvectordb_tpu_torch.engine.filters'} <= set(mods), mods\n"
+        "want = ['filters', 'native', 'engine.filters', 'engine.wal', 'engine.persist',\n"
+        "        'utils.tracing', 'utils.health', 'utils.metrics', 'utils.capacity',\n"
+        "        'interfaces.index', 'interfaces.query_processor',\n"
+        "        'interfaces.storage_engine', 'store.index', 'compat']\n"
+        "assert {'mlvectordb_tpu_torch.' + m for m in want} <= set(mods), mods\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'mlvectordb_tpu.'))\n"
         "       or m == 'mlvectordb_tpu']\n"
         "sys.exit(1 if bad else 0)"

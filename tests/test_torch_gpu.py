@@ -963,3 +963,137 @@ def test_filtered_searches_race_writes_on_cuda(cuda):
     from .test_torch_concurrency import _race
 
     _race({"sweep_dtype": "bfloat16"}, cuda, n0=8200)
+
+
+# ---- durability and operations on the card (chip_smoke.py phase 16 at a small size) ----
+
+_DUR_N, _DUR_D = 20_000, 128
+
+
+def _dur_store(cuda):
+    """A bf16-mirror namespace of 20,000 gaussian rows on the card, 200 of them deleted
+    (capacity 32,768: the certified sweep serves it)."""
+    rng = np.random.default_rng(16)
+    x = rng.standard_normal((_DUR_N, _DUR_D), dtype=np.float32)
+    qp = QueryProcessor(EngineConfig(sweep_dtype="bfloat16"), device=cuda)
+    ids = qp.bulk_load(x, "ns")
+    qp.delete(ids[:200], "ns")
+    q = [VectorDTO(v) for v in rng.standard_normal((128, _DUR_D), dtype=np.float32)]
+    return rng, x, ids, qp, q
+
+
+def _answers(qp, q, k):
+    return [{r["id"]: r["score"] for r in rs} for rs in qp.find_similar_batch(q, k, "ns", "l2")]
+
+
+def _same_answers(a, b):
+    for ra, rb in zip(a, b):
+        assert ra.keys() == rb.keys()
+        np.testing.assert_allclose([rb[i] for i in ra], list(ra.values()), rtol=1e-6)
+
+
+def _oracle_sets(rows, q, k):
+    """Each query's k nearest row indices (float64 brute force, l2)."""
+    qq = np.stack([v.values for v in q]).astype(np.float64)
+    r = rows.astype(np.float64)
+    d = (qq * qq).sum(1)[:, None] + (r * r).sum(1)[None, :] - 2 * qq @ r.T
+    return [set(np.argsort(row, kind="stable")[:k].tolist()) for row in d]
+
+
+def test_snapshot_round_trip_on_cuda(cuda, tmp_path):
+    _, x, ids, qp, q = _dur_store(cuda)
+    want = {k: _answers(qp, q, k) for k in (10, 100)}
+    qp.save(str(tmp_path / "snap"))
+    loaded = QueryProcessor.load(str(tmp_path / "snap"), qp.config, device=cuda)
+    src, dst = qp.storage.namespace("ns"), loaded.storage.namespace("ns")
+    assert dst.nbytes == src.nbytes and dst.live_count == src.live_count == _DUR_N - 200
+    assert dst.device_state().data.device.type == "cuda"
+    before = (fused_knn_t._window_mins_t.launches, fused_knn_t._gather_score.launches)
+    x0 = dict(loaded.transfer_counts)
+    got10 = _answers(loaded, q, 10)
+    assert (loaded.transfer_counts["h2d"] - x0["h2d"],
+            loaded.transfer_counts["d2h"] - x0["d2h"]) == (1, 1)
+    assert loaded.cert_tier_counts("ns") == {"light_fast": 1}
+    assert (fused_knn_t._window_mins_t.launches > before[0]
+            and fused_knn_t._gather_score.launches > before[1])
+    _same_answers(want[10], got10)
+    _same_answers(want[100], _answers(loaded, q, 100))
+    live = np.arange(200, _DUR_N)
+    for rs, want_rows in zip(got10, _oracle_sets(x[live], q, 10)):
+        assert set(rs) == {ids[200 + i] for i in want_rows}
+
+
+def test_wal_crash_recovery_on_cuda(cuda, tmp_path):
+    rng, x, ids, qp, q = _dur_store(cuda)
+    snap, wal = str(tmp_path / "snap"), str(tmp_path / "wal")
+    qp.save(snap)
+    live = QueryProcessor.load(snap, qp.config, wal_path=wal, wal_fsync=True, device=cuda)
+    new = rng.standard_normal((1000, _DUR_D), dtype=np.float32)
+    added = []
+    for lo in range(0, 1000, 100):
+        added += live.upsert_many([VectorDTO(v, {"b": lo}) for v in new[lo:lo + 100]], "ns")
+    gone = ids[200:300]
+    assert len(live.delete(gone, "ns")) == 100
+    over = rng.standard_normal((10, _DUR_D), dtype=np.float32)
+    live.upsert_many([VectorDTO(v, {"over": True}, id=ids[500 + i]) for i, v in enumerate(over)],
+                     "ns")
+    want = _answers(live, q, 10)
+    del live   # abandoned: no save, no close
+    rec = QueryProcessor.load(snap, qp.config, wal_path=wal, device=cuda)
+    assert rec.get_namespace_count("ns") == _DUR_N - 300 + 1000
+    for v in added[::37]:
+        got = rec.storage.read(v.id, "ns")
+        np.testing.assert_array_equal(got.values, v.values)
+        assert got.metadata == v.metadata
+    for i, v in enumerate(over):
+        np.testing.assert_array_equal(rec.storage.read(ids[500 + i], "ns").values, v)
+    assert all(rec.storage.read(vid, "ns") is None for vid in gone)
+    _same_answers(want, _answers(rec, q, 10))
+
+
+def test_offload_frees_device_memory_on_cuda(cuda):
+    _, _, _, qp, q = _dur_store(cuda)
+    want = _answers(qp, q, 10)
+    ns = qp.storage.namespace("ns")
+    nbytes = ns.nbytes
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    assert qp.offload_namespace("ns")
+    assert before - torch.cuda.memory_allocated() >= 0.9 * nbytes
+    assert qp.get_storage_info()["offloaded_namespaces"] == ["ns"]
+    qp._result_cache.clear()
+    _same_answers(want, _answers(qp, q, 10))
+    assert not ns.offloaded and ns.nbytes == nbytes
+
+
+def test_operations_on_cuda(cuda, tmp_path):
+    from mlvectordb_tpu_torch.utils.capacity import plan_capacity
+    from mlvectordb_tpu_torch.utils.health import deep_health
+    from mlvectordb_tpu_torch.utils.metrics import render_metrics
+    from mlvectordb_tpu_torch.utils.tracing import PROFILER, RECORDER
+
+    _, _, _, qp, q = _dur_store(cuda)
+    before = (fused_knn_t._window_mins_t.launches, fused_knn_t._gather_score.launches)
+    count, report = qp.warmup("ns", detail=True)
+    assert count == len(report) == 3 * 2 * 2 * 2     # buckets x k x metric x variant
+    assert fused_knn_t._window_mins_t.launches - before[0] >= count
+    qp.find_similar_batch(q, 10, "ns")
+    assert qp.get_statistics()["exactness"]["tiers_by_namespace"] == {"ns": {"light_fast": 1}}
+    assert qp.explain_query(q[0], 10, "ns")["certificate_dispatch"] == "light"
+    health = deep_health(qp)
+    assert health["status"] == "healthy" and health["device"]["platform"] == "gpu"
+    assert health["device"]["devices"][0] == torch.cuda.get_device_name(0)
+    text = render_metrics(qp, RECORDER)
+    assert 'vectordb_device_memory_bytes{kind="in_use"}' in text
+    plan = plan_capacity(100_000_000, 1536, EngineConfig(dtype="bfloat16",
+                                                         sweep_dtype="bfloat16"))
+    assert plan.hbm_per_chip == torch.cuda.get_device_properties(0).total_memory
+    PROFILER.start(str(tmp_path / "prof"))
+    qp.find_similar_batch(q[:8], 10, "ns", "cosine")
+    path = PROFILER.stop()
+    import json
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)
+    assert any(e.get("name") == "knn_kernel" for e in events)
