@@ -129,8 +129,28 @@ one line per phase:
      paging it in (ms) with the same answers and nbytes; warmup(detail=True) with the
      kernel launches it caused, explain_query, get_statistics, deep_health, render_metrics,
      plan_capacity for 100M x 1536 bf16 against the card's memory, and a PROFILER trace
-     around one search.
-Any failure raises, so the process exits non-zero.  The last two lines are the kernels'
+     around one search;
+ 17. IVF (store/ivf.py, ops/kmeans.py: torch ops, no hand-written kernel) at the JAX
+     package's SIFT-1M stand-in: 1,048,576 x 128 clustered rows and 128 held-out queries
+     (synthesize_clustered, copied from benchmarks/datasets.py, seed 7), EngineConfig()
+     on the card; build_ivf with the defaults (C = 2048, L = 1128), the k-means, the
+     assignment, the host layout and the device scatter timed apart, then again with
+     spill=2; l2 k=10 at nprobe 1, 4, 16, 64 and 2048: per query the recall@10 against a
+     float64 oracle never falls as nprobe grows, transfers (1, 1) per search, the full
+     probe exact (the oracle's rows, ties within f32 rounding) as the exact path is; ms per
+     batch (CUDA events around the probe scan and its copy to the host); a 2^16-row slice
+     built on the card and on the CPU: centroids within 1e-5, the same assignment, the
+     same ids at nprobe 4; 1,000 upserts and 1,000 deletes through the engine followed by
+     the index; a snapshot with its IVF entry saved and loaded on the card, the same ids;
+ 18. the server: RestAPI over phase 17's processor in aiohttp's in-process test server
+     (/health?deep=1 naming the card, an insert and a delete, /search/batch of the 128
+     queries equal to the direct call and launching B4/B5, /ivf/build then nprobe=16
+     equal to the direct call, 32 concurrent searches through --auto-batch's
+     micro-batcher equal to the direct calls, the HTTP round trip against the direct call,
+     median of 5), and gRPC Search and BatchSearch where grpc imports.  Where aiohttp or
+     pydantic does not import, phase 18 prints one line naming it and does not run.
+Any failure raises, so the process exits non-zero.  Before them, one JSON line holds the
+IVF and server records; the last two lines are the kernels'
 JSON record (with each kernel's bound: bytes over 3.35 TB/s or operations over the peak
 for their type, whichever is larger; for the sweep kernel and B4/B5 the products of the
 live queries, with the bound at the whole padded batch and the time of a launch over every
@@ -2471,6 +2491,428 @@ def run_durability(qps, ids, db_np, q_np, oracle, dead, gpu):
     return launches, figs
 
 
+# ---- phase 17: IVF at the SIFT-1M stand-in ----------------------------------------------
+
+N_IVF, D_IVF, NQ_IVF = 1 << 20, 128, 128
+NPROBES = (1, 4, 16, 64, 2048)
+N_SLICE = 1 << 16
+N_IVF_WRITES = 1_000
+IVF_DIR = Path(__file__).resolve().parent / "build" / "ivf"
+
+
+def synthesize_clustered(n, dim, n_queries, *, n_clusters, within_scale, anisotropy=4.0,
+                         zipf_s=1.2, normalize=False, seed=7):
+    """Anisotropic Gaussian-mixture corpus with heavy-tailed (Zipf) cluster sizes, and
+    queries drawn as perturbations of held-out corpus points: a copy of
+    benchmarks/datasets.py:88-131 (the JAX package's SIFT-1M stand-in), the same draws."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((n_clusters, dim)).astype(np.float32) * 4.0
+    scales = within_scale * (
+        1.0 + (anisotropy - 1.0) * (rng.random((n_clusters, dim)) ** 4)
+    ).astype(np.float32)
+    w = (1.0 / np.arange(1, n_clusters + 1) ** zipf_s)
+    w /= w.sum()
+    counts = rng.multinomial(n + n_queries, w)
+    rows = np.empty((n + n_queries, dim), np.float32)
+    pos = 0
+    for c, cnt in enumerate(counts):
+        if cnt == 0:
+            continue
+        rows[pos : pos + cnt] = centers[c] + scales[c] * rng.standard_normal(
+            (cnt, dim)
+        ).astype(np.float32)
+        pos += cnt
+    rng.shuffle(rows)
+    data, held = rows[:n], rows[n:]
+    queries = held + 0.1 * within_scale * rng.standard_normal(held.shape).astype(np.float32)
+    if normalize:
+        data = data / np.maximum(np.linalg.norm(data, axis=1, keepdims=True), 1e-12)
+        queries = queries / np.maximum(np.linalg.norm(queries, axis=1, keepdims=True), 1e-12)
+    return {"data": data, "queries": queries}
+
+
+class _IvfOracle:
+    """float64 l2 distances of the queries to every corpus row, on the card: the k-th
+    distance per query, and a tolerance of f32 cancellation (16 ulps of qn + max sqn, as
+    _check_kdists) for the rows a search returns."""
+
+    def __init__(self, x, q):
+        self.x64 = torch.from_numpy(x).cuda().double()
+        q64 = torch.from_numpy(q).cuda().double()
+        sq = (self.x64 * self.x64).sum(1)
+        self.d = (q64 * q64).sum(1)[:, None] + sq[None, :] - 2.0 * (q64 @ self.x64.T)
+        self.top = torch.topk(self.d, K, dim=1, largest=False)
+        self.kth = self.top.values[:, -1]
+        self.tol = 16 * 2.0 ** -24 * ((q64 * q64).sum(1) + sq.max())
+        self.sets = [set(r) for r in self.top.indices.cpu().tolist()]
+
+    def hits(self, rows):
+        """[nq] returned rows within the k-th distance (ties at f32 rounding count)."""
+        out = []
+        for i, rs in enumerate(rows):
+            d = self.d[i, torch.as_tensor(rs, dtype=torch.int64, device="cuda")]
+            out.append(int((d <= self.kth[i] + self.tol[i]).sum()))
+        return out
+
+    def exact(self, rows, label):
+        """Each query's rows are the oracle's k nearest: the same set, or (ties) every row
+        within the k-th distance; raises otherwise.  Returns how many sets differ."""
+        differ = sum(set(rs) != s for rs, s in zip(rows, self.sets))
+        if any(len(rs) != K for rs in rows) or min(self.hits(rows)) < K:
+            raise AssertionError(f"{label}: not the k nearest rows of the float64 oracle")
+        return differ
+
+
+def _ivf_rows(results, row_of):
+    return [[row_of[r["id"]] for r in rs] for rs in results]
+
+
+def _ivf_search_ms(qp, ns, q_np, nprobe, runs):
+    """Device ms of one IVF search of the batch (the index's probe scan at the engine's
+    k_fetch, ending in its copy to the host), CUDA events, mean of ``runs`` after a warm
+    call."""
+    ivf = ns.ivf
+    q = torch.zeros((q_np.shape[0], ns.dpad), dtype=torch.float32, device="cuda")
+    q[:, : ns.dim] = torch.from_numpy(q_np).cuda()
+    k_fetch = min(K * ivf.spill, ivf.C * ivf.L)
+    return _time_ms(lambda: fused_knn_t.fetch(*ivf.search(q, k_fetch, "l2", nprobe)[:2]),
+                    iters=runs)
+
+
+def _ivf_curve(qp, ns, qs, q_np, oracle, row_of, label):
+    """Recall@10 per nprobe (per query never falling as nprobe grows), ms per batch,
+    transfers (1, 1) per search; the full probe exact.  Returns (curve, ms, rows at C)."""
+    curve, ms, prev, full = {}, {}, None, None
+    for nprobe in NPROBES:
+        x0 = dict(qp.transfer_counts)
+        res = qp.find_similar_batch(qs, K, "ivf", "l2", nprobe=nprobe)
+        xfer = (qp.transfer_counts["h2d"] - x0["h2d"], qp.transfer_counts["d2h"] - x0["d2h"])
+        if xfer != (1, 1):
+            raise AssertionError(f"{label} nprobe={nprobe}: transfers {xfer}")
+        rows = _ivf_rows(res, row_of)
+        hits = oracle.hits(rows)
+        if prev is not None and any(h < p for h, p in zip(hits, prev)):
+            raise AssertionError(f"{label}: a query's recall fell from nprobe "
+                                 f"{NPROBES[NPROBES.index(nprobe) - 1]} to {nprobe}")
+        prev = hits
+        curve[nprobe] = sum(hits) / (K * len(hits))
+        ms[nprobe] = _ivf_search_ms(qp, ns, q_np, nprobe, 2 if nprobe > 64 else 10)
+        if nprobe == NPROBES[-1]:
+            full = rows
+    differ = oracle.exact(full, f"{label} nprobe={NPROBES[-1]}")
+    print(f"  {label}: recall@10 {curve}; ms per batch {ms}; transfers (1, 1) each; the "
+          f"full probe exact ({differ} sets differ from the oracle's by ties)")
+    return curve, ms, full
+
+
+def _timed_build(qp, spill, label):
+    """build_ivf on the namespace, timed to the card's synchronisation, and its k-means,
+    assignment, host layout and device scatter as the build's own spans record them in
+    RECORDER (host spans: the scatter's device work ends in the rest)."""
+    t_start = time.time()
+    t0 = time.perf_counter()
+    stats = qp.build_ivf("ivf", spill=spill)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    spans = {e["name"]: e["elapsed_ms"] / 1e3 for e in RECORDER.recent()
+             if e["start"] >= t_start and e["name"].startswith("ivf_build.")}
+    secs = {key: spans[f"ivf_build.{key}"] for key in ("kmeans", "assign", "layout", "scatter")}
+    secs["rest"] = total - sum(secs.values())
+    secs["build_ivf"] = total
+    print(f"  {label}: build_ivf {total:.3f} s: k-means {secs['kmeans']:.3f} s, assignment "
+          f"{secs['assign']:.3f} s, host layout {secs['layout']:.3f} s, device scatter "
+          f"{secs['scatter']:.3f} s (its launch), the rest {secs['rest']:.3f} s; {stats}")
+    return stats, secs
+
+
+def run_ivf(gpu):
+    """Phase 17 (see the module docstring).  Returns its record and the processor, whose
+    namespace phase 18 serves."""
+    t0 = time.perf_counter()
+    syn = synthesize_clustered(N_IVF, D_IVF, 1000, n_clusters=2000, within_scale=0.9,
+                               anisotropy=6.0, seed=7)
+    x, q_np = syn["data"], syn["queries"][:NQ_IVF]
+    print(f"  corpus {x.shape} clustered (n_clusters 2000, within_scale 0.9, anisotropy "
+          f"6.0, seed 7) and {len(q_np)} held-out queries in {time.perf_counter() - t0:.1f} s")
+    qp = QueryProcessor(EngineConfig(), device="cuda")
+    t0 = time.perf_counter()
+    ids = qp.bulk_load(x, "ivf")
+    torch.cuda.synchronize()
+    print(f"  bulk_load: {len(ids)} rows in {time.perf_counter() - t0:.2f} s")
+    ns = qp.storage.namespace("ivf")
+    row_of = {vid: i for i, vid in enumerate(ids)}
+    oracle = _IvfOracle(x, q_np)
+    qs = [VectorDTO(v) for v in q_np]
+    rec = {"gpu": gpu, "rows": N_IVF, "dim": D_IVF, "queries": NQ_IVF, "k": K}
+
+    # the exact path, for the full probe's comparison
+    exact_rows = _ivf_rows(qp.find_similar_batch(qs, K, "ivf", "l2"), row_of)
+    oracle.exact(exact_rows, "exact find_similar_batch")
+    stats1, secs1 = _timed_build(qp, 1, "spill 1")
+    if (stats1["clusters"], stats1["cluster_capacity"]) != (2048, 1128):
+        raise AssertionError(f"C, L = {stats1['clusters']}, {stats1['cluster_capacity']}")
+    curve1, ms1, full1 = _ivf_curve(qp, ns, qs, q_np, oracle, row_of, "spill 1")
+    same = sum(set(a) == set(b) for a, b in zip(full1, exact_rows))
+    print(f"  full probe against the exact path: {same} of {NQ_IVF} sets equal, the rest "
+          f"ties within f32 rounding (both within the oracle's k-th distance)")
+    t0 = time.perf_counter()
+    exact_ms = statistics.median(_engine_wall(qp, q_np, namespace="ivf"))
+    print(f"  exact engine wall (B4/B5 path) median of 5: {exact_ms:.4f} ms "
+          f"({time.perf_counter() - t0:.1f} s)")
+    stats2, secs2 = _timed_build(qp, 2, "spill 2")
+    curve2, ms2, _ = _ivf_curve(qp, ns, qs, q_np, oracle, row_of, "spill 2")
+    rec.update({"spill1": {"stats": stats1, "seconds": secs1, "recall": curve1, "ms": ms1},
+                "spill2": {"stats": stats2, "seconds": secs2, "recall": curve2, "ms": ms2},
+                "exact_engine_wall_ms": exact_ms})
+
+    # the card's index against a CPU build of the same rows and seed
+    t0 = time.perf_counter()
+    built = {}
+    for dev in ("cuda", "cpu"):
+        sub = QueryProcessor(EngineConfig(), device=dev)
+        sub.bulk_load(x[:N_SLICE], "slice", ids=ids[:N_SLICE])
+        sub.build_ivf("slice", seed=0)
+        res = sub.find_similar_batch(qs, K, "slice", "l2", nprobe=4)
+        built[dev] = (sub.storage.namespace("slice").ivf, [[r["id"] for r in rs] for rs in res])
+    (ic, rc), (ih, rh) = built["cuda"], built["cpu"]
+    rel = float((ic.centroids.cpu() - ih.centroids).abs().max() / ih.centroids.abs().max())
+    same_slots = ic._id_to_slot == ih._id_to_slot
+    print(f"  card vs CPU build of {N_SLICE} rows (C {ih.C}, L {ih.L}): centroids within "
+          f"{rel:.3e} relative, assignment equal {same_slots}, ids at nprobe 4 equal "
+          f"{rc == rh} ({time.perf_counter() - t0:.1f} s)")
+    if rel > 1e-5 or not same_slots or rc != rh:
+        raise AssertionError("the card's IVF build differs from the CPU's")
+    rec["card_vs_cpu"] = {"rows": N_SLICE, "centroid_rel": rel, "assignment_equal": same_slots,
+                          "ids_nprobe4_equal": rc == rh}
+    del built, ic, ih, sub
+
+    # the index follows upserts and deletes through the engine
+    rng = np.random.default_rng(71)
+    new = x[rng.choice(N_IVF, N_IVF_WRITES, replace=False)] + rng.standard_normal(
+        (N_IVF_WRITES, D_IVF)).astype(np.float32)
+    t0 = time.perf_counter()
+    vs = qp.upsert_many([VectorDTO(v, {"new": i}) for i, v in enumerate(new)], "ivf")
+    up_s = time.perf_counter() - t0
+    gone = [ids[i] for i in rng.choice(N_IVF, N_IVF_WRITES, replace=False)]
+    t0 = time.perf_counter()
+    removed = qp.delete(gone, "ivf")
+    del_s = time.perf_counter() - t0
+    ivf = ns.ivf
+    if (len(removed) != N_IVF_WRITES or ivf.live_count != ns.live_count
+            or any(v.id not in ivf._id_to_slot for v in vs)
+            or any(g in ivf._id_to_slot for g in gone)):
+        raise AssertionError("the index does not hold the upserted ids or still holds deleted")
+    # every copy of a new id holds its row; every copy of a deleted id is invalid
+    g = ivf._gen
+    new_slots = [[ivf._id_to_slot[v.id]] + ivf._extra_slots.get(v.id, []) for v in vs]
+    flat = torch.as_tensor([s for ss in new_slots for s in ss], device="cuda")
+    want_rows = torch.from_numpy(np.repeat(new, [len(ss) for ss in new_slots], axis=0)).cuda()
+    held = bool(torch.equal(g.data3.view(-1, ns.dpad)[flat, :D_IVF], want_rows)
+                and g.valid3.view(-1)[flat].all())
+    top = qp.find_similar_batch([VectorDTO(v) for v in new[:NQ_IVF]], 1, "ivf", "l2",
+                                nprobe=ivf.C)
+    found = sum(r[0]["id"] == v.id for r, v in zip(top, vs))
+    at16 = qp.find_similar_batch([VectorDTO(v) for v in new], 1, "ivf", "l2", nprobe=16)
+    found16 = sum(r[0]["id"] == v.id for r, v in zip(at16, vs))
+    dead = set(gone)
+    gone_q = [VectorDTO(x[row_of[gid]]) for gid in gone[:NQ_IVF]]
+    leaked = sum(r["id"] in dead for rs in qp.find_similar_batch(gone_q, K, "ivf", "l2",
+                                                                   nprobe=ivf.C) for r in rs)
+    print(f"  upsert of {N_IVF_WRITES} rows {up_s:.3f} s, delete of {N_IVF_WRITES} "
+          f"{del_s:.3f} s: every copy of each new row in the index {held}; the first "
+          f"{NQ_IVF} new rows each their own nearest at full probe {found}/{NQ_IVF} (all "
+          f"{N_IVF_WRITES} at nprobe 16: {found16}); deleted ids returned at full probe "
+          f"{leaked}; index live {ivf.live_count} = store live {ns.live_count}, drift "
+          f"{ivf._drift}")
+    if not held or found != NQ_IVF or leaked:
+        raise AssertionError("the index did not follow the upserts or the deletes")
+    rec["writes"] = {"upsert_s": up_s, "delete_s": del_s, "found_nprobe16": found16,
+                     "drift": ivf._drift}
+
+    # a snapshot with the IVF entry, loaded back on the card: the same ids
+    shutil.rmtree(IVF_DIR, ignore_errors=True)
+    want = [[r["id"] for r in rs]
+            for rs in qp.find_similar_batch(qs, K, "ivf", "l2", nprobe=16)]
+    t0 = time.perf_counter()
+    qp.save(str(IVF_DIR))
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = QueryProcessor.load(str(IVF_DIR), EngineConfig(), device="cuda")
+    load_s = time.perf_counter() - t0
+    lns = loaded.storage.namespace("ivf")
+    got = [[r["id"] for r in rs]
+           for rs in loaded.find_similar_batch(qs, K, "ivf", "l2", nprobe=16)]
+    print(f"  save with the IVF entry {save_s:.2f} s, load on the card {load_s:.2f} s: the "
+          f"same layout {lns.ivf._id_to_slot == ivf._id_to_slot}, the same ids at nprobe 16 "
+          f"{got == want}")
+    if got != want or lns.ivf._id_to_slot != ivf._id_to_slot:
+        raise AssertionError("the reloaded IVF index answers differently")
+    rec["snapshot"] = {"save_s": save_s, "load_s": load_s}
+    del loaded, lns, oracle
+    shutil.rmtree(IVF_DIR, ignore_errors=True)
+    return rec, qp, q_np
+
+
+# ---- phase 18: the server over phase 17's processor --------------------------------------
+
+
+def _server_missing():
+    """The first of aiohttp and pydantic that does not import, or None."""
+    import importlib
+
+    for name in ("aiohttp", "pydantic"):
+        try:
+            importlib.import_module(name)
+        except ImportError:
+            return name
+    return None
+
+
+def run_server(qp, q_np, gpu):
+    """Phase 18 (see the module docstring).  Returns its record."""
+    import asyncio
+
+    import aiohttp
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from mlvectordb_tpu_torch.api.rest_api import RestAPI
+
+    def direct_ids(res):
+        return [[str(r["id"]) for r in rs] for rs in res]
+
+    def http_ids(body):
+        return [[r["id"] for r in rs] for rs in body]
+
+    rec = {}
+
+    async def drive():
+        api = RestAPI(qp, enable_file_logging=False, log_level="WARNING")
+        batched = RestAPI(qp, enable_file_logging=False, log_level="WARNING",
+                          batch_queries=True)
+        timeout = aiohttp.ClientTimeout(total=600)
+        client = TestClient(TestServer(api.app), timeout=timeout)
+        bclient = TestClient(TestServer(batched.app), timeout=timeout)
+        await client.start_server()
+        await bclient.start_server()
+        try:
+            resp = await client.get("/health?deep=1")
+            health = await resp.json()
+            print(f"  GET /health?deep=1: {resp.status} {health['status']}, device "
+                  f"{health['device']}")
+            if (resp.status != 200 or health["device"]["platform"] != "gpu"
+                    or health["device"]["devices"][0] != torch.cuda.get_device_name(0)):
+                raise AssertionError("/health does not report the card")
+            row = (q_np[0] * 0.5).tolist()
+            resp = await client.post("/vectors?namespace=ivf", json={"values": row})
+            vid = (await resp.json())["id"]
+            resp2 = await client.delete("/vectors?namespace=ivf", json={"ids": [vid]})
+            body2 = await resp2.json()
+            print(f"  POST /vectors {resp.status}, DELETE /vectors {resp2.status} "
+                  f"{body2['message']}")
+            if resp.status != 201 or resp2.status != 200 or body2["ids"] != [vid]:
+                raise AssertionError("insert or delete over HTTP failed")
+
+            payload = {"queries": q_np.tolist(), "top_k": K, "metric": "l2"}
+            outer = [fn.launches for fn in (fused_knn._window_mins_fast,
+                                            fused_knn._window_mins_masked)]
+            fused_knn._window_mins_fast.launches = fused_knn._window_mins_masked.launches = 0
+            resp = await client.post("/search/batch?namespace=ivf", json=payload)
+            body = await resp.json()
+            b45 = fused_knn._window_mins_fast.launches + fused_knn._window_mins_masked.launches
+            fused_knn._window_mins_fast.launches, fused_knn._window_mins_masked.launches = outer
+            want = direct_ids(qp.find_similar_batch([VectorDTO(v) for v in q_np], K, "ivf",
+                                                    "l2"))
+            print(f"  POST /search/batch B={len(q_np)} k={K}: {resp.status}, ids equal to the "
+                  f"direct call {http_ids(body) == want}, B4/B5 launches {b45}")
+            if resp.status != 200 or http_ids(body) != want or b45 < 1:
+                raise AssertionError("/search/batch differs from the direct call")
+
+            http_ms, direct_ms = [], []
+            for i in range(5):
+                qi = q_np + np.float32(i + 21) * np.float32(1e-3)
+                t0 = time.perf_counter()
+                resp = await client.post("/search/batch?namespace=ivf",
+                                         json={**payload, "queries": qi.tolist()})
+                await resp.json()
+                http_ms.append((time.perf_counter() - t0) * 1e3)
+                qi = qi + np.float32(5e-4)
+                t0 = time.perf_counter()
+                qp.find_similar_batch([VectorDTO(v) for v in qi], K, "ivf", "l2")
+                direct_ms.append((time.perf_counter() - t0) * 1e3)
+            rec["http_batch_ms"] = statistics.median(http_ms)
+            rec["direct_batch_ms"] = statistics.median(direct_ms)
+            print(f"  round trip of /search/batch (B={len(q_np)}, k={K}, JSON with the rows' "
+                  f"values) median of 5 {rec['http_batch_ms']:.3f} ms against the direct "
+                  f"call {rec['direct_batch_ms']:.3f} ms")
+
+            t0 = time.perf_counter()
+            resp = await client.post("/ivf/build", json={"namespace": "ivf"})
+            built = await resp.json()
+            rec["ivf_build_s"] = time.perf_counter() - t0
+            resp = await client.post("/search/batch?namespace=ivf",
+                                     json={**payload, "nprobe": 16})
+            body = await resp.json()
+            want = direct_ids(qp.find_similar_batch([VectorDTO(v) for v in q_np], K, "ivf",
+                                                    "l2", nprobe=16))
+            print(f"  POST /ivf/build {built.get('status')} ({built.get('clusters')} clusters, "
+                  f"{rec['ivf_build_s']:.2f} s); /search/batch nprobe=16: ids equal to the "
+                  f"direct call {http_ids(body) == want}")
+            if resp.status != 200 or http_ids(body) != want:
+                raise AssertionError("/search/batch with nprobe differs from the direct call")
+
+            singles = q_np[:32]
+            resps = await asyncio.gather(*[
+                bclient.post("/search?namespace=ivf",
+                             json={"query": v.tolist(), "top_k": K, "metric": "l2"})
+                for v in singles])
+            bodies = [await r.json() for r in resps]
+            want = [direct_ids([qp.find_similar(VectorDTO(v), K, "ivf", "l2")])[0]
+                    for v in singles]
+            stats = batched.micro_batcher.stats()
+            ok = http_ids(bodies) == want
+            print(f"  --auto-batch: 32 concurrent /search equal to the direct calls {ok}; "
+                  f"micro-batcher {stats}")
+            if not ok or any(r.status != 200 for r in resps):
+                raise AssertionError("auto-batched searches differ from the direct calls")
+            rec["auto_batch"] = stats
+        finally:
+            await client.close()
+            await bclient.close()
+            batched.micro_batcher.close()
+
+    asyncio.run(drive())
+
+    try:
+        import grpc
+    except ImportError:
+        print("  gRPC: grpc does not import here; skipped")
+        rec["grpc"] = "grpc not installed"
+        return rec
+    from mlvectordb_tpu_torch.api import vectordb_pb2 as pb
+    from mlvectordb_tpu_torch.api.grpc_server import create_server, make_stub
+
+    server, port = create_server(qp, port=0)
+    server.start()
+    try:
+        with grpc.insecure_channel(f"127.0.0.1:{port}") as channel:
+            stub = make_stub(channel)
+            one = stub.Search(pb.SearchRequest(namespace="ivf", query=q_np[0].tolist(),
+                                               top_k=K, metric="l2"))
+            many = stub.BatchSearch(pb.BatchSearchRequest(namespace="ivf", requests=[
+                pb.SearchRequest(query=v.tolist(), top_k=K, metric="l2") for v in q_np[:8]]))
+    finally:
+        server.stop(0)
+    want = direct_ids(qp.find_similar_batch([VectorDTO(v) for v in q_np[:8]], K, "ivf", "l2"))
+    got_one = [h.id for h in one.hits]
+    got_many = [[h.id for h in r.hits] for r in many.responses]
+    print(f"  gRPC Search and BatchSearch (8): ids equal to the direct call "
+          f"{got_one == want[0] and got_many == want}")
+    if got_one != want[0] or got_many != want:
+        raise AssertionError("gRPC answers differ from the direct call")
+    rec["grpc"] = "ok"
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA GPU",
@@ -2877,6 +3319,28 @@ def main() -> int:
           f"mirror, after its deletes), on {gpu}")
     c16, f16 = run_durability(qps, sweep_ids, db_np, q_np, oracle, dead, gpu)
 
+    # ---- 17. IVF at the SIFT-1M stand-in; 18. the server over it ----------------------
+    print(f"phase 17 IVF: QueryProcessor(EngineConfig()) at the SIFT-1M stand-in "
+          f"({N_IVF:,} x {D_IVF} clustered rows), build_ivf with the defaults (spill 1 and "
+          f"2), {NQ_IVF} queries, l2, k={K}, nprobe {NPROBES}")
+    t17 = time.perf_counter()
+    ivf_rec, ivf_qp, ivf_q = run_ivf(gpu)
+    ivf_rec["seconds"] = time.perf_counter() - t17
+    print(f"  phase 17 took {ivf_rec['seconds']:.1f} s")
+    missing = _server_missing()
+    if missing:
+        print(f"phase 18 server: not run, {missing} does not import on this machine")
+        server_rec = {"not_run": f"{missing} does not import"}
+    else:
+        print("phase 18 server: RestAPI over phase 17's processor in aiohttp's in-process "
+              "test server: /health, insert and delete, /search/batch, /ivf/build and "
+              "nprobe, --auto-batch, gRPC where grpc imports")
+        t18 = time.perf_counter()
+        server_rec = run_server(ivf_qp, ivf_q, gpu)
+        server_rec["seconds"] = time.perf_counter() - t18
+        print(f"  phase 18 took {server_rec['seconds']:.1f} s")
+    del ivf_qp
+
     # each kernel's bound at the operands timed above: every input read once, every
     # output written once; the products over the peak for their type (B1/B3 and B4/B5:
     # of the live queries, and of the whole padded batch beside it; B4/B5 over f32 rows
@@ -3065,6 +3529,8 @@ def main() -> int:
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": None,
             **{k: v for k, v in r.items() if k.startswith("r1_4_")}})
+    # the IVF and server phases run no hand-written kernel of their own: their record
+    print(json.dumps({"ivf": ivf_rec, "server": server_rec}, default=str))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s on {gpu}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -9,7 +9,9 @@ gather-score rescan kernel; a per-query exactness certificate with escalation). 
 code runs on the CPU with the kernels' plain torch versions.
 Snapshots and the write-ahead log use the JAX package's formats, so a deployment moves
 between the two packages in either direction; a cold namespace can be offloaded to host
-memory.  Every tensor lives on the ``torch.device`` the caller passes; entry points default
+memory.  An opt-in IVF index (``QueryProcessor.build_ivf``, searches with ``nprobe``)
+gives approximate answers; the REST and gRPC server is ``mlvectordb_tpu_torch.api``,
+which this module does not import.  Every tensor lives on the ``torch.device`` the caller passes; entry points default
 to ``"cuda"``.  This package never imports JAX.
 """
 

@@ -13,6 +13,11 @@ same ids.
 window-major ``_data_t`` and ``_sweep_resid`` and its per-row vectors) into the port's
 row-major ones, for a bf16, int8 or f32 mirror, so the two stores can be shown to hold the
 same codes; for a bf16 store's same-dtype mirror the result equals the port's ``data``.
+
+``ivf_from_jax`` carries a trained JAX ``IVFIndex`` across to a port store holding the same
+ids: its centroids, every id's cluster slot and the spill copies, through the index's
+snapshot payload (``snapshot_arrays`` -> ``IVFIndex.from_snapshot``), so both packages
+search one layout.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 
 from .config import EngineConfig
 from .ops.fused_knn_t import R1MAX, SWEEP_TILE, WLANE
+from .store.ivf import IVFIndex
 from .store.namespace import NamespaceStore
 
 
@@ -61,3 +67,10 @@ def sweep_arrays_from_jax(data_t: np.ndarray, sweep_resid: Optional[np.ndarray] 
                     ("sweep_err1", sweep_err1), ("sweep_rscale2", sweep_rscale2)):
         out[name] = None if v is None else torch.from_numpy(np.array(v, np.float32)).to(device)
     return out
+
+
+def ivf_from_jax(jax_index, store: NamespaceStore) -> IVFIndex:
+    """The port's index over ``store`` with ``jax_index``'s centroids and layout (the
+    store must hold the ids the JAX index places; ids it lacks are dropped, as a snapshot
+    load drops them).  The caller attaches it (``store.ivf = ...``)."""
+    return IVFIndex.from_snapshot(store, jax_index.snapshot_arrays())

@@ -7,9 +7,10 @@ engine config).  The format is the JAX package's, byte for byte in its fields, s
 deployment moves between the two packages in either direction.  A bf16 store writes its
 stored (bf16-rounded) rows as f32, as the JAX store does.
 
-IVF is not ported yet (ROADMAP A13): a manifest entry that carries an IVF index raises
-``NotImplementedError`` before anything loads, so a trained index is never dropped
-silently.
+A namespace with an IVF index also writes ``<base>.ivf.npz`` (its centroids) and
+``<base>.ivf.json`` (its layout: every id's cluster slots and the build parameters), and
+its manifest entry says ``"ivf": true``; loading rebuilds the same index around the
+restored rows without retraining.
 """
 
 from __future__ import annotations
@@ -72,7 +73,16 @@ def save_storage(storage: StorageEngine, path: str) -> List[str]:
         with open(os.path.join(path, base + ".json"), "w") as f:
             json.dump({"name": snap["name"], "dim": snap["dim"], "ids": snap["ids"],
                        "metadata": snap["metadata"]}, f)
-        manifest["namespaces"].append({"name": name, "file": base, "count": len(snap["ids"])})
+        entry = {"name": name, "file": base, "count": len(snap["ids"])}
+        # a trained index is minutes of k-means at scale: its centroids and layout are
+        # saved, so a load restores the same approximate answers without retraining
+        if ns.ivf is not None:
+            isnap = ns.ivf.snapshot_arrays()
+            np.savez(os.path.join(path, base + ".ivf.npz"), centroids=isnap.pop("centroids"))
+            with open(os.path.join(path, base + ".ivf.json"), "w") as f:
+                json.dump(isnap, f)
+            entry["ivf"] = True
+        manifest["namespaces"].append(entry)
     with open(os.path.join(path, _MANIFEST), "w") as f:
         json.dump(manifest, f, indent=2)
     return names
@@ -91,11 +101,6 @@ def load_storage(
         manifest = json.load(f)
     if manifest.get("format") != _FORMAT:
         raise ValueError(f"not a snapshot directory: {path}")
-    ivf = [e["name"] for e in manifest["namespaces"] if e.get("ivf")]
-    if ivf:
-        raise NotImplementedError(
-            f"snapshot {path} holds IVF indexes for {ivf}; IVF is not ported yet (ROADMAP "
-            "A13), and loading the rows alone would drop the index")
     saved_cfg = manifest.get("engine_config") or {}
     if saved_cfg.get("dtype") and saved_cfg["dtype"] != config.dtype:
         logging.getLogger(__name__).warning(
@@ -111,7 +116,16 @@ def load_storage(
             values = z["values"]
         with open(os.path.join(path, base + ".json")) as f:
             meta = json.load(f)
-        storage.namespace(meta["name"], create=True).load_snapshot({
+        ns = storage.namespace(meta["name"], create=True).load_snapshot({
             "name": meta["name"], "dim": meta["dim"], "ids": meta["ids"], "values": values,
             "metadata": meta["metadata"]})
+        if entry.get("ivf"):
+            from ..store.ivf import IVFIndex
+
+            with np.load(os.path.join(path, base + ".ivf.npz")) as z:
+                centroids = z["centroids"]
+            with open(os.path.join(path, base + ".ivf.json")) as f:
+                isnap = json.load(f)
+            isnap["centroids"] = centroids
+            ns.ivf = IVFIndex.from_snapshot(ns, isnap)
     return storage

@@ -14,6 +14,11 @@ Durability and operations: snapshots in the JAX package's format (``save`` / ``l
 the write-ahead log (``enable_wal``: every mutation logged before it applies;
 ``load(..., wal_path=...)`` replays it; ``engine/wal.py``, the JAX package's format),
 namespace offload to host memory, warmup, ``explain_query`` and ``get_statistics``.
+
+IVF (``build_ivf`` / ``drop_ivf``, store/ivf.py): a search passing ``nprobe`` probes that
+many clusters of the namespace's index; without an index, or with a filter, it serves the
+exact path, as in the JAX package.  The index follows every write and delete, is saved in
+snapshots and rebuilt by WAL replay from its logged parameters.
 Reference behaviors kept:
   * k clamped to the live count (index.py:103-107)
   * search of a missing namespace returns [] (index.py:98-99)
@@ -21,9 +26,6 @@ Reference behaviors kept:
     storage between select and hydrate (query_processor.py:38-49)
   * score convention: l2/ip -> raw distance (lower better), cosine -> similarity = 1 - dist
     (index.py:121-128)
-
-Not ported yet: IVF (ROADMAP A13).  ``nprobe=`` raises, and so do a snapshot's IVF entry
-and a logged ``build_ivf`` / ``drop_ivf`` record (``load_storage``, ``replay_wal``).
 """
 
 from __future__ import annotations
@@ -159,7 +161,7 @@ class QueryProcessor:
         self._wal_replaying = False
         self._snap_thread: Optional[threading.Thread] = None
 
-    def _result_cache_key(self, q_np, top_k, namespace, metric, filter=None):
+    def _result_cache_key(self, q_np, top_k, namespace, metric, filter=None, nprobe=None):
         ns = self.storage.namespace(namespace)
         if ns is None or self.config.result_cache_size <= 0:
             return None
@@ -167,7 +169,7 @@ class QueryProcessor:
         fk = filter_cache_key(filter) if filter else ""
         # ns.incarnation: version counters restart at 0 when a namespace is GC'd and
         # recreated, so (name, version) alone can resurrect a dead incarnation's results
-        return (namespace, ns.incarnation, ns.version, h, top_k, metric, fk)
+        return (namespace, ns.incarnation, ns.version, h, top_k, metric, fk, nprobe)
 
     # ------------------------------------------------------------------ durability
 
@@ -227,6 +229,7 @@ class QueryProcessor:
             v = Vector(vector.values, vector.metadata, id=vector.id)
             self._wal_upsert([v], namespace)
             self.storage.write(v, namespace)
+            self._sync_ivf_add(namespace, [v])
             return v
 
     def upsert_many(
@@ -237,6 +240,7 @@ class QueryProcessor:
             vs = [Vector(d.values, d.metadata, id=d.id) for d in vectors]
             self._wal_upsert(vs, namespace)
             self.storage.write_vectors(vs, namespace)
+            self._sync_ivf_add(namespace, vs)
             return vs
 
     def delete(
@@ -247,7 +251,11 @@ class QueryProcessor:
             if self._wal is not None and not self._wal_replaying and ids:
                 self._wal.append("delete", namespace, ids=ids)
                 self._maybe_checkpoint_wal()
-            return self.storage.delete_vectors(ids, namespace)
+            removed = self.storage.delete_vectors(ids, namespace)
+            ivf = self._ivf(namespace)
+            if ivf is not None and removed:
+                ivf.delete(removed)
+            return removed
 
     def delete_namespace(self, namespace: str) -> bool:
         with self._write_lock:
@@ -282,7 +290,8 @@ class QueryProcessor:
         """High-throughput vectorized ingestion (no per-vector Python objects).
 
         Returns the list of uuids.  Batches bound peak host memory and the size of each
-        device scatter; each batch is logged (with the WAL on) once its ids are known.
+        device scatter; each batch is logged (with the WAL on) once its ids are known.  An
+        attached IVF index is kept in step from the contiguous array.
         """
         values = np.ascontiguousarray(values, np.float32)
         n = values.shape[0]
@@ -303,7 +312,81 @@ class QueryProcessor:
                     )
                     self._maybe_checkpoint_wal()
                 out.extend(got)
+            if ns.ivf is not None:
+                ns.ivf.add_bulk(values, out)
         return out
+
+    # ------------------------------------------------------------------ IVF
+
+    def _ivf(self, namespace: str):
+        """The namespace's IVF index, or None."""
+        ns = self.storage.namespace(namespace)
+        return None if ns is None else ns.ivf
+
+    def _sync_ivf_add(self, namespace: str, vectors: Sequence[Vector]) -> None:
+        ivf = self._ivf(namespace)
+        if ivf is not None and vectors:
+            ivf.add(vectors)
+
+    def build_ivf(
+        self,
+        namespace: str = "default",
+        n_clusters: Optional[int] = None,
+        cluster_capacity: Optional[int] = None,
+        n_iters: int = 10,
+        seed: int = 0,
+        spill: int = 1,
+    ) -> Dict[str, Any]:
+        """Train and attach an IVF approximate index to a namespace (store/ivf.py); later
+        searches passing ``nprobe`` use it, exact search stays the default.  ``spill`` > 1
+        places each vector in its ``spill`` nearest clusters.  Logged (with the WAL on)
+        before it applies; k-means is seeded, so a replay rebuilds the same index from the
+        same rows."""
+        from ..store.ivf import IVFIndex
+
+        with self._write_lock, trace_span("ivf_build", namespace=namespace):
+            ns = self.storage.namespace(namespace)
+            if ns is None:
+                raise ValueError(f"namespace {namespace!r} does not exist")
+            if self._wal is not None and not self._wal_replaying:
+                self._wal.append("build_ivf", namespace, params={
+                    "n_clusters": n_clusters, "cluster_capacity": cluster_capacity,
+                    "n_iters": n_iters, "seed": seed, "spill": spill})
+            with ns._lock:
+                ns.ivf = IVFIndex(ns, n_clusters, cluster_capacity, n_iters, seed, spill)
+                # a (re)built index changes what nprobe searches return: the version bump
+                # keeps the result cache from serving the old index's answers
+                ns.version += 1
+            return ns.ivf.stats()
+
+    def drop_ivf(self, namespace: str = "default") -> bool:
+        ns = self.storage.namespace(namespace)
+        if ns is None or ns.ivf is None:
+            return False
+        if self._wal is not None and not self._wal_replaying:
+            self._wal.append("drop_ivf", namespace)
+        with ns._lock:
+            ns.ivf = None
+            ns.version += 1  # nprobe searches now serve the exact path: invalidate
+        return True
+
+    def _ivf_search(self, q_np: np.ndarray, ns, ivf, namespace: str, k: int, metric: str,
+                    nprobe: int):
+        """The approximate path: (dist [B, k'] np, ivf slots [B, k'] np, resolver) with
+        k' = min(k * spill, C * L), over-fetched so that k unique ids survive the
+        deduplication of spill copies in hydration.  Only the live queries are computed
+        (nothing on this path reads padded rows); one copy each way."""
+        k_fetch = min(min(k, ns.live_count) * ivf.spill, ivf.C * ivf.L)
+        q = np.zeros((q_np.shape[0], ns.dpad), np.float32)
+        q[:, : ns.dim] = q_np
+        with trace_span("knn_ivf", namespace=namespace, k=k_fetch, nprobe=nprobe):
+            self.transfer_counts["h2d"] += 1
+            # the resolver is bound to the generation that produced the slots
+            dist, idx, resolve = ivf.search_resolved(
+                torch.from_numpy(q).to(self.device), k_fetch, metric, nprobe)
+            self.transfer_counts["d2h"] += 1
+            dist, idx = fetch(dist, idx)
+        return dist, idx, resolve
 
     # ------------------------------------------------------------------ search core
 
@@ -510,14 +593,14 @@ class QueryProcessor:
     ) -> List[List[Dict[str, Any]]]:
         """Batched exact kNN — the QPS path; recall is 1.0.  ``filter``: a metadata filter
         spec (filters.py); only matching live rows are ranked, and a query gets fewer
-        than ``top_k`` results when fewer rows match."""
-        if nprobe is not None:
-            raise NotImplementedError("nprobe= is not ported yet (ROADMAP A13: IVF)")
+        than ``top_k`` results when fewer rows match.  ``nprobe``: serve from the
+        namespace's IVF index (build_ivf first), probing that many clusters; without an
+        index, or with a filter, the exact path serves."""
         t0 = time.perf_counter()
         m = canonical_metric(metric or self.config.default_metric)
         q_np = np.stack([np.asarray(q.values, np.float32).reshape(-1) for q in queries])
 
-        cache_key = self._result_cache_key(q_np, top_k, namespace, m, filter)
+        cache_key = self._result_cache_key(q_np, top_k, namespace, m, filter, nprobe)
         if cache_key is not None:
             with self._result_cache_lock:
                 hit = self._result_cache.get(cache_key)
@@ -531,7 +614,16 @@ class QueryProcessor:
                 return [[dict(r) for r in rs] for rs in hit]
 
         t_dev = time.perf_counter()
-        dist, slots, ns, tables = self._raw_search(q_np, namespace, top_k, m, filter)
+        ns = self.storage.namespace(namespace)
+        ivf = None if nprobe is None or filter is not None or ns is None else ns.ivf
+        if ivf is not None and ns.live_count > 0 and top_k > 0:
+            if q_np.shape[1] != ns.dim:
+                raise ValueError(
+                    f"query dim {q_np.shape[1]} != namespace {namespace!r} dim {ns.dim}")
+            dist, slots, resolve = self._ivf_search(q_np, ns, ivf, namespace, top_k, m, nprobe)
+        else:
+            resolve = None
+            dist, slots, ns, tables = self._raw_search(q_np, namespace, top_k, m, filter)
         self.stats.record_stage("device", (time.perf_counter() - t_dev) * 1e3)
         if ns is None:
             results: List[List[Dict[str, Any]]] = [[] for _ in queries]
@@ -539,9 +631,15 @@ class QueryProcessor:
             user = self._to_user_score(dist, m)
             t_hyd = time.perf_counter()
             with trace_span("hydrate", namespace=namespace, batch=len(queries)):
-                results = self._hydrate_batch(user, dist, slots, tables)
+                if resolve is None:
+                    results = self._hydrate_batch(user, dist, slots, tables)
+                else:
+                    results = [self._hydrate_scored(user[i], dist[i], slots[i], ns, resolve,
+                                                    limit=top_k)
+                               for i in range(len(queries))]
             self.stats.record_stage("hydrate", (time.perf_counter() - t_hyd) * 1e3)
-        self.stats.record("hybrid" if filter else "knn", (time.perf_counter() - t0) * 1e3)
+        kind = "hybrid" if filter else ("ivf" if nprobe is not None else "knn")
+        self.stats.record(kind, (time.perf_counter() - t0) * 1e3)
         if cache_key is not None:
             # store a private copy: the caller owns the returned dicts
             with self._result_cache_lock:
@@ -596,6 +694,31 @@ class QueryProcessor:
             if dropping:
                 chunk = [r for r in chunk if r["id"] is not None and r["values"] is not None]
             out.append(chunk)
+        return out
+
+    @staticmethod
+    def _hydrate_scored(user_row, dist_row, slot_row, ns, resolver,
+                        limit: Optional[int] = None) -> List[Dict[str, Any]]:
+        """One query's IVF hits as result dicts: ``resolver`` maps index slots to ids,
+        masked slots and vanished ids are dropped, and a spilled index's duplicate copies
+        of one id keep the first (best-ranked) one (query_processor.py:803-826 of the JAX
+        package)."""
+        half_masked = float(MASKED) / 2
+        out, seen = [], set()
+        for u, d, slot in zip(user_row.tolist(), dist_row.tolist(), slot_row.tolist()):
+            if d >= half_masked:
+                continue
+            vid = resolver(int(slot))
+            if vid is None or vid in seen:
+                continue
+            vec = ns.get(vid)
+            if vec is None:
+                continue
+            seen.add(vid)
+            out.append({"id": vid, "values": vec.values, "metadata": vec.metadata,
+                        "score": float(u)})
+            if limit is not None and len(out) >= limit:
+                break
         return out
 
     def range_search(
@@ -864,8 +987,9 @@ class QueryProcessor:
 
     def replay_wal(self, wal_path: str) -> int:
         """Re-apply logged mutations (idempotent); returns the records applied.  A
-        ``build_ivf`` or ``drop_ivf`` record raises: IVF is not ported yet (ROADMAP A13),
-        and skipping the record would drop an acknowledged index change."""
+        ``build_ivf`` that no longer applies (its rows were deleted later in the log) is
+        skipped with a warning, and so is a record whose op this package does not know
+        (a newer writer's): both count as applied, as in the JAX package."""
         from .wal import WriteAheadLog
 
         applied = 0
@@ -881,12 +1005,16 @@ class QueryProcessor:
                     self.delete([uuid_mod.UUID(x) for x in rec["ids"]], ns)
                 elif op == "delete_namespace":
                     self.storage.delete_namespace(ns)
-                elif op in ("build_ivf", "drop_ivf"):
-                    raise NotImplementedError(
-                        f"WAL {wal_path}: a {op} record for namespace {ns!r} after {applied} "
-                        "applied records; IVF is not ported yet (ROADMAP A13)")
+                elif op == "build_ivf":
+                    try:
+                        self.build_ivf(ns, **(rec.get("params") or {}))
+                    except (ValueError, RuntimeError):
+                        logger.warning("WAL replay: build_ivf(%s) not applicable, skipped", ns)
+                elif op == "drop_ivf":
+                    self.drop_ivf(ns)
                 else:
-                    raise ValueError(f"WAL {wal_path}: unknown record op {op!r}")
+                    logger.warning("WAL replay: unknown record op %r for namespace %r skipped",
+                                   op, ns)
                 applied += 1
         finally:
             self._wal_replaying = False

@@ -207,6 +207,8 @@ class NamespaceStore:
         self._meta_columns_tried = False
         # host copies of data / valid / sq_norms while offloaded (offload()), else None
         self._offloaded: Optional[Dict[str, torch.Tensor]] = None
+        # optional approximate index (store/ivf.py), attached by QueryProcessor.build_ivf
+        self.ivf = None
 
     # ------------------------------------------------------------------ properties
 

@@ -177,8 +177,16 @@ def test_unported_options_raise():
     q = [VectorDTO(np.ones(4, np.float32))]
     # filter= is served (tests/test_torch_filters.py): a missing namespace answers []
     assert tqp.find_similar_batch(q, 3, "ns", filter={"a": 1}) == [[]]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tqp.find_similar_batch(q, 3, "ns", nprobe=4)
+    # nprobe= with no IVF index built serves the exact path, as in the JAX package
+    x = np.random.default_rng(3).standard_normal((50, 4)).astype(np.float32)
+    jqp = JaxQueryProcessor(config=JaxConfig())
+    for qp in (jqp, tqp):
+        qp.bulk_load(x, "ns", ids=[uuid.UUID(int=i + 1) for i in range(50)])
+    want = jqp.find_similar_batch([JaxDTO(v) for v in x[:3]], 3, "ns", "l2", nprobe=4)
+    got = tqp.find_similar_batch([VectorDTO(v) for v in x[:3]], 3, "ns", "l2", nprobe=4)
+    assert [[r["id"] for r in a] for a in got] == [[r["id"] for r in a] for a in want]
+    assert got == tqp.find_similar_batch([VectorDTO(v) for v in x[:3]], 3, "ns", "l2")
+    assert tqp.get_statistics()["queries_by_type"]["ivf"] == 1
 
 
 @pytest.mark.parametrize("metric", METRICS)
@@ -284,9 +292,9 @@ def test_repeated_id_in_one_write_batch_keeps_the_last_write(path):
 
 def test_package_never_imports_jax():
     """Every module of the port (the filters, the native loader, the probes, and the WAL,
-    snapshots, utilities, protocols, index and compat layer copied or ported from the JAX
-    package included) imports neither jax nor the JAX package, not even its
-    framework-free modules."""
+    snapshots, utilities, protocols, index and compat layer, IVF and k-means, the
+    micro-batcher and the server copied or ported from the JAX package included) imports
+    neither jax nor the JAX package, not even its framework-free modules."""
     code = (
         "import importlib, pkgutil, sys, mlvectordb_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
@@ -294,7 +302,9 @@ def test_package_never_imports_jax():
         "want = ['filters', 'native', 'engine.filters', 'engine.wal', 'engine.persist',\n"
         "        'utils.tracing', 'utils.health', 'utils.metrics', 'utils.capacity',\n"
         "        'interfaces.index', 'interfaces.query_processor',\n"
-        "        'interfaces.storage_engine', 'store.index', 'compat']\n"
+        "        'interfaces.storage_engine', 'store.index', 'compat', 'ops.kmeans',\n"
+        "        'store.ivf', 'engine.batcher', 'api', 'api.rest_api', 'api.grpc_server',\n"
+        "        'api.router', 'api.server', 'api.vectordb_pb2']\n"
         "assert {'mlvectordb_tpu_torch.' + m for m in want} <= set(mods), mods\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'mlvectordb_tpu.'))\n"
         "       or m == 'mlvectordb_tpu']\n"

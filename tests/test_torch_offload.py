@@ -8,6 +8,8 @@ from the rows and publishes a new snapshot; neither bumps the version.  The rebu
 mirror and certificate arrays are bit-equal to the ones the writes kept.
 """
 
+import uuid
+
 import numpy as np
 import pytest
 import torch
@@ -169,3 +171,62 @@ def test_bf16_store_reads_the_written_values_even_offloaded(rng):
     got = qp.storage.read(ids[7], "ns")
     np.testing.assert_array_equal(got.values, x[7])
     assert got.metadata == {"i": 7} and ns.offloaded
+
+
+@pytest.mark.parametrize("store", [
+    {},
+    {"dtype": "bfloat16", "sweep_dtype": "bfloat16"},
+], ids=["f32", "bf16_store_same_dtype"])
+def test_offloaded_snapshot_divergence_matches_jax_files(small_config, rng, tmp_path, store):
+    """ROADMAP C8, an intended divergence: saving an offloaded namespace pages it back in
+    in the JAX package and leaves it offloaded in the port (no device memory spent on a
+    snapshot).  The files are the same: each namespace's .npz arrays and .json are equal
+    between the two snapshot directories, and each package loads the other's."""
+    import dataclasses
+    import json
+
+    jcfg = dataclasses.replace(small_config, **store)
+    tcfg = EngineConfig(**SMALL, **store)
+    x = rng.standard_normal((150, 8)).astype(np.float32)
+    ids = [uuid.UUID(int=i + 1) for i in range(150)]
+    metas = [{"i": i, "g": "ab"[i % 2]} for i in range(150)]
+    jqp, tqp = JaxQueryProcessor(config=jcfg), QueryProcessor(tcfg, device="cpu")
+    for p in (jqp, tqp):
+        p.bulk_load(x, "cold", ids=ids, metadatas=metas)
+        p.delete(ids[10:20], "cold")
+        p.bulk_load(x[:7] * 2, "warm", ids=ids[:7])
+        assert p.offload_namespace("cold")
+    jqp.save(str(tmp_path / "jax"))
+    tqp.save(str(tmp_path / "port"))
+    assert not jqp.storage.namespace("cold").offloaded       # JAX paged it in
+    assert tqp.storage.namespace("cold").offloaded            # the port did not
+    manifests = {}
+    for side in ("jax", "port"):
+        with open(tmp_path / side / "manifest.json") as f:
+            manifests[side] = json.load(f)
+    assert manifests["jax"]["namespaces"] == manifests["port"]["namespaces"]
+    for entry in manifests["jax"]["namespaces"]:
+        base = entry["file"]
+        with np.load(tmp_path / "jax" / f"{base}.npz") as a, \
+                np.load(tmp_path / "port" / f"{base}.npz") as b:
+            assert sorted(a.files) == sorted(b.files) == ["values"]
+            assert a["values"].dtype == b["values"].dtype == np.float32
+            np.testing.assert_array_equal(a["values"], b["values"])
+        with open(tmp_path / "jax" / f"{base}.json") as fa, \
+                open(tmp_path / "port" / f"{base}.json") as fb:
+            assert json.load(fa) == json.load(fb)
+    jl = JaxQueryProcessor.load(str(tmp_path / "port"), jcfg)
+    tl = QueryProcessor.load(str(tmp_path / "jax"), tcfg, device="cpu")
+    for name in ("cold", "warm"):
+        # the stored rows (bf16-rounded in a bf16 store) and the metadata, in both
+        jv = {v.id: v for v in jl.get_namespace_vectors(name)}
+        tv = {v.id: v for v in tl.get_namespace_vectors(name)}
+        src = {v.id: v for v in tqp.get_namespace_vectors(name)}
+        assert jv.keys() == tv.keys() == src.keys()
+        for vid, v in tv.items():
+            np.testing.assert_array_equal(v.values, jv[vid].values)
+            assert v.metadata == jv[vid].metadata == src[vid].metadata
+    q = x[30]
+    a = jl.find_similar(JaxDTO(q), 5, "cold", "l2")
+    b = tl.find_similar(dto(q), 5, "cold", "l2")
+    assert [r["id"] for r in a] == [r["id"] for r in b] and b[0]["id"] == ids[30]

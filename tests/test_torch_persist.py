@@ -7,8 +7,8 @@ default f32 store, ``sweep_dtype="bfloat16"`` and ``dtype="bfloat16"``, with the
 rows, ids and metadata (equal) and the same search answers: ids set-exact, scores within
 1e-5 relative and 1e-5 absolute.  The JAX side searches as its own engine tests do (its
 scan backend on the CPU); the port's runs its fused paths (the kernels' plain versions),
-the certified sweep included.  IVF is not ported (ROADMAP A13): a snapshot entry holding
-an IVF index raises naming A13 before anything loads.
+the certified sweep included.  A namespace's IVF index travels with it, in both
+directions.
 """
 
 import json
@@ -138,20 +138,53 @@ def test_load_storage_target_engine_and_format(qp, rng, tmp_path):
 
 
 def test_ivf_snapshot_entry_raises_naming_a13(small_config, rng, tmp_path):
-    """A JAX snapshot holding a trained IVF index: loading it in the port raises naming
-    ROADMAP A13 instead of loading the rows and dropping the index."""
+    """Snapshots holding a trained IVF index move across packages in both directions (the
+    test keeps the name of the refusal it replaced): the loading package restores the
+    same layout (every id in its slot, the centroids bit-equal) without retraining and
+    answers nprobe searches with the saving package's ids; the namespace without an
+    index loads without one."""
+    vals = rng.standard_normal((300, 8)).astype(np.float32)
+    ids = [uuid.UUID(int=i + 1) for i in range(300)]
+    other = rng.standard_normal((10, 8)).astype(np.float32)
+    queries = vals[:6] + 0.01
     jqp = JaxQueryProcessor(config=small_config)
-    jqp.bulk_load(rng.standard_normal((300, 8)).astype(np.float32), "ns")
-    jqp.bulk_load(rng.standard_normal((10, 8)).astype(np.float32), "plain")
-    jqp.build_ivf("ns", n_clusters=8, seed=5)
-    snap = str(tmp_path / "snap")
-    jqp.save(snap)
-    with pytest.raises(NotImplementedError, match=r"'ns'.*A13"):
-        QueryProcessor.load(snap, EngineConfig(**SMALL), device="cpu")
-    target = StorageEngine(EngineConfig(**SMALL), device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        load_storage(snap, target.config, target)
-    assert target.list_namespaces() == []   # nothing loaded before the refusal
+    tqp = QueryProcessor(EngineConfig(**SMALL), device="cpu")
+    for qp in (jqp, tqp):
+        qp.bulk_load(vals, "ns", ids=ids)
+        qp.bulk_load(other, "plain")
+    jqp.build_ivf("ns", n_clusters=8, seed=5, spill=2)
+    tqp.build_ivf("ns", n_clusters=8, seed=5, spill=2)
+    jqp.save(str(tmp_path / "jax"))
+    tqp.save(str(tmp_path / "port"))
+    with open(tmp_path / "jax" / "manifest.json") as f:
+        jman = json.load(f)
+    with open(tmp_path / "port" / "manifest.json") as f:
+        assert json.load(f)["namespaces"] == jman["namespaces"]
+    loaded = {"jax_to_port": QueryProcessor.load(str(tmp_path / "jax"), EngineConfig(**SMALL),
+                                                 device="cpu"),
+              "port_to_jax": JaxQueryProcessor.load(str(tmp_path / "port"), small_config)}
+    for direction, dst in loaded.items():
+        src = jqp if direction == "jax_to_port" else tqp
+        sivf, divf = src.storage.namespace("ns").ivf, dst.storage.namespace("ns").ivf
+        assert divf._id_to_slot == sivf._id_to_slot and divf._extra_slots == sivf._extra_slots
+        np.testing.assert_array_equal(np.asarray(divf.centroids), np.asarray(sivf.centroids))
+        assert dst.storage.namespace("plain").ivf is None
+        for nprobe in (1, 2, 8):
+            for metric in ("l2", "cosine"):
+                want = src.find_similar_batch(_dtos(src, queries), 5, "ns", metric,
+                                              nprobe=nprobe)
+                got = dst.find_similar_batch(_dtos(dst, queries), 5, "ns", metric,
+                                             nprobe=nprobe)
+                assert [[r["id"] for r in a] for a in want] == [[r["id"] for r in b] for b in got]
+                np.testing.assert_allclose([r["score"] for a in got for r in a],
+                                           [r["score"] for a in want for r in a],
+                                           rtol=1e-5, atol=1e-5)
+
+
+def _dtos(qp, queries):
+    """The queries as DTOs of ``qp``'s package."""
+    cls = JaxDTO if isinstance(qp, JaxQueryProcessor) else VectorDTO
+    return [cls(q) for q in queries]
 
 
 def _cross_corpus():

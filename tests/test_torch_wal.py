@@ -4,9 +4,9 @@ across packages.
 
 The WAL file format is the JAX package's, so a log one package writes replays in the
 other with the same rows, metadata and search answers (ids set-exact, scores within 1e-5
-relative and 1e-5 absolute: the two scan backends sum in different orders).  IVF is not
-ported (ROADMAP A13): a ``build_ivf`` or ``drop_ivf`` record makes the replay raise
-naming A13 instead of being skipped.
+relative and 1e-5 absolute: the two scan backends sum in different orders).  The IVF
+lifecycle (``build_ivf`` / ``drop_ivf`` records) replays in both with the same index, and
+a record whose op a package does not know is skipped and counted as applied in both.
 """
 
 import dataclasses
@@ -224,10 +224,13 @@ def test_prune_deferred_until_snapshot_is_final(tmp_path, cfg, rng):
 
 @pytest.mark.parametrize("op", ["build_ivf", "drop_ivf"])
 def test_wal_ivf_record_raises_naming_a13(tmp_path, small_config, cfg, rng, op):
-    """The JAX package logs the IVF lifecycle (tests/test_wal.py's IVF case).  The port
-    has no IVF yet: replaying the record raises naming ROADMAP A13, so an acknowledged
-    index build or drop is never dropped silently, and the rows logged before it were
-    applied."""
+    """A log the JAX package wrote with the IVF lifecycle (tests/test_wal.py's IVF case;
+    the test keeps the name of the refusal it replaced): replayed in both packages, the
+    same records applied, the same rows, and after ``build_ivf`` an index of the same
+    shape with JAX's centroids (within 1e-5) and JAX's nprobe answers; after
+    ``drop_ivf`` no index in either.  A log holding only the op's record, for a namespace
+    that does not exist, applies as one record in both (the build skipped with a
+    warning)."""
     wal_dir = str(tmp_path / "wal")
     jqp = JaxQueryProcessor(config=small_config)
     jqp.enable_wal(wal_dir)
@@ -236,19 +239,46 @@ def test_wal_ivf_record_raises_naming_a13(tmp_path, small_config, cfg, rng, op):
     jqp.build_ivf("ns", n_clusters=8, seed=5)
     if op == "drop_ivf":
         jqp.drop_ivf("ns")
-    # the log's first IVF record is the build
-    with pytest.raises(NotImplementedError, match="build_ivf.*A13"):
-        _load(str(tmp_path / "nonexistent"), cfg, wal_path=wal_dir)
-    qp = _new(cfg)
-    with pytest.raises(NotImplementedError, match="build_ivf.*A13"):
-        qp.replay_wal(wal_dir)
-    assert qp.get_namespace_count("ns") == 300 and not qp._wal_replaying
-    # a log holding only the op's record raises the same way
+    jrec = JaxQueryProcessor(config=small_config)
+    tqp = _new(cfg)
+    assert tqp.replay_wal(wal_dir) == jrec.replay_wal(wal_dir) == (2 if op == "build_ivf" else 3)
+    assert not tqp._wal_replaying
+    _same_store(jrec, tqp, vals[:4], count=300)
+    jivf, tivf = jrec.storage.namespace("ns").ivf, tqp.storage.namespace("ns").ivf
+    if op == "drop_ivf":
+        assert jivf is None and tivf is None
+    else:
+        assert (tivf.C, tivf.L, tivf.spill) == (jivf.C, jivf.L, jivf.spill)
+        np.testing.assert_allclose(tivf.centroids.numpy(), np.asarray(jivf.centroids),
+                                   rtol=1e-5, atol=1e-5)
+        for nprobe in (2, 8):
+            jr = jrec.find_similar_batch([JaxDTO(v) for v in vals[:6]], 5, "ns", "l2",
+                                         nprobe=nprobe)
+            tr = tqp.find_similar_batch([VectorDTO(v) for v in vals[:6]], 5, "ns", "l2",
+                                        nprobe=nprobe)
+            assert [[r["id"] for r in a] for a in jr] == [[r["id"] for r in b] for b in tr]
     only = WriteAheadLog(str(tmp_path / "only"))
-    only.append(op, "ns", params={"n_clusters": 8} if op == "build_ivf" else None)
+    only.append(op, "nowhere", params={"n_clusters": 8} if op == "build_ivf" else None)
     only.close()
-    with pytest.raises(NotImplementedError, match=f"{op}.*A13"):
-        _new(cfg).replay_wal(str(tmp_path / "only"))
+    assert _new(cfg).replay_wal(str(tmp_path / "only")) == 1
+    assert JaxQueryProcessor(config=small_config).replay_wal(str(tmp_path / "only")) == 1
+
+
+def test_unknown_wal_op_is_skipped_and_counted_like_jax(tmp_path, small_config, cfg, rng):
+    """A record with an op this package does not know (a newer writer's) between two
+    upserts: both packages skip it, count it as applied and apply the records around it
+    (ROADMAP C9)."""
+    wal = WriteAheadLog(str(tmp_path / "wal"))
+    ids = [uuid.UUID(int=i + 1) for i in range(6)]
+    vals = rng.standard_normal((6, 8)).astype(np.float32)
+    wal.append("upsert", "ns", ids=ids[:3], values=vals[:3], metadatas=[{"i": i} for i in range(3)])
+    wal.append("future_op", "ns", params={"anything": [1, 2]})
+    wal.append("upsert", "ns", ids=ids[3:], values=vals[3:], metadatas=[None] * 3)
+    wal.close()
+    jqp = JaxQueryProcessor(config=small_config)
+    tqp = _new(cfg)
+    assert tqp.replay_wal(str(tmp_path / "wal")) == jqp.replay_wal(str(tmp_path / "wal")) == 3
+    _same_store(jqp, tqp, vals[:2], count=6)
 
 
 def test_wal_torn_middle_segment_stops_replay(tmp_path, rng):
@@ -335,11 +365,11 @@ def _write_history(qp, make_dto, vals, metas, ids):
     qp.delete_namespace("gone")
 
 
-def _same_store(jqp, tqp, queries):
+def _same_store(jqp, tqp, queries, count=118):
     assert jqp.list_namespaces() == tqp.list_namespaces() == ["ns"]
     jv = {v.id: v for v in jqp.get_namespace_vectors("ns")}
     tv = {v.id: v for v in tqp.get_namespace_vectors("ns")}
-    assert jv.keys() == tv.keys() and len(tv) == 118
+    assert jv.keys() == tv.keys() and len(tv) == count
     for vid, v in tv.items():
         np.testing.assert_array_equal(v.values, jv[vid].values)
         assert v.metadata == jv[vid].metadata
