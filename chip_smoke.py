@@ -149,8 +149,25 @@ one line per phase:
      micro-batcher equal to the direct calls, the HTTP round trip against the direct call,
      median of 5), and gRPC Search and BatchSearch where grpc imports.  Where aiohttp or
      pydantic does not import, phase 18 prints one line naming it and does not run.
+ 19. the distributed engine (parallel.make_distributed_processor; the mesh's cells are
+     the visible cards in turn, so one card holds them all): (a) phase 12's DEEP rows and
+     ids on a (1, 4) mesh (the same-dtype sweep per shard), cosine k=10 and k=100 and
+     l2 k=10 at B=128 before and after phase 12's 1,000 deletes: recall 1.0 against the
+     bf16-row oracle, phase 12's processor's answers after the deletes, one launch of B1
+     and of B2 per shard and search, transfers (1, 1) on every search whose shards all
+     certified; the capacity and device bytes; B1 and B2 at a shard's operands against
+     their plain versions and timed with their bounds, the merge of the shards' lists as
+     one engine search's ``knn_sharded.merge`` span records it (host time from RECORDER,
+     device time from a PROFILER trace), the engine wall beside phase 12's; (b) the SIFT-1M shape (phase 3's rows and ids) on
+     a (2, 2) mesh with EngineConfig() (B5 per shard) and sweep_dtype="bfloat16": l2 k=10
+     at B=128 (replica 0's half of the bucket) and B=384 (both replicas), before and after
+     the 1,000 deletes: recall 1.0, the unsharded processors' answers (phases 3 and 6),
+     a launch per shard of each replica holding a live query; B5 at a shard's operands
+     against plain; then reconcile, one row of replica 1 corrupted and named, repair and
+     the answers restored, and the cluster-sharded IVF (C = 2048) exact at full probe.
+     Its record is one JSON line starting {"mesh".
 Any failure raises, so the process exits non-zero.  Before them, one JSON line holds the
-IVF and server records; the last two lines are the kernels'
+IVF and server records, and one the distributed engine's; the last two lines are the kernels'
 JSON record (with each kernel's bound: bytes over 3.35 TB/s or operations over the peak
 for their type, whichever is larger; for the sweep kernel and B4/B5 the products of the
 live queries, with the bound at the whole padded batch and the time of a launch over every
@@ -184,6 +201,8 @@ from mlvectordb_tpu_torch.utils.metrics import render_metrics
 from mlvectordb_tpu_torch.utils.tracing import PROFILER, RECORDER
 from mlvectordb_tpu_torch.ops import _kernels, fused_knn, fused_knn_t
 from mlvectordb_tpu_torch.ops.distances import MASKED
+from mlvectordb_tpu_torch.parallel import make_distributed_processor
+from mlvectordb_tpu_torch.parallel.mesh import mesh_devices
 from mlvectordb_tpu_torch.probes.time_gather import time_ms as _time_cold_ms
 
 N, D, K, B = 1 << 20, 128, 10, 128
@@ -1790,7 +1809,9 @@ def run_deep():
         print(f"  {name}: {ms:.4f} ms{extra}")
     print(f"  engine wall runs (ms), B={B} cosine k={K}, tombstoned DEEP store: {wall}")
     print(f"  engine split, median ms (host clock): {split}")
-    return counts, worst, gworst, times, bounds, st.data
+    # what phase 19 shards: the same rows, ids, queries, deletes and oracle
+    ctx = {"qp": qp, "ids": ids, "db": db, "qd": qd, "dead": dead, "oracle": oracle}
+    return counts, worst, gworst, times, bounds, st.data, ctx
 
 
 def run_out_layout(rows, rng):
@@ -2753,6 +2774,315 @@ def run_ivf(gpu):
     return rec, qp, q_np
 
 
+# ---- phase 19: the distributed engine ----------------------------------------------------
+
+# the kernels a sharded search can launch, per shard: B1 and B2 over a mirror, B5 without
+_MESH_COUNTERS = ((fused_knn_t._window_mins_t, "launches"), (fused_knn_t._gather_score, "launches"),
+                  (fused_knn._window_mins_masked, "launches"),
+                  (fused_knn._window_mins_fast, "launches"))
+_MESH_NAMES = ("sweep", "gather", "masked", "fast")
+
+
+def _mesh_counts():
+    return [getattr(fn, a) for fn, a in _MESH_COUNTERS]
+
+
+def _set_mesh_counts(values):
+    for (fn, a), v in zip(_MESH_COUNTERS, values):
+        setattr(fn, a, v)
+
+
+def _mesh_search(qp, namespace, q_np, metric, nq, k, nprobe=None):
+    """One find_similar_batch on a distributed processor: (results, its (h2d, d2h)
+    transfers, the launches it added per kernel)."""
+    x0, c0 = dict(qp.transfer_counts), _mesh_counts()
+    res = qp.find_similar_batch([VectorDTO(v) for v in q_np[:nq]], k, namespace, metric,
+                                nprobe=nprobe)
+    xfer = (qp.transfer_counts["h2d"] - x0["h2d"], qp.transfer_counts["d2h"] - x0["d2h"])
+    return res, xfer, dict(zip(_MESH_NAMES, (c - b for c, b in zip(_mesh_counts(), c0))))
+
+
+def _same_as(got, want, label):
+    """The unsharded processor's answers: the same ids, scores within 1e-5."""
+    for g, w in zip(got, want):
+        if [r["id"] for r in g] != [r["id"] for r in w] and (
+                {r["id"] for r in g} != {r["id"] for r in w}):
+            raise AssertionError(f"{label}: not the unsharded processor's ids")
+        if not np.allclose(sorted(r["score"] for r in g), sorted(r["score"] for r in w),
+                           rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"{label}: not the unsharded processor's scores")
+
+
+def _live_replicas(nq, r):
+    """Replicas of an r-way mesh holding a live query of an nq-query batch (its bucket
+    split r ways)."""
+    br = EngineConfig().bucket_batch(nq) // r
+    return sum(1 for i in range(r) if nq > i * br)
+
+
+def _mesh_checks(res, xfer, launched, s, r_live, rowmajor, label):
+    """A sharded search launched its kernel once on each shard of each replica holding a
+    live query, crossed once each way when every shard certified (more only through an
+    escalation, whose B2 or scan launches show), and nothing else."""
+    want = {"sweep": 0, "masked": s * r_live} if rowmajor else {"sweep": s * r_live,
+                                                                "masked": 0}
+    if ({k: launched[k] for k in want} != want or launched["fast"] or xfer[0] != 1
+            or (rowmajor and launched["gather"]) or (xfer[1] != 1 and rowmajor)
+            or (not rowmajor and launched["gather"] < s * r_live)
+            or (not rowmajor and xfer[1] == 1 and launched["gather"] != s * r_live)):
+        raise AssertionError(f"{label}: launches {launched}, transfers {xfer}")
+    return xfer == (1, 1)
+
+
+MESH_DIR = DURABLE_DIR.parent / "mesh"
+
+
+def _merge_span(qp, q_np, namespace, metric, k):
+    """The cross-shard merge of one engine search, read from the search's own
+    ``knn_sharded.merge`` span: (the host's ms in the span from RECORDER, the device ms of
+    what was launched inside it from a PROFILER trace, the kernels counted).  Each launch
+    that the trace places inside the span is matched to its kernel by correlation id; a
+    trace without them gives (host ms, None, 0): not measured."""
+    qs = [VectorDTO(v) for v in q_np + np.float32(0.5e-3)]   # no cached answer
+    t_start = time.time()
+    PROFILER.start(str(MESH_DIR / "profile"))
+    qp.find_similar_batch(qs, k, namespace, metric)
+    trace = PROFILER.stop()
+    host = [e["elapsed_ms"] for e in RECORDER.recent()
+            if e["start"] >= t_start and e["name"] == "knn_sharded.merge"]
+    if len(host) != 1:
+        raise AssertionError(f"one search recorded {len(host)} knn_sharded.merge spans")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("name") == "knn_sharded.merge" and e.get("cat") == "user_annotation"]
+    launched = {e["args"]["correlation"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})
+                and any(a <= e["ts"] <= b for a, b in spans)}
+    device = [e["dur"] for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+              and e.get("args", {}).get("correlation") in launched]
+    return host[0], (sum(device) / 1e3 if device else None), len(device)
+
+
+def run_mesh(gpu, deep, sift):
+    """Phase 19 (see the module docstring).  Returns (the {"mesh": ...} record, the launch
+    counts of the two cells' counted runs, {time name: ms}, {bound name: bound},
+    {kernel: max |kernel - plain|})."""
+    rec, times, bounds, worst = {"card": gpu}, {}, {}, {}
+    # ---- (a) DEEP on a (1, 4) mesh
+    devs = mesh_devices(4, "cuda")
+    qpd = make_distributed_processor(1, 4, DEEP, devices=devs)
+    sm = qpd.sharding_manager
+    print(f"  (a) DEEP sharded: make_distributed_processor(1, 4), shard s on "
+          f"{[str(d) for d in sm.mesh.devices[0]]} ({torch.cuda.device_count()} visible)")
+    t0 = time.perf_counter()
+    ids = qpd.bulk_load(deep["db"], "deep", ids=deep["ids"])
+    torch.cuda.synchronize()
+    nsd = qpd.storage.namespace("deep")
+    st = nsd.device_state()
+    per_cell = [cell.data.numel() * cell.data.element_size() for cell in st.shards[0]]
+    rec["deep"] = {"ingest_s": time.perf_counter() - t0, "rows": N_DEEP,
+                   "shard_capacity": nsd.shard_capacity, "capacity": nsd.capacity,
+                   "device_bytes": nsd.nbytes, "row_bytes_per_shard": per_cell,
+                   "placement": [str(d) for d in sm.mesh.devices[0]]}
+    print(f"  bulk_load: {N_DEEP:,} rows in {rec['deep']['ingest_s']:.2f} s; shard capacity "
+          f"{nsd.shard_capacity:,}, capacity {nsd.capacity:,} rows ({nsd.capacity / N_DEEP:.1f}x "
+          f"the rows: each shard sized for a whole batch hashing to it), device bytes "
+          f"{nsd.nbytes:,} (phase 12's unsharded store {deep['qp'].storage.namespace('deep').nbytes:,})")
+    if any(st_.mirror is None or st_.mirror.data_ptr() != st_.data.data_ptr()
+           for st_ in st.shards[0]):
+        raise AssertionError("a DEEP shard does not sweep its own bf16 rows")
+    searches = (("cosine", B, K), ("cosine", B, K100), ("l2", B, K))
+    # the unsharded processor's answers on the same rows (phase 12's, after its deletes),
+    # taken before the counted run
+    want = {(m, k): deep["qp"].find_similar_batch([VectorDTO(v) for v in deep["qd"][:nq]], k,
+                                                  "deep", m) for m, nq, k in searches}
+    outer = _mesh_counts()
+    _set_mesh_counts([0] * len(outer))
+    served, certified = {}, 0
+    for when, dead_rows in (("before delete", None), ("after delete", deep["dead"])):
+        if dead_rows is not None:
+            qpd.delete([ids[i] for i in dead_rows], "deep")
+        for metric, nq, k in searches:
+            label = f"sharded DEEP {metric} B={nq} k={k} {when}"
+            res, xfer, launched = _mesh_search(qpd, "deep", deep["qd"], metric, nq, k)
+            certified += _mesh_checks(res, xfer, launched, 4, 1, False, label)
+            served[f"{metric} k={k} {when}"] = {"transfers": xfer, "launches": launched}
+            _check_recall(res, deep["oracle"].sets(metric, nq, dead_rows, k=k), ids,
+                          label + " (bf16-row oracle)", k=k)
+            if dead_rows is not None:
+                _same_as(res, want[(metric, k)], label)
+    counts_a = dict(zip(_MESH_NAMES, _mesh_counts()))
+    if not certified or counts_a["sweep"] != 4 * 2 * len(searches) or counts_a["gather"] < 4:
+        raise AssertionError(f"sharded DEEP: launches {counts_a}, {certified} certified")
+    print(f"  DEEP sharded per batch: {served}; {certified} of {2 * len(searches)} certified "
+          f"with transfers (1, 1); launches {counts_a}; recall 1.0 and phase 12's answers")
+    rec["deep"]["searches"] = served
+    rec["deep"]["launches"] = counts_a
+
+    # per-shard B1 and B2 at the operands of the engine's cosine B=128 search (k bucket 16),
+    # against their plain versions; the merge; the engine wall beside phase 12's
+    q_pad = torch.zeros((512, D), device=devs[0])
+    q_pad[:B] = torch.from_numpy(deep["qd"]).to(devs[0])
+    st = nsd.device_state()
+
+    def search():
+        return sm.sharded_knn(q_pad, st.shards, k=16, metric="cosine", n_live=B)
+
+    a, kw = _capture("_window_mins_t", search)
+    got = fused_knn_t._window_mins_t(*a, **kw)
+    want_ = fused_knn_t._window_mins_t_plain(*a, **{**kw, "zero_cache": {}})
+    budget = _budget(a, kw)
+    worst["sweep"] = 0.0
+    for g, w, bd in ((got[0], want_[0], budget), (got[1], want_[1], budget.amax(-1))):
+        if g is not None:
+            worst["sweep"] = max(worst["sweep"],
+                                 _check_budget(g, w, bd, "shard B1 cosine k=16")[0])
+    del got, want_
+    times.update(_time_b1("sweep_shard", a, kw))
+    bounds["sweep_shard"] = _b3_bound(a, kw, fused_knn_t._window_mins_t(*a, **kw))
+    bounds["sweep_shard_full_batch"] = _b3_bound(a, kw, fused_knn_t._window_mins_t(*a, **kw),
+                                                 full_batch=True)
+    ga, gkw = _capture("_gather_score", search)
+    t, b, rows, worst["gather"] = time_gather("gather_shard", ga, gkw)
+    times.update(t)
+    bounds.update(b)
+    times["merge_host"], times["merge"], n_merge = _merge_span(qpd, deep["qd"], "deep",
+                                                               "cosine", K)
+    # phase 12 timed the same queries on its processor: no answer may come from a cache
+    for p_ in (qpd, deep["qp"]):
+        p_._result_cache.clear()
+    wall = _engine_wall(qpd, deep["qd"], namespace="deep", metric="cosine")
+    wall12 = _engine_wall(deep["qp"], deep["qd"], namespace="deep", metric="cosine")
+    times["engine_wall_sharded_median"] = statistics.median(wall)
+    times["engine_wall_unsharded_median"] = statistics.median(wall12)
+    rec["deep"].update({"shard_rows": a[2].shape[0], "engine_wall_ms": wall,
+                        "engine_wall_unsharded_ms": wall12, "timed_gather_rows": rows})
+    print(f"  per shard ({a[2].shape[0]:,} rows, r1={kw['r1']}): B1 {times['sweep_shard']:.4f} "
+          f"ms (plain {times['sweep_shard_plain']:.4f}, bound "
+          f"{bounds['sweep_shard'][0]:.4f} {bounds['sweep_shard'][1]}), B2 "
+          f"{times['gather_shard']:.4f} ms; the merge of 4 [{B}, 16] lists in one engine "
+          f"search: {n_merge} kernels, device "
+          f"{'not measured' if times['merge'] is None else format(times['merge'], '.4f')} ms, "
+          f"host {times['merge_host']:.4f} ms; max |kernel - plain| B1 {worst['sweep']}, B2 "
+          f"{worst['gather']}")
+    print(f"  engine wall (ms, host clock), B={B} cosine k={K}, tombstoned: sharded {wall} "
+          f"(median {times['engine_wall_sharded_median']:.3f}), phase 12's unsharded {wall12} "
+          f"(median {times['engine_wall_unsharded_median']:.3f}), on {gpu}")
+    del qpd, nsd, st, a, kw, ga, gkw
+    torch.cuda.empty_cache()
+
+    # ---- (b) the SIFT-1M shape on a (2, 2) mesh: row-major (B5) and the bf16 mirror
+    dead, oracle, db_np = sift["dead"], sift["oracle"], sift["db"]
+    # B = 384 fills both replicas' halves of the 512 bucket: the 128 queries thrice
+    q_np = np.tile(sift["q"], (3, 1))
+    counts_b = {}
+    rec["replicated"] = {}
+    for label, cfg, base, base_ids in (("row_major", EngineConfig(), sift["row_qp"],
+                                        sift["row_ids"]),
+                                       ("bf16_mirror", SWEEP, sift["sweep_qp"],
+                                        sift["sweep_ids"])):
+        rowmajor = cfg.sweep_dtype is None
+        qpr = make_distributed_processor(2, 2, cfg, devices=devs)
+        t0 = time.perf_counter()
+        qpr.bulk_load(db_np, "sift", ids=base_ids)
+        torch.cuda.synchronize()
+        ns = qpr.storage.namespace("sift")
+        r_rec = {"ingest_s": time.perf_counter() - t0, "shard_capacity": ns.shard_capacity,
+                 "device_bytes": ns.nbytes}
+        want = {nq: base.find_similar_batch([VectorDTO(v) for v in q_np[:nq]], K, "sift",
+                                            "l2") for nq in (B, 3 * B)}
+        outer_b = _mesh_counts()
+        _set_mesh_counts([0] * len(outer_b))
+        served = {}
+        for when, dead_rows in (("before delete", None), ("after delete", dead)):
+            if dead_rows is not None:
+                qpr.delete([base_ids[i] for i in dead_rows], "sift")
+            for nq in (B, 3 * B):
+                tag = f"(2, 2) {label} l2 B={nq} k={K} {when}"
+                res, xfer, launched = _mesh_search(qpr, "sift", q_np, "l2", nq, K)
+                _mesh_checks(res, xfer, launched, 2, _live_replicas(nq, 2), rowmajor, tag)
+                served[f"B={nq} {when}"] = {"transfers": xfer, "launches": launched}
+                _check_recall(res, (oracle.sets("l2", B, dead_rows) * 3)[:nq], base_ids, tag)
+                if dead_rows is not None:
+                    _same_as(res, want[nq], tag)
+        counts_b[label] = dict(zip(_MESH_NAMES, _mesh_counts()))
+        _set_mesh_counts([o + c for o, c in zip(outer_b, counts_b[label].values())])
+        r_rec.update({"searches": served, "launches": counts_b[label]})
+        print(f"  (b) {label} on (2, 2): shard capacity {ns.shard_capacity:,}, device bytes "
+              f"{ns.nbytes:,} (both replicas); per batch {served}; recall 1.0 and the "
+              f"unsharded answers")
+        if rowmajor:
+            # B5 at a shard's operands of the engine's B=128 search
+            q_pad = torch.zeros((512, D), device=devs[0])
+            q_pad[:B] = torch.from_numpy(q_np[:B]).to(devs[0])
+            st = ns.device_state()
+            a, kw = _capture("_window_mins_masked", lambda: qpr.sharding_manager.sharded_knn(
+                q_pad, st.shards, k=16, metric="l2", n_live=B), module=fused_knn)
+            n_c = fused_knn_t._live_columns(a[1].shape[1], kw["n_live"])
+            plain_args = (a[0], a[1][:, :n_c], a[2][:, :n_c], a[3])
+            got = fused_knn._window_mins_masked(*a, **kw)
+            want5 = fused_knn._window_mins_masked_ref(*plain_args, **_full(kw))
+            budget = fused_knn._phase1_budget(*plain_args[:3], bias=a[3], **_full(kw))
+            worst["masked"] = _check_budget(got, want5, budget, "shard B5 l2")[0]
+            t, _cols = _time_b4("masked_shard", "_window_mins_masked", a, kw)
+            times.update(t)
+            bounds["masked_shard"] = _b4_bound(a, kw)
+            bounds["masked_shard_full_batch"] = _b4_bound(a, kw, full_batch=True)
+            del got, want5, budget
+            print(f"  B5 per shard ({a[0].shape[0]:,} f32 rows): {times['masked_shard']:.4f} ms "
+                  f"(plain {times['masked_shard_plain']:.4f}, bound "
+                  f"{bounds['masked_shard'][0]:.4f}); max |kernel - plain| {worst['masked']}")
+            # reconcile, a corrupted row, repair, then the cluster-sharded IVF
+            rm = qpr.replication_manager
+            after = res
+            st = ns.device_state()
+            rep0 = rm.reconcile(st.data, st.valid)
+            slot = ns._id_to_slot[base_ids[int(np.setdiff1d(np.arange(N), dead)[0])]]
+            sh, loc = divmod(slot, ns.shard_capacity)
+            cell = ns._cells[1][sh]
+            cell.data = cell.data.clone()
+            cell.data[loc, 0] += 1.0
+            ns._publish()
+            st = ns.device_state()
+            rep1 = rm.reconcile(st.data, st.valid)
+            t0 = time.perf_counter()
+            rep2 = ns.reconcile_and_repair(rm)
+            repair_s = time.perf_counter() - t0
+            res, _x, _l = _mesh_search(qpr, "sift", q_np, "l2", 3 * B, K)
+            if (not rep0["consistent"] or rep1["divergent_replicas"] != [1]
+                    or not rep2["repaired"] or rep2["source"] != 0
+                    or not rep2["consistent_after"]):
+                raise AssertionError(f"reconcile/repair: {rep0} {rep1} {rep2}")
+            _same_as(res, after, "(2, 2) after the repair")
+            t0 = time.perf_counter()
+            stats = qpr.build_ivf("sift", n_clusters=2048)
+            build_s = time.perf_counter() - t0
+            if not stats["sharded"] or stats["shards"] != 2 or stats["clusters"] != 2048:
+                raise AssertionError(f"the IVF index is not cluster-sharded: {stats}")
+            t0 = time.perf_counter()
+            res, _x, _l = _mesh_search(qpr, "sift", q_np, "l2", B, K, nprobe=2048)
+            probe_s = time.perf_counter() - t0
+            _check_recall(res, oracle.sets("l2", B, dead), base_ids,
+                          "(2, 2) IVF full probe l2 B=128")
+            r_rec.update({"reconcile": rep0["fingerprints"], "divergent": rep1[
+                "divergent_replicas"], "repair_s": repair_s, "ivf_build_s": build_s,
+                "ivf_full_probe_s": probe_s, "ivf": stats})
+            print(f"  reconcile consistent {rep0['fingerprints']}; one row of replica 1 "
+                  f"corrupted: divergent {rep1['divergent_replicas']}; repaired from replica "
+                  f"{rep2['source']} in {repair_s:.3f} s, consistent after, answers restored; "
+                  f"IVF C=2048 cluster-sharded over 2 shards built in {build_s:.1f} s, full "
+                  f"probe B={B} recall@10 1.0 in {probe_s:.2f} s")
+        rec["replicated"][label] = r_rec
+        del qpr, ns
+        torch.cuda.empty_cache()
+    _set_mesh_counts([o + sum(c) for o, c in zip(outer, zip(
+        counts_a.values(), *(cb.values() for cb in counts_b.values())))])
+    return rec, counts_a, counts_b, times, bounds, worst
+
+
 # ---- phase 18: the server over phase 17's processor --------------------------------------
 
 
@@ -3281,7 +3611,7 @@ def main() -> int:
     # ---- 12. DEEP: the same-dtype certified sweep ----------------------------------------
     print(f"phase 12 DEEP: QueryProcessor(dtype='bfloat16', sweep_dtype='bfloat16') at "
           f"{N_DEEP:,} x {D}, on {gpu}")
-    c12, worst["same_dtype"], worst["gather_bf16"], t12, b12, deep_rows = run_deep()
+    c12, worst["same_dtype"], worst["gather_bf16"], t12, b12, deep_rows, deep = run_deep()
     times.update(t12)
 
     # ---- 13. probe B6 ----------------------------------------------------------------------
@@ -3341,6 +3671,18 @@ def main() -> int:
         print(f"  phase 18 took {server_rec['seconds']:.1f} s")
     del ivf_qp
 
+    # ---- 19. the distributed engine ------------------------------------------------------
+    print(f"phase 19 distributed engine: make_distributed_processor, DEEP ({N_DEEP:,} x {D} "
+          f"bf16) on a (1, 4) mesh and the SIFT-1M shape on (2, 2), on {gpu}")
+    t19 = time.perf_counter()
+    mesh_rec, c19a, c19b, t19_, b19, w19 = run_mesh(gpu, deep, {
+        "dead": dead, "oracle": oracle, "db": db_np, "q": q_np, "row_qp": qp, "row_ids": ids,
+        "sweep_qp": qps, "sweep_ids": sweep_ids})
+    mesh_rec["seconds"] = time.perf_counter() - t19
+    times.update(t19_)
+    print(f"  phase 19 took {mesh_rec['seconds']:.1f} s")
+    del deep
+
     # each kernel's bound at the operands timed above: every input read once, every
     # output written once; the products over the peak for their type (B1/B3 and B4/B5:
     # of the live queries, and of the whole padded batch beside it; B4/B5 over f32 rows
@@ -3361,6 +3703,7 @@ def main() -> int:
     bounds.update(b11)
     bounds.update(b12)
     bounds.update(b15)
+    bounds.update(b19)
     for name, (ms, by, nbytes, ops) in bounds.items():
         base = name.removesuffix("_full_batch")
         timed = times[name] if base == name else times[base + "_full"]
@@ -3529,8 +3872,32 @@ def main() -> int:
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": None,
             **{k: v for k, v in r.items() if k.startswith("r1_4_")}})
+    # phase 19: B1 and B2 at a DEEP shard's operands, B5 at a SIFT-shape shard's, each with
+    # the launches of its cell's counted run (one per shard of each replica holding a live
+    # query, per search)
+    for name, source, replaces, launches_, key, err in (
+            ("sweep_min_shard", "sweep_min.cu", "mlvectordb_tpu/ops/pallas_knn_t.py:221",
+             c19a["sweep"] + c19b["bf16_mirror"]["sweep"], "sweep_shard", w19["sweep"]),
+            ("gather_score_shard", "gather_score.cu", "mlvectordb_tpu/ops/pallas_gather.py:33",
+             c19a["gather"] + c19b["bf16_mirror"]["gather"], "gather_shard", w19["gather"]),
+            ("window_min_masked_shard", "window_min.cu", "mlvectordb_tpu/ops/pallas_knn.py:131",
+             c19b["row_major"]["masked"], "masked_shard", w19["masked"])):
+        e = entry(name, source, replaces, launches_, err, key)
+        if key != "masked_shard":
+            kind_ = "sweep" if key == "sweep_shard" else "gather"
+            e.update({"launches_deep": c19a[kind_],
+                      "launches_sift_bf16_mirror": c19b["bf16_mirror"][kind_]})
+        if key == "sweep_shard":
+            e.update({"merge_ms": times["merge"], "merge_host_ms": times["merge_host"],
+                      "engine_wall_sharded_ms": times["engine_wall_sharded_median"],
+                      "engine_wall_unsharded_ms": times["engine_wall_unsharded_median"]})
+        if key == "gather_shard":
+            e.update({"timed_launch_rows": TIMED_ROWS[key],
+                      "index_select_ms": times[key + "_index_select"]})
+        record["kernels"].append(e)
     # the IVF and server phases run no hand-written kernel of their own: their record
     print(json.dumps({"ivf": ivf_rec, "server": server_rec}, default=str))
+    print(json.dumps({"mesh": mesh_rec}, default=str))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s on {gpu}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -7,14 +7,18 @@ Parity with the reference launcher (reference: src/mlvectordb/api/server.py:15-7
 --host 127.0.0.1, --port 8000, --reload, --log-level {debug,info,warning,error}; wires the
 default stack and runs the HTTP server).  Extended with engine flags (storage dtype,
 default metric, snapshot autoload) since the engine is configurable (SURVEY.md §5.6).
-``--device`` (cuda by default, or cpu) replaces the JAX package's ``--platform``; the
-distributed engine (``--mesh-shards``) is not ported yet and is refused (ROADMAP A14).
+``--device`` (cuda by default, or cpu) replaces the JAX package's ``--platform``.
+``--mesh-shards N [--mesh-replicas R]`` serves the distributed engine
+(``parallel.make_distributed_processor``): its mesh is the visible CUDA devices, repeated
+when there are fewer than R*N (so one card serves any mesh), or R*N times the CPU under
+``--device cpu``.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 
 from ..config import EngineConfig, canonical_metric
 from ..engine.query_processor import QueryProcessor
@@ -94,8 +98,16 @@ def build_parser() -> argparse.ArgumentParser:
         "--mesh-shards",
         type=int,
         default=0,
-        help="Serve a DISTRIBUTED engine (sharded namespaces): not ported yet (ROADMAP "
-        "A14); any value but 0 is refused",
+        help="Serve a DISTRIBUTED engine: shard every namespace over this many devices "
+        "of the mesh (0 = single-device engine).  Combine with --mesh-replicas for "
+        "replica groups; POST /mesh/reconcile verifies/repairs replica consistency on "
+        "the devices",
+    )
+    p.add_argument(
+        "--mesh-replicas",
+        type=int,
+        default=1,
+        help="Replica groups over the mesh's 'replica' axis (with --mesh-shards)",
     )
     p.add_argument(
         "--device",
@@ -137,8 +149,10 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.mesh_shards:
-        parser.error("--mesh-shards: the distributed engine is not ported yet (ROADMAP A14)")
+    if args.mesh_shards and args.snapshot:
+        # the JAX package's refusal, before anything is built
+        parser.error("--snapshot is not supported with --mesh-shards yet; "
+                     "use --wal for durability")
     if args.reload:
         logging.getLogger("vector_db_api").warning(
             "--reload accepted for parity but ignored (no hot reload)"
@@ -155,7 +169,24 @@ def main(argv=None) -> None:
     ckpt_bytes = None
     if args.wal and not args.snapshot and args.wal_checkpoint_mb > 0:
         ckpt_bytes = args.wal_checkpoint_mb << 20
-    if args.snapshot or args.wal:
+    if args.mesh_shards:
+        # distributed serving: every namespace shards over the mesh; durability via WAL
+        # replay (mutations re-apply through the engine, which shards them), on top of
+        # a WAL-only checkpoint restored INTO the sharded storage
+        from ..engine.persist import load_storage, resolve_snapshot_dir
+        from ..parallel import make_distributed_processor
+        from ..parallel.mesh import mesh_devices
+
+        devices = mesh_devices(args.mesh_replicas * args.mesh_shards, args.device)
+        qp = make_distributed_processor(args.mesh_replicas, args.mesh_shards, config,
+                                        devices=devices)
+        if args.wal:
+            ckpt = resolve_snapshot_dir(os.path.join(args.wal, "checkpoint"))
+            if ckpt is not None:
+                load_storage(ckpt, config, storage=qp.storage)
+            qp.replay_wal(args.wal)
+            qp.enable_wal(args.wal, fsync=args.wal_fsync, checkpoint_bytes=ckpt_bytes)
+    elif args.snapshot or args.wal:
         qp = QueryProcessor.load(
             args.snapshot or "", config, wal_path=args.wal, wal_fsync=args.wal_fsync,
             wal_checkpoint_bytes=ckpt_bytes, device=args.device,
@@ -175,6 +206,10 @@ def main(argv=None) -> None:
         api_key=args.api_key,
         cors_origins=args.cors_origins or None,
     )
+    if args.mesh_shards:
+        logging.getLogger("vector_db_api").info(
+            f"mesh {args.mesh_replicas} x {args.mesh_shards} (replica x shard) over "
+            f"{[str(d) for d in devices]}")
     if args.grpc_port:
         from .grpc_server import create_server
 

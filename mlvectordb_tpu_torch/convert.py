@@ -18,6 +18,12 @@ same codes; for a bf16 store's same-dtype mirror the result equals the port's ``
 ids: its centroids, every id's cluster slot and the spill copies, through the index's
 snapshot payload (``snapshot_arrays`` -> ``IVFIndex.from_snapshot``), so both packages
 search one layout.
+
+``sharded_from_jax`` carries a JAX ``ShardedNamespaceStore`` across to a fresh port
+``ShardedNamespaceStore`` on a mesh with as many shards: its global rows, liveness and
+norms, its host tables, ``shard_capacity`` and every shard's free list and high-water
+mark, so both stores hold every id in the same slot, answer alike and hand out the same
+next slot.  The port's sweep arrays are built from the rows.
 """
 
 from __future__ import annotations
@@ -67,6 +73,57 @@ def sweep_arrays_from_jax(data_t: np.ndarray, sweep_resid: Optional[np.ndarray] 
                     ("sweep_err1", sweep_err1), ("sweep_rscale2", sweep_rscale2)):
         out[name] = None if v is None else torch.from_numpy(np.array(v, np.float32)).to(device)
     return out
+
+
+def sharded_from_jax(jax_store, port_store):
+    """Fill the fresh sharded ``port_store`` (parallel/store.py) with ``jax_store``'s state
+    (read through numpy: this module imports no JAX) and publish it."""
+    S, c = port_store.n_shards, int(jax_store.shard_capacity)
+    if jax_store.n_shards != S:
+        raise ValueError(f"the JAX store has {jax_store.n_shards} shards, the port's {S}")
+    if port_store.live_count or port_store.capacity:
+        raise ValueError("sharded_from_jax fills a fresh store")
+    if jax_store.dim is None:
+        return port_store
+    port_store._ensure_dim(int(jax_store.dim))
+    if port_store.dpad != int(jax_store.dpad):
+        raise ValueError(f"padded widths differ: {jax_store.dpad} vs {port_store.dpad}")
+    port_store._alloc_arrays(c * S)
+    if port_store.shard_capacity != c:
+        raise ValueError(f"shard capacity {c} is not a capacity of the port's config")
+    data = np.asarray(jax_store._data).astype(np.float32)   # bf16 rows convert exactly
+    arrays = {"data": data, "valid": np.asarray(jax_store._valid, bool),
+              "sq_norms": np.asarray(jax_store._sq_norms, np.float32)}
+    for row in port_store._cells:
+        for s, cell in enumerate(row):
+            for f, a in arrays.items():
+                t = getattr(cell, f)
+                setattr(cell, f, torch.from_numpy(np.array(a[s * c:(s + 1) * c])).to(
+                    cell.device, t.dtype))
+            port_store._build_cell_sweep(cell)
+    port_store._slot_ids = list(jax_store._slot_ids)
+    port_store._slot_meta = list(jax_store._slot_meta)
+    port_store._slot_values = list(jax_store._slot_values)
+    port_store._id_to_slot = dict(jax_store._id_to_slot)
+    port_store._shard_free = [list(f) for f in jax_store._shard_free]
+    port_store._shard_high = list(jax_store._shard_high)
+    # the high-water mark's bound: the first local at or past the mark that a regrow
+    # already handed to the free list (or that is taken)
+    taken = {}
+    for slot in port_store._id_to_slot.values():
+        taken.setdefault(slot // c, []).append(slot % c)
+    port_store._shard_end = [
+        min([l for l in [f - s * c for f in port_store._shard_free[s]] + taken.get(s, [])
+             if l >= port_store._shard_high[s]] + [c])
+        for s in range(S)]
+    port_store._high_water = int(jax_store._high_water)
+    port_store._tombstones = int(jax_store._tombstones)
+    port_store.version = int(jax_store.version)
+    port_store._grow_host_tables(port_store.capacity)
+    port_store._ensure_meta_columns()
+    port_store._rebuild_meta_columns()
+    port_store._publish()
+    return port_store
 
 
 def ivf_from_jax(jax_index, store: NamespaceStore) -> IVFIndex:

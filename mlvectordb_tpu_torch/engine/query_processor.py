@@ -19,6 +19,11 @@ IVF (``build_ivf`` / ``drop_ivf``, store/ivf.py): a search passing ``nprobe`` pr
 many clusters of the namespace's index; without an index, or with a filter, it serves the
 exact path, as in the JAX package.  The index follows every write and delete, is saved in
 snapshots and rebuilt by WAL replay from its logged parameters.
+
+A distributed namespace (parallel/store.py, from ``parallel.make_distributed_processor``)
+is searched through its ``sharded_search``: every shard's search, the merge of their
+top-k lists, and one copy back of the merged result with every shard's proof.
+
 Reference behaviors kept:
   * k clamped to the live count (index.py:103-107)
   * search of a missing namespace returns [] (index.py:98-99)
@@ -443,7 +448,9 @@ class QueryProcessor:
     def _search_snapshot(self, q_np, ns, namespace, k, metric, filter=None):
         v0 = ns.version            # read BEFORE the snapshot: brackets the mask build
         state = ns.device_state()  # snapshot: writers replace tensors, never mutate them
-        valid, prep_cache = state.valid, state.prep_cache
+        # a distributed namespace (parallel/store.py): per-shard states, merged top-k
+        sharded = hasattr(ns, "sharded_search")
+        valid, prep_cache = (None, None) if sharded else (state.valid, state.prep_cache)
         if filter:
             # Writers mutate the host tables and metadata columns, bump the version and
             # publish under the namespace lock; a compaction bumps the version BEFORE it
@@ -455,14 +462,22 @@ class QueryProcessor:
                     raise RuntimeError("snapshot deleted (republished before the mask build)")
                 with trace_span("filter_mask", namespace=namespace):
                     mask = self._filter_masks.mask_for(ns, filter)
-            if mask.shape[0] != state.valid.shape[0]:  # capacity changed mid-snapshot
+            if mask.shape[0] != state.capacity:  # capacity changed mid-snapshot
                 raise RuntimeError("snapshot deleted (capacity changed)")
             if ns.version != v0:
                 # a write published between the version read and the mask build: the
                 # mask (live tables, keyed by the live version) may not match the
                 # snapshot's arrays, so re-snapshot
                 raise RuntimeError("snapshot deleted (version moved during mask build)")
-            valid, prep_cache = self._filter_scope(state, mask, filter)
+            if sharded:
+                # each shard's liveness and prep are scoped in its own prep dict
+                c = state.capacity // ns.n_shards
+                scopes = [[self._filter_scope(st, mask[s * c:(s + 1) * c], filter)
+                           for s, st in enumerate(row)] for row in state.shards]
+                valid = [[v for v, _ in row] for row in scopes]
+                prep_cache = [[p for _, p in row] for row in scopes]
+            else:
+                valid, prep_cache = self._filter_scope(state, mask, filter)
         # counters come from the SNAPSHOT, never the live store attributes: a concurrent
         # upsert bumps host tables before publishing the scattered arrays, and pairing
         # old data with the new high-water would admit never-written all-zero rows
@@ -471,13 +486,17 @@ class QueryProcessor:
         if k_eff <= 0:
             empty = np.zeros((B, 0))
             return empty, empty.astype(np.int32), ns, state.host_tables
-        kb = min(self.config.bucket_k(k_eff), state.valid.shape[0])
+        kb = min(self.config.bucket_k(k_eff), state.capacity)
         Bb = self.config.bucket_batch(B)
         q_pad = np.zeros((Bb, ns.dpad), np.float32)
         q_pad[:B, : ns.dim] = q_np
 
         self.transfer_counts["h2d"] += 1
         q_dev = torch.from_numpy(q_pad).to(self.device)
+        if sharded:
+            return self._search_sharded(q_dev, ns, state, namespace, B, Bb, kb, k_eff,
+                                        metric, valid if filter else None,
+                                        prep_cache if filter else None)
         # rows [0, high_water) are exactly the live rows iff no slot below the
         # high-water mark is dead and no filter is active => the fast kernel can skip all
         # mask traffic
@@ -523,6 +542,24 @@ class QueryProcessor:
                 # files no prep anywhere but the filter's own dict.
                 with self._cert_lock:
                     self._cert_mode[(namespace, metric, masked)] = "heavy"
+        return dist[:B, :k_eff], idx[:B, :k_eff], ns, state.host_tables
+
+    def _search_sharded(self, q_dev, ns, state, namespace, B, Bb, kb, k_eff, metric,
+                        valid, prep):
+        """The sharded branch (query_processor.py:481-487 of the JAX package): every shard
+        searched with the sweep's proof left on the device, the shards' tier-1 lists
+        merged on the device, and the merged (dist, idx) fetched with every shard's proof
+        in ONE copy; a failed proof escalates that shard alone (counted copies) and
+        merges again.  No certificate tier is recorded, as in the JAX package."""
+        with trace_span("knn_sharded", namespace=namespace, k=kb, batch=Bb):
+            out = ns.sharded_search(q_dev, kb, metric, valid_override=valid, state=state,
+                                    prep=prep, n_live=B, defer=True)
+            parts = (out.dist, out.idx) + (() if out.okq is None else (out.okq,))
+            self.transfer_counts["d2h"] += 1
+            host = fetch(*parts)
+        dist, idx = host[0], host[1]
+        if out.okq is not None and not host[2].all():
+            dist, idx, _tier = out.escalate(host[2], self._counted_fetch)
         return dist[:B, :k_eff], idx[:B, :k_eff], ns, state.host_tables
 
     def _counted_fetch(self, *tensors):
@@ -866,7 +903,9 @@ class QueryProcessor:
         Each (batch bucket, k bucket, metric, variant) program is launched once, serially,
         through the backend call the search makes, with one zero query in the bucket; no
         data, version or capacity changes.  Returns the programs run, with ``detail=True``
-        a ``(count, {"b{B}_k{kb}_{metric}_{fast|masked}": seconds})`` pair.
+        a ``(count, {"b{B}_k{kb}_{metric}_{fast|masked}": seconds})`` pair.  A sharded
+        namespace runs one ``..._sharded`` program per (bucket, k bucket, metric): its
+        whole zero batch through ``sharded_search``, every shard of every replica.
 
         ``batches`` defaults to every config batch bucket up to 512.  ``include_masked``:
         also run the masked variant (tombstones or filters present); None = only when the
@@ -888,16 +927,27 @@ class QueryProcessor:
         if include_masked is None:
             include_masked = state.live_count != state.high_water
         variants = (None, state.high_water) if include_masked else (state.high_water,)
+        sharded = hasattr(ns, "sharded_search")
         backend = knn_backend(self.config)
-        want_tier = bool(self.config.certify_exact) and state.mirror is not None
+        want_tier = (bool(self.config.certify_exact) and not sharded
+                     and state.mirror is not None)
         report: Dict[str, float] = {}
         for m in metrics:
             mc = canonical_metric(m)
             for b in batches:
                 Bb = self.config.bucket_batch(b)
                 for k in ks:
-                    kb = min(self.config.bucket_k(min(k, state.live_count)),
-                             state.valid.shape[0])
+                    kb = min(self.config.bucket_k(min(k, state.live_count)), state.capacity)
+                    if sharded:
+                        key = f"b{Bb}_k{kb}_{mc}_sharded"
+                        if key not in report:
+                            t0 = time.perf_counter()
+                            d, _ = ns.sharded_search(
+                                torch.zeros((Bb, ns.dpad), dtype=torch.float32,
+                                            device=self.device), kb, mc, state=state)
+                            fetch(d[:1, :1])   # a readback: every shard ran to its end
+                            report[key] = round(time.perf_counter() - t0, 3)
+                        continue
                     for live_prefix in variants:
                         key = f"b{Bb}_k{kb}_{mc}_{'masked' if live_prefix is None else 'fast'}"
                         if key in report:

@@ -18,9 +18,15 @@ product and a fold into the carried top-k (ops/topk._fold_tile).  A build places
 as the JAX package's host loop does (id by id in the store's order, then the overflow),
 so an index built from the same centroids holds every id in the same slot; the in-order
 part is one stable sort per cluster rather than a Python step per id, and the rows and
-norms move into the cluster arrays in one device scatter.  The
-mesh-sharded index of the JAX package (cluster-sharded lists, ``sharded_ivf_probe``) is
-not ported (ROADMAP A14).
+norms move into the cluster arrays in one device scatter.
+
+Over a sharded store (parallel/store.py) the index is cluster-sharded, as the JAX
+package's is: C rounds up to a multiple of the shard count, the cluster arrays are
+``[R][S]`` grids of ``[C/S, L, ...]`` blocks on the mesh's cells (the centroids stay on
+the home device, replicated), and a probe runs ``ShardingManager.sharded_ivf_probe``:
+each shard scans the probed clusters it owns and the shards' lists merge.  The build
+itself (k-means, assignment, layout) runs on the home device over the store's gathered
+rows.  A snapshot whose C does not split over this mesh's shards loads unsharded.
 """
 
 from __future__ import annotations
@@ -64,11 +70,13 @@ class _IVFGen(NamedTuple):
         return lambda slot: ids[slot] if 0 <= slot < n else None
 
 
-def _ivf_search(q, centroids, cnorms, data3, valid3, sqn3, *, k, metric, nprobe):
+def _ivf_search(q, centroids, cnorms, data3, valid3, sqn3, *, k, metric, nprobe, c_off=0):
     """q [B, Dp] -> (dist [B, k], ivf_slot [B, k] int32); ivf_slot = cluster * L + local.
 
     The probed clusters are the nprobe nearest centroids, nearest first and the lower id
-    first among equal distances (``lax.top_k``'s order)."""
+    first among equal distances (``lax.top_k``'s order).  ``data3`` / ``valid3`` /
+    ``sqn3`` may be one shard's block of clusters ``[c_off, c_off + C_loc)``: a probed
+    cluster outside it is masked (sharding.py:187-197 of the JAX package)."""
     require_f32_matmul()
     B = q.shape[0]
     C, L, _ = data3.shape
@@ -81,19 +89,46 @@ def _ivf_search(q, centroids, cnorms, data3, valid3, sqn3, *, k, metric, nprobe)
     local = torch.arange(L, dtype=torch.int32, device=q.device)
     for j in range(nprobe):
         cids = probed[:, j]
-        rows = data3[cids].float()                                # [B, L, Dp] block gather
+        loc = cids - c_off
+        owned = (loc >= 0) & (loc < C)
+        locc = loc.clamp(0, C - 1)
+        rows = data3[locc].float()                                # [B, L, Dp] block gather
         dots = torch.bmm(rows, q32[:, :, None])[:, :, 0]          # [B, L]
-        sq = sqn3[cids]
+        sq = sqn3[locc]
         if metric == "l2":
             d = torch.clamp_min(qn[:, None] + sq - 2.0 * dots, 0.0)
         elif metric == "ip":
             d = 1.0 - dots
         else:
             d = 1.0 - dots * torch.rsqrt(torch.clamp_min(qn[:, None] * sq, 1e-30))
-        d = torch.where(valid3[cids], d, float(MASKED))
+        d = torch.where(valid3[locc] & owned[:, None], d, float(MASKED))
         idx = cids.to(torch.int32)[:, None] * L + local[None, :]
         best_d, best_i = _fold_tile(best_d, best_i, d, idx, k)
     return best_d, best_i
+
+
+def _put3(arr, slots: np.ndarray, L: int, vals: torch.Tensor):
+    """``arr`` ([C, L, ...] tensor, or a ``[R][S]`` grid of cluster blocks) with the
+    entries of index ``slots`` set to ``vals`` (host tensors), copy on write: only the
+    blocks a slot falls in are copied."""
+    c_idx, l_idx = np.divmod(slots, L)
+    if isinstance(arr, torch.Tensor):
+        dev = arr.device
+        return arr.clone().index_put_(
+            (torch.from_numpy(c_idx).to(dev), torch.from_numpy(l_idx).to(dev)),
+            vals.to(dev, arr.dtype))
+    c_loc = arr[0][0].shape[0]
+    shard = c_idx // c_loc
+    out = [list(row) for row in arr]
+    for s in np.unique(shard).tolist():
+        sel = np.flatnonzero(shard == s)
+        for row in out:
+            dev = row[s].device
+            row[s] = row[s].clone().index_put_(
+                (torch.from_numpy(c_idx[sel] - s * c_loc).to(dev),
+                 torch.from_numpy(l_idx[sel]).to(dev)),
+                vals[torch.from_numpy(sel)].to(dev, row[s].dtype))
+    return out
 
 
 class IVFIndex:
@@ -106,6 +141,8 @@ class IVFIndex:
         """``spill``: place each vector in its ``spill`` nearest clusters (at most 4):
         spill x the index memory for higher recall at a fixed nprobe."""
         self.store = store
+        # a sharded store's ShardingManager: the index is then cluster-sharded
+        self._shm = getattr(store, "sharding", None)
         n = store.live_count
         if n < 2:
             raise ValueError("IVF needs at least 2 live vectors")
@@ -131,26 +168,25 @@ class IVFIndex:
     def _build(self, n_iters: int, seed: int) -> None:
         # host spans: device work a step leaves queued is counted by the next span that
         # reads the card (the assignment's copy to the host; the scatter's is nowhere)
-        state = self.store.device_state()
+        data, valid, sq_norms = self.store.device_state().gathered()
         with trace_span("ivf_build.kmeans"):
-            self.centroids, _assign = train_kmeans(state.data, state.valid, self.C,
+            self.centroids, _assign = train_kmeans(data, valid, self.C,
                                                    n_iters=n_iters, seed=seed)
             self.cnorms = (self.centroids * self.centroids).sum(-1)
         with trace_span("ivf_build.assign"):
             # copy 0 is the primary home, copies 1..spill-1 the spilled placements
-            topm = assign_topm(state.data, state.valid, self.centroids,
-                               m=self.spill).cpu().numpy()
+            topm = assign_topm(data, valid, self.centroids, m=self.spill).cpu().numpy()
         with trace_span("ivf_build.layout"):
             vids = list(self.store._id_to_slot.keys())
             frm = np.fromiter(self.store._id_to_slot.values(), np.int64, len(vids))
             to, src, overflow = self._place_in_order(vids, topm[frm])
             if overflow:
                 over = np.asarray(overflow)
-                to = np.concatenate([to, self._place_overflow(state.data, frm[over],
+                to = np.concatenate([to, self._place_overflow(data, frm[over],
                                                               [vids[i] for i in over])])
                 src = np.concatenate([src, over])
         with trace_span("ivf_build.scatter"):
-            arrays = self._cluster_arrays(state, to, frm[src])
+            arrays = self._cluster_arrays(data, sq_norms, to, frm[src])
         # one atomic publish: centroids, cluster arrays and slot table in one tuple
         self._gen = _IVFGen(self.centroids, self.cnorms, *arrays, self._slot_ids,
                             self.C, self.L)
@@ -230,22 +266,25 @@ class IVFIndex:
                 full[c] = self._free_per_cluster[c] >= self.L
         return np.asarray(slots, np.int64)
 
-    def _cluster_arrays(self, state, to: np.ndarray, frm: np.ndarray):
+    def _cluster_arrays(self, data, sq_norms, to: np.ndarray, frm: np.ndarray):
         """(data3 [C, L, Dp] in the store's dtype, valid3 [C, L], sqn3 [C, L]) holding the
         store rows ``frm`` and their norms at index slots ``to``: one gather and scatter on
-        the device."""
-        dev = state.data.device
-        data3 = torch.zeros((self.C * self.L, self.Dp), dtype=state.data.dtype, device=dev)
+        the device; cluster-sharded into ``[R][S]`` grids over a sharded store."""
+        dev = data.device
+        data3 = torch.zeros((self.C * self.L, self.Dp), dtype=data.dtype, device=dev)
         valid3 = torch.zeros(self.C * self.L, dtype=torch.bool, device=dev)
         sqn3 = torch.zeros(self.C * self.L, dtype=torch.float32, device=dev)
         if len(to):
             to_t = torch.from_numpy(np.asarray(to, np.int64)).to(dev)
             frm_t = torch.from_numpy(np.asarray(frm, np.int64)).to(dev)
-            data3[to_t] = state.data.index_select(0, frm_t)
+            data3[to_t] = data.index_select(0, frm_t)
             valid3[to_t] = True
-            sqn3[to_t] = state.sq_norms.index_select(0, frm_t)
-        return (data3.view(self.C, self.L, self.Dp), valid3.view(self.C, self.L),
-                sqn3.view(self.C, self.L))
+            sqn3[to_t] = sq_norms.index_select(0, frm_t)
+        out = (data3.view(self.C, self.L, self.Dp), valid3.view(self.C, self.L),
+               sqn3.view(self.C, self.L))
+        if self._shm is not None:
+            return tuple(self._shm.place(t) for t in out)
+        return out
 
     def _place(self, c: int, vid: uuid_mod.UUID, extra: bool = False) -> int:
         """Give ``vid`` the next free slot of cluster ``c``; returns the index slot."""
@@ -325,16 +364,13 @@ class IVFIndex:
         # a batch repeating an id writes its slots twice: the last write lands (the
         # store's rule, ROADMAP C1), not whichever the scatter happens to apply last
         slots_np, rows_np = _last_write_wins(np.asarray(slots, np.int64), vals[rows])
-        c_idx = torch.from_numpy(slots_np // self.L).to(dev)
-        l_idx = torch.from_numpy(slots_np % self.L).to(dev)
         sq = (rows_np.astype(np.float64) ** 2).sum(-1).astype(np.float32)
         g = self._gen  # one generation in, one generation out (copy on write)
-        data3 = g.data3.clone().index_put_((c_idx, l_idx),
-                                           torch.from_numpy(rows_np).to(dev, g.data3.dtype))
-        sqn3 = g.sqn3.clone().index_put_((c_idx, l_idx), torch.from_numpy(sq).to(dev))
-        valid3 = g.valid3.clone().index_put_(
-            (c_idx, l_idx), torch.ones(len(slots_np), dtype=torch.bool, device=dev))
-        self._gen = g._replace(data3=data3, valid3=valid3, sqn3=sqn3)  # atomic swap
+        self._gen = g._replace(  # atomic swap
+            data3=_put3(g.data3, slots_np, self.L, torch.from_numpy(rows_np)),
+            valid3=_put3(g.valid3, slots_np, self.L,
+                         torch.ones(len(slots_np), dtype=torch.bool)),
+            sqn3=_put3(g.sqn3, slots_np, self.L, torch.from_numpy(sq)))
         self.store_version = self.store.version
         self._maybe_retrain()
 
@@ -349,6 +385,9 @@ class IVFIndex:
         """(Re)derive the cluster count and capacity for an n-row corpus; user-pinned
         values win.  The capacity budgets ``spill`` copies of every row."""
         self.C = self._user_C or max(2, min(4096, int(np.sqrt(n) * 2)))
+        if self._shm is not None:   # the cluster arrays split evenly over the shards
+            s = self._shm.n_shards
+            self.C = -(-self.C // s) * s
         avg = max(1, -(-(n * self.spill) // self.C))
         L = self._user_L or max(64, int(avg * 2.2))
         self.L = -(-L // 8) * 8
@@ -379,13 +418,10 @@ class IVFIndex:
                     self._slot_ids[es] = None
                     slots.append(es)
         if slots:
-            s = np.asarray(slots, np.int64)
             g = self._gen
-            dev = g.valid3.device
-            valid3 = g.valid3.clone().index_put_(
-                (torch.from_numpy(s // self.L).to(dev), torch.from_numpy(s % self.L).to(dev)),
-                torch.zeros(len(s), dtype=torch.bool, device=dev))
-            self._gen = g._replace(valid3=valid3)  # atomic swap
+            self._gen = g._replace(valid3=_put3(  # atomic swap
+                g.valid3, np.asarray(slots, np.int64), self.L,
+                torch.zeros(len(slots), dtype=torch.bool)))
             self._drift += len(slots)  # dead rows shrink the effective cluster capacity
         self.store_version = self.store.version
         self._maybe_retrain()
@@ -402,9 +438,9 @@ class IVFIndex:
         the slots, so a retrain between search and hydration cannot resolve old-layout
         slots against the new slot table."""
         g = self._gen  # ONE generation read; everything below derives from it
-        d, i = _ivf_search(q, g.centroids, g.cnorms, g.data3, g.valid3, g.sqn3,
-                           k=min(k, g.C * g.L), metric=metric,
-                           nprobe=max(1, min(nprobe, g.C)))
+        probe = _ivf_search if self._shm is None else self._shm.sharded_ivf_probe
+        d, i = probe(q, g.centroids, g.cnorms, g.data3, g.valid3, g.sqn3,
+                     k=min(k, g.C * g.L), metric=metric, nprobe=max(1, min(nprobe, g.C)))
         return d, i, g.resolver()
 
     # read-only views of the published generation (stats, tests)
@@ -441,11 +477,12 @@ class IVFIndex:
             "fill_max": int(fills.max()),
             "drift": self._drift,
             "drift_ratio": self._drift / live if live else 0.0,
+            # one copy of the index (a sharded index: one replica's blocks)
             "memory_bytes": int(sum(t.numel() * t.element_size()
-                                    for t in (g.data3, g.valid3, g.sqn3))),
-            # the JAX package's keys; the port's index is never mesh-sharded (A14)
-            "sharded": False,
-            "shards": 1,
+                                    for a in (g.data3, g.valid3, g.sqn3)
+                                    for t in ([a] if isinstance(a, torch.Tensor) else a[0]))),
+            "sharded": self._shm is not None,
+            "shards": 1 if self._shm is None else self._shm.n_shards,
         }
 
     # ------------------------------------------------------------------ persistence
@@ -481,6 +518,11 @@ class IVFIndex:
         ivf = cls.__new__(cls)
         ivf.store = store
         ivf.C = int(snap["C"])
+        ivf._shm = getattr(store, "sharding", None)
+        if ivf._shm is not None and ivf.C % ivf._shm.n_shards:
+            # saved under another mesh: C does not split over this one's shards, so this
+            # index runs unsharded (the next retrain derives a shardable C)
+            ivf._shm = None
         ivf.L = int(snap["L"])
         ivf.Dp = store.dpad
         ivf.spill = int(snap.get("spill", 1))
@@ -489,9 +531,9 @@ class IVFIndex:
         ivf._n_iters = int(snap.get("n_iters", 10))
         ivf._seed = int(snap.get("seed", 0))
         ivf._drift = int(snap.get("drift", 0))
-        state = store.device_state()
+        data, _valid, sq_norms = store.device_state().gathered()
         ivf.centroids = torch.from_numpy(
-            np.array(snap["centroids"], np.float32)).to(state.data.device)
+            np.array(snap["centroids"], np.float32)).to(data.device)
         ivf.cnorms = (ivf.centroids * ivf.centroids).sum(-1)
         ivf._slot_ids = [None] * (ivf.C * ivf.L)
         ivf._id_to_slot = {}
@@ -514,7 +556,8 @@ class IVFIndex:
             ivf._free_per_cluster[c] = max(ivf._free_per_cluster[c], i + 1)
             to.append(ivf_slot)
             frm.append(store_slot)
-        ivf._gen = _IVFGen(ivf.centroids, ivf.cnorms, *ivf._cluster_arrays(state, to, frm),
+        ivf._gen = _IVFGen(ivf.centroids, ivf.cnorms,
+                           *ivf._cluster_arrays(data, sq_norms, to, frm),
                            ivf._slot_ids, ivf.C, ivf.L)
         ivf.store_version = store.version
         return ivf

@@ -99,6 +99,15 @@ class DeviceState(NamedTuple):
     # this snapshot's data only.
     prep_cache: Optional[dict] = None
 
+    @property
+    def capacity(self) -> int:
+        return self.valid.shape[0]
+
+    def gathered(self):
+        """(data, valid, sq_norms) over every slot, on one device (the sharded snapshot,
+        parallel/store.py, concatenates its shards here)."""
+        return self.data, self.valid, self.sq_norms
+
 
 # Copy-on-write (clone + index_put_), as the JAX package does: a search dispatched a
 # moment earlier may still read the old tensors.  Writing in place under CUDA streams
@@ -329,13 +338,16 @@ class NamespaceStore:
                         f"dimension mismatch in namespace {self.name!r}: store is "
                         f"{dim}-d, got {d}-d"
                     )
-            fresh = sum(1 for vid in ids if vid not in self._id_to_slot)
-            needed = self._high_water + max(0, fresh - len(self._free))
-            if needed > self.capacity and (
-                    self.config.round_capacity(needed) > self.config.max_capacity):
-                raise MemoryError(
-                    f"namespace {self.name!r} would exceed max_capacity={self.config.max_capacity}"
-                )
+            self._check_capacity(sum(1 for vid in ids if vid not in self._id_to_slot))
+
+    def _check_capacity(self, fresh: int) -> None:
+        """Raise the MemoryError that making room for ``fresh`` new ids would raise."""
+        needed = self._high_water + max(0, fresh - len(self._free))
+        if needed > self.capacity and (
+                self.config.round_capacity(needed) > self.config.max_capacity):
+            raise MemoryError(
+                f"namespace {self.name!r} would exceed max_capacity={self.config.max_capacity}"
+            )
 
     # ------------------------------------------------------------------ sweep mirror
 
@@ -426,12 +438,16 @@ class NamespaceStore:
                 self.meta_columns = None
         return self.meta_columns
 
-    def _alloc_slot(self) -> int:
+    def _alloc_slot(self, vid: uuid_mod.UUID) -> int:
+        """A slot for a new id (the sharded store routes it to its shard's range)."""
         if self._free:
             return self._free.pop()
         slot = self._high_water
         self._high_water += 1
         return slot
+
+    def _free_slot(self, slot: int) -> None:
+        self._free.append(slot)
 
     def _ensure_capacity(self, extra: int) -> None:
         new_slots = max(0, extra - len(self._free))
@@ -493,7 +509,7 @@ class NamespaceStore:
             for i, v in enumerate(vectors):
                 slot = self._id_to_slot.get(v.id)
                 if slot is None:
-                    slot = self._alloc_slot()
+                    slot = self._alloc_slot(v.id)
                     self._id_to_slot[v.id] = slot
                 slots[i] = slot
                 self._slot_ids[slot] = v.id
@@ -541,7 +557,7 @@ class NamespaceStore:
             for i, vid in enumerate(ids):
                 slot = self._id_to_slot.get(vid)
                 if slot is None:
-                    slot = self._alloc_slot()
+                    slot = self._alloc_slot(vid)
                     self._id_to_slot[vid] = slot
                 slots[i] = slot
                 self._slot_ids[slot] = vid
@@ -578,18 +594,22 @@ class NamespaceStore:
                 self._slot_values[slot] = None
                 if self.meta_columns is not None:
                     self.meta_columns.clear(slot)
-                self._free.append(slot)
+                self._free_slot(slot)
                 self._tombstones += 1
             if not slots:
                 return []
-            slots_t = torch.as_tensor(slots, dtype=torch.int64).to(self.device)
-            self._valid = _clear_slots(self._valid, slots_t)
+            self._clear_device(slots)
             self.version += 1
             self._publish()
 
             if self.rebuild_required():
                 self.compact()
             return removed
+
+    def _clear_device(self, slots: List[int]) -> None:
+        """The device side of a delete: clear the slots' liveness."""
+        slots_t = torch.as_tensor(slots, dtype=torch.int64).to(self.device)
+        self._valid = _clear_slots(self._valid, slots_t)
 
     def rebuild_required(self) -> bool:
         """Tombstone-ratio trigger, evaluated against slots ever used."""
@@ -649,8 +669,10 @@ class NamespaceStore:
             from ..native import MetaColumns
 
             mc = MetaColumns(max(self.capacity, 1))
-            for slot in self._id_to_slot.values():
-                if not mc.set(slot, self._slot_meta[slot]):
+            slots = list(self._id_to_slot.values())
+            for lo in range(0, len(slots), _META_CHUNK):   # one native call per chunk
+                part = slots[lo : lo + _META_CHUNK]
+                if not mc.set_many(part, [self._slot_meta[s] for s in part]):
                     self.meta_columns = None
                     return
             self.meta_columns = mc
@@ -732,6 +754,8 @@ class NamespaceStore:
 
 # rows per float64 chunk of compaction's norm sums
 _NORM_CHUNK = 1 << 20
+# slots per native call when the metadata columns are rebuilt
+_META_CHUNK = 1 << 16
 
 
 def _last_write_wins(slots: np.ndarray, vals: np.ndarray):

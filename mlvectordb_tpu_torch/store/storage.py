@@ -22,12 +22,20 @@ from .vector import Vector
 
 
 class StorageEngine:
-    """Dict of NamespaceStores; all vector payloads live on ``device``."""
+    """Dict of NamespaceStores; all vector payloads live on ``device``.
 
-    def __init__(self, config: EngineConfig = DEFAULT_CONFIG, *, device="cuda"):
+    ``namespace_factory(name)`` builds each new namespace's store, so the
+    distributed layer substitutes ShardedNamespaceStore (parallel/store.py) without the
+    engine knowing the difference; its stores live on their mesh's devices, and
+    ``device`` is then the mesh's first one."""
+
+    def __init__(self, config: EngineConfig = DEFAULT_CONFIG, *, device="cuda",
+                 namespace_factory=None):
         check_supported(config)
         self.config = config
         self.device = torch.device(device)
+        self._factory = namespace_factory or (
+            lambda name: NamespaceStore(name, self.config, device=self.device))
         self._namespaces: Dict[str, NamespaceStore] = {}
         self._lock = threading.RLock()
 
@@ -39,7 +47,7 @@ class StorageEngine:
             with self._lock:
                 ns = self._namespaces.get(name)
                 if ns is None:
-                    ns = NamespaceStore(name, self.config, device=self.device)
+                    ns = self._factory(name)
                     self._namespaces[name] = ns
         return ns
 
@@ -79,7 +87,7 @@ class StorageEngine:
         changing nothing (a missing namespace is checked as a fresh one, not created)."""
         ns = self._namespaces.get(namespace)
         if ns is None:
-            ns = NamespaceStore(namespace, self.config, device=self.device)
+            ns = self._factory(namespace)
         ns.check_write(dims, ids)
 
     def delete(self, vector_id: uuid_mod.UUID, namespace: str = "default") -> bool:

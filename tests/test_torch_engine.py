@@ -293,8 +293,9 @@ def test_repeated_id_in_one_write_batch_keeps_the_last_write(path):
 def test_package_never_imports_jax():
     """Every module of the port (the filters, the native loader, the probes, and the WAL,
     snapshots, utilities, protocols, index and compat layer, IVF and k-means, the
-    micro-batcher and the server copied or ported from the JAX package included) imports
-    neither jax nor the JAX package, not even its framework-free modules."""
+    micro-batcher and the server copied or ported from the JAX package included, and the
+    distribution layer: mesh, sharding, replication, the sharded store and the dry run)
+    imports neither jax nor the JAX package, not even its framework-free modules."""
     code = (
         "import importlib, pkgutil, sys, mlvectordb_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
@@ -304,7 +305,9 @@ def test_package_never_imports_jax():
         "        'interfaces.index', 'interfaces.query_processor',\n"
         "        'interfaces.storage_engine', 'store.index', 'compat', 'ops.kmeans',\n"
         "        'store.ivf', 'engine.batcher', 'api', 'api.rest_api', 'api.grpc_server',\n"
-        "        'api.router', 'api.server', 'api.vectordb_pb2']\n"
+        "        'api.router', 'api.server', 'api.vectordb_pb2', 'parallel',\n"
+        "        'parallel.mesh', 'parallel.sharding', 'parallel.replication',\n"
+        "        'parallel.store', 'parallel.dryrun']\n"
         "assert {'mlvectordb_tpu_torch.' + m for m in want} <= set(mods), mods\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'mlvectordb_tpu.'))\n"
         "       or m == 'mlvectordb_tpu']\n"

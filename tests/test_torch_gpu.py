@@ -1152,3 +1152,70 @@ def test_ivf_build_on_cuda_matches_cpu(cuda, dtype, spill):
     for nprobe in (1, 4):
         out = answers(nprobe)
         assert out["card"] == out["cpu"], nprobe
+
+
+# ------------------------------------------------------------------ the distributed engine
+
+
+def _sharded_answers(devices, cfg, x, ids, q, r, s, metric):
+    """A (r, s) distributed engine over ``devices`` holding ``x``: its answers before and
+    after deletes and under a filter, and the kernel launches of its first search."""
+    from mlvectordb_tpu_torch.parallel import make_distributed_processor
+
+    qp = make_distributed_processor(r, s, cfg, devices=devices)
+    qp.bulk_load(x, "ns", ids=ids, metadatas=[{"odd": i % 2} for i in range(len(x))])
+    counters = (fused_knn._window_mins_masked, fused_knn_t._window_mins_t,
+                fused_knn_t._gather_score)
+    before = [fn.launches for fn in counters]
+    res = qp.find_similar_batch(q, 10, "ns", metric)
+    launched = [fn.launches - b for fn, b in zip(counters, before)]
+    # one copy each way; a sweep proof that fails adds the escalation's own copies
+    assert qp.transfer_counts["h2d"] == 1
+    assert qp.transfer_counts["d2h"] == 1 or cfg.sweep_dtype is not None
+    qp.delete(ids[::50], "ns")
+    res2 = qp.find_similar_batch(q, 10, "ns", metric)
+    res3 = qp.find_similar_batch(q, 10, "ns", metric, filter={"odd": 1})
+    return (res, res2, res3), launched
+
+
+def _same_sharded_answers(got, want):
+    for a, b in zip(got, want):
+        for ra, rb in zip(a, b):
+            assert [r["id"] for r in ra] == [r["id"] for r in rb]
+            np.testing.assert_allclose([r["score"] for r in ra], [r["score"] for r in rb],
+                                       rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("sweep", [None, "bfloat16"], ids=["row_major", "bf16_mirror"])
+@pytest.mark.parametrize("metric", ["l2", "cosine"])
+def test_sharded_search_on_cuda_matches_cpu(cuda, sweep, metric):
+    """A (2, 2) distributed engine on [cuda:0] * 4 gives the CPU's answers (before and
+    after deletes, filtered), launching one kernel per shard of each replica holding a
+    live query: B = 40 in the 64 bucket spans both replicas' halves (32 rows each), so 4
+    launches."""
+    rng = np.random.default_rng(19)
+    x = rng.standard_normal((40000, 96), dtype=np.float32)
+    ids = [uuid.UUID(int=i + 1) for i in range(len(x))]
+    q = [VectorDTO(v) for v in rng.standard_normal((40, 96), dtype=np.float32)]
+    cfg = EngineConfig(sweep_dtype=sweep)
+    want, _ = _sharded_answers([torch.device("cpu")] * 4, cfg, x, ids, q, 2, 2, metric)
+    got, launched = _sharded_answers([cuda] * 4, cfg, x, ids, q, 2, 2, metric)
+    _same_sharded_answers(got, want)
+    assert launched == ([4, 0, 0] if sweep is None else [0, 4, 4])
+
+
+def test_sharded_search_across_cards():
+    """The shards on cuda:0 .. cuda:n-1 (n >= 2 cards): the CPU's answers."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    n = torch.cuda.device_count()
+    rng = np.random.default_rng(23)
+    x = rng.standard_normal((n * 16384, 128), dtype=np.float32)
+    ids = [uuid.UUID(int=i + 1) for i in range(len(x))]
+    q = [VectorDTO(v) for v in rng.standard_normal((16, 128), dtype=np.float32)]
+    cfg = EngineConfig(sweep_dtype="bfloat16")
+    want, _ = _sharded_answers([torch.device("cpu")] * n, cfg, x, ids, q, 1, n, "l2")
+    got, launched = _sharded_answers([torch.device("cuda", i) for i in range(n)], cfg, x,
+                                     ids, q, 1, n, "l2")
+    _same_sharded_answers(got, want)
+    assert launched == [0, n, n]

@@ -7,7 +7,10 @@ observationally equal to the model under any interleaving of upsert, overwrite, 
 compaction, bulk load, snapshot round trip, crash and WAL replay, offload, and
 (filtered) searches.  The engine is exact, so each comparison is an equality on neighbour
 sets (ties may permute, at equal scores to 4 decimals).  The CPU cases run in Tier 1;
-the ``gpu`` case runs the same sequences on the card.  The model evaluates filters with
+the ``gpu`` case runs the same sequences on the card.  The ``sharded`` kind (the
+``"sharded"`` kind of tests/test_model_based.py) runs them on a distributed engine of a
+(2, 4) mesh, restored into a fresh distributed engine at every snapshot round trip and
+crash (the snapshot loaded into its sharded storage, then the WAL replayed).  The model evaluates filters with
 the port's ``matches_filter``, whose semantics tests/test_torch_filters.py holds to the
 JAX package's (this file imports no JAX, so it also runs with ``--noconftest``).
 """
@@ -72,12 +75,33 @@ class NaiveModel:
         return [(rows[i][0], float(d[i])) for i in order]
 
 
-def run_sequence(cfg, device, seed, tmp_path, steps=120):
+def _distributed(cfg, device):
+    from mlvectordb_tpu_torch.parallel import make_distributed_processor
+
+    return make_distributed_processor(2, 4, cfg, devices=[torch.device(device)] * 8)
+
+
+def _recover(snap, cfg, wal, device, sharded):
+    """The processor a restart brings up: the snapshot, then the WAL on top."""
+    if not sharded:
+        return QueryProcessor.load(snap, cfg, wal_path=wal, device=device)
+    from mlvectordb_tpu_torch.engine.persist import load_storage, resolve_snapshot_dir
+
+    qp = _distributed(cfg, device)
+    found = resolve_snapshot_dir(snap)
+    if found is not None:
+        load_storage(found, cfg, storage=qp.storage)
+    qp.replay_wal(wal)
+    qp.enable_wal(wal)
+    return qp
+
+
+def run_sequence(cfg, device, seed, tmp_path, steps=120, sharded=False):
     rnd = random.Random(seed)
     nprng = np.random.default_rng(seed)
     dim = 12
     snap, wal = str(tmp_path / "snap"), str(tmp_path / "wal")
-    qp = QueryProcessor(cfg, device=device)
+    qp = _distributed(cfg, device) if sharded else QueryProcessor(cfg, device=device)
     qp.enable_wal(wal)
     model = NaiveModel()
     namespaces = ["a", "b"]
@@ -95,8 +119,10 @@ def run_sequence(cfg, device, seed, tmp_path, steps=120):
         got = qp.find_similar(VectorDTO(q), k, name, metric, filter=flt)
         want = model.search(name, q, k, metric, flt)
         ns = qp.storage.namespace(name)
-        if ns is not None and ns.device_state().mirror is not None:
-            ops["on_the_sweep"] = ops.get("on_the_sweep", 0) + 1
+        if ns is not None:
+            st = ns.device_state()
+            if (st.shards[0][0] if sharded else st).mirror is not None:
+                ops["on_the_sweep"] = ops.get("on_the_sweep", 0) + 1
         assert len(got) == len(want), f"step {step}: {len(got)} vs {len(want)}"
         got_ids, want_ids = [r["id"] for r in got], [w[0] for w in want]
         if got_ids != want_ids:   # permutations among equal scores only
@@ -148,10 +174,10 @@ def run_sequence(cfg, device, seed, tmp_path, steps=120):
             kind = "bulk"
         elif op < 0.64:  # snapshot round trip: save, then serve the loaded snapshot + log
             qp.save(snap)
-            qp = QueryProcessor.load(snap, cfg, wal_path=wal, device=device)
+            qp = _recover(snap, cfg, wal, device, sharded)
             kind = "save_load"
         elif op < 0.67:  # crash: abandon the processor, recover snapshot + WAL replay
-            qp = QueryProcessor.load(snap, cfg, wal_path=wal, device=device)
+            qp = _recover(snap, cfg, wal, device, sharded)
             kind = "crash_replay"
         elif op < 0.70:  # offload a namespace; the next search pages it in
             qp.offload_namespace(name)
@@ -163,7 +189,7 @@ def run_sequence(cfg, device, seed, tmp_path, steps=120):
         ops[kind] = ops.get(kind, 0) + 1
 
     # every namespace's whole content matches the model, and survives one more crash
-    for final in (qp, QueryProcessor.load(snap, cfg, wal_path=wal, device=device)):
+    for final in (qp, _recover(snap, cfg, wal, device, sharded)):
         for name in namespaces:
             rows = model.ns.get(name, {})
             assert final.get_namespace_count(name) == len(rows)
@@ -180,6 +206,22 @@ def run_sequence(cfg, device, seed, tmp_path, steps=120):
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_random_operation_sequences(tmp_path, seed, config):
     ops = run_sequence(EngineConfig(**CONFIGS[config]), "cpu", seed, tmp_path)
+    assert ops["search"] > 20 and ops["insert"] > 20
+    assert all(ops.get(kind, 0) >= 1 for kind in (
+        "overwrite", "delete", "compact", "bulk", "save_load", "crash_replay",
+        "offload_search"))
+    assert (ops.get("on_the_sweep", 0) > 20) == (config == "bf16_sweep")
+
+
+@pytest.mark.parametrize("config", ["row_major", "bf16_sweep"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_random_operation_sequences_sharded(tmp_path, seed, config):
+    """The sequences on a (2, 4) distributed engine: the row-major kernel per shard, or
+    (8,192-row shards from the start) the certified sweep per shard."""
+    cfg = dict(CONFIGS[config])
+    if config == "bf16_sweep":
+        cfg["initial_capacity"] = 4 * 8192
+    ops = run_sequence(EngineConfig(**cfg), "cpu", seed, tmp_path, sharded=True)
     assert ops["search"] > 20 and ops["insert"] > 20
     assert all(ops.get(kind, 0) >= 1 for kind in (
         "overwrite", "delete", "compact", "bulk", "save_load", "crash_replay",

@@ -119,6 +119,31 @@ def test_offload_with_sweep_mirror_rebuilds_it(rng, name):
     assert [[r["id"] for r in rs] for rs in got] == [[r["id"] for r in rs] for rs in want]
 
 
+def test_sharded_offload_restores_shardings(rng):
+    """A sharded namespace (a (2, 4) mesh of CPU devices) offloads replica 0's copy to the
+    host, and the next search pages every cell back in on its own mesh device; the
+    answer is the live one (tests/test_offload.py:87)."""
+    from mlvectordb_tpu_torch.parallel import make_distributed_processor
+
+    cfg = EngineConfig(initial_capacity=64, capacity_multiple=32, db_tile=64,
+                       query_buckets=(8, 64), k_buckets=(8, 32), use_pallas=False)
+    qp = make_distributed_processor(2, 4, cfg, devices=[torch.device("cpu")] * 8)
+    vs = qp.upsert_many([dto(rng.standard_normal(16).astype(np.float32)) for _ in range(100)],
+                        "ns")
+    ns = qp.storage.namespace("ns")
+    resident = ns.nbytes
+    assert qp.offload_namespace("ns") is True and ns.offloaded
+    assert ns.nbytes == resident // 2   # replica 0's rows, liveness and norms
+    assert qp.storage.read(vs[7].id, "ns") is not None   # host tables still read
+    res = qp.find_similar(dto(vs[5].values), top_k=1, namespace="ns", metric="l2")
+    assert res[0]["id"] == vs[5].id and not ns.offloaded
+    st = ns.device_state()
+    assert [[c.data.device for c in row] for row in st.shards] == \
+        qp.sharding_manager.mesh.devices
+    assert qp.replication_manager.reconcile(st.data, st.valid)["consistent"]
+    assert ns.nbytes == resident
+
+
 def test_storage_info_reports_offloaded_like_jax(qp, small_config, rng):
     jqp = JaxQueryProcessor(config=small_config)
     x = rng.standard_normal((10, 8)).astype(np.float32)

@@ -1,7 +1,6 @@
 """The port's scatter-gather router (mlvectordb_tpu_torch/api/router.py) on the CPU: the
-cases of tests/test_router.py over the port's REST servers (device="cpu").  The case of two
-mesh-sharded pods (test_two_mesh_pods_reconcile_over_service_layer) waits for the
-distributed engine (ROADMAP A14)."""
+cases of tests/test_router.py over the port's REST servers (device="cpu"), the case of two
+mesh-sharded pods (test_two_mesh_pods_reconcile_over_service_layer) included."""
 
 import asyncio
 import uuid
@@ -434,5 +433,75 @@ def test_router_repair_respects_delete_tombstones(small_config, rng):
             assert rep2["consistent"] is True
         finally:
             await _teardown(clients, rclient)
+
+    asyncio.run(runner())
+
+
+def test_two_mesh_pods_reconcile_over_service_layer(small_config, rng):
+    """Cross-pod reconcile: two DISTRIBUTED engines, each its own (replica, shard) mesh of
+    devices of its own (two pods that share no mesh), exchange bucketed content
+    fingerprints through the service layer (/fingerprint via the router's /reconcile)
+    and repair an injected divergence.  In-mesh repair copies tensors between the
+    mesh's devices; cross-mesh repair rides the network."""
+    import torch
+
+    from mlvectordb_tpu_torch import VectorDTO
+    from mlvectordb_tpu_torch.parallel import build_mesh, make_distributed_processor
+
+    async def runner():
+        meshes = [build_mesh(1, 2, devices=[torch.device("cpu")] * 2) for _ in range(2)]
+        qps = [make_distributed_processor(1, 2, small_config, mesh=m) for m in meshes]
+        assert qps[0].sharding_manager.mesh is not qps[1].sharding_manager.mesh
+        apis = [RestAPI(qp, enable_file_logging=False, log_level="WARNING") for qp in qps]
+        clients = [TestClient(TestServer(a.app)) for a in apis]
+        for c in clients:
+            await c.start_server()
+        backends = [str(c.make_url("")).rstrip("/") for c in clients]
+        router = RouterAPI(backends, replicas=2)  # full replication across pods
+        rclient = TestClient(TestServer(router.app))
+        await rclient.start_server()
+        try:
+            vecs = [
+                {"values": rng.standard_normal(8).astype(float).tolist(),
+                 "metadata": {"i": i}}
+                for i in range(24)
+            ]
+            resp = await rclient.put("/vectors/batch?namespace=ns", json={"vectors": vecs})
+            assert resp.status == 200
+            # replicas=2 over 2 pods => every pod holds every row
+            assert [qp.get_namespace_count("ns") for qp in qps] == [24, 24]
+
+            rep = await (await rclient.post("/reconcile?namespace=ns")).json()
+            assert rep["consistent"] is True
+
+            # inject divergence: a write lands on pod A only (lost cross-pod delivery)
+            lost = await clients[0].post(
+                "/vectors?namespace=ns",
+                json={"values": [5.0] * 8, "metadata": {"lost": True}},
+            )
+            lost_id = (await lost.json())["id"]
+            rep = await (await rclient.post("/reconcile?namespace=ns")).json()
+            assert rep["consistent"] is False and rep["divergent_buckets"]
+
+            # repair re-replicates the richest copy to the lagging pod
+            rep = await (await rclient.post("/reconcile?namespace=ns&repair=1")).json()
+            assert rep["repaired_vectors"] >= 1
+            rep = await (await rclient.post("/reconcile?namespace=ns")).json()
+            assert rep["consistent"] is True, rep
+            assert qps[1].storage.read(uuid.UUID(lost_id), "ns") is not None
+            # the repaired row is searchable THROUGH pod B's own sharded path
+            got = qps[1].find_similar(
+                VectorDTO(values=np.full(8, 5.0, np.float32)), top_k=1, namespace="ns",
+                metric="l2",
+            )
+            assert str(got[0]["id"]) == lost_id
+            # and each pod's replicas agree in-mesh
+            for qp in qps:
+                st = qp.storage.namespace("ns").device_state()
+                assert qp.replication_manager.reconcile(st.data, st.valid)["consistent"]
+        finally:
+            await rclient.close()
+            for c in clients:
+                await c.close()
 
     asyncio.run(runner())
