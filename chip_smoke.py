@@ -166,8 +166,24 @@ one line per phase:
      against plain; then reconcile, one row of replica 1 corrupted and named, repair and
      the answers restored, and the cluster-sharded IVF (C = 2048) exact at full probe.
      Its record is one JSON line starting {"mesh".
+ 20. a bf16 store with an int8 or f32 sweep mirror (dtype="bfloat16", sweep_dtype="int8"
+     with two streams, and "float32") on phase 3's rows (1,048,576 x 128 of
+     default_rng(42), not cut): the device bytes equal to the exact arithmetic (rows at
+     2 B, the mirror at its own width, liveness, norms, the per-row vectors) and to
+     plan_capacity; l2 at B=128, ip and cosine at B=16, k = 10 and 100, before and after
+     phase 3's 1,000 deletes, each set-exact against phase 11's oracle over the
+     bf16-rounded rows with the f32 query, with its tier and transfers ((1, 1) at tier 0,
+     no light_ tier) and the launch counts (B3 over the mirror's type, B2 over the bf16
+     rows, the live query columns alone); B3 and B2 at the engine's l2 B=128 operands
+     against their plain versions (the phase-1 budget, the live launch bit-equal to the
+     full one), timed with their bounds; compact(), the mirror rebuilt from the rows, and
+     one l2 batch on it; one l2 batch with one int8 stream; ROADMAP C13's near tie on the
+     card and the CPU (the exact set at the CPU's tier, each mirror).  (The f32 mirror
+     sharded runs on the card in tests/test_torch_gpu.py.)  Its record is one JSON line
+     starting {"bf16_mirrors".
 Any failure raises, so the process exits non-zero.  Before them, one JSON line holds the
-IVF and server records, and one the distributed engine's; the last two lines are the kernels'
+IVF and server records, one the distributed engine's and one phase 20's; the last two lines
+are the kernels'
 JSON record (with each kernel's bound: bytes over 3.35 TB/s or operations over the peak
 for their type, whichever is larger; for the sweep kernel and B4/B5 the products of the
 live queries, with the bound at the whole padded batch and the time of a launch over every
@@ -187,6 +203,7 @@ import subprocess
 import sys
 import threading
 import time
+import uuid
 from pathlib import Path
 
 import numpy as np
@@ -3083,6 +3100,225 @@ def run_mesh(gpu, deep, sift):
     return rec, counts_a, counts_b, times, bounds, worst
 
 
+# ---- phase 20: a bf16 store with an int8 or f32 mirror -----------------------------------
+
+BF16_MIRRORS = (("int8", EngineConfig(dtype="bfloat16", sweep_dtype="int8")),
+                ("f32", EngineConfig(dtype="bfloat16", sweep_dtype="float32")))
+
+
+def _near_tie_rows():
+    """ROADMAP C13's construction (tests/test_torch_bf16_mirrors.py, l2): 8,192 rows of
+    128, row 100 written half an ulp minus a little off 1.5 (its bf16 row is 1.5, the
+    all-ones query's nearest; its written value ranks 0.49 worse), 40 decoys one per
+    window between the two, the rest far.  Returns (rows, query, the exact top 10 over the
+    stored rows)."""
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal((8192, D)) + 8).astype(np.float32)
+    x[100] = np.float32(1.5) + np.float32(2.0 ** -8 - 2.0 ** -14)
+    for i, r in enumerate(range(1000, 1000 + 40 * 64, 64)):
+        x[r] = 1.5
+        x[r, i % D] = np.float32(1.5 + (7 + i if i < 16 else 30) / 128)
+    q = np.ones((1, D), np.float32)
+    b = torch.from_numpy(x).to(torch.bfloat16).double().numpy()
+    return x, q, set(np.argsort(((b - 1.0) ** 2).sum(1), kind="stable")[:K].tolist())
+
+
+def check_near_tie():
+    """Phase 20: C13's construction for each mirror (int8 with one and two streams, f32)
+    on the card and on the CPU: the exact set over the stored rows, row 100 first, at the
+    CPU's tier.  Returns {mirror: tier}."""
+    x, q, want = _near_tie_rows()
+    ids = [uuid.UUID(int=i + 1) for i in range(len(x))]
+    tiers = {}
+    for name, cfg in (("int8", dict(sweep_dtype="int8")),
+                      ("int8_one_stream", dict(sweep_dtype="int8", sweep_resid=False)),
+                      ("f32", dict(sweep_dtype="float32"))):
+        seen = []
+        for device in ("cpu", "cuda"):
+            qp = QueryProcessor(EngineConfig(dtype="bfloat16", **cfg), device=device)
+            qp.bulk_load(x, "tie", ids=ids)
+            res = qp.find_similar_batch([VectorDTO(q[0])], K, "tie", "l2")[0]
+            seen.append(({r["id"].int - 1 for r in res}, res[0]["id"].int - 1,
+                         qp.cert_tier_counts("tie")))
+        if seen[0] != seen[1] or seen[1][0] != want or seen[1][1] != 100:
+            raise AssertionError(f"C13 {name}: CPU {seen[0]}, card {seen[1]}, exact {want}")
+        tiers[name] = seen[1][2]
+    print(f"  C13 near tie (l2): the exact set over the stored rows, row 100 first, on the "
+          f"card at the CPU's tier: {tiers}")
+    return tiers
+
+
+def _check_b3(a, kw, label):
+    """B3 at the engine's operands against its plain version on the same call (the
+    phase-1 budget; block mins too), and its live-column launch bit-equal to the full
+    one.  Returns max |err|."""
+    got = fused_knn_t._window_mins_t(*a, **kw)
+    want = fused_knn_t._window_mins_t_plain(*a, **{**kw, "zero_cache": {}})
+    torch.cuda.synchronize()
+    budget = _budget(a, kw)
+    worst = 0.0
+    for g, w, bd in ((got[0], want[0], budget), (got[1], want[1], budget.amax(-1))):
+        if g is not None:
+            worst = max(worst, _check_budget(g, w, bd, label)[0])
+    cols = _check_live_tiles(a, kw, B, label)
+    print(f"  {label}: {a[2].dtype} mirror over {a[2].shape[0]:,} rows, r1={kw['r1']}, qres "
+          f"{a[1] is not None}, second stream {a[3] is not None}, bound rows "
+          f"{len(kw['eb_rows'])}: max |kernel - plain| {worst} (within the budget); {cols} of "
+          f"{a[0].shape[0]} columns computed, every column bit-equal to the full launch")
+    if cols != B:
+        raise AssertionError(f"{label}: {cols} columns computed")
+    return worst
+
+
+def run_bf16_mirrors(db_np, q_np, dead, gpu):
+    """Phase 20 (see the module docstring).  Returns (launch counts per mirror, {kernel:
+    max |err|}, {time name: ms}, {bound name: bound}, the phase's record)."""
+    dev = torch.device("cuda")
+    rows = torch.from_numpy(db_np).to(dev).to(torch.bfloat16)
+    oracle = DeviceOracle(rows, q_np)
+    q_pad = torch.zeros((512, D), device=dev)
+    q_pad[:B] = torch.from_numpy(q_np).to(dev)
+    counts, worst, times, bounds, rec = {}, {}, {}, {}, {"card": gpu}
+    for label, cfg in BF16_MIRRORS:
+        qp = QueryProcessor(cfg, device=dev)
+        t0 = time.perf_counter()
+        ids = qp.bulk_load(db_np, "sift")
+        torch.cuda.synchronize()
+        ns = qp.storage.namespace("sift")
+        st = ns.device_state()
+        cap = ns.capacity
+        per_row = 16 if label == "int8" else 0           # s1, s2, err, err1 (f32 each)
+        mirror_bytes = cap * D * (2 if label == "int8" else 4)
+        want_bytes = cap * (D * 2 + 5) + mirror_bytes + cap * per_row
+        plan = plan_capacity(N, D, cfg)
+        rec[label] = {"ingest_s": time.perf_counter() - t0, "capacity": cap,
+                      "device_bytes": ns.nbytes, "rows_bytes": cap * D * 2,
+                      "mirror_bytes": mirror_bytes, "plan_data_bytes": plan.data_bytes}
+        print(f"  {label}: bulk_load {len(ids)} rows in {rec[label]['ingest_s']:.2f} s, "
+              f"capacity {cap}, device bytes {ns.nbytes:,} (rows {cap * D * 2:,}, mirror "
+              f"{st.mirror.dtype} {mirror_bytes:,}, a tensor of its own: "
+              f"{st.mirror is not st.data}; plan_capacity rows + mirror {plan.data_bytes:,})")
+        if (st.data.dtype != torch.bfloat16 or st.mirror is st.data
+                or st.mirror.dtype != (torch.int8 if label == "int8" else torch.float32)
+                or ns.nbytes != want_bytes
+                or ns.nbytes != plan.data_bytes + cap * (5 + per_row)
+                or not torch.equal(st.data[:N].view(torch.int16), rows.view(torch.int16))):
+            raise AssertionError(f"{label}: the bf16 store or its mirror is not as planned")
+        outer = _sweep_counts()
+        _set_sweep_counts([0] * len(outer))
+        served, dead_ids = {}, set()
+        for when, dead_rows in (("before delete", None), ("after delete", dead)):
+            if dead_rows is not None:
+                dead_ids = _deleted(qp, "sift", ids, dead_rows)
+            for metric, nq in (("l2", B), ("ip", 16), ("cosine", 16)):
+                for k in (K, K100):
+                    res, tier, xfer = _served(qp, "sift", q_np, metric, nq, k)
+                    served[f"{metric} B={nq} k={k} {when}"] = (tier, xfer)
+                    if (xfer[0] != 1 or len(tier) != 1 or tier[0].startswith("light_")
+                            or (tier == ["fast"] and xfer != (1, 1))):
+                        raise AssertionError(f"{label} {metric} k={k} {when}: {tier} {xfer}")
+                    if any(r["id"] in dead_ids for rs in res for r in rs):
+                        raise AssertionError(f"{label} {metric}: a deleted id was returned")
+                    _check_recall(res, oracle.sets(metric, nq, dead_rows, k=k), ids,
+                                  f"bf16 store, {label} mirror, {metric} B={nq} {when} "
+                                  f"(bf16-row oracle)", k=k)
+        c = dict(zip(_COUNT_NAMES, _sweep_counts()))
+        _set_sweep_counts([o + v for o, v in zip(outer, c.values())])
+        counts[label] = c
+        print(f"  {label}: (tier, transfers) per batch {served}")
+        print(f"  {label}: launches {c} (query columns computed {c['cols']}, the live "
+              f"2 x 2 x ({B} + 16 + 16) of the buckets' 2 x 2 x (512 + 64 + 64))")
+        own = c["int8"] if label == "int8" else c["f32"]
+        if (own != 12 or c["sweep"] != 12 or c["sweep_heavy"] != (12 if label == "int8" else 0)
+                or c["gather"] < 12 or c["gather_bf16"] != c["gather"]
+                or c["cols"] != 4 * (B + 32)):
+            raise AssertionError(f"{label}: B3 over the {label} mirror and B2 over the bf16 rows "
+                                 f"did not serve every search on its live columns: {c}")
+        rec[label]["searches"] = served
+        rec[label]["launches"] = c
+
+        # B3 and B2 at the operands of the engine's l2 B=128 k=10 search (bucket 512, k
+        # bucket 16), on the tombstoned namespace, before its compaction
+        st = ns.device_state()
+
+        def search(n_live=B, defer=False):
+            return fused_knn_t.exact_knn_t(
+                q_pad, st.mirror, st.data, st.valid, st.sq_norms, k=16, metric="l2",
+                live_prefix=None, sweep_err=st.sweep_err, resid=st.sweep_resid,
+                rscale=st.sweep_rscale, err1=st.sweep_err1, rscale2=st.sweep_rscale2,
+                prep_cache=st.prep_cache, report_tier=True, n_live=n_live, defer=defer)
+
+        name = f"b3_{label}_bf16_store"
+        a, kw = _capture("_window_mins_t", search)
+        worst[name] = _check_b3(a, kw, f"B3 {label} over a bf16 store")
+        times.update(_time_b1(name, a, kw))
+        outs = fused_knn_t._window_mins_t(*a, **kw)
+        bounds[name] = _b3_bound(a, kw, outs)
+        bounds[name + "_full_batch"] = _b3_bound(a, kw, outs, full_batch=True)
+        del outs
+        ga, gkw = _capture("_gather_score", search)
+        if ga[1].dtype != torch.bfloat16:
+            raise AssertionError(f"{label}: the rescan did not read the bf16 rows")
+        t, b, _, worst[f"gather_{label}_bf16_store"] = time_gather(
+            f"gather_{label}_bf16_store", ga, gkw)
+        times.update(t)
+        bounds.update(b)
+        times[f"exact_knn_t_{label}_bf16_store"] = _time_ms(search)
+        # the query-independent prep a snapshot's first search pays: with C13's terms (the
+        # rows' own norms, the bound rows measured against them) and with JAX's plan
+        prep_kw = dict(metric="l2", live_prefix=None, sweep_err=st.sweep_err,
+                       resid=st.sweep_resid, rscale=st.sweep_rscale, err1=st.sweep_err1,
+                       rscale2=st.sweep_rscale2)
+        times[f"prep_c13_{label}"] = _time_ms(lambda: fused_knn_t.search_prep(
+            st.mirror, st.valid, st.sq_norms, rows=st.data, **prep_kw))
+        times[f"prep_jax_plan_{label}"] = _time_ms(lambda: fused_knn_t.search_prep(
+            st.mirror, st.valid, st.sq_norms, **prep_kw))
+        print(f"  {label}: prep of a snapshot's first l2 search {times[f'prep_c13_{label}']:.4f} "
+              f"ms with C13's terms, {times[f'prep_jax_plan_{label}']:.4f} ms with JAX's plan")
+        _check_result_live(lambda n: search(n, defer=True), f"bf16 store, {label} mirror, l2")
+        times[f"engine_wall_{label}_bf16_store_median"] = statistics.median(
+            _engine_wall(qp, q_np))
+        # a compaction rebuilds the mirror from the stored rows; one l2 batch on it
+        ns.compact()
+        st = ns.device_state()
+        rebuilt = (fused_knn_t.quantize_int8_resid_rows(st.data)[0] if label == "int8"
+                   else st.data.float())
+        if not torch.equal(st.mirror, rebuilt):
+            raise AssertionError(f"{label}: the compaction did not rebuild the mirror from the rows")
+        c0 = _sweep_counts()
+        res, tier, xfer = _served(qp, "sift", q_np, "l2", B, K)
+        moved = dict(zip(_COUNT_NAMES, (v - o for v, o in zip(_sweep_counts(), c0))))
+        print(f"  {label}: after compact() (capacity {ns.capacity}, the mirror the rows' "
+              f"{'codes' if label == 'int8' else 'widening'}): l2 B={B} k={K} tier {tier}, "
+              f"transfers {xfer}, launches {label} {moved[label]}, B2 over bf16 "
+              f"{moved['gather_bf16']}")
+        _check_recall(res, oracle.sets("l2", B, dead), ids,
+                      f"bf16 store, {label} mirror, l2 B={B} after compaction")
+        if moved[label] != 1 or moved["gather_bf16"] < 1 or xfer[0] != 1:
+            raise AssertionError(f"{label}: the rebuilt mirror did not serve: {moved}")
+        rec[label]["compacted"] = {"tier": tier, "transfers": xfer}
+
+    # one int8 stream (sweep_resid=False): one l2 batch
+    qp1 = QueryProcessor(EngineConfig(dtype="bfloat16", sweep_dtype="int8", sweep_resid=False),
+                         device=dev)
+    ids1 = qp1.bulk_load(db_np, "sift")
+    c0 = _sweep_counts()
+    res, tier, xfer = _served(qp1, "sift", q_np, "l2", B, K)
+    moved = dict(zip(_COUNT_NAMES, (v - o for v, o in zip(_sweep_counts(), c0))))
+    print(f"  int8, one stream: l2 B={B} k={K} tier {tier}, transfers {xfer}, launches "
+          f"int8 {moved['int8']} (heavy {moved['sweep_heavy']}), B2 over bf16 "
+          f"{moved['gather_bf16']}")
+    _check_recall(res, oracle.sets("l2", B), ids1, "bf16 store, one int8 stream, l2 B=128")
+    if moved["int8"] != 1 or xfer[0] != 1 or moved["gather_bf16"] < 1:
+        raise AssertionError(f"the one-stream int8 search did not run B3 and B2: {moved}")
+    counts["int8_one_stream"] = moved
+    rec["int8_one_stream"] = {"tier": tier, "transfers": xfer}
+    del qp1, ids1, res
+
+    rec["near_tie_tiers"] = check_near_tie()
+    return counts, worst, times, bounds, rec
+
+
 # ---- phase 18: the server over phase 17's processor --------------------------------------
 
 
@@ -3683,6 +3919,16 @@ def main() -> int:
     print(f"  phase 19 took {mesh_rec['seconds']:.1f} s")
     del deep
 
+    # ---- 20. a bf16 store with an int8 or f32 mirror --------------------------------------
+    print(f"phase 20 bf16 store with an int8 or f32 mirror: QueryProcessor(dtype='bfloat16', "
+          f"sweep_dtype='int8' | 'float32') at {N:,} x {D}: B3 over the mirror, B2 over the "
+          f"bf16 rows, C13's near tie, on {gpu}")
+    t20 = time.perf_counter()
+    c20, w20, t20_, b20, rec20 = run_bf16_mirrors(db_np, q_np, dead, gpu)
+    rec20["seconds"] = time.perf_counter() - t20
+    times.update(t20_)
+    print(f"  phase 20 took {rec20['seconds']:.1f} s")
+
     # each kernel's bound at the operands timed above: every input read once, every
     # output written once; the products over the peak for their type (B1/B3 and B4/B5:
     # of the live queries, and of the whole padded batch beside it; B4/B5 over f32 rows
@@ -3704,6 +3950,7 @@ def main() -> int:
     bounds.update(b12)
     bounds.update(b15)
     bounds.update(b19)
+    bounds.update(b20)
     for name, (ms, by, nbytes, ops) in bounds.items():
         base = name.removesuffix("_full_batch")
         timed = times[name] if base == name else times[base + "_full"]
@@ -3895,9 +4142,36 @@ def main() -> int:
             e.update({"timed_launch_rows": TIMED_ROWS[key],
                       "index_select_ms": times[key + "_index_select"]})
         record["kernels"].append(e)
+    # phase 20: B3 over the int8 codes and the f32 mirror of a bf16 store, B2 over its rows
+    for name, source, replaces, launches_, key in (
+            ("sweep_min_int8_bf16_store", "sweep_min.cu",
+             "mlvectordb_tpu/ops/pallas_knn_t.py:221", c20["int8"]["int8"], "b3_int8_bf16_store"),
+            ("sweep_min_f32_bf16_store", "sweep_min.cu",
+             "mlvectordb_tpu/ops/pallas_knn_t.py:221", c20["f32"]["f32"], "b3_f32_bf16_store"),
+            ("gather_score_bf16_store", "gather_score.cu",
+             "mlvectordb_tpu/ops/pallas_gather.py:33",
+             c20["int8"]["gather_bf16"] + c20["f32"]["gather_bf16"],
+             "gather_f32_bf16_store")):
+        e = entry(name, source, replaces, launches_, w20[key], key)
+        if key.startswith("gather"):
+            e.update({"timed_launch_rows": TIMED_ROWS[key],
+                      "index_select_ms": times[key + "_index_select"],
+                      "int8_store_ms": times["gather_int8_bf16_store"],
+                      "int8_store_plain_ms": times["gather_int8_bf16_store_plain"],
+                      "int8_store_max_abs_err": w20["gather_int8_bf16_store"]})
+        else:
+            mirror = key.split("_")[1]
+            e.update({"exact_knn_t_ms": times[f"exact_knn_t_{mirror}_bf16_store"],
+                      "engine_wall_ms": times[f"engine_wall_{mirror}_bf16_store_median"],
+                      "prep_c13_ms": times[f"prep_c13_{mirror}"],
+                      "prep_jax_plan_ms": times[f"prep_jax_plan_{mirror}"]})
+            if mirror == "int8":
+                e["launches_one_stream"] = c20["int8_one_stream"]["int8"]
+        record["kernels"].append(e)
     # the IVF and server phases run no hand-written kernel of their own: their record
     print(json.dumps({"ivf": ivf_rec, "server": server_rec}, default=str))
     print(json.dumps({"mesh": mesh_rec}, default=str))
+    print(json.dumps({"bf16_mirrors": rec20}, default=str))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s on {gpu}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

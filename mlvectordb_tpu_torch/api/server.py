@@ -54,8 +54,9 @@ def build_parser() -> argparse.ArgumentParser:
         default=None,
         choices=["bfloat16", "float32", "int8"],
         help="Maintain a sweep mirror for the certified sweep kernel (bfloat16: a bf16 "
-        "mirror with int8 residual codes; int8 = 1 byte/element codes; float32 = the "
-        "rows themselves; all certificate-gated)",
+        "mirror with int8 residual codes, or the rows themselves on a bfloat16 store; "
+        "int8 = 1 byte/element codes; float32 = the rows themselves on a float32 store, "
+        "an f32 copy on a bfloat16 one; all certificate-gated)",
     )
     p.add_argument("--metric", default="l2", help="Default distance metric (l2/ip/cosine)")
     p.add_argument("--db-tile", type=int, default=8192, help="Database-axis kernel tile size")

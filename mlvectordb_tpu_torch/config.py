@@ -2,8 +2,7 @@
 
 A copy of ``mlvectordb_tpu/config.py`` (importing that module pulls in JAX through
 ``mlvectordb_tpu/__init__.py``).  Every field is kept, so a config compares one to one
-with the JAX package's; combinations not yet ported (a bf16 store with an int8 or f32
-sweep mirror) are accepted here and rejected by the store.
+with the JAX package's, and every combination it takes is served.
 """
 
 from __future__ import annotations

@@ -12,7 +12,10 @@ same ids.
 ``sweep_arrays_from_jax`` turns a JAX namespace's sweep arrays (numpy copies of its
 window-major ``_data_t`` and ``_sweep_resid`` and its per-row vectors) into the port's
 row-major ones, for a bf16, int8 or f32 mirror, so the two stores can be shown to hold the
-same codes; for a bf16 store's same-dtype mirror the result equals the port's ``data``.
+same codes; for a mirror of the rows' own type (an f32 store's f32 mirror, a bf16 store's
+same-dtype mirror) the result equals the port's ``data``.  A bf16 store's int8 or f32
+mirror holds what its writes and rebuilds gave it, on both sides alike: a snapshot holds
+the stored bf16 rows, so a store loaded from one has them in its mirror too.
 
 ``ivf_from_jax`` carries a trained JAX ``IVFIndex`` across to a port store holding the same
 ids: its centroids, every id's cluster slot and the spill copies, through the index's
@@ -57,9 +60,10 @@ def sweep_arrays_from_jax(data_t: np.ndarray, sweep_resid: Optional[np.ndarray] 
                           sweep_err=None, sweep_rscale=None, sweep_err1=None,
                           sweep_rscale2=None, *, device) -> Dict[str, Optional[torch.Tensor]]:
     """The port's row-major sweep arrays from a JAX namespace's: ``data_t`` is its
-    window-major mirror (numpy: ml_dtypes bfloat16, int8 codes or f32 — for f32 the
-    result equals the port's ``data``), ``sweep_resid`` its int8 codes in the same
-    layout; the per-row vectors are in store-row order on both sides."""
+    window-major mirror (numpy: ml_dtypes bfloat16, int8 codes or f32 — for an f32
+    store's f32 mirror the result equals the port's ``data``), ``sweep_resid`` its int8
+    codes in the same layout; the per-row vectors are in store-row order on both
+    sides."""
     data_t = np.asarray(data_t)
     if data_t.dtype in (np.int8, np.float32):
         mirror = torch.from_numpy(np.ascontiguousarray(rows_from_sweep_layout(data_t)))

@@ -45,12 +45,14 @@ def pairwise_distances(
     db_sq_norms: torch.Tensor,  # [N] precomputed squared norms of db rows (float32)
     q_sq_norms: torch.Tensor,   # [B] squared norms of queries (float32)
     metric: str,
+    round_query: bool = True,
 ) -> torch.Tensor:
     """[B, N] float32 distance block (lower is better)."""
     require_f32_matmul()
-    # the query is rounded to the storage dtype first, as the JAX version does; the
-    # product itself is f32 either way
-    dots = q.to(db.dtype).float() @ db.float().T  # [B, N]
+    # the query is rounded to the storage dtype first, as the JAX version does (unless
+    # ``round_query`` is False); the product itself is f32 either way
+    qd = q.to(db.dtype).float() if round_query else q.float()
+    dots = qd @ db.float().T  # [B, N]
     if metric == "l2":
         d = q_sq_norms[:, None] + db_sq_norms[None, :] - 2.0 * dots
         return torch.clamp_min(d, 0.0)

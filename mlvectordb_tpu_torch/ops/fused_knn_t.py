@@ -10,7 +10,11 @@ types (``EngineConfig.sweep_dtype``):
   int8  — row-wise int8 codes ``row ~ s1*z1`` (``quantize_int8_rows``), with a second
           stream ``+ s2*z2`` of the remainder under ``sweep_resid``
           (``quantize_int8_resid_rows``): 2 B/element in place of bf16's 3;
-  f32   — the rows themselves (the store's own tensor: no copy).
+  f32   — the rows themselves (the store's own tensor: no copy); over a bf16 store an
+          f32 tensor of its own.
+Over a bf16 store an int8 or f32 mirror holds what its writes gave it (the written f32
+values, quantized or copied) until a rebuild gives it the stored rows: the certificate then
+measures the mirror against the rows the rescan scores (``_plan``, ROADMAP C13).
 A search runs:
 
   phase 1  — kernels B1/B3 (``csrc/sweep_min.cu``, ``_window_mins_t``): one pass over the
@@ -899,23 +903,60 @@ def _cert_plan(*, certify, light, mixed, lossy_sweep, int8_sweep, use_resid,
     return (), (), (("rel", rel),)
 
 
+def row_sq_norms(rows: torch.Tensor) -> torch.Tensor:
+    """Squared norms of stored rows, summed in float64 and rounded to f32, 2^20 rows at a
+    time: the norms a compaction gives the store (JAX namespace.py:786)."""
+    return torch.cat([(r.double() * r.double()).sum(-1).float()
+                      for r in torch.split(rows, 1 << 20)])
+
+
+def _errors_over_rows(rows, mirror, rscale, resid, rscale2, *, use_resid):
+    """ROADMAP C13: what phase 1 reads, measured against the stored rows the rescan
+    scores, per row: ``(err, err1)``.  An f32 mirror: ``err = ||row - m||`` (zero where a
+    rebuild wrote the rows).  int8 codes: ``err1 = ||row - s1*z1||`` and ``err`` the same,
+    or with the second stream ``||row - s1*z1 - s2*z2||``, in the quantizer's own
+    expressions (``_codes``), so rows a rebuild quantized give its error norms."""
+    errs, errs1 = [], []
+    step = 1 << 20
+    for lo in range(0, rows.shape[0], step):
+        b = rows[lo : lo + step].float()
+        if mirror.dtype == torch.float32:
+            d = b - mirror[lo : lo + step]
+            errs.append(torch.sqrt((d * d).sum(-1)))
+            continue
+        d1 = b - rscale[lo : lo + step, None] * mirror[lo : lo + step].float()
+        e1 = torch.sqrt((d1 * d1).sum(-1))
+        errs1.append(e1)
+        if use_resid:
+            d2 = d1 - rscale2[lo : lo + step, None] * resid[lo : lo + step].float()
+            e1 = torch.sqrt((d2 * d2).sum(-1))
+        errs.append(e1)
+    return torch.cat(errs), (torch.cat(errs1) if errs1 else None)
+
+
 def _prep_terms(valid, sq_norms, hw, rscale, sweep_err, err1, *, cap, metric, masked,
-                use_resid, wb_sources, rscale2=None, int8_sweep=False, rows=None):
+                use_resid, wb_sources, rscale2=None, int8_sweep=False, rows=None,
+                mirror=None, resid=None, own_norms=False):
     """Query-independent prep (pallas_knn_t.py:958-1012) in store-row order: the bias
     and scale rows, the residual multiplier row, the live-max norm and the
     certificate's per-row bound rows.  ``int8_sweep``: ``rscale`` is the primary dequant
     scale s1, folded into the scale row, and the residual multiplier is s2 / s1
     (``rscale2`` = s2), so that (z1.q + (z2.q)*(s2/s1)) * s1 = s1*z1.q + s2*z2.q.
-    ``rows``: the stored rows the rescan scores, for the "norm_gap" bound row."""
+    ``rows``: the stored rows the rescan scores, for the "norm_gap" bound row and the
+    bound rows measured against them ("err_rows", "err1_rows": ``mirror`` and ``resid``
+    are then the codes).  ``own_norms`` (ROADMAP C13): phase 1 and the exact scan rank
+    with the stored rows' own norms (``row_sq_norms``), given back as "rank_norms" (None
+    otherwise); the live-max norm stays the written rows'."""
     dev = sq_norms.device
     sqn = sq_norms.float()
+    rank = row_sq_norms(rows) if own_norms else sqn
     if masked:
         maskadd = torch.where(valid, 0.0, float(MASKED)).to(torch.float32)
     else:
         maskadd = torch.where(torch.arange(cap, device=dev) < hw, 0.0,
                               float(MASKED)).to(torch.float32)
-    bias = (sqn + maskadd) if metric == "l2" else maskadd
-    inv_norm = torch.rsqrt(torch.clamp_min(sqn, 1e-30)) if metric == "cosine" else None
+    bias = (rank + maskadd) if metric == "l2" else maskadd
+    inv_norm = torch.rsqrt(torch.clamp_min(rank, 1e-30)) if metric == "cosine" else None
     scale = inv_norm
     if int8_sweep:
         scale = rscale if inv_norm is None else rscale * inv_norm
@@ -939,10 +980,20 @@ def _prep_terms(valid, sq_norms, hw, rscale, sweep_err, err1, *, cap, metric, ma
             return (sqn - own).abs()
         return (torch.sqrt(sqn) - torch.sqrt(own)).abs()   # times inv_norm in eb_row
 
+    over_rows = {}
+
+    def measured(i):   # C13's bound rows: (err, err1) against the stored rows
+        if not over_rows:
+            over_rows["e"] = _errors_over_rows(rows, mirror, rscale, resid, rscale2,
+                                               use_resid=use_resid)
+        return over_rows["e"][i]
+
     srcs = {"sqn_sqrt": lambda: torch.sqrt(sqn), "sweep_err": lambda: sweep_err,
-            "err1": lambda: err1, "norm_gap": norm_gap}
+            "err1": lambda: err1, "norm_gap": norm_gap, "err_rows": lambda: measured(0),
+            "err1_rows": lambda: measured(1)}
     return {"bias_row": bias.contiguous(), "scale_row": scale, "rscale_row": rscale_row,
-            "maxd": maxd, "eb_rows": tuple(eb_row(srcs[s]()) for s in wb_sources)}
+            "maxd": maxd, "eb_rows": tuple(eb_row(srcs[s]()) for s in wb_sources),
+            "rank_norms": rank if own_norms else None}
 
 
 def _mixed(mirror_dtype, rescan_dtype) -> bool:
@@ -953,31 +1004,60 @@ def _mixed(mirror_dtype, rescan_dtype) -> bool:
             or mirror_dtype == torch.int8)
 
 
+def _off_rows(mirror_dtype, rescan_dtype) -> bool:
+    """An f32 or int8 mirror over a bf16 store's rows: the mirror holds the written f32
+    values until a rebuild gives it the stored rows (ROADMAP C13)."""
+    return rescan_dtype == torch.bfloat16 and mirror_dtype in (torch.float32, torch.int8)
+
+
 def _plan(*, certify, light, metric, mirror_dtype, rescan_dtype, sweep_err, resid, rscale,
           err1, rscale2):
     """(use_resid, wb_sources, q_tags, err_tags) of a mirror of ``mirror_dtype`` over rows
     of ``rescan_dtype`` (pallas_knn_t.py:1515-1531): a bf16 mirror of f32 rows and an int8
     mirror are mixed and lossy, a bf16 mirror of bf16 rows lossy only, an f32 mirror
     neither; the residual pass needs its arrays, and for an int8 mirror the second scale
-    as well."""
+    as well.
+
+    One intended divergence (ROADMAP C13): over a bf16 store an f32 or int8 mirror's
+    upkeep writes the written f32 values, so until a compaction it ranks rows the rescan
+    does not score, and JAX's plan (no bound for an f32 mirror; for int8 the codes' error
+    against the written values) can certify a wrong set at tier 0
+    (tests/test_torch_bf16_mirrors.py shows both answers).  The port measures the bound
+    rows against the stored rows ("err_rows" in place of "sweep_err", "err1_rows" in
+    place of "err1", scaled by the same query norms; for an f32 mirror "err_rows" scaled
+    by |q|) and ranks with the stored rows' norms (``_prep_terms``' ``own_norms``), which
+    leaves no norm gap to carry: still at most two bound rows."""
     bf_sweep = mirror_dtype == torch.bfloat16
     int8_sweep = mirror_dtype == torch.int8
     mixed = _mixed(mirror_dtype, rescan_dtype)
     use_resid = (certify and not light and resid is not None and rscale is not None
                  and err1 is not None and (bf_sweep or (int8_sweep and rscale2 is not None)))
-    plan = _cert_plan(certify=certify, light=light, mixed=mixed,
-                      lossy_sweep=bf_sweep or int8_sweep, int8_sweep=int8_sweep,
-                      use_resid=use_resid, has_sweep_err=sweep_err is not None,
-                      has_err1=err1 is not None, metric=metric)
-    return (use_resid, *plan)
+    wb, q_tags, err_tags = _cert_plan(
+        certify=certify, light=light, mixed=mixed, lossy_sweep=bf_sweep or int8_sweep,
+        int8_sweep=int8_sweep, use_resid=use_resid, has_sweep_err=sweep_err is not None,
+        has_err1=err1 is not None, metric=metric)
+    if certify and _off_rows(mirror_dtype, rescan_dtype):
+        measured = {"sweep_err": "err_rows", "err1": "err1_rows"}
+        if measured.keys() & set(wb):
+            wb = tuple(measured.get(w, w) for w in wb)
+        else:
+            wb, q_tags = wb + ("err_rows",), q_tags + ("qh",)
+    return use_resid, wb, q_tags, err_tags
 
 
 def search_prep(mirror, valid, sq_norms, *, metric, live_prefix, certify=True, light=False,
                 sweep_err=None, resid=None, rscale=None, err1=None, rscale2=None,
-                rescan_dtype=torch.float32):
+                rescan_dtype=torch.float32, rows=None):
     """The query-independent prep dict of one search over rows of ``rescan_dtype``
     (pallas_knn_t.py:1377-1427), as ``exact_knn_t`` caches it per snapshot; pass it back
-    through ``prep=``."""
+    through ``prep=``.  ``rows``: the rows the rescan scores (their dtype then replaces
+    ``rescan_dtype``; default the mirror), needed for an int8 or f32 mirror of bf16 rows."""
+    if rows is None:
+        if _off_rows(mirror.dtype, rescan_dtype):
+            raise ValueError("an int8 or f32 mirror of bf16 rows needs the rows")
+        rows = mirror
+    else:
+        rescan_dtype = rows.dtype
     cap = mirror.shape[0]
     use_resid, wb_sources, _, _ = _plan(
         certify=certify, light=light, metric=metric, mirror_dtype=mirror.dtype,
@@ -987,7 +1067,9 @@ def search_prep(mirror, valid, sq_norms, *, metric, live_prefix, certify=True, l
     return _prep_terms(valid, sq_norms, cap if masked else live_prefix, rscale, sweep_err,
                        err1, cap=cap, metric=metric, masked=masked, use_resid=use_resid,
                        wb_sources=wb_sources, rscale2=rscale2,
-                       int8_sweep=mirror.dtype == torch.int8, rows=mirror)
+                       int8_sweep=mirror.dtype == torch.int8, rows=rows, mirror=mirror,
+                       resid=resid,
+                       own_norms=certify and _off_rows(mirror.dtype, rescan_dtype))
 
 
 # ------------------------------------------------------------------ the search
@@ -1170,8 +1252,11 @@ def _fused_t(q, mirror, rescan, valid, sq_norms, hw, resid, prep, *, k, metric, 
     okq = check_exact(d1, th1)                            # [B] per-query proof
 
     def exact_fallback(fetch_):
-        d, i = exact_knn(q32, rescan, valid, sq_norms.float(), k=k, metric=metric,
-                         db_tile=8 * SWEEP_TILE)
+        # under C13 the scan scores the stored rows as the rescan does: their own norms
+        # and the query unrounded
+        own = prep.get("rank_norms")
+        d, i = exact_knn(q32, rescan, valid, sq_norms.float() if own is None else own, k=k,
+                         metric=metric, db_tile=8 * SWEEP_TILE, round_query=own is None)
         d, i = fetch_(d, i)
         return d, i, 2
 
@@ -1241,10 +1326,12 @@ def exact_knn_t(q, mirror, rescan_data, valid, sq_norms, *, k, metric, live_pref
                    wb_sources, str(mirror.dtype))
             prep = prep_cache.get(key) if prep_cache is not None else None
             if prep is None:
-                prep = _prep_terms(valid, sq_norms, hw, rscale, sweep_err, err1, cap=cap,
-                                   metric=metric, masked=masked, use_resid=use_resid,
-                                   wb_sources=wb_sources, rscale2=rscale2,
-                                   int8_sweep=mirror.dtype == torch.int8, rows=mirror)
+                prep = _prep_terms(
+                    valid, sq_norms, hw, rscale, sweep_err, err1, cap=cap, metric=metric,
+                    masked=masked, use_resid=use_resid, wb_sources=wb_sources,
+                    rscale2=rscale2, int8_sweep=mirror.dtype == torch.int8,
+                    rows=rescan_data, mirror=mirror, resid=resid,
+                    own_norms=certify and _off_rows(mirror.dtype, rescan_data.dtype))
                 if prep_cache is not None:
                     prep_cache[key] = prep  # GIL-atomic; a racing reader recomputes
         res = _fused_t(q, mirror, rescan_data, valid, sq_norms, hw, resid, prep, k=k,

@@ -35,12 +35,15 @@ def exact_knn(
     k: int,
     metric: str,
     db_tile: int = 8192,
+    round_query: bool = True,
 ):
     """Exact k nearest neighbours.
 
     Returns ``(dist [B, k] float32, idx [B, k] int32)`` sorted best-first.  Masked /
     out-of-range slots surface as ``dist >= MASKED`` with idx of some masked slot; callers
-    clamp k to the live count so those never reach users.
+    clamp k to the live count so those never reach users.  ``round_query``: the query is
+    rounded to the rows' type first, as the JAX package's scan does (False: the f32 query,
+    as the certified sweep's rescan scores it).
     """
     cap = data.shape[0]
     tile = min(db_tile, cap)
@@ -50,7 +53,7 @@ def exact_knn(
     masked = torch.tensor(float(MASKED), dtype=torch.float32, device=q.device)
 
     def block(db_blk, norms_blk, valid_blk, offset):
-        d = pairwise_distances(q32, db_blk, norms_blk, qn, metric)
+        d = pairwise_distances(q32, db_blk, norms_blk, qn, metric, round_query)
         d = torch.where(valid_blk[None, :], d, masked)
         idx = offset + torch.arange(db_blk.shape[0], dtype=torch.int32, device=q.device)
         return d, idx[None, :].expand(B, -1)

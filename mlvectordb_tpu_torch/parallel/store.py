@@ -11,9 +11,11 @@ Device state: for every (replica, shard) cell of the mesh, the shard's rows
 ``[shard_capacity, dim_padded]``, liveness and squared norms on the cell's device, and
 the sweep arrays of the port's certified sweep where the configuration keeps them: a
 bf16 mirror with its per-row ``sweep_err`` (an f32 store under ``sweep_dtype="bfloat16"``;
-no residual stream, as in the JAX package's sharded store), or the rows themselves (the
-same-dtype sweep).  An int8 ``sweep_dtype`` runs without a mirror (the masked row-major
-kernel per shard), as the JAX package's sharded store does.  A snapshot
+no residual stream, as in the JAX package's sharded store), an f32 mirror of a bf16
+shard's rows (no certificate arrays: write upkeep copies the written values, a rebuild
+widens the rows, as the JAX package's sharded store does), or the rows themselves (a
+mirror of the rows' own type).  An int8 ``sweep_dtype`` runs without a mirror (the masked
+row-major kernel per shard), as the JAX package's sharded store does.  A snapshot
 (``ShardedState``) holds one per-shard ``DeviceState`` per cell, each with its own prep
 dict: prep is query-independent but shard-dependent.
 
@@ -113,23 +115,29 @@ class ShardedNamespaceStore(NamespaceStore):
         return c >= SWEEP_TILE and c % SWEEP_TILE == 0
 
     def _mirror_kind(self) -> Optional[str]:
-        """"bf16" (a mirror of its own with sweep_err), "rows" (the rows are the mirror)
-        or None (int8, no sweep_dtype, or shards too small)."""
+        """"bf16" (a mirror of its own with sweep_err), "f32" (an f32 mirror of bf16
+        rows), "rows" (the rows are the mirror) or None (int8, no sweep_dtype, or shards
+        too small)."""
         sdt = self.config.sweep_dtype
         if sdt is None or self._int8_sweep() or not self._shard_mirror_ok(self.shard_capacity):
             return None
-        return "bf16" if self._mixed_sweep() else "rows"
+        if self._rows_are_mirror():
+            return "rows"
+        return "bf16" if self._mixed_sweep() else "f32"
 
     def _build_cell_sweep(self, cell: _Cell) -> None:
         """(Re)build a cell's mirror and sweep_err from its rows."""
         cell.mirror = cell.sweep_err = None
-        if self._mirror_kind() == "bf16":
+        kind = self._mirror_kind()
+        if kind == "bf16":
             cell.mirror = cell.data.to(torch.bfloat16)
             cell.sweep_err = sweep_err_norms(cell.data)
+        elif kind == "f32":
+            cell.mirror = cell.data.float()
 
     def _cell_state(self, cell: _Cell, s: int) -> DeviceState:
         kind = self._mirror_kind()
-        mirror = cell.mirror if kind == "bf16" else cell.data if kind == "rows" else None
+        mirror = cell.data if kind == "rows" else cell.mirror if kind else None
         # the per-shard search is always masked: high_water is the shard's own mark and
         # no live count is kept per shard
         return DeviceState(cell.data, cell.valid, cell.sq_norms, self._shard_high[s], -1,
@@ -243,15 +251,15 @@ class ShardedNamespaceStore(NamespaceStore):
             self.capacity = per * self.n_shards
             return
         grow = per - old
-        had_mirror = self._mirror_kind() == "bf16"
+        had_mirror = self._mirror_kind() in ("bf16", "f32")
         self.shard_capacity = per
         for row in self._cells:
             for cell in row:
                 cell.data, cell.valid, cell.sq_norms = (
                     _grow(t, grow) for t in (cell.data, cell.valid, cell.sq_norms))
                 if had_mirror:   # zero rows: bf16(0) = 0 with a zero bound
-                    cell.mirror, cell.sweep_err = _grow(cell.mirror, grow), _grow(
-                        cell.sweep_err, grow)
+                    cell.mirror, cell.sweep_err = (None if t is None else _grow(t, grow)
+                                                   for t in (cell.mirror, cell.sweep_err))
                 else:
                     self._build_cell_sweep(cell)
         self.capacity = per * self.n_shards
@@ -320,6 +328,7 @@ class ShardedNamespaceStore(NamespaceStore):
                     cell.data, cell.valid, cell.sq_norms, loc_t, vals_t)
                 if cell.mirror is not None:
                     cell.mirror = _scatter_mirror(cell.mirror, loc_t, vals_t)
+                if cell.sweep_err is not None:
                     cell.sweep_err = _scatter_sweep_err(cell.sweep_err, loc_t, vals_t)
 
     def _clear_device(self, slots: List[int]) -> None:

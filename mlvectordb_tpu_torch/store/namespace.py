@@ -16,12 +16,16 @@ fused_knn_t) and the certificate's per-row arrays:
               sweep_err = ||row - s1*z1||; with config.sweep_resid, the second stream
               sweep_resid (z2) with its scales sweep_rscale2 (s2), sweep_err =
               ||row - s1*z1 - s2*z2|| and sweep_err1 = ||row - s1*z1||
-  "float32":  mirror IS data: the row-major f32 mirror would hold the same bytes in the
-              same layout, so the store keeps one tensor (the JAX package keeps a
-              transposed copy)
+  "float32":  over an f32 store the mirror IS data: the row-major f32 mirror would hold
+              the same bytes in the same layout, so the store keeps one tensor (the JAX
+              package keeps a transposed copy); over a bf16 store it is a tensor of its
+              own, with no certificate arrays (as in the JAX package)
 Over a bf16 store (config.dtype="bfloat16") the bf16 mirror is data itself for the same
-reason (the same-dtype sweep: no certificate arrays); a bf16 store takes no int8 or f32
-mirror yet (ROADMAP A24).
+reason (the same-dtype sweep: no certificate arrays).  An int8 or f32 mirror of a bf16
+store holds what the JAX package's holds: write upkeep codes or copies the written f32
+values, a whole rebuild (first mirror-eligible capacity, compaction, page-in) the stored
+bf16 rows, so until a compaction its rows differ from the rows the rescan scores
+(fused_knn_t measures the certificate's bound rows against the stored rows: ROADMAP C13).
 
 Host state: slot -> uuid / metadata / float32 values, uuid -> slot map, free-slot stack,
 and, where the native library builds, ``meta_columns``: the slot-aligned columnar copy of
@@ -49,17 +53,8 @@ import torch
 
 from ..config import DEFAULT_CONFIG, EngineConfig
 from ..ops.fused_knn_t import (SWEEP_TILE, quantize_int8_resid_rows, quantize_int8_rows,
-                               quantize_resid_rows, sweep_err_norms)
+                               quantize_resid_rows, row_sq_norms, sweep_err_norms)
 from .vector import Vector
-
-
-def check_supported(config: EngineConfig) -> None:
-    """Raise for configurations whose store or kernels are not ported yet."""
-    if config.dtype == "bfloat16" and config.sweep_dtype not in (None, "bfloat16"):
-        raise NotImplementedError(
-            f"a bf16 store with sweep_dtype={config.sweep_dtype!r} is not ported yet "
-            "(ROADMAP A24); a bf16 store takes sweep_dtype None or 'bfloat16'"
-        )
 
 
 def _storage_dtype(config: EngineConfig) -> torch.dtype:
@@ -83,7 +78,7 @@ class DeviceState(NamedTuple):
     high_water: int
     live_count: int
     # Row-major sweep mirror and the certificate's per-row arrays (config.sweep_dtype;
-    # see the module docstring), or None.  An f32 mirror is ``data`` itself.
+    # see the module docstring), or None.  A mirror of the rows' own type is ``data``.
     mirror: Optional[torch.Tensor] = None
     sweep_err: Optional[torch.Tensor] = None
     sweep_resid: Optional[torch.Tensor] = None
@@ -122,7 +117,8 @@ def _scatter_rows(data, valid, sq_norms, slots, vals):
 
 
 def _scatter_mirror(mirror, slots, vals):
-    """Sweep-mirror upkeep: the written rows, rounded to bf16 (copy-on-write)."""
+    """Sweep-mirror upkeep: the written rows in the mirror's type, a bf16 mirror's
+    rounded, an f32 mirror's as written (copy-on-write)."""
     return mirror.clone().index_put_((slots,), vals.float().to(mirror.dtype))
 
 
@@ -173,7 +169,6 @@ class NamespaceStore:
     """One namespace's vectors, device-resident and exactly searchable."""
 
     def __init__(self, name: str, config: EngineConfig = DEFAULT_CONFIG, *, device="cuda"):
-        check_supported(config)
         self.name = name
         self.config = config
         self.device = torch.device(device)
@@ -189,9 +184,9 @@ class NamespaceStore:
         self._data: Optional[torch.Tensor] = None
         self._valid: Optional[torch.Tensor] = None
         self._sq_norms: Optional[torch.Tensor] = None
-        # the sweep mirror and its arrays (module docstring); None for an f32 mirror,
-        # which is _data itself (_sweep_mirror)
-        self._mirror: Optional[torch.Tensor] = None        # [cap, dpad] bf16 or int8
+        # the sweep mirror and its arrays (module docstring); None for a mirror of the
+        # rows' own type, which is _data itself (_sweep_mirror)
+        self._mirror: Optional[torch.Tensor] = None        # [cap, dpad] bf16, int8 or f32
         self._sweep_err: Optional[torch.Tensor] = None     # [cap] certificate bound
         self._sweep_resid: Optional[torch.Tensor] = None   # [cap, dpad] int8 residual codes
         self._sweep_rscale: Optional[torch.Tensor] = None  # [cap] their (bf16) or z1's scales
@@ -228,8 +223,8 @@ class NamespaceStore:
     @property
     def nbytes(self) -> int:
         """Exact device-array byte accounting: data + valid + sq_norms, and the sweep
-        mirror and its certificate arrays when kept (an f32 mirror is data: counted
-        once)."""
+        mirror and its certificate arrays when kept (a mirror of the rows' own type is
+        data, counted once; an f32 mirror of bf16 rows is a tensor of its own)."""
         if self._data is None:
             # an offloaded namespace holds no device memory: count its host copy
             if self._offloaded is not None:
@@ -245,12 +240,15 @@ class NamespaceStore:
         return (self._mirror, self._sweep_err, self._sweep_resid, self._sweep_rscale,
                 self._sweep_err1, self._sweep_rscale2)
 
+    def _rows_are_mirror(self) -> bool:
+        """The mirror is of the rows' own type (the f32 mirror of an f32 store, the bf16
+        mirror of a bf16 store): the row store itself serves as the mirror."""
+        return self.config.sweep_dtype == self.config.dtype
+
     def _sweep_mirror(self) -> Optional[torch.Tensor]:
-        """The mirror a search reads: a mirror of the rows' own type (the f32 mirror of an
-        f32 store, the bf16 mirror of a bf16 store) is the row store itself, whenever the
-        capacity takes the sweep layout."""
-        if (self.config.sweep_dtype is not None and not self._mixed_sweep()
-                and not self._int8_sweep() and self._data is not None
+        """The mirror a search reads: the row store itself for a mirror of the rows' own
+        type, whenever the capacity takes the sweep layout; else the mirror tensor."""
+        if (self._rows_are_mirror() and self._data is not None
                 and self._mirror_ok(self._data.shape[0])):
             return self._data
         return self._mirror
@@ -377,9 +375,12 @@ class NamespaceStore:
         self._mirror = self._sweep_err = None
         self._sweep_resid = self._sweep_rscale = self._sweep_err1 = None
         self._sweep_rscale2 = None
-        if not (self._mixed_sweep() or self._int8_sweep()) or self._data is None or not (
-                self._mirror_ok(self._data.shape[0])):
-            return   # no mirror, or the f32 one (_data itself)
+        if (self.config.sweep_dtype is None or self._rows_are_mirror()
+                or self._data is None or not self._mirror_ok(self._data.shape[0])):
+            return   # no mirror, or the rows' own type (_data itself)
+        if self.config.sweep_dtype == "float32":
+            self._mirror = self._data.float()    # a bf16 store's rows, widened
+            return
         if self._int8_sweep():
             # one quantization of the whole store gives every array
             if self._use_resid():
@@ -490,7 +491,7 @@ class NamespaceStore:
                  self._sweep_resid) = _scatter_resid(
                     self._sweep_err, self._sweep_err1, self._sweep_rscale,
                     self._sweep_resid, slots_t, vals_t)
-            else:
+            elif self._sweep_err is not None:
                 self._sweep_err = _scatter_sweep_err(self._sweep_err, slots_t, vals_t)
 
     def upsert(self, vectors: Sequence[Vector]) -> None:
@@ -645,9 +646,7 @@ class NamespaceStore:
             if self._data is not None and n:
                 old = torch.as_tensor([s for _, s in live], dtype=torch.int64).to(self.device)
                 data[:n] = self._data.index_select(0, old)        # gathered on the device
-                for lo in range(0, n, _NORM_CHUNK):               # bounded float64 copies
-                    rows = data[lo : min(n, lo + _NORM_CHUNK)].double()
-                    sq_norms[lo : lo + rows.shape[0]] = (rows * rows).sum(-1).float()
+                sq_norms[:n] = row_sq_norms(data[:n])
             valid = torch.zeros((new_cap,), dtype=torch.bool, device=self.device)
             valid[:n] = True
             self._data, self._valid, self._sq_norms = data, valid, sq_norms
@@ -752,8 +751,6 @@ class NamespaceStore:
         return cls(snap["name"], config, device=device).load_snapshot(snap)
 
 
-# rows per float64 chunk of compaction's norm sums
-_NORM_CHUNK = 1 << 20
 # slots per native call when the metadata columns are rebuilt
 _META_CHUNK = 1 << 16
 

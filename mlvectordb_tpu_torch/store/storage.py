@@ -17,7 +17,7 @@ import torch
 
 from ..config import DEFAULT_CONFIG, EngineConfig
 from ..filters import _validate_spec_ops, matches_filter
-from .namespace import NamespaceStore, check_supported
+from .namespace import NamespaceStore
 from .vector import Vector
 
 
@@ -31,7 +31,6 @@ class StorageEngine:
 
     def __init__(self, config: EngineConfig = DEFAULT_CONFIG, *, device="cuda",
                  namespace_factory=None):
-        check_supported(config)
         self.config = config
         self.device = torch.device(device)
         self._factory = namespace_factory or (

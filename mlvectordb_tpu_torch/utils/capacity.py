@@ -3,7 +3,9 @@
 How much device memory a namespace of N vectors of dim D takes in the port, and how many
 cards it needs, before any data moves.  The port's bytes differ from the JAX package's
 where its store differs: a mirror of the rows' own type (an f32 mirror of an f32 store, a
-bf16 mirror of a bf16 store) is the row tensor itself, so it adds nothing (ROADMAP §C).
+bf16 mirror of a bf16 store) is the row tensor itself, so it adds nothing (ROADMAP §C);
+every other mirror (a bf16 one of f32 rows, int8 codes, an f32 one of bf16 rows) is a
+tensor of its own, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -46,6 +48,8 @@ def _sweep_bytes_per_dim(config: EngineConfig) -> int:
         return 1 + (1 if config.sweep_resid else 0)    # z1 codes, and z2
     if config.sweep_dtype == config.dtype:
         return 0                                      # the mirror is the rows themselves
+    if config.sweep_dtype == "float32":
+        return 4                                      # an f32 mirror of bf16 rows
     # a bf16 mirror of f32 rows, with the int8 residual codes
     return 2 + (1 if config.sweep_resid else 0)
 

@@ -165,14 +165,19 @@ def test_carry_over_from_jax_snapshot(pair, corpus):
         _assert_same_results(*_search_both(jqp, fresh, queries, 10, metric))
 
 
-def test_unported_options_raise():
-    # a bf16 store serves row-major and with the same-dtype bf16 mirror; its int8 and
-    # f32 mirrors are not ported yet
-    for sweep in ("int8", "float32"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A24"):
-            QueryProcessor(EngineConfig(dtype="bfloat16", sweep_dtype=sweep), device="cpu")
-    for sweep in (None, "bfloat16"):
-        QueryProcessor(EngineConfig(dtype="bfloat16", sweep_dtype=sweep), device="cpu")
+def test_every_option_is_served():
+    # a bf16 store serves row-major and under every sweep mirror: the same-dtype bf16
+    # one, int8 codes with one or two streams and an f32 mirror, each answering a
+    # certified search at tier 0 over two sweep tiles
+    rows = np.random.default_rng(2).standard_normal((8192, 16)).astype(np.float32)
+    for sweep, resid in ((None, True), ("bfloat16", True), ("int8", True), ("int8", False),
+                         ("float32", True)):
+        cfg = EngineConfig(dtype="bfloat16", sweep_dtype=sweep, sweep_resid=resid)
+        bq = QueryProcessor(cfg, device="cpu")
+        bq.bulk_load(rows, "ns", ids=[uuid.UUID(int=i + 1) for i in range(len(rows))])
+        hit = bq.find_similar(VectorDTO(rows[7]), top_k=3, namespace="ns", metric="l2")
+        assert hit[0]["id"] == uuid.UUID(int=8)
+        assert bq.cert_tier_counts("ns") == ({} if sweep is None else {"fast": 1})
     tqp = QueryProcessor(EngineConfig(), device="cpu")
     q = [VectorDTO(np.ones(4, np.float32))]
     # filter= is served (tests/test_torch_filters.py): a missing namespace answers []

@@ -488,6 +488,85 @@ def test_int8_f32_engine_on_cuda_matches_cpu(cuda, kind):
                                        sorted(r["score"] for r in rb), rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("kind", ["int8", "int8_no_resid", "float32"])
+def test_bf16_store_mirrors_engine_on_cuda_matches_cpu(cuda, kind):
+    """A bf16 store with an int8 or f32 mirror (its rows written, so the mirror holds the
+    written values): the CPU's ids, scores within 1e-4 and tiers, B3 over the mirror's
+    type and B2 over the bf16 rows launched once a search, never a light_ tier."""
+    rng = np.random.default_rng(31)
+    x = rng.standard_normal((20000, 128), dtype=np.float32)
+    q = [VectorDTO(v) for v in rng.standard_normal((16, 128), dtype=np.float32)]
+    cfg = EngineConfig(dtype="bfloat16", sweep_dtype=kind.split("_")[0],
+                       sweep_resid=kind != "int8_no_resid")
+    counter = "launches_f32" if kind == "float32" else "launches_int8"
+    out = []
+    for device in ("cpu", cuda):
+        qp = QueryProcessor(cfg, device=device)
+        ids = qp.bulk_load(x, "ns", ids=None if not out else out[0][0])
+        st = qp.storage.namespace("ns").device_state()
+        assert st.mirror is not st.data and st.data.dtype == torch.bfloat16
+        b3, b2 = (getattr(fused_knn_t._window_mins_t, counter),
+                  fused_knn_t._gather_score.launches_bf16)
+        res = {m: qp.find_similar_batch(q, 10, "ns", m) for m in ("l2", "ip", "cosine")}
+        launched = (getattr(fused_knn_t._window_mins_t, counter) - b3,
+                    fused_knn_t._gather_score.launches_bf16 - b2)
+        qp.delete(ids[::50], "ns")
+        res2 = qp.find_similar_batch(q, 10, "ns", "l2")
+        out.append((ids, res, res2, launched, qp.cert_tier_counts("ns")))
+    (_, c1, c2, _, ccpu), (_, g1, g2, launched, cgpu) = out
+    assert launched == (3, 3) and ccpu == cgpu
+    assert not any(t.startswith("light_") for t in cgpu)
+    for a, b in [(c1[m], g1[m]) for m in c1] + [(c2, g2)]:
+        for ra, rb in zip(a, b):
+            assert {r["id"] for r in ra} == {r["id"] for r in rb}
+            np.testing.assert_allclose(sorted(r["score"] for r in ra),
+                                       sorted(r["score"] for r in rb), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ["int8", "int8_no_resid", "float32"])
+def test_bf16_store_certificate_gap_on_cuda_matches_cpu(cuda, kind):
+    """ROADMAP C13's construction (tests/test_torch_bf16_mirrors.py, l2): row A's written
+    value ranks behind 40 decoys, its stored bf16 row is the query's nearest.  The card
+    returns the CPU's answer, the exact set over the stored rows with A first, at the
+    CPU's tier."""
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal((8192, 128)) + 8).astype(np.float32)
+    x[100] = np.float32(1.5) + np.float32(2.0 ** -8 - 2.0 ** -14)
+    for i, r in enumerate(range(1000, 1000 + 40 * 64, 64)):
+        x[r] = 1.5
+        x[r, i % 128] = np.float32(1.5 + (7 + i if i < 16 else 30) / 128)
+    ids = [uuid.UUID(int=i + 1) for i in range(len(x))]
+    q = [VectorDTO(np.ones(128, np.float32))]
+    cfg = EngineConfig(dtype="bfloat16", sweep_dtype=kind.split("_")[0],
+                       sweep_resid=kind != "int8_no_resid")
+    out = []
+    for device in ("cpu", cuda):
+        qp = QueryProcessor(cfg, device=device)
+        qp.bulk_load(x, "ns", ids=ids)
+        res = qp.find_similar_batch(q, 10, "ns", "l2")[0]
+        out.append(({r["id"] for r in res}, res[0]["id"], qp.cert_tier_counts("ns")))
+    b = torch.from_numpy(x).to(torch.bfloat16).double().numpy()
+    want = {ids[i] for i in np.argsort(((b - 1.0) ** 2).sum(1), kind="stable")[:10]}
+    assert out[0] == out[1] and out[1][0] == want and out[1][1] == ids[100]
+
+
+@pytest.mark.parametrize("metric", ["l2", "cosine"])
+def test_bf16_store_f32_mirror_sharded_on_cuda_matches_cpu(cuda, metric):
+    """A (2, 2) distributed engine on [cuda:0] * 4 over a bf16 store with an f32 mirror
+    (each cell's own): the CPU's answers, B3 over f32 and B2 over bf16 rows once a shard
+    of each replica holding a live query."""
+    rng = np.random.default_rng(23)
+    x = rng.standard_normal((40000, 96), dtype=np.float32)
+    ids = [uuid.UUID(int=i + 1) for i in range(len(x))]
+    q = [VectorDTO(v) for v in rng.standard_normal((40, 96), dtype=np.float32)]
+    cfg = EngineConfig(dtype="bfloat16", sweep_dtype="float32")
+    want, _ = _sharded_answers([torch.device("cpu")] * 4, cfg, x, ids, q, 2, 2, metric)
+    b3 = fused_knn_t._window_mins_t.launches_f32
+    got, launched = _sharded_answers([cuda] * 4, cfg, x, ids, q, 2, 2, metric)
+    _same_sharded_answers(got, want)
+    assert launched == [0, 4, 4] and fused_knn_t._window_mins_t.launches_f32 - b3 >= 4
+
+
 # ------------------------------------------------------------------ B7: the int8 probe
 
 
@@ -594,8 +673,11 @@ def test_gather_score_rejects_misaligned_rows(cuda):
 
 @pytest.mark.parametrize("cfg", [dict(sweep_dtype="bfloat16"), dict(sweep_dtype="int8"),
                                  dict(sweep_dtype="float32"),
-                                 dict(dtype="bfloat16", sweep_dtype="bfloat16")],
-                         ids=["bf16", "int8", "f32", "bf16_store"])
+                                 dict(dtype="bfloat16", sweep_dtype="bfloat16"),
+                                 dict(dtype="bfloat16", sweep_dtype="int8"),
+                                 dict(dtype="bfloat16", sweep_dtype="float32")],
+                         ids=["bf16", "int8", "f32", "bf16_store", "bf16_store_int8",
+                              "bf16_store_f32"])
 @pytest.mark.parametrize("k", [10, 100])
 def test_engine_rescan_live_rows_match_all_rows(cuda, monkeypatch, cfg, k):
     """The engine's searches (B = 100 in the 512 bucket: the live count reaches B2) give

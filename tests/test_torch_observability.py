@@ -123,11 +123,15 @@ def test_capacity_planner():
     ({"sweep_dtype": "float32"}, 0),                        # the mirror is the rows
     ({"dtype": "bfloat16"}, 0),
     ({"dtype": "bfloat16", "sweep_dtype": "bfloat16"}, 0),  # the same-dtype mirror too
+    ({"dtype": "bfloat16", "sweep_dtype": "int8"}, 2),      # two int8 streams of bf16 rows
+    ({"dtype": "bfloat16", "sweep_dtype": "int8", "sweep_resid": False}, 1),
+    ({"dtype": "bfloat16", "sweep_dtype": "float32"}, 4),   # an f32 mirror of its own
 ])
 def test_capacity_plan_counts_the_ports_bytes(kw, port_extra_per_dim):
     """The port's bytes per vector against the JAX planner's: equal except where the
     port's mirror is the row tensor itself (an f32 mirror of f32 rows, a bf16 store's
-    same-dtype mirror), where it counts nothing; the overhead is the same."""
+    same-dtype mirror), where it counts nothing; the overhead is the same.  A bf16
+    store's f32 mirror is a tensor of its own in both packages."""
     n, dim, hbm = 100_000_000, 1536, 80 * 1024**3
     mine = plan_capacity(n, dim, EngineConfig(**kw), hbm_per_chip=hbm)
     jax = jax_capacity.plan_capacity(n, dim, JaxConfig(**kw), hbm_per_chip=hbm)

@@ -60,6 +60,8 @@ EXPLAIN = {
     "bf16_sweep_small_capacity": dict(sweep_dtype="bfloat16", initial_capacity=4096),
     "bf16_store_same_dtype": dict(dtype="bfloat16", sweep_dtype="bfloat16",
                                   initial_capacity=8192),
+    "bf16_store_int8": dict(dtype="bfloat16", sweep_dtype="int8", initial_capacity=8192),
+    "bf16_store_f32": dict(dtype="bfloat16", sweep_dtype="float32", initial_capacity=8192),
 }
 
 
