@@ -7,8 +7,10 @@ Builds the hand-written kernels from csrc/ with nvcc (into build/kernels/), then
 one line per phase:
   1. device: the card's name and power limit; each kernel's registers and spills
      (-Xptxas -v) and the mma.sync (HMMA) instructions of each tensor-core kernel: the
-     sweep kernel's bf16 and int8 bodies and the six row-major window-min instantiations
-     (cuobjdump of the built library; none is a failure); the native host runtime
+     sweep kernel's body over bf16, int8 and f32 mirrors (four f32 instantiations, each
+     with at least its six split products) and the six row-major window-min
+     instantiations (cuobjdump of the built library; none, or an FMA body left in the
+     library, is a failure); the native host runtime
      (native/metafilter.cpp, native/hydrate.c) built beside the kernels into
      build/native/ (the metadata filter must build; whether _hydrate built is printed);
   2. the row-major window-min kernels (the tensor cores: f32 rows as a three-way bf16
@@ -72,7 +74,10 @@ one line per phase:
      l2 batch with one int8 stream (sweep_resid=False); times and the engine wall beside
      the bf16 sweep's;
   9. the f32 mirror (sweep_dtype="float32", the store's own rows): the same checks, the
-     kernel within the slack of its plain version, the mirror the data tensor;
+     kernel (six bf16 passes of a three-way split on the tensor cores) within the budget
+     of its plain version, the mirror the data tensor; its launches at the engine's
+     B = 16 operands (ip, cosine) timed too, and each f32 entry's route, its bound on that
+     route beside the f32 FMA route's, and its share;
  10. probe B7 over the phase-8 codes (B = 128): B3's int8 pass (codes widened to bf16 on
      the tensor cores), int8 mma.sync and the stream floor, each against its plain
      version; times, GB/s and bounds;
@@ -98,7 +103,8 @@ one line per phase:
      bit-equal to the other; times, GB/s and bounds;
  14. the sweep kernel at every engine operand set of phases 6-9: the live-column launch
      (128 of 512 columns) bit-equal to the full launch on every column; the tensor-core
-     dots against float64 over the DEEP rows, hard rows and int8 codes of +-127, and B4's
+     dots against float64 over the DEEP rows, hard rows and int8 codes of +-127, an f32
+     mirror (the phase-3 corpus and hard f32 rows), and B4's
      (f32 rows: the phase-3 corpus and hard f32 rows; bf16 rows: the DEEP rows), each
      max |dot - exact| / (|q||x|) printed against the bar Dp * 2^-23;
  15. hybrid search at the GloVe-1.2M shape (BASELINE.json config #3): 1,183,514 x 100 f32
@@ -176,7 +182,8 @@ one line per phase:
      no light_ tier) and the launch counts (B3 over the mirror's type, B2 over the bf16
      rows, the live query columns alone); B3 and B2 at the engine's l2 B=128 operands
      against their plain versions (the phase-1 budget, the live launch bit-equal to the
-     full one), timed with their bounds; compact(), the mirror rebuilt from the rows, and
+     full one), timed with their bounds (the f32 mirror also at B = 16 and with its route,
+     as in phase 9); compact(), the mirror rebuilt from the rows, and
      one l2 batch on it; one l2 batch with one int8 stream; ROADMAP C13's near tie on the
      card and the CPU (the exact set at the CPU's tier, each mirror).  (The f32 mirror
      sharded runs on the card in tests/test_torch_gpu.py.)  Its record is one JSON line
@@ -254,7 +261,7 @@ def _start_ptxas_report():
 
 def _short(name: str) -> str:
     """A kernel's mangled name cut to its own name and template arguments."""
-    return re.sub(r"^_ZN\w*?\d+(?=[a-z_]+kernel)", "", name)[:36]
+    return re.sub(r"^_ZN\w*?\d+(?=[a-z_]+kernel)", "", name)[:40]
 
 
 def _ptxas_report(started):
@@ -280,27 +287,29 @@ def _ptxas_report(started):
     return rows
 
 
-# the tensor-core kernels' names: the sweep kernel's bf16 and int8 bodies (B1/B3) and the
-# row-major window-min kernel over bf16 and f32 rows (B4/B5)
+# the tensor-core kernels' names: the sweep kernel's one body over bf16, int8 and f32
+# mirrors (B1/B3) and the row-major window-min kernel over bf16 and f32 rows (B4/B5)
 MMA_KERNELS = ("sweep_mma_kernel", "window_mma_kernel")
 
 
 def _mma_counts(lib):
-    """{kernel: HMMA instructions} of the built library's tensor-core kernels (each
-    instantiation of MMA_KERNELS), from its SASS (cuobjdump, beside nvcc): the proof that
-    the bf16 and int8 sweep bodies and B4/B5 over bf16 and f32 rows run mma.sync."""
+    """({kernel: HMMA instructions} of the built library's tensor-core kernels (each
+    instantiation of MMA_KERNELS), every kernel's name), from its SASS (cuobjdump, beside
+    nvcc): the proof that the sweep body over each mirror type and B4/B5 over bf16 and f32
+    rows run mma.sync."""
     tool = Path(_kernels._nvcc()).with_name("cuobjdump")
     text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
-    counts, name = {}, None
+    counts, names, name = {}, [], None
     for line in text.splitlines():
         if m := re.search(r"Function : (\S+)", line):
+            names.append(m.group(1))
             name = m.group(1) if any(k in m.group(1) for k in MMA_KERNELS) else None
             if name:
                 counts[name] = 0
         elif name and "HMMA" in line:
             counts[name] += 1
-    return counts
+    return counts, names
 
 
 def _time_ms(fn, iters: int = 10) -> float:
@@ -1218,10 +1227,10 @@ def check_b3_kernels(db_np, programs):
     rows, B = 512: r1 = 32 with the block mins, the k = 10 program, and r1 = 16 with the
     pool only, the k = 100 one; 2^16 rows at B = 8: r1 = 16 window mins and pool),
     l2/ip/cosine, ~1% tombstones and a dead tile.  The window mins within the phase-1
-    budget of the plain version's (int8: exact products, tensor-core sums; f32: rounded
-    products, f32 sums), the block mins and the pool bit-equal to the plain min and pool
-    of the kernel's own mins.  Returns {program: (max |err|, elements that differ from
-    the plain version, max |err| / budget)}."""
+    budget of the plain version's (int8: exact products, tensor-core sums; f32: the six
+    products of the split, tensor-core sums), the block mins and the pool bit-equal to the
+    plain min and pool of the kernel's own mins.  Returns {program: (max |err|, elements
+    that differ from the plain version, max |err| / budget)}."""
     rng = np.random.default_rng(SEED + 8)
     dev = torch.device("cuda")
     worst = {p: [0.0, 0, 0.0] for p in programs}
@@ -1269,6 +1278,34 @@ def check_b3_kernels(db_np, programs):
         print(f"  B3 {program} vs plain: max |err| {err} ({ratio:.3f} of the budget), "
               f"elements not bit-equal {unequal}; block mins and pool the kernel's own")
     return worst
+
+
+def check_b3_f32_wide(dim=2048, n=1 << 16, b=128, n_live=16):
+    """Phase 9: B3 over an f32 mirror where neither query tile's three parts fit in shared
+    memory (Dp > 1280) and the query streams: ``n`` x ``dim`` gaussian rows made on the
+    card, ~1% tombstones and a dead tile, ``b`` queries of which ``n_live`` are live (the
+    rest zero), l2, r1 = 32 with the block mins.  The full launch's window mins (the
+    64-query tile) within the phase-1 budget of the plain version's, its block mins the
+    kernel's own, the live launch (the 16-query tile) bit-equal to it.  Returns (max
+    |err|, max |err| / budget)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    data = torch.randn((n, dim), generator=gen, device="cuda")
+    q = torch.zeros((b, dim), device="cuda")
+    q[:n_live] = torch.randn((n_live, dim), generator=gen, device="cuda")
+    valid = torch.rand(n, generator=gen, device="cuda") > 0.01
+    valid[-fused_knn_t.SWEEP_TILE:] = False
+    args, kw, _ = _sweep_operands(data, q, valid, "l2", "f32")
+    label = f"B3 f32 Dp={dim} n={n} B={b}"
+    full = fused_knn_t._window_mins_t(*args, **kw)
+    want = fused_knn_t._window_mins_t_ref(*args, **kw)
+    err, ratio = _check_budget(full[0], want[0], _budget(args, kw), label)
+    if not _bits_equal(full[1], full[0].amin(-1)):
+        raise AssertionError(f"{label}: block mins are not the kernel's own")
+    cols = _check_live_tiles(args, kw, n_live, label)
+    print(f"  {label} (the query streamed): max |err| {err} ({ratio:.3f} of the "
+          f"budget), block mins the kernel's own, the live launch ({cols} columns) bit-equal "
+          f"to the full one")
+    return err, ratio
 
 
 def run_mirror_path(cfg, label, db_np, q_np, oracle, dead):
@@ -1363,18 +1400,65 @@ def _time_b1(name, a, kw):
             name + "_full": _time_ms(lambda: fused_knn_t._window_mins_t(*a, **_full(kw)))}
 
 
-def _b3_bound(args, kw, outs, full_batch=False):
+def _b3_bound(args, kw, outs, full_batch=False, route="split"):
     """Kernel B1/B3's bound: its inputs read once and outputs written once over the HBM
-    rate, or its products over the peak for their type (bf16 for an int8 or bf16 mirror
-    against bf16 queries, f32 for the f32 mirror), whichever is longer.  The products are
-    those of the live query columns the call needs (``full_batch``: of every column, the
-    bound at the engine's padded batch)."""
+    rate, or its products over the peak for their type, whichever is longer: bf16 tensor
+    cores for an int8 or bf16 mirror against bf16 queries, and for the f32 mirror the six
+    bf16 passes of its three-way split (``route="fma"``: one f32 pass on the CUDA cores
+    instead, the route the earlier FMA body took).  The products are those of the live
+    query columns the call needs (``full_batch``: of every column, the bound at the
+    engine's padded batch)."""
     passes = 1 + (args[1] is not None) + (args[3] is not None)
-    peak = F32_FLOPS if args[2].dtype == torch.float32 else BF16_FLOPS
+    peak = BF16_FLOPS
+    if args[2].dtype == torch.float32:
+        passes, peak = (1, F32_FLOPS) if route == "fma" else (6, BF16_FLOPS)
     cols = args[0].shape[0] if full_batch else fused_knn_t._live_columns(
         args[0].shape[0], kw.get("n_live"))
     return _bound(_nbytes(*args, kw["qe"], *kw["eb_rows"], *outs),
                   2.0 * args[2].shape[0] * args[2].shape[1] * cols * passes, peak)
+
+
+F32_ROUTE = "bf16 tensor cores, 6 passes of the 3-way split"
+
+
+def time_b3_f32(st, q_np, name):
+    """Phases 9 and 20: B3 over the f32 mirror at the engine's B = 16 operands (ip and
+    cosine, the 64 bucket, k bucket 16) on the tombstoned snapshot ``st``, timed as the
+    engine runs it, plain and over every column (``_time_b1``).  Returns ({time name: ms},
+    {time name: (args, kwargs)})."""
+    q16 = torch.zeros((64, D), device="cuda")
+    q16[:16] = torch.from_numpy(q_np[:16]).to(q16.device)
+    times, operands = {}, {}
+    for metric in ("ip", "cosine"):
+        key = f"{name}_b16_{metric}"
+        a, kw = operands[key] = _capture("_window_mins_t", lambda: fused_knn_t.exact_knn_t(
+            q16, st.mirror, st.data, st.valid, st.sq_norms, k=16, metric=metric,
+            live_prefix=None, sweep_err=st.sweep_err, resid=st.sweep_resid,
+            rscale=st.sweep_rscale, err1=st.sweep_err1, rscale2=st.sweep_rscale2,
+            prep_cache=st.prep_cache, n_live=16))
+        if a[2].dtype != torch.float32 or a[0].shape[0] != 64 or kw.get("n_live") != 16:
+            raise AssertionError(f"{key}: not the f32 mirror's live launch")
+        times.update(_time_b1(key, a, kw))
+    return times, operands
+
+
+def print_f32_route(times, operands, names, launches, label):
+    """Phases 9 and 20: each f32-mirror B3 entry's route, its bound on that route beside
+    the f32 FMA route's, and the kernel's share of it.  Returns {name: (bound, the FMA
+    route's bound ms)}."""
+    out = {}
+    for name in names:
+        a, kw = operands[name]
+        outs = fused_knn_t._window_mins_t(*a, **kw)
+        bound, fma = _b3_bound(a, kw, outs), _b3_bound(a, kw, outs, route="fma")[0]
+        del outs
+        out[name] = (bound, fma)
+        ms, by = bound[0], bound[1]
+        print(f"  {label} {name}: {times[name]:.4f} ms on the {F32_ROUTE}; bound {ms:.4f} ms "
+              f"({by}), share {ms / times[name]:.1%}; the f32 FMA route's bound {fma:.4f} ms; "
+              f"plain {times[name + '_plain']:.4f} ms, every column {times[name + '_full']:.4f}"
+              f" ms; main-path launches {launches}")
+    return out
 
 
 # ---- B4/B5 at the engine's operands (phases 6 and 11) ------------------------------------
@@ -1882,11 +1966,13 @@ def run_out_layout(rows, rng):
         del a, c
     return out
 
-def check_tc_error(rows, rng):
+def check_tc_error(rows, db_np, rng):
     """Phase 14: the tensor-core body's dots against float64 (probes/tc_error), as
     max |dot - exact| / (|qh| |x|) over every row and query: the DEEP rows with B = 128
     gaussian queries, 2^20 hard rows (exponents 2^-20 .. 2^10 within a row, cancelling
-    signs) and 2^20 rows of int8 codes +-127 against hard queries.  Each must be at most
+    signs) and 2^20 rows of int8 codes +-127 against hard queries; an f32 mirror (the six
+    passes of the split) over the phase-3 gaussian corpus with f32 gaussian queries and over
+    2^20 hard f32 rows (full significands) with hard f32 queries.  Each must be at most
     Dp * 2^-23.  Returns ({case: max}, the bar)."""
     from mlvectordb_tpu_torch.probes import tc_error
 
@@ -1894,9 +1980,13 @@ def check_tc_error(rows, rng):
     bar = D * 2.0 ** -23
     q = torch.from_numpy(rng.standard_normal((B, D), dtype=np.float32)).to(dev)
     hq = tc_error.hard_queries(rng, B, D).to(dev)
+    frng = np.random.default_rng(SEED + 14)   # the f32 cases' own: ``rng`` goes on to B4's
     cases = {"deep_rows": lambda: (q.to(torch.bfloat16), rows),
              "hard_rows": lambda: (hq, tc_error.hard_rows(rng, 1 << 20, D).to(dev)),
-             "int8_extremes": lambda: (hq, tc_error.int8_extremes(rng, 1 << 20, D).to(dev))}
+             "int8_extremes": lambda: (hq, tc_error.int8_extremes(rng, 1 << 20, D).to(dev)),
+             "f32_gaussian": lambda: (q, torch.from_numpy(db_np).to(dev)),
+             "f32_hard": lambda: (tc_error.hard_queries_f32(frng, B, D).to(dev),
+                                  tc_error.hard_rows_f32(frng, 1 << 20, D).to(dev))}
     errs = {}
     for name, make in cases.items():
         qh, m = make()
@@ -3256,6 +3346,13 @@ def run_bf16_mirrors(db_np, q_np, dead, gpu):
         bounds[name] = _b3_bound(a, kw, outs)
         bounds[name + "_full_batch"] = _b3_bound(a, kw, outs, full_batch=True)
         del outs
+        if label == "f32":
+            t16, o16 = time_b3_f32(st, q_np, name)
+            times.update(t16)
+            route = print_f32_route(times, {name: (a, kw), **o16}, (name, *o16), own,
+                                    "phase 20")
+            bounds.update({key: bound for key, (bound, _) in route.items()})
+            rec[label]["bound_fma_ms"] = {key: fma for key, (_, fma) in route.items()}
         ga, gkw = _capture("_gather_score", search)
         if ga[1].dtype != torch.bfloat16:
             raise AssertionError(f"{label}: the rescan did not read the bf16 rows")
@@ -3510,13 +3607,20 @@ def main() -> int:
     for name, regs, st, ld, smem in _ptxas_report(ptxas):
         print(f"  ptxas: {_short(name)}: {regs} registers, spill stores {st} B, loads {ld} B, "
               f"{smem} B shared")
-    mma = _mma_counts(lib)
+    mma, kernel_names = _mma_counts(lib)
     print(f"  mma.sync (HMMA) instructions per tensor-core kernel: "
           f"{ {_short(k): v for k, v in mma.items()} }")
+    # B3 over an f32 mirror: four instantiations (the 64- and the 16-query tile, each with
+    # its query in shared memory and streamed), each at least the six split products of
+    # one n-tile (12 HMMA); the FMA body is gone
+    f32_mma = [v for k, v in mma.items() if "sweep_mma_kernelIf" in k]
     if (not mma or min(mma.values()) == 0
-            or sum("window_mma_kernel" in k for k in mma) != 6):
-        raise AssertionError(f"a tensor-core kernel holds no mma.sync, or B4/B5 lacks one of "
-                             f"its six instantiations (2 row types x 3 query tiles): {mma}")
+            or sum("window_mma_kernel" in k for k in mma) != 6
+            or len(f32_mma) != 4 or min(f32_mma) < 12
+            or any("fma_kernel" in k for k in kernel_names)):
+        raise AssertionError(f"a tensor-core kernel holds no mma.sync, B4/B5 lacks one of its "
+                             f"six instantiations (2 row types x 3 query tiles), B3's f32 body "
+                             f"one of its four, or the FMA body is still built: {mma}")
 
     rng = np.random.default_rng(SEED)
     db_np = rng.standard_normal((N, D), dtype=np.float32)
@@ -3805,6 +3909,7 @@ def main() -> int:
     print(f"phase 9 f32 mirror (sweep_dtype='float32'): kernel B3 vs plain, QueryProcessor "
           f"at {N:,} x {D}, on {gpu}")
     worst["b3"].update(check_b3_kernels(db_np, B3_PROGRAMS[3:]))
+    check_b3_f32_wide()
     qpf, _, cf, _ = run_mirror_path(EngineConfig(sweep_dtype="float32"), "f32", db_np, q_np,
                                     oracle, dead)
     nsf = qpf.storage.namespace("sift")
@@ -3814,6 +3919,11 @@ def main() -> int:
     if cf["f32"] != 12 or cf["sweep_heavy"] != 0 or cf["gather"] < 1:
         raise AssertionError(f"the f32 kernel did not serve every search: {cf}")
     tf, operandsf = time_mirror_kernels(qpf, q_pad, "b3_f32", light_variants=False)
+    t16, o16 = time_b3_f32(nsf.device_state(), q_np, "b3_f32")
+    tf.update(t16)
+    operandsf.update(o16)
+    f32_route = print_f32_route(tf, operandsf, ("b3_f32", "b3_f32_k128", "b3_f32_b16_ip",
+                                                "b3_f32_b16_cosine"), cf["f32"], "phase 9")
     tf["engine_wall_f32_median"] = statistics.median(wall_f32 := _engine_wall(qpf, q_np))
     split_f32 = _engine_split(qpf, q_np)
     for name, ms in {**t8, **tf}.items():
@@ -3865,7 +3975,7 @@ def main() -> int:
           f"bit-equal to the full launch: {live_cols}")
     if any(c != B for c in live_cols.values()):
         raise AssertionError(f"a launch computed other than the live columns: {live_cols}")
-    tc_err, tc_bar = check_tc_error(deep_rows, rng)
+    tc_err, tc_bar = check_tc_error(deep_rows, db_np, rng)
     b4_err = check_b4_tc_error(db_np, deep_rows, rng)
     del deep_rows
 
@@ -3945,6 +4055,8 @@ def main() -> int:
         bounds[name] = _b3_bound(a, k_, outs)
         bounds[name + "_full_batch"] = _b3_bound(a, k_, outs, full_batch=True)
         del outs
+    # the f32 mirror's launches at B = 16 (phase 9), on the split's route
+    bounds.update({name: bound for name, (bound, _) in f32_route.items()})
     bounds.update(gather_bounds)
     bounds.update(b11)
     bounds.update(b12)
@@ -3971,6 +4083,20 @@ def main() -> int:
             # time when it computes every column of it
             e.update({"bound_full_batch_ms": bounds[key + "_full_batch"][0],
                       "full_launch_ms": times[key + "_full"]})
+        return e
+
+    def f32_entry(e, key, fma_bounds_):
+        """B3 over an f32 mirror: the route its bound assumes and the FMA route's bound,
+        the dots' error against float64, the engine's B = 16 launches (ip, cosine)."""
+        e.update({"bound_route": F32_ROUTE, "bound_fma_ms": fma_bounds_[key],
+                  "tc_error_max": tc_err["f32_gaussian"],
+                  "tc_error_max_hard_rows": tc_err["f32_hard"], "tc_error_bar": tc_bar})
+        for m in ("ip", "cosine"):
+            k_ = f"{key}_b16_{m}"
+            e.update({f"b16_{m}_ms": times[k_], f"b16_{m}_plain_ms": times[k_ + "_plain"],
+                      f"b16_{m}_full_launch_ms": times[k_ + "_full"],
+                      f"b16_{m}_bound_ms": bounds[k_][0],
+                      f"b16_{m}_bound_fma_ms": fma_bounds_[k_]})
         return e
 
     def gather_entry(e, key, main_rows, k128=None):
@@ -4054,6 +4180,8 @@ def main() -> int:
             e.update({f"{v}_{f}": times["b3_int8_" + v + ("_plain" if f == "plain_ms" else "")]
                       for v in ("two_pass", "light") for f in ("ms", "plain_ms")})
             e.update({"launches_one_stream": c1["int8"]})
+        else:
+            e = f32_entry(e, key, {k_: fma for k_, (_, fma) in f32_route.items()})
         record["kernels"].append(e)
     for name, line in (("int8_probe_convert_mma", 57), ("int8_probe_mma", 67),
                        ("int8_probe_stream", 76)):
@@ -4167,6 +4295,8 @@ def main() -> int:
                       "prep_jax_plan_ms": times[f"prep_jax_plan_{mirror}"]})
             if mirror == "int8":
                 e["launches_one_stream"] = c20["int8_one_stream"]["int8"]
+            else:
+                e = f32_entry(e, key, rec20["f32"]["bound_fma_ms"])
         record["kernels"].append(e)
     # the IVF and server phases run no hand-written kernel of their own: their record
     print(json.dumps({"ivf": ivf_rec, "server": server_rec}, default=str))

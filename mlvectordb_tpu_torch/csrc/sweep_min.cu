@@ -7,13 +7,16 @@
 // use_resid: int8 codes of each row's residual, times a per-row scale), the cosine scale
 // row, up to two folded certificate bound rows, the level-2 block mins at r1 = 32, and the
 // per-tile top-m candidate pool (n_top, with or without the window-min matrix: skip_wm).
-// The mirror's element type picks the body:
+// One tensor-core body serves the mirror's three element types, picked by its template:
 //   bf16 bits — the bf16 mirror of an f32 store (light, two_pass, two_pass + use_resid)
-//               and a bf16 store's own rows (one pass): the tensor-core body;
+//               and a bf16 store's own rows (one pass);
 //   int8      — the int8 primary mirror (sweep_dtype="int8"): codes z1 against bf16
 //               queries, the scale row carrying s1 and use_resid's multiplier s2 / s1
-//               (one pass, two_pass, two_pass + use_resid): the tensor-core body;
-//   f32       — the f32 mirror (sweep_dtype="float32"): f32 queries, one pass: the FMA body.
+//               (one pass, two_pass, two_pass + use_resid);
+//   f32       — the f32 mirror (sweep_dtype="float32"): one pass of the f32 query, which
+//               the JAX kernel multiplies at Precision.HIGHEST (pallas_knn_t.py:211-212),
+//               a multi-pass bf16 product on the MXU; here six bf16 passes of a three-way
+//               split (below).
 // The bias row may be absent (rank = dots: the int8 probe's kernel kA).
 // For rows m of the mirror [cap, Dp] and folded queries qh (and qres):
 //
@@ -44,13 +47,15 @@
 //
 // What bounds it.  At the engine's B = 128 live queries over 2^20 x 128 bf16 rows the
 // product is 34 GFLOP (0.035 ms on the bf16 tensor cores) against 256 MB of mirror and
-// 67 MB of window mins (0.10 ms at 3.35 TB/s): bytes.  The earlier body converted every
-// operand to f32 and used FMA on the CUDA cores, because the certificate's slack was taken
-// to need IEEE f32 sums in JAX's order; that ran at 29.5 TFLOP/s, 3% of the bound, and on
-// 4x the live queries.  The JAX kernel's own products are dot_general on the matrix unit
-// with f32 accumulation, and its slack (pallas_knn_t.py:1184-1186, Dp*2^-22*|qh|*maxd)
-// budgets Dp*2^-24 of f32 accumulation per dot for phase 1 and the same for the rescan,
-// with 4x headroom.
+// 67 MB of window mins (0.10 ms at 3.35 TB/s): bytes.  Over an f32 mirror the six passes
+// are 206 GFLOP (0.21 ms) against 537 MB of rows (0.16 ms): operations; the same product
+// as f32 FMA on the CUDA cores would need 0.51 ms at 67 TFLOP/s.  The earliest body
+// converted every operand to f32 and used FMA on the CUDA cores, because the certificate's
+// slack was taken to need IEEE f32 sums in JAX's order; that ran at 29.5 TFLOP/s, 3% of
+// the bound, and on 4x the live queries.  The JAX kernel's own products are dot_general
+// on the matrix unit with f32 accumulation, and its slack (pallas_knn_t.py:1184-1186,
+// Dp*2^-22*|qh|*maxd) budgets Dp*2^-24 of f32 accumulation per dot for phase 1 and the
+// same for the rescan, with 4x headroom.
 //
 // The tensor-core error model (Fasi, Higham, Mikaitis and Pranesh, "Numerical behavior of
 // NVIDIA tensor cores", PeerJ CS 2021, for A100): products of bf16 values are exact; the
@@ -63,6 +68,29 @@
 // Phase 1's share of the slack is Dp*2^-22 - Dp*2^-24 = 1.5 * Dp*2^-23 relative, which the
 // model bound keeps for any s >= 2; the measured maxima are held to Dp*2^-23
 // (chip_smoke.py prints them, PERF.md records them).
+//
+// An f32 mirror.  Each element splits exactly into bf16 parts, x = xh + xm + xl with
+// |xh| <= (1 + u)|x|, |xm| <= u(1 + u)|x|, |xl| <= u^2 |x| (u = 2^-8; mma_common.cuh's
+// split3, in registers, for the rows and the f32 query alike).  Of
+// the nine products the kernel drops mid.lo, lo.mid and lo.lo, at most
+// (2u^3(1 + u) + u^4) Q <= (1 + 2^-8) 2^-23 Q + 2^-32 Q, with Q = sum_i |q_i||x_i| <= |q||x|.
+// hi.hi goes into one accumulator and the five cross passes (hi.mid, mid.hi, hi.lo,
+// lo.hi, mid.mid) into a second; the epilogue adds the two with one __fadd_rn before the
+// per-row terms.  On the model above: the hi.hi accumulator's partial sums and products
+// are at most (1 + u)^2 Q, so it loses under Dp (1 + 1/s) (1 + u)^2 2^-23 Q; the cross
+// one's are at most C Q with C = 2u(1 + u)^2 + 2u^2(1 + u) + u^2(1 + u)^2 < 1.014 * 2^-7,
+// and its 5 Dp / s groups lose under 5 Dp (1 + 1/s) C 2^-23 Q; the final add rounds once,
+// under 0.51 * 2^-23 Q.  In all
+//     |tc - exact| <= (Dp (1 + 1/s) ((1 + u)^2 + 5C) + 1.52) * 2^-23 * Q
+//                   ~ (1.048 Dp (1 + 1/s) + 1.52) * 2^-23 * |q||x|,
+// at Dp = 128: 1.32 Dp*2^-23 at s = 4, 1.19 at s = 8, 1.13 at s = 16, inside phase 1's
+// 1.5 * Dp*2^-23 for any s >= 4 (Dp >= 16).  One accumulator for all six (kernel B4's
+// choice, window_min.cu) would put the cross terms into sums of |q||x|'s size and give
+// (6 Dp + 1) 2^-23 on paper.  The measured maxima, against float64 over gaussian and hard
+// f32 rows, are held to Dp*2^-23 as the other mirrors' are (chip_smoke.py phase 14,
+// PERF.md).  Non-finite values: an inf element's mid and lo parts are NaN (inf - inf), so
+// a row or query holding inf gives NaN dots where f32 sums give +-inf, as a split product
+// of inf does; NaN gives NaN as before.
 //
 // What the design does about it.  Tensor-core body (bf16 and int8 mirrors):
 // mma.sync.m16n8k16 bf16 x bf16 -> f32, one accumulator per pass (qh.m, qres.m,
@@ -82,9 +110,24 @@
 // from which the block writes its window mins in coalesced rows and forms the block mins
 // and the pool.  What sets the time on the card is latency, not the products or the
 // bytes (probes/sweep_ablation.py: removing the mma instructions changes nothing): the
-// pairs give each scheduler four warps where single warps gave it two.  FMA body (f32
-// mirror): a register-tiled f32 product, 128 windows x 128 queries a block, as before.
-// wgmma and TMA would not help while the product is not what sets the time.
+// pairs give each scheduler four warps where single warps gave it two.  An f32 mirror's
+// stage holds 64 dimensions (256 bytes of a row, as kernel B4's f32 stage); a thread
+// splits its 8 values of rows g and g + 8 into three parts in registers and multiplies
+// them with the query tile's three parts (hi, mid, lo).  The kernel takes the f32 query as
+// it is and splits it itself.  Its tile is 64 queries (two accumulators, as the heavy
+// programs; 128 would not fit beside three parts), or 16 for a batch that needs no more.
+// Where the tile's three parts fit beside the ring (Dp <= 128 for 64 queries, 1280 for 16)
+// they are split once, at the fill, into shared memory, as a bf16 mirror's qh and qres
+// sit there.  Past that the query streams, one 64-dimension chunk a step, in lockstep
+// across the block: during step z its threads copy the f32 values of step z + 1's chunk
+// from L2 (BN x 256 bytes) and, after the step's products, split the values each copied
+// into the slot of bf16 parts step z + 1 reads (two slots, one block barrier a step in
+// place of the pair's).  So no Dp is refused, and 128 live queries are two tiles at every
+// Dp that read the rows' bytes twice: a row tile's two blocks stand next to each other in
+// the grid, so the second read comes mostly from L2.  Sixteen-query tiles past Dp = 128
+// would repeat each row's split eight times (probes/time_sweep.py: 4.72 ms at 2^20 x 384
+// against the FMA body's 4.16).  wgmma and TMA would not help while the product is not
+// what sets the time.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -106,260 +149,9 @@ __device__ __forceinline__ bool lex_less(float v, int p, float bv, int bp) {
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 
-// ============================================================ the FMA body (f32 mirror)
-
-constexpr int BM = 128;       // windows per block (= rows per r-step)
-constexpr int BK = 8;         // depth of one shared-memory stage
-constexpr int THREADS = 256;
-constexpr int RUN_LANES = 16; // lanes sharing a query column: the running pool's width
-constexpr int TN = 8;         // queries per thread
-constexpr int FBN = 16 * TN;   // queries per block
-
-__global__ void __launch_bounds__(THREADS, 1)
-fma_kernel(const float* __restrict__ qh_t, const float* __restrict__ mirror,
-           const float* __restrict__ scale, const float* __restrict__ bias,
-           const float* __restrict__ qe, const float* __restrict__ eb1,
-           const float* __restrict__ eb2, float* __restrict__ out, float* __restrict__ bm,
-           float* __restrict__ pool, int D, int B, int Bc, int Bq, int r1, int n_eb,
-           int n_qtiles, int m, int subs, long long bp_width) {
-  constexpr int QF4 = BK * FBN / 4;      // float4 loads of one query stage
-  __shared__ __align__(16) float As[2][BK][BM];   // mirror stage, transposed: [k][row]
-  __shared__ __align__(16) float Qs[2][BK][FBN];   // qh stage: [k][query]
-  __shared__ float row_bias[BM], row_scale[BM], row_eb1[BM], row_eb2[BM];
-  __shared__ float q_e[2][FBN];
-  // the running pool: entry tx of each of the thread's TN queries, private to the thread
-  __shared__ float run_v[TN][THREADS];
-  __shared__ int run_p[TN][THREADS];
-
-  const int tid = threadIdx.x;
-  const long long group = blockIdx.x / n_qtiles;  // subs consecutive 128-window blocks
-  const int q0 = (blockIdx.x % n_qtiles) * FBN;
-
-  // compute mapping: rows tx*4+{0..3}, 64+tx*4+{0..3}; queries ty*4+{0..3}, 64+ty*4+{0..3}
-  const int tx = tid % 16, ty = tid / 16;
-  // load mapping: mirror stage [128 rows x 8] (4 values a thread), query stage [8 x FBN]
-  // (one float4 a thread)
-  const int a_row = tid >> 1, a_col = (tid & 1) * 4;
-  const int q_row = tid / (FBN / 4), q_col = (tid % (FBN / 4)) * 4;
-  const float* q_src = qh_t + (long long)q_row * Bq + q0 + q_col;
-
-  if (tid < FBN) {
-    q_e[0][tid] = qe[(long long)(q0 + tid) * 2];
-    q_e[1][tid] = qe[(long long)(q0 + tid) * 2 + 1];
-  }
-
-  const float INF = inf_f();
-  const int g = 32 / r1;
-  const long long gw = (long long)g * WLANE;
-  const int out_w = (int)gw;
-  const int nk = D / BK;
-  unsigned nan_bits = 0u;  // pool: bit j set when query j has a NaN window min in the tile
-
-  for (int s = 0; s < subs; ++s) {
-  const long long wblock = group * subs + s;
-  const long long w0 = wblock * BM;              // first window of this sub-block
-  float best[8][TN];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) best[i][j] = INF;
-
-  for (int r = 0; r < r1; ++r) {
-    const long long a_grow = (w0 + a_row) * r1 + r;     // the row this thread loads
-    const float* a_src = mirror + a_grow * D + a_col;
-
-    float acc[8][TN];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-    float4 a_reg = *reinterpret_cast<const float4*>(a_src);
-    float4 q_reg = tid < QF4 ? *reinterpret_cast<const float4*>(q_src) : make_float4(0, 0, 0, 0);
-    int buf = 0;
-    for (int kc = 0; kc < nk; ++kc) {
-      As[buf][a_col + 0][a_row] = a_reg.x;
-      As[buf][a_col + 1][a_row] = a_reg.y;
-      As[buf][a_col + 2][a_row] = a_reg.z;
-      As[buf][a_col + 3][a_row] = a_reg.w;
-      if (tid < QF4) *reinterpret_cast<float4*>(&Qs[buf][q_row][q_col]) = q_reg;
-      __syncthreads();
-      if (kc + 1 < nk) {  // next stage's loads are in flight during this stage's FMAs
-        a_reg = *reinterpret_cast<const float4*>(a_src + (kc + 1) * BK);
-        if (tid < QF4)
-          q_reg = *reinterpret_cast<const float4*>(q_src + (long long)(kc + 1) * BK * Bq);
-      }
-#pragma unroll
-      for (int k = 0; k < BK; ++k) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][k][tx * 4]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&As[buf][k][64 + tx * 4]);
-        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float4 b0 = *reinterpret_cast<const float4*>(&Qs[buf][k][ty * 4]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&Qs[buf][k][64 + ty * 4]);
-        const float b[TN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      // Double buffering makes one barrier per stage enough: the next store goes to the
-      // other buffer, whose readers all passed this stage's barrier.
-      buf ^= 1;
-    }
-
-    // per-row terms of this step's 128 rows (row (w0 + i)*r1 + r)
-    if (tid < BM) {
-      const long long row = (w0 + tid) * r1 + r;
-      row_bias[tid] = bias ? bias[row] : 0.f;
-      row_scale[tid] = scale ? scale[row] : 1.f;
-      row_eb1[tid] = n_eb > 0 ? eb1[row] : 0.f;
-      row_eb2[tid] = n_eb > 1 ? eb2[row] : 0.f;
-    }
-    // Every thread is past its last stage and the row terms are visible.  The next
-    // step's first store (buffer 0: nk is even) and its row-term writes come after this
-    // barrier and after the next step's own barriers, so no second barrier is needed.
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int lr = (i >> 2) * 64 + tx * 4 + (i & 3);
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int lq = (j >> 2) * 64 + ty * 4 + (j & 3);
-        // the JAX package's order of terms, unfused (no contraction into FMAs)
-        float rank = scale ? __fmul_rn(acc[i][j], row_scale[lr]) : acc[i][j];
-        if (bias) rank = __fadd_rn(rank, row_bias[lr]);
-        if (n_eb > 0) rank = __fsub_rn(rank, __fmul_rn(q_e[0][lq], row_eb1[lr]));
-        if (n_eb > 1) rank = __fsub_rn(rank, __fmul_rn(q_e[1][lq], row_eb2[lr]));
-        best[i][j] = nan_min(best[i][j], rank);
-      }
-    }
-  }
-
-  // window f = w0 + lr of tile t = f / (128 g) sits at lane (lf % g)*128 + lf / g
-  int pos[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const long long f = w0 + (i >> 2) * 64 + tx * 4 + (i & 3);
-    const long long t = f / gw;
-    const int lf = (int)(f - t * gw);
-    pos[i] = (lf % g) * WLANE + lf / g;
-    if (out != nullptr) {
-      // tile-major [nt, B, gw], or [B, bp_width] with bp_width = nt * gw
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int b = q0 + (j >> 2) * 64 + ty * 4 + (j & 3);
-        const long long at =
-            bp_width ? b * bp_width + t * gw + pos[i] : (t * B + b) * gw + pos[i];
-        if (b < Bc) out[at] = best[i][j];
-      }
-    }
-  }
-
-  if (bm != nullptr) {
-    // level-2 block mins (g = 1: the block's 128 windows are one whole tile): min over
-    // the thread's 8 windows, then over the 16 lanes that share its queries
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      float v = best[0][j];
-#pragma unroll
-      for (int i = 1; i < 8; ++i) v = nan_min(v, best[i][j]);
-#pragma unroll
-      for (int off = 1; off < 16; off <<= 1) v = nan_min(v, __shfl_xor_sync(0xffffffffu, v, off));
-      const int b = q0 + (j >> 2) * 64 + ty * 4 + (j & 3);
-      if (tx == 0 && b < Bc) bm[wblock * B + b] = v;
-    }
-  }
-
-  if (pool != nullptr) {
-    // top-m pool of tile `group` (the block walks its g sub-blocks): m rounds over the
-    // 8 windows of each lane and the lane's running entry from the earlier sub-blocks
-    const bool last = s == subs - 1;
-    float cv[TN], nv[TN];
-    int cp[TN], np_[TN], prev[TN];
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        if (best[i][j] != best[i][j]) nan_bits |= 1u << j;
-      cv[j] = s > 0 ? run_v[j][tid] : INF;
-      cp[j] = s > 0 ? run_p[j][tid] : 0x7fffffff;
-      nv[j] = INF;
-      np_[j] = 0x7fffffff;
-      prev[j] = 0;
-    }
-    if (last) {
-#pragma unroll
-      for (int off = 1; off < RUN_LANES; off <<= 1)
-        nan_bits |= __shfl_xor_sync(0xffffffffu, nan_bits, off);
-    }
-    const int sub_rows = (m + (m + 1) / 2 + 7) / 8 * 8;
-    float* tile_pool = pool + group * (long long)sub_rows * B;
-    for (int k = 0; k < m; ++k) {
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        float bv = cv[j];
-        int bp = cp[j];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          if (lex_less(best[i][j], pos[i], bv, bp)) {
-            bv = best[i][j];
-            bp = pos[i];
-          }
-#pragma unroll
-        for (int off = 1; off < RUN_LANES; off <<= 1) {
-          const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-          const int op = __shfl_xor_sync(0xffffffffu, bp, off);
-          if (lex_less(ov, op, bv, bp)) {
-            bv = ov;
-            bp = op;
-          }
-        }
-        // the lane holding the winner masks it (positions are unique within a query)
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          if (pos[i] == bp) best[i][j] = INF;
-        if (cp[j] == bp) cv[j] = INF;
-        const int b = q0 + (j >> 2) * 64 + ty * 4 + (j & 3);
-        if (!last) {
-          if (tx == k) {  // k < m <= 16 here
-            nv[j] = bv;
-            np_[j] = bp;
-          }
-        } else if (tx == 0 && b < Bc) {
-          const bool nan_q = (nan_bits >> j) & 1u;
-          const int p = nan_q ? out_w : (bv == INF ? 0 : bp);
-          tile_pool[(long long)k * B + b] = nan_q ? __int_as_float(0x7fc00000) : bv;
-          if (k & 1)
-            tile_pool[(long long)(m + k / 2) * B + b] = (float)(prev[j] + out_w * p);
-          else
-            prev[j] = p;
-        }
-      }
-    }
-    if (!last) {
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        run_v[j][tid] = nv[j];
-        run_p[j][tid] = np_[j];
-      }
-    } else if (tx == 0) {
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int b = q0 + (j >> 2) * 64 + ty * 4 + (j & 3);
-        if (b < Bc)
-          for (int row = m + m / 2; row < sub_rows; ++row) tile_pool[(long long)row * B + b] = INF;
-      }
-    }
-  }
-  }  // sub-blocks
-}
-
-// ==================================== the tensor-core body (bf16 and int8 mirrors)
-
 constexpr int MMA_PAIRS = 8;       // warp pairs: a pair streams one run of rows
 constexpr int MMA_WARPS = 2 * MMA_PAIRS;
-constexpr int NSTAGE = 3;          // cp.async ring depth, per pair
+constexpr int NSTAGE = 3;          // cp.async ring depth, per pair (2 where 3 do not fit)
 constexpr int RES_LD = WLANE + 4;  // padded row of the staged window mins
 constexpr int RUN_MAX = 16;        // running pool entries per query (m <= 16 where g > 1)
 constexpr int NT_NARROW = 1;       // n-tiles a warp takes in the narrow tile (16 queries)
@@ -377,6 +169,7 @@ __device__ __forceinline__ uint32_t i8x2_bf16x2(uint32_t u, int sh) {
 // The int8 stage loader beside the header's bf16 one (mma_common.cuh).
 template <> struct MmaRows<int8_t> {  // int8 codes: 128 bytes a row, widened to bf16 here
   static constexpr int ROW_BYTES = KC;
+  static constexpr int DIMS = KC;
   static __device__ __forceinline__ int swz(int row, int chunk) { return chunk ^ ((row & 3) << 1); }
   static __device__ __forceinline__ uint4 load(const char* st, int row, int j, int t) {
     const uint2 u = *reinterpret_cast<const uint2*>(
@@ -387,8 +180,9 @@ template <> struct MmaRows<int8_t> {  // int8 codes: 128 bytes a row, widened to
 };
 
 struct MmaArgs {
-  const uint16_t *qh, *qres;  // bf16 [Bq, D]
-  const void* mirror;         // bf16 bits or int8 codes [cap, D]
+  const void* qh;             // bf16 [Bq, D]; an f32 mirror's: f32 [Bq, D]
+  const uint16_t* qres;       // bf16 [Bq, D] or null
+  const void* mirror;         // bf16 bits, int8 codes or f32 [cap, D]
   const int8_t* resid;        // int8 [cap, D] or null
   const float *rscale, *scale, *bias, *qe, *eb1, *eb2;
   float *out, *bm, *pool;
@@ -396,28 +190,42 @@ struct MmaArgs {
   long long bp_width;
 };
 
-// the widest query tile of a program, in n-tiles of 8 queries a warp takes (the two
-// warps of a pair take one half each): what the registers of 512 threads hold
-template <bool TWO_PASS, bool RESID>
-constexpr int nt_max() { return (TWO_PASS || RESID) ? 4 : 8; }
+// an f32 mirror: its rows split into three bf16 parts in registers, six products
+template <typename MT>
+constexpr bool IS_F32 = sizeof(MT) == 4;
 
-template <typename MT, bool TWO_PASS, bool RESID, int NT>
+// the widest query tile of a program, in n-tiles of 8 queries a warp takes (the two
+// warps of a pair take one half each): what the registers of 512 threads hold with two
+// accumulators (the heavy programs, the f32 split) or one
+template <typename MT, bool TWO_PASS, bool RESID>
+constexpr int nt_max() { return (TWO_PASS || RESID || IS_F32<MT>) ? 4 : 8; }
+
+// QS (an f32 mirror only): the query tile streams, one 64-dimension chunk a step: its f32
+// values [BN][64] copied from L2 a step ahead, then split into a slot of its bf16 parts
+// [2 slots][3][BN][64]; otherwise the whole tile sits in shared memory as bf16 parts for
+// the block's life
+template <typename MT, bool TWO_PASS, bool RESID, int NT, int NST, bool QS>
 struct MmaShape {
   static constexpr int BN = 16 * NT;  // queries a block owns: NT n-tiles for each warp of a pair
   static constexpr int A_BYTES = 16 * MmaRows<MT>::ROW_BYTES;
   static constexpr int STAGE = A_BYTES + (RESID ? 16 * KC : 0);
-  static constexpr int PASSES_Q = TWO_PASS ? 2 : 1;
+  // the resident query tile's bf16 parts: qh (an f32 mirror: hi, mid, lo), qres
+  static constexpr int PARTS_Q = QS ? 0 : IS_F32<MT> ? 3 : TWO_PASS ? 2 : 1;
+  static constexpr int Q_RAW = BN * 64 * 4, Q_SLOT = 3 * BN * 64 * 2;  // streamed chunk
   // stages, queries, staged mins, qe, running pool (values, positions, NaN flags)
   static int smem(int D) {
-    return MMA_PAIRS * NSTAGE * STAGE + PASSES_Q * BN * D * 2 + BN * RES_LD * 4 + 2 * BN * 4 +
-           BN * RUN_MAX * 8 + BN * 4;
+    return MMA_PAIRS * NST * STAGE + (QS ? Q_RAW + 2 * Q_SLOT : PARTS_Q * BN * D * 2) +
+           BN * RES_LD * 4 + 2 * BN * 4 + BN * RUN_MAX * 8 + BN * 4;
   }
 };
 
-template <typename MT, bool TWO_PASS, bool RESID, int NT>
+template <typename MT, bool TWO_PASS, bool RESID, int NT, int NST, bool QS>
 __global__ void __launch_bounds__(MMA_WARPS * 32, 1) sweep_mma_kernel(const MmaArgs a) {
-  using S = MmaShape<MT, TWO_PASS, RESID, NT>;
+  using S = MmaShape<MT, TWO_PASS, RESID, NT, NST, QS>;
   using Rows = MmaRows<MT>;
+  constexpr bool F32 = IS_F32<MT>;
+  static_assert(!QS || (F32 && !TWO_PASS && !RESID), "only an f32 query is streamed");
+  constexpr bool ACC2 = TWO_PASS || F32;  // a second accumulator: qres.m, or the cross passes
   constexpr int BN = S::BN;
   extern __shared__ __align__(16) char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -429,32 +237,51 @@ __global__ void __launch_bounds__(MMA_WARPS * 32, 1) sweep_mma_kernel(const MmaA
   const int q0 = (blockIdx.x % n_qt) * BN;
   const int bn = min(BN, a.Bq - q0);       // the block's queries; the tile's rest is zeros
   const int r1 = a.r1, gsub = 32 / r1;
-  const int kc = a.D / KC;
-  const int qrow = a.D * 2;                // bytes of one query row
+  const int kc = a.D / Rows::DIMS;
+  // bytes of one query row of one part: the resident tile's D dimensions, or a slot's 64
+  const int qrow = QS ? 128 : a.D * 2;
   const float INF = inf_f();
 
-  char* my = smem + pair * NSTAGE * S::STAGE;
-  char* qs = smem + MMA_PAIRS * NSTAGE * S::STAGE;
-  float* res = reinterpret_cast<float*>(qs + S::PASSES_Q * BN * qrow);   // [BN][RES_LD]
+  char* my = smem + pair * NST * S::STAGE;
+  char* qs = smem + MMA_PAIRS * NST * S::STAGE;  // [PARTS_Q][BN] rows, or raw + 2 slots
+  float* res = reinterpret_cast<float*>(qs + (QS ? S::Q_RAW + 2 * S::Q_SLOT
+                                                 : S::PARTS_Q * BN * qrow));  // [BN][RES_LD]
   float* qe_s = res + BN * RES_LD;                                        // [BN][2]
   float* run_v = qe_s + 2 * BN;                                           // [BN][RUN_MAX]
   int* run_p = reinterpret_cast<int*>(run_v + BN * RUN_MAX);              // [BN][RUN_MAX]
   unsigned* nanq = reinterpret_cast<unsigned*>(run_p + BN * RUN_MAX);     // [BN]
 
-  // the query tile, once per block, zero past the block's queries: row r's 16-byte chunk
-  // c at c ^ ((r & 1) << 2)
+  // the resident query tile, once per block, zero past the block's queries (an f32
+  // query split here into its hi, mid and lo parts): row r's 16-byte chunk c of 8
+  // dimensions at c ^ ((r & 1) << 2)
   {
     const int cpr = a.D / 8;
     const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-    for (int idx = threadIdx.x; idx < BN * cpr; idx += blockDim.x) {
+    for (int idx = threadIdx.x; idx < (QS ? 0 : BN * cpr); idx += blockDim.x) {
       const int r = idx / cpr, ch = idx % cpr;
       const int at = r * qrow + ((ch ^ ((r & 1) << 2)) * 16);
       const long long src = (long long)(q0 + r) * a.D + ch * 8;
-      *reinterpret_cast<uint4*>(qs + at) =
-          r < bn ? *reinterpret_cast<const uint4*>(a.qh + src) : zero;
-      if constexpr (TWO_PASS)
-        *reinterpret_cast<uint4*>(qs + BN * qrow + at) =
-            r < bn ? *reinterpret_cast<const uint4*>(a.qres + src) : zero;
+      if constexpr (F32) {
+        uint4 h = zero, m = zero, l = zero;
+        if (r < bn) {
+          const float4* x = reinterpret_cast<const float4*>(static_cast<const float*>(a.qh) + src);
+          const float4 x0 = x[0], x1 = x[1];
+          split3(x0.x, x0.y, h.x, m.x, l.x);
+          split3(x0.z, x0.w, h.y, m.y, l.y);
+          split3(x1.x, x1.y, h.z, m.z, l.z);
+          split3(x1.z, x1.w, h.w, m.w, l.w);
+        }
+        *reinterpret_cast<uint4*>(qs + at) = h;
+        *reinterpret_cast<uint4*>(qs + BN * qrow + at) = m;
+        *reinterpret_cast<uint4*>(qs + 2 * BN * qrow + at) = l;
+      } else {
+#pragma unroll
+        for (int p = 0; p < S::PARTS_Q; ++p) {
+          const uint16_t* part = p ? a.qres : static_cast<const uint16_t*>(a.qh);
+          *reinterpret_cast<uint4*>(qs + p * BN * qrow + at) =
+              r < bn ? *reinterpret_cast<const uint4*>(part + src) : zero;
+        }
+      }
     }
     for (int i = threadIdx.x; i < 2 * BN; i += blockDim.x)
       qe_s[i] = i < 2 * bn ? a.qe[(long long)q0 * 2 + i] : 0.f;
@@ -470,10 +297,10 @@ __global__ void __launch_bounds__(MMA_WARPS * 32, 1) sweep_mma_kernel(const MmaA
   auto issue = [&](int z) {
     const long long row0 = first_row(z / kc);
     const int c = z % kc;
-    char* st = my + (z % NSTAGE) * S::STAGE;
+    char* st = my + (z % NST) * S::STAGE;
     constexpr int CPR = Rows::ROW_BYTES / 16;
     const char* src = static_cast<const char*>(a.mirror) +
-                      (row0 * a.D + (long long)c * KC) * (long long)sizeof(MT);
+                      (row0 * a.D + (long long)c * Rows::DIMS) * (long long)sizeof(MT);
     // the pair's 64 threads share the copies
     for (int q = half * 32 + lane; q < 16 * CPR; q += 64) {
       const int r = q / CPR, ch = q % CPR;
@@ -489,32 +316,79 @@ __global__ void __launch_bounds__(MMA_WARPS * 32, 1) sweep_mma_kernel(const MmaA
       }
     }
   };
+  // QS: the query chunk of step z (dimensions (z % kc) * 64 .. +63 of the block's queries,
+  // zero past them), 16 bytes (4 values) a copy; each thread later splits the values it
+  // copied itself, so a wait for its own copies is all the split needs
+  auto issue_q = [&](int z) {
+    const float* src = static_cast<const float*>(a.qh) + (long long)q0 * a.D + (z % kc) * 64;
+    for (int i = threadIdx.x; i < BN * 16; i += blockDim.x) {
+      const int r = i >> 4, ch = i & 15;
+      cp_async16_or_zero(qs + i * 16, src + (long long)min(r, bn - 1) * a.D + ch * 4, r < bn);
+    }
+  };
+  // ... into slot z & 1 as hi, mid, lo: row r's 16-byte chunk k of 8 dimensions at
+  // k ^ ((r & 1) << 2), as in the resident tile
+  auto split_q = [&](int z) {
+    char* slot = qs + S::Q_RAW + (z & 1) * S::Q_SLOT;
+    for (int i = threadIdx.x; i < BN * 16; i += blockDim.x) {
+      const int r = i >> 4, ch = i & 15;
+      const float4 x = *reinterpret_cast<const float4*>(qs + i * 16);
+      uint2 h, m, l;
+      split3(x.x, x.y, h.x, m.x, l.x);
+      split3(x.z, x.w, h.y, m.y, l.y);
+      char* at = slot + r * 128 + (((ch >> 1) ^ ((r & 1) << 2)) * 16) + (ch & 1) * 8;
+      *reinterpret_cast<uint2*>(at) = h;
+      *reinterpret_cast<uint2*>(at + BN * 128) = m;
+      *reinterpret_cast<uint2*>(at + 2 * BN * 128) = l;
+    }
+  };
 
-  float acc1[NT][4], acc2[TWO_PASS ? NT : 1][4], acc3[RESID ? NT : 1][4];
+  // acc1: qh.m (an f32 mirror: hi.hi); acc2: qres.m (f32: the five cross passes); acc3:
+  // qh.resid
+  float acc1[NT][4], acc2[ACC2 ? NT : 1][4], acc3[RESID ? NT : 1][4];
   float best[NT][2];                       // r1 = 32: the window's min over its first m-tile
   float rb[2], rsc[2], rrs[2], re1[2], re2[2];  // row terms of rows g and g + 8
 
+  // commit groups: [QS: the query chunk of step 0], the rows of stages 0 .. NST - 2; then
+  // at step z [the query chunk of z + 1 and] the rows of z + NST - 1, so that waiting for
+  // all but the newest group finds stage z's rows in place, and after step z's products
+  // the query chunk of z + 1
+  if constexpr (QS) {
+    issue_q(0);
+    cp_async_commit();
+  }
 #pragma unroll
-  for (int z = 0; z < NSTAGE - 1; ++z) {
+  for (int z = 0; z < NST - 1; ++z) {
     if (z < total) issue(z);
     cp_async_commit();
   }
+  if constexpr (QS) {
+    cp_async_wait<NST - 1>();
+    split_q(0);
+  }
   for (int z = 0; z < total; ++z) {
-    cp_async_wait<NSTAGE - 2>();
+    cp_async_wait<NST - 2>();
     // both warps' copies of step z are visible to both, and both have left step z - 1,
-    // whose buffer is refilled here
-    asm volatile("bar.sync %0, 64;\n" ::"r"(pair + 1));
-    if (z + NSTAGE - 1 < total) issue(z + NSTAGE - 1);
+    // whose buffer is refilled here; a streamed query: the whole block, whose slot z & 1
+    // was filled at step z - 1 and whose slot (z + 1) & 1 is refilled at this step
+    if constexpr (QS) {
+      __syncthreads();
+      if (z + 1 < total) issue_q(z + 1);
+      cp_async_commit();
+    } else {
+      asm volatile("bar.sync %0, 64;\n" ::"r"(pair + 1));
+    }
+    if (z + NST - 1 < total) issue(z + NST - 1);
     cp_async_commit();
     const int u = z / kc, c = z % kc, s = u / r1, mt = u % r1;
-    const char* st = my + (z % NSTAGE) * S::STAGE;
+    const char* st = my + (z % NST) * S::STAGE;
     if (c == 0) {
 #pragma unroll
       for (int n = 0; n < NT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           acc1[n][e] = 0.f;
-          if constexpr (TWO_PASS) acc2[n][e] = 0.f;
+          if constexpr (ACC2) acc2[n][e] = 0.f;
           if constexpr (RESID) acc3[n][e] = 0.f;
         }
       const long long row = first_row(u) + g;
@@ -528,38 +402,69 @@ __global__ void __launch_bounds__(MMA_WARPS * 32, 1) sweep_mma_kernel(const MmaA
         re2[h] = a.n_eb > 1 ? a.eb2[rw] : 0.f;
       }
     }
-    // query row (n0 + n)*8 + g's 16-byte chunk of dimensions c*128 + 32j + 8t sits at
-    // chunk c*16 + 4*(j ^ (g & 1)) + t of the row (the fill's swizzle; rows g + 8n share
-    // g's)
-    const int q_at = (n0 * 8 + g) * qrow + (c * (KC / 8) + t) * 16;
+    // query row (n0 + n)*8 + g's 16-byte chunk of dimensions c*DIMS + 32j + 8t sits at
+    // chunk c*DIMS/8 + 4*(j ^ (g & 1)) + t of the row (the fill's swizzle; rows g + 8n
+    // share g's); in a streamed slot at chunk 4*(j ^ (g & 1)) + t
+    const char* qb = QS ? qs + S::Q_RAW + (z & 1) * S::Q_SLOT : qs;
+    const int q_at = (n0 * 8 + g) * qrow + ((QS ? 0 : c * (Rows::DIMS / 8)) + t) * 16;
+    if constexpr (F32) {
+      // the six products of the two splits: hi.hi into acc1, the cross passes (each term
+      // at most 2^-8 of its element's |q_i x_i|) into acc2, the smaller first
 #pragma unroll
-    for (int j = 0; j < KC / 32; ++j) {
-      // rows g and g + 8, dimensions 32j + 8t .. +7: two k-steps of 16 (the k order
-      // inside each is permuted the same way on both operands)
-      const uint4 lo = Rows::load(st, g, j, t), hi = Rows::load(st, g + 8, j, t);
-      uint4 zlo = lo, zhi = hi;
-      if constexpr (RESID) {
-        zlo = MmaRows<int8_t>::load(st + S::A_BYTES, g, j, t);
-        zhi = MmaRows<int8_t>::load(st + S::A_BYTES, g + 8, j, t);
-      }
-      uint4 b[NT], p[TWO_PASS ? NT : 1];
+      for (int j = 0; j < Rows::DIMS / 32; ++j) {
+        uint4 lo[3], hi[3];
+        float no_sq = 0.f;
+        Rows::load(st, g, j, t, lo, no_sq, false);
+        Rows::load(st, g + 8, j, t, hi, no_sq, false);
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const int at = q_at + n * 8 * qrow + (j ^ (g & 1)) * 64;
-        b[n] = *reinterpret_cast<const uint4*>(qs + at);
-        if constexpr (TWO_PASS) p[n] = *reinterpret_cast<const uint4*>(qs + BN * qrow + at);
-      }
+        for (int n = 0; n < NT; ++n) {
+          uint4 b[3];  // the query's hi, mid and lo parts
+          const char* at = qb + q_at + n * 8 * qrow + (j ^ (g & 1)) * 64;
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        mma_bf16(acc1[n], lo.x, hi.x, lo.y, hi.y, b[n].x, b[n].y);
-        mma_bf16(acc1[n], lo.z, hi.z, lo.w, hi.w, b[n].z, b[n].w);
-        if constexpr (TWO_PASS) {
-          mma_bf16(acc2[n], lo.x, hi.x, lo.y, hi.y, p[n].x, p[n].y);
-          mma_bf16(acc2[n], lo.z, hi.z, lo.w, hi.w, p[n].z, p[n].w);
+          for (int p = 0; p < 3; ++p) b[p] = *reinterpret_cast<const uint4*>(at + p * BN * qrow);
+          mma32(acc2[n], lo[0], hi[0], b[2]);
+          mma32(acc2[n], lo[2], hi[2], b[0]);
+          mma32(acc2[n], lo[1], hi[1], b[1]);
+          mma32(acc2[n], lo[0], hi[0], b[1]);
+          mma32(acc2[n], lo[1], hi[1], b[0]);
+          mma32(acc1[n], lo[0], hi[0], b[0]);
         }
+      }
+      if constexpr (QS) {
+        // the query chunk of step z + 1, into the slot this step does not read
+        cp_async_wait<1>();
+        if (z + 1 < total) split_q(z + 1);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < KC / 32; ++j) {
+        // rows g and g + 8, dimensions 32j + 8t .. +7: two k-steps of 16 (the k order
+        // inside each is permuted the same way on both operands)
+        const uint4 lo = Rows::load(st, g, j, t), hi = Rows::load(st, g + 8, j, t);
+        uint4 zlo = lo, zhi = hi;
         if constexpr (RESID) {
-          mma_bf16(acc3[n], zlo.x, zhi.x, zlo.y, zhi.y, b[n].x, b[n].y);
-          mma_bf16(acc3[n], zlo.z, zhi.z, zlo.w, zhi.w, b[n].z, b[n].w);
+          zlo = MmaRows<int8_t>::load(st + S::A_BYTES, g, j, t);
+          zhi = MmaRows<int8_t>::load(st + S::A_BYTES, g + 8, j, t);
+        }
+        uint4 b[NT], p[TWO_PASS ? NT : 1];
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const int at = q_at + n * 8 * qrow + (j ^ (g & 1)) * 64;
+          b[n] = *reinterpret_cast<const uint4*>(qs + at);
+          if constexpr (TWO_PASS) p[n] = *reinterpret_cast<const uint4*>(qs + BN * qrow + at);
+        }
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          mma_bf16(acc1[n], lo.x, hi.x, lo.y, hi.y, b[n].x, b[n].y);
+          mma_bf16(acc1[n], lo.z, hi.z, lo.w, hi.w, b[n].z, b[n].w);
+          if constexpr (TWO_PASS) {
+            mma_bf16(acc2[n], lo.x, hi.x, lo.y, hi.y, p[n].x, p[n].y);
+            mma_bf16(acc2[n], lo.z, hi.z, lo.w, hi.w, p[n].z, p[n].w);
+          }
+          if constexpr (RESID) {
+            mma_bf16(acc3[n], zlo.x, zhi.x, zlo.y, zhi.y, b[n].x, b[n].y);
+            mma_bf16(acc3[n], zlo.z, zhi.z, zlo.w, zhi.w, b[n].z, b[n].w);
+          }
         }
       }
     }
@@ -575,7 +480,7 @@ __global__ void __launch_bounds__(MMA_WARPS * 32, 1) sweep_mma_kernel(const MmaA
       for (int e = 0; e < 4; ++e) {
         const int h = e >> 1, col = (n0 + n) * 8 + 2 * t + (e & 1);
         float dots = acc1[n][e];
-        if constexpr (TWO_PASS) dots = __fadd_rn(dots, acc2[n][e]);
+        if constexpr (ACC2) dots = __fadd_rn(dots, acc2[n][e]);
         if constexpr (RESID) dots = __fadd_rn(dots, __fmul_rn(acc3[n][e], rrs[h]));
         float rank = a.scale ? __fmul_rn(dots, rsc[h]) : dots;
         if (a.bias) rank = __fadd_rn(rank, rb[h]);
@@ -736,30 +641,17 @@ struct Args {
   cudaStream_t stream;
 };
 
-int launch_fma(const Args& a, const void* mirror) {
-  if (a.Bq % FBN || a.Bc > a.Bq) return (int)cudaErrorInvalidValue;
-  const int n_qtiles = a.Bq / FBN;
-  const int subs = a.pool != nullptr ? 32 / a.r1 : 1;  // with the pool a block owns a tile
-  const long long blocks = a.cap / ((long long)a.r1 * BM * subs) * n_qtiles;
-  if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  fma_kernel<<<(unsigned)blocks, THREADS, 0, a.stream>>>(
-      static_cast<const float*>(a.qh), static_cast<const float*>(mirror), a.scale, a.bias, a.qe,
-      a.eb1, a.eb2, a.out, a.bm, a.pool, a.D, a.B, a.Bc, a.Bq, a.r1, a.n_eb, n_qtiles, a.m,
-      subs, a.bp_width);
-  return (int)cudaGetLastError();
-}
-
-template <typename MT, bool TWO_PASS, bool RESID, int NT>
+template <typename MT, bool TWO_PASS, bool RESID, int NT, int NST, bool QS = false>
 int launch_mma_nt(const Args& a, const void* mirror) {
-  using S = MmaShape<MT, TWO_PASS, RESID, NT>;
+  using S = MmaShape<MT, TWO_PASS, RESID, NT, NST, QS>;
   const int smem = S::smem(a.D);
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   const long long blocks = a.cap / TILE_ROWS * ((a.Bq + S::BN - 1) / S::BN);
   if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  auto kernel = sweep_mma_kernel<MT, TWO_PASS, RESID, NT>;
+  auto kernel = sweep_mma_kernel<MT, TWO_PASS, RESID, NT, NST, QS>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const MmaArgs m{static_cast<const uint16_t*>(a.qh), static_cast<const uint16_t*>(a.qres), mirror,
+  const MmaArgs m{a.qh, static_cast<const uint16_t*>(a.qres), mirror,
                   a.resid, a.rscale, a.scale, a.bias, a.qe, a.eb1, a.eb2, a.out, a.bm, a.pool,
                   a.D, a.B, a.Bc, a.Bq, a.r1, a.n_eb, a.m, a.bp_width};
   kernel<<<(unsigned)blocks, MMA_WARPS * 32, smem, a.stream>>>(m);
@@ -767,23 +659,37 @@ int launch_mma_nt(const Args& a, const void* mirror) {
 }
 
 // The query tile follows the live count: the widest tile the program's registers hold,
-// or the narrow one (16 queries) for a batch that needs no more, or where the wide tile's
-// queries do not fit in shared memory beside the stages (Dp > 128).
+// or the narrow one (16 queries) for a batch that needs no more.  Its queries stay in
+// shared memory where they fit beside a 3-stage ring; else an f32 query streams (any Dp:
+// past 128 for the wide tile, past 1280 for the narrow one), and the other programs take
+// the narrow tile, beside a 2-stage ring where 3 stages leave no room: up to Dp = 1920
+// for the bf16 mirror's heavy program (1152 with 3 stages), 2432 for the int8 one (1920)
+// and 4864 for one bf16 pass (3840); wider, their launch is refused.
 template <typename MT, bool TWO_PASS, bool RESID>
 int launch_mma(const Args& a, const void* mirror) {
-  constexpr int WIDE = nt_max<TWO_PASS, RESID>();
+  constexpr int WIDE = nt_max<MT, TWO_PASS, RESID>();
+  constexpr bool F32 = IS_F32<MT>;
   if (a.Bq % 8 || a.Bc > a.Bq || a.D % KC) return (int)cudaErrorInvalidValue;
-  if (a.Bq > 16 * NT_NARROW && MmaShape<MT, TWO_PASS, RESID, WIDE>::smem(a.D) <= SMEM_MAX)
-    return launch_mma_nt<MT, TWO_PASS, RESID, WIDE>(a, mirror);
-  return launch_mma_nt<MT, TWO_PASS, RESID, NT_NARROW>(a, mirror);
+  const int nt = a.Bq > 16 * NT_NARROW ? WIDE : NT_NARROW;
+  if (nt == WIDE && MmaShape<MT, TWO_PASS, RESID, WIDE, NSTAGE, false>::smem(a.D) <= SMEM_MAX)
+    return launch_mma_nt<MT, TWO_PASS, RESID, WIDE, NSTAGE>(a, mirror);
+  if constexpr (F32) {
+    if (nt == WIDE) return launch_mma_nt<MT, false, false, WIDE, NSTAGE, true>(a, mirror);
+  }
+  if (MmaShape<MT, TWO_PASS, RESID, NT_NARROW, NSTAGE, false>::smem(a.D) <= SMEM_MAX)
+    return launch_mma_nt<MT, TWO_PASS, RESID, NT_NARROW, NSTAGE>(a, mirror);
+  if constexpr (F32)
+    return launch_mma_nt<MT, false, false, NT_NARROW, NSTAGE, true>(a, mirror);
+  else
+    return launch_mma_nt<MT, TWO_PASS, RESID, NT_NARROW, 2>(a, mirror);
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  mirror [cap, D] of mirror_type 0 = bf16 bits,
-// 1 = int8 codes, 2 = f32.  Queries: for a bf16 or int8 mirror qh / qres bf16 [Bq, D]
-// (rows, Bq a multiple of 8); for an f32 mirror qh f32 [D, Bq] (transposed, Bq a multiple
-// of 128); both zero-padded past the live rows.  resid: int8 [cap, D] or null; rscale /
+// 1 = int8 codes, 2 = f32.  Queries, Bq a multiple of 8, zero past the live rows: for a bf16
+// or int8 mirror qh / qres bf16 [Bq, D]; for an f32 mirror qh f32 [Bq, D] (the kernel
+// splits it) and no qres.  resid: int8 [cap, D] or null; rscale /
 // scale / eb1 / eb2 / bias: f32 [cap] or null; qe: f32 [Bq, 2].  The outputs are B queries
 // wide and the launch writes columns 0..Bc-1 of them (Bc <= B, Bc <= Bq): out f32
 // [cap / 4096, B, (32 / r1) * 128] or null (skip_wm: the pool is the only output); bm: f32
@@ -822,7 +728,7 @@ extern "C" int mlvdb_sweep_min(const void* qh, const void* qres, const void* mir
       return launch_mma<int8_t, false, false>(a, mirror);
     case 2:
       if (two_pass || use_resid) break;
-      return launch_fma(a, mirror);
+      return launch_mma<float, false, false>(a, mirror);
   }
   return (int)cudaErrorInvalidValue;
 }

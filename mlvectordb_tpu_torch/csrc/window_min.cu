@@ -22,7 +22,8 @@
 //              in f32, and hi + mid + lo == x for |x| from 2^-110 to bf16's largest
 //              finite value), the query the same way once per launch (the caller's three
 //              bf16 operands), and the six products hi.hi, hi.mid, mid.hi, hi.lo, lo.hi
-//              and mid.mid are summed into one f32 accumulator.
+//              and mid.mid are summed into one f32 accumulator (the split and the f32
+//              stage loader are mma_common.cuh's, shared with kernel B3's f32 mirror).
 //
 // The error, against the exact dot q.x.  Model (Fasi, Higham, Mikaitis and Pranesh,
 // "Numerical behavior of NVIDIA tensor cores", PeerJ CS 2021): bf16 products are exact;
@@ -104,33 +105,6 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return r;
 }
 
-// cp_async16, with zeros written instead where !valid (src-size 0: gmem is not read)
-__device__ __forceinline__ void cp_async16_or_zero(void* smem, const void* gmem, bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(valid ? 16 : 0));
-}
-
-// the low and high bf16 of a bf16x2 register, as f32 (exact)
-__device__ __forceinline__ float bf_lo(uint32_t u) { return __uint_as_float(u << 16); }
-__device__ __forceinline__ float bf_hi(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
-
-// x0 and x1 rounded to nearest bf16, packed with x0 in the low half
-__device__ __forceinline__ uint32_t pack_rn(float x0, float x1) {
-  uint32_t r;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(x1), "f"(x0));
-  return r;
-}
-
-// (x0, x1) -> hi, mid, lo bf16x2 registers with hi + mid + lo == x element by element
-__device__ __forceinline__ void split3(float x0, float x1, uint32_t& h, uint32_t& m,
-                                       uint32_t& l) {
-  h = pack_rn(x0, x1);
-  const float r0 = __fsub_rn(x0, bf_lo(h)), r1 = __fsub_rn(x1, bf_hi(h));  // exact
-  m = pack_rn(r0, r1);
-  l = pack_rn(__fsub_rn(r0, bf_lo(m)), __fsub_rn(r1, bf_hi(m)));
-}
-
 __device__ __forceinline__ float sq4(uint32_t u, uint32_t v, float s) {
   s = fmaf(bf_lo(u), bf_lo(u), s);
   s = fmaf(bf_hi(u), bf_hi(u), s);
@@ -161,48 +135,20 @@ template <> struct Rows<uint16_t> {  // bf16 rows: one part, the values themselv
     }
   }
 };
-template <> struct Rows<float> {  // f32 rows: hi, mid, lo split here
+template <> struct Rows<float> {  // f32 rows: hi, mid, lo split here (mma_common.cuh)
   static constexpr int P = 3;
-  static constexpr int DIMS = ROW_BYTES / 4;
+  static constexpr int DIMS = MmaRows<float>::DIMS;
   static constexpr int QSLOTS = 2;
-  // 16-byte chunk c of row r at c ^ (r & 1): rows g and g + 1 of a load phase hit
-  // different banks
-  static __device__ __forceinline__ int swz(int row, int chunk) { return chunk ^ (row & 1); }
-  static __device__ __forceinline__ void one(const char* st, int row, int j, int t, uint4* p,
-                                             float& sq, bool need_sq) {
-    const float4 a = *reinterpret_cast<const float4*>(st + row * ROW_BYTES +
-                                                      swz(row, 8 * j + 2 * t) * 16);
-    const float4 b = *reinterpret_cast<const float4*>(st + row * ROW_BYTES +
-                                                      swz(row, 8 * j + 2 * t + 1) * 16);
-    if (need_sq) {
-      sq = fmaf(a.x, a.x, sq);
-      sq = fmaf(a.y, a.y, sq);
-      sq = fmaf(a.z, a.z, sq);
-      sq = fmaf(a.w, a.w, sq);
-      sq = fmaf(b.x, b.x, sq);
-      sq = fmaf(b.y, b.y, sq);
-      sq = fmaf(b.z, b.z, sq);
-      sq = fmaf(b.w, b.w, sq);
-    }
-    split3(a.x, a.y, p[0].x, p[1].x, p[2].x);
-    split3(a.z, a.w, p[0].y, p[1].y, p[2].y);
-    split3(b.x, b.y, p[0].z, p[1].z, p[2].z);
-    split3(b.z, b.w, p[0].w, p[1].w, p[2].w);
+  static __device__ __forceinline__ int swz(int row, int chunk) {
+    return MmaRows<float>::swz(row, chunk);
   }
   static __device__ __forceinline__ void load(const char* st, int g, int j, int t,
                                               uint4 (&lo)[3], uint4 (&hi)[3], float* sq,
                                               bool need_sq) {
-    one(st, g, j, t, lo, sq[0], need_sq);
-    one(st, g + 8, j, t, hi, sq[1], need_sq);
+    MmaRows<float>::load(st, g, j, t, lo, sq[0], need_sq);
+    MmaRows<float>::load(st, g + 8, j, t, hi, sq[1], need_sq);
   }
 };
-
-// one product of a 16-row fragment (lo: row g, hi: row g + 8) with an 8-query fragment b,
-// over the 32 dimensions the three registers pairs hold
-__device__ __forceinline__ void mma32(float* c, const uint4& lo, const uint4& hi, const uint4& b) {
-  mma_bf16(c, lo.x, hi.x, lo.y, hi.y, b.x, b.y);
-  mma_bf16(c, lo.z, hi.z, lo.w, hi.w, b.z, b.w);
-}
 
 struct WArgs {
   const void* data;      // [n_rows, D] f32 or bf16 bits

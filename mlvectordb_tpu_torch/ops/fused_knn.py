@@ -73,14 +73,26 @@ _REF_CHUNK_ELEMS = 1 << 25
 
 
 def _split3(x: torch.Tensor):
-    """f32 ``x`` as three bf16 parts (hi, mid, lo) with hi + mid + lo == x, as the kernel
-    splits each row element: hi = bf16_rn(x), mid = bf16_rn(x - hi), lo = bf16(x - hi -
-    mid); the remainders are exact in f32.  Exact for |x| from 2^-110 to bf16's largest
-    finite value, and 0."""
+    """f32 ``x`` as three bf16 parts (hi, mid, lo) with hi + mid + lo == x, as the
+    tensor-core kernels split each f32 element: hi = bf16_rn(x), mid = bf16_rn(x - hi),
+    lo = bf16(x - hi - mid); the remainders are exact in f32.  Exact for |x| from 2^-110
+    to bf16's largest finite value, and 0."""
     hi = x.to(torch.bfloat16)
     r = x - hi.float()
     mid = r.to(torch.bfloat16)
     return hi, mid, (r - mid.float()).to(torch.bfloat16)
+
+
+def _query_parts(rows: torch.Tensor, n_c: int, *, split: bool) -> torch.Tensor:
+    """Kernel B4/B5's bf16 query operand from the first ``n_c`` of ``rows`` [B, D]:
+    [P, Bq, D], Bq = n_c rounded up to 8, zero past n_c.  ``split``: P = 3, the f32 rows'
+    hi, mid and lo parts (``_split3``; f32 rows); else P = 1, the values rounded to bf16."""
+    bq = -(-n_c // 8) * 8
+    parts = _split3(rows[:n_c]) if split else (rows[:n_c].to(torch.bfloat16),)
+    q = torch.zeros((len(parts), bq, rows.shape[1]), dtype=torch.bfloat16, device=rows.device)
+    for p, part in enumerate(parts):
+        q[p, :n_c] = part
+    return q
 
 
 def _window_mins_ref(data, qt, qn, *, metric, db_tile, r1, hw=None, bias=None):
@@ -203,13 +215,8 @@ def _kernel_queries(qt, qn, n_c, dtype):
     [1, B]: bf16 parts [P, Bq, D] (f32 rows: the split hi, mid, lo; bf16 rows: the values,
     which the caller has rounded to bf16) and qn [Bq], Bq = n_c rounded up to 8, zero past
     n_c."""
-    D = qt.shape[0]
-    bq = -(-n_c // 8) * 8
-    rows = qt[:, :n_c].T
-    parts = _split3(rows) if dtype == torch.float32 else (rows.to(torch.bfloat16),)
-    q = torch.zeros((len(parts), bq, D), dtype=torch.bfloat16, device=qt.device)
-    for p, part in enumerate(parts):
-        q[p, :n_c] = part
+    q = _query_parts(qt.T, n_c, split=dtype == torch.float32)
+    bq = q.shape[1]
     qn_k = torch.zeros(bq, dtype=torch.float32, device=qt.device)
     qn_k[:n_c] = qn.reshape(-1)[:n_c]
     return q, qn_k, bq

@@ -359,6 +359,18 @@ def _check_sweep_operands(qh, qres, mirror, resid, rscale, scale, bias, qe, eb_r
             f"Dp={Dp} B={B} r1={r1} n_eb={len(eb_rows)} block_mins={emit_block_mins}")
 
 
+def _query_rows(x: torch.Tensor, n_c: int) -> torch.Tensor:
+    """Kernel B1/B3's query operand from the first ``n_c`` rows of ``x`` [B, Dp] (bf16; f32
+    for an f32 mirror, which the kernel splits into bf16 parts itself): [Bq, Dp] of x's
+    type, Bq = n_c rounded up to ``LIVE_STEP``, zero past n_c."""
+    bq = -(-n_c // LIVE_STEP) * LIVE_STEP
+    if bq == n_c:
+        return x[:n_c]
+    t = torch.zeros((bq, x.shape[1]), dtype=x.dtype, device=x.device)
+    t[:n_c] = x[:n_c]
+    return t
+
+
 def _live_columns(batch: int, n_live) -> int:
     """The query columns a launch computes: ``n_live`` rounded up to the tensor-core
     product's n (``LIVE_STEP``), at most the batch; every column when ``n_live`` is None."""
@@ -378,25 +390,7 @@ def _sweep_launch(qh, qres, mirror, resid, rscale, scale, bias, *, r1, emit_bloc
     g = R1MAX // r1
     nt = cap // SWEEP_TILE
     dev = mirror.device
-    if mirror.dtype == torch.float32:
-        # the FMA body reads f32 queries [Dp, Bq], Bq a multiple of its 128-query tile
-        bq = -(-n_c // 128) * 128
-
-        def q_op(x):
-            t = torch.zeros((Dp, bq), dtype=torch.float32, device=dev)
-            t[:, :n_c] = x[:n_c].T
-            return t
-    else:
-        # the tensor-core body reads bf16 query rows [Bq, Dp], Bq a multiple of 8
-        bq = -(-n_c // LIVE_STEP) * LIVE_STEP
-
-        def q_op(x):
-            if bq == n_c:
-                return x[:n_c]
-            t = torch.zeros((bq, Dp), dtype=x.dtype, device=dev)
-            t[:n_c] = x[:n_c]
-            return t
-
+    bq = -(-n_c // LIVE_STEP) * LIVE_STEP
     qe_p = torch.zeros((bq, 2), dtype=torch.float32, device=dev)
     if eb_rows:
         qe_p[:n_c, : len(eb_rows)] = qe[:n_c]
@@ -410,7 +404,7 @@ def _sweep_launch(qh, qres, mirror, resid, rscale, scale, bias, *, r1, emit_bloc
         out = empty(nt, B, g * WLANE) if transposed else empty(B, nt * g * WLANE)
     bm = empty(nt, B) if emit_block_mins else None
     pool = empty(nt, _topm_sub_rows(emit_topm), B) if emit_topm else None
-    qh_op, qres_op = q_op(qh), (None if qres is None else q_op(qres))
+    qh_op, qres_op = _query_rows(qh, n_c), (None if qres is None else _query_rows(qres, n_c))
 
     def ptr(t):
         return None if t is None else t.data_ptr()

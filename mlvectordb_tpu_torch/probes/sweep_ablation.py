@@ -28,14 +28,14 @@ import torch
 # (the text of csrc/sweep_min.cu a variant replaces, what it puts there)
 VARIANTS = {
     "no_products": [(
-        "        mma_bf16(acc1[n], lo.x, hi.x, lo.y, hi.y, b[n].x, b[n].y);\n"
-        "        mma_bf16(acc1[n], lo.z, hi.z, lo.w, hi.w, b[n].z, b[n].w);",
-        "        acc1[n][0] += __uint_as_float(lo.x & b[n].x);\n"
-        "        acc1[n][1] += __uint_as_float(hi.w & b[n].w);")],
+        "          mma_bf16(acc1[n], lo.x, hi.x, lo.y, hi.y, b[n].x, b[n].y);\n"
+        "          mma_bf16(acc1[n], lo.z, hi.z, lo.w, hi.w, b[n].z, b[n].w);",
+        "          acc1[n][0] += __uint_as_float(lo.x & b[n].x);\n"
+        "          acc1[n][1] += __uint_as_float(hi.w & b[n].w);")],
     "no_epilogue": [("        float dots = acc1[n][e];",
                      "        float dots = acc1[n][e];\n        rk[e] = dots;\n        continue;")],
-    "no_mirror_loads": [("    cp_async_wait();\n", ""),
-                        ("    if (z + NSTAGE - 1 < total) issue(z + NSTAGE - 1);\n", "")],
+    "no_mirror_loads": [("    cp_async_wait<NST - 2>();\n", ""),
+                        ("    if (z + NST - 1 < total) issue(z + NST - 1);\n", "")],
     "no_row_terms": [("        rb[h] = a.bias ? a.bias[rw] : 0.f;\n"
                       "        rsc[h] = a.scale ? a.scale[rw] : 1.f;\n"
                       "        rrs[h] = RESID ? a.rscale[rw] : 0.f;\n"
@@ -44,8 +44,8 @@ VARIANTS = {
                       "        rb[h] = rsc[h] = rrs[h] = re1[h] = re2[h] = (float)(rw & 1);")],
     # the light program's query tile at 64 and 32 queries (8 and 4 n-tiles): more blocks,
     # each with a shorter unrolled body (these compute the right values)
-    "tile_64": [("return (TWO_PASS || RESID) ? 4 : 8;", "return (TWO_PASS || RESID) ? 4 : 4;")],
-    "tile_32": [("return (TWO_PASS || RESID) ? 4 : 8;", "return (TWO_PASS || RESID) ? 4 : 2;")],
+    "tile_64": [("RESID || IS_F32<MT>) ? 4 : 8;", "RESID || IS_F32<MT>) ? 4 : 4;")],
+    "tile_32": [("RESID || IS_F32<MT>) ? 4 : 8;", "RESID || IS_F32<MT>) ? 4 : 2;")],
 }
 
 

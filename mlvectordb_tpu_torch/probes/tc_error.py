@@ -10,7 +10,10 @@ Dp * 2^-24 inside the certificate's Dp * 2^-22 slack.  ``hard_rows`` and
 ``hard_queries`` make inputs that stress that model: exponents spread over 2^-20 .. 2^10
 within a row, and signs that cancel within a k-group and across the two halves of a row;
 ``int8_extremes`` gives codes of +-127.  Each operand is exact in bf16, so float64 gives
-the exact dots.
+the exact dots.  The same two functions take an f32 query and an f32 mirror (kernel B3's
+six passes of the three-way bf16 split, bounded in the kernel's note by about
+(1.048 * Dp * (1 + 1/s) + 1.52) * 2^-23), on ``hard_rows_f32`` / ``hard_queries_f32``
+below or gaussian f32 values; float64 gives the exact dots of f32 values too.
 
 ``b4_dots`` does the same for the row-major kernel B4 (``csrc/window_min.cu``) over f32 rows
 (the three-way bf16 split, six passes) or bf16 rows (one pass): ip with one-row windows
@@ -32,8 +35,9 @@ from ..ops.fused_knn_t import R1MAX, SWEEP_TILE, WLANE, _window_mins_t
 
 
 def dots(qh: torch.Tensor, mirror: torch.Tensor) -> torch.Tensor:
-    """[N, B] f32 dots of qh [B, D] (bf16) with the mirror [N, D] (bf16 or int8 codes), as
-    the kernel sums them: one-row windows (r1 = 1), no scale, bias or bound rows."""
+    """[N, B] f32 dots of qh [B, D] with the mirror [N, D] (bf16 qh against bf16 or int8
+    codes, f32 qh against f32), as the kernel sums them: one-row windows (r1 = 1), no
+    scale, bias or bound rows."""
     out = _window_mins_t(qh, None, mirror, None, None, None, None, r1=1)[0]  # [nt, B, 4096]
     nt, b, _ = out.shape
     # window (row) j*32 + a of a tile sits at position a*128 + j

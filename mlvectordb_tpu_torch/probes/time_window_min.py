@@ -3,7 +3,8 @@ JSON line: 2^20 x 128 rows of ``default_rng(42)`` (``--rows`` x ``--dim``; f32, 
 same rounded to bf16), a batch of ``--n-live`` queries (default 128) zero-padded to its
 bucket (512), l2, r1 from the padded batch as the engine picks it, 1,000 tombstones in
 B5's bias row; CUDA events, mean of 20 calls after a warm one; the card's name and power
-limit beside the times.
+limit beside the times, and a sha256 of each kernel's outputs (``outputs_sha256``), so
+that two checkouts' kernels compare bit for bit.
 
 Two versions of the kernels compare only inside one call on one card, in turns (old,
 new, new, old): run this file once per checkout, with that checkout first on the path,
@@ -19,6 +20,7 @@ does; an older one computes every column of the bucket, as its engine did
 from __future__ import annotations
 
 import argparse
+import hashlib
 import inspect
 import json
 import subprocess
@@ -71,15 +73,16 @@ def main() -> int:
     kw = dict(metric="l2", db_tile=fused_knn.DB_TILE, r1=fused_knn._pick_r1(b, n, 16),
               **({"n_live": args.n_live} if live else {}))
     out = {"package": fused_knn.__file__, "card": card, "rows": n, "dim": d, "r1": kw["r1"],
-           "bucket": b, "n_live": args.n_live, "live_columns": live}
+           "bucket": b, "n_live": args.n_live, "live_columns": live, "outputs_sha256": {}}
     for rows in (torch.float32, torch.bfloat16):
         data = x.to(rows)
         qt = q.T.to(rows).float().contiguous()
         tag = "" if rows == torch.float32 else "_bf16"
-        out["fast" + tag + "_ms"] = _time_ms(
-            lambda: fused_knn._window_mins_fast(data, qt, qn, n, **kw))
-        out["masked" + tag + "_ms"] = _time_ms(
-            lambda: fused_knn._window_mins_masked(data, qt, qn, bias, **kw))
+        for name, fn, arg in (("fast", fused_knn._window_mins_fast, n),
+                              ("masked", fused_knn._window_mins_masked, bias)):
+            out[name + tag + "_ms"] = _time_ms(lambda: fn(data, qt, qn, arg, **kw))
+            got = fn(data, qt, qn, arg, **kw).cpu().numpy().tobytes()
+            out["outputs_sha256"][name + tag] = hashlib.sha256(got).hexdigest()
         del data
     print(json.dumps(out))
     return 0

@@ -124,13 +124,13 @@ PROGRAMS = {"light": ("err1", "sqn_sqrt"), "heavy": ("sweep_err", "err1"),
             "int8_resid": ("sweep_err", "err1"), "f32": ()}
 
 
-def _sweep_operands(dev, n, b, metric, program, seed, n_live=None):
+def _sweep_operands(dev, n, b, metric, program, seed, n_live=None, d=128):
     """Kernels B1/B3's operands as the certified search builds them for ``program`` (a
     key of PROGRAMS), with ~1% tombstones and a dead last tile in the bias row; queries
-    from ``n_live`` on are the engine's zero padding."""
+    from ``n_live`` on are the engine's zero padding; ``d`` dimensions."""
     rng = np.random.default_rng(seed)
-    data = torch.from_numpy(rng.standard_normal((n, 128), dtype=np.float32)).to(dev)
-    q = torch.from_numpy(rng.standard_normal((b, 128), dtype=np.float32)).to(dev)
+    data = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(dev)
+    q = torch.from_numpy(rng.standard_normal((b, d), dtype=np.float32)).to(dev)
     if n_live is not None:
         q[n_live:] = 0.0
     valid = torch.from_numpy(rng.random(n) > 0.01).to(dev)
@@ -154,7 +154,7 @@ def _sweep_operands(dev, n, b, metric, program, seed, n_live=None):
     qe = torch.stack([qn, torch.linalg.vector_norm(qres_f32, dim=1)], 1)[:, :len(wb)]
     args = (qh.contiguous(), qres, mirror, z if resid else None, prep["rscale_row"],
             prep["scale_row"], prep["bias_row"])
-    slack = 128 * 2.0 ** -22 * qn * (1.0 if metric == "cosine" else prep["maxd"])
+    slack = d * 2.0 ** -22 * qn * (1.0 if metric == "cosine" else prep["maxd"])
     return args, dict(qe=qe.contiguous() if wb else None, eb_rows=prep["eb_rows"]), slack
 
 
@@ -431,8 +431,9 @@ def test_window_min_nan_query_matches_plain(cuda, variant, metric):
 @pytest.mark.parametrize("program", ["int8_light", "int8_two_pass", "int8_resid", "f32"])
 def test_b3_kernel_matches_plain(cuda, program, metric, r1, outputs):
     """The window mins within the phase-1 budget of the plain version's (int8: exact
-    products, tensor-core sums; f32: rounded products, f32 sums), the block mins and the
-    pool bit-equal to the plain min and pool of the kernel's own mins."""
+    products, tensor-core sums; f32: the six products of the three-way bf16 split,
+    tensor-core sums), the block mins and the pool bit-equal to the plain min and pool of
+    the kernel's own mins."""
     b = 512 if outputs == "pool_only" else 8
     args, kw, slack = _sweep_operands(cuda, 65536, b, metric, program, r1 * 10 + b)
     opts = dict(emit_block_mins=outputs == "block_mins",
@@ -459,6 +460,103 @@ def test_b3_kernel_matches_plain(cuda, program, metric, r1, outputs):
     if opts["emit_topm"]:
         assert torch.equal(got[2].view(torch.int32),
                            fused_knn_t._topm_pool_ref(own, 8).view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [1, 5, 16, 17, 127, 128])
+@pytest.mark.parametrize("d", [128, 384, 1536, 2048, 3072])
+def test_b3_f32_live_launch_bit_equal_to_full(cuda, d, n):
+    """B3 over an f32 mirror at Dp = 128 (the 64-query tile past 16 live queries, its query
+    in shared memory), 384 (the 64-query tile streams its query, the 16-query one holds it)
+    and 1536, 2048 and 3072 (both tiles stream): the window mins within the phase-1 budget
+    of the plain version's, the block mins and pool the kernel's own, and a launch of the
+    live columns bit-equal to the full launch."""
+    args, kw, _ = _sweep_operands(cuda, 8192, 128, "l2", "f32", d * 1000 + n, n_live=n, d=d)
+    fn = fused_knn_t._window_mins_t
+    for opts in (dict(r1=32, emit_block_mins=True), dict(r1=16, emit_topm=8)):
+        full = fn(*args, **kw, **opts)
+        before = fn.launches_f32
+        live = fn(*args, **kw, **opts, n_live=n, zero_cache={})
+        torch.cuda.synchronize()
+        assert fn.launches_f32 == before + 1
+        for f, g in zip(full, live):
+            assert (f is None) == (g is None)
+            if f is not None:
+                assert torch.equal(_bits(g), _bits(f))
+        want = fused_knn_t._window_mins_t_ref(*args, **kw, r1=opts["r1"])[0]
+        _close_slack(full[0], want, _budget(args, kw, opts["r1"]))
+        if opts.get("emit_block_mins"):
+            assert torch.equal(_bits(full[1]), _bits(full[0].amin(-1)))
+        else:
+            assert torch.equal(_bits(full[2]), _bits(fused_knn_t._topm_pool_ref(full[0], 8)))
+
+
+@pytest.mark.parametrize("n", [5, 128])
+@pytest.mark.parametrize("program", ["light", "heavy", "int8_two_pass", "int8_resid"])
+def test_sweep_kernel_at_dp_1536(cuda, program, n):
+    """Every other program at Dp = 1536, on the 16-query tile: the heavy ones' two query
+    parts beside a 2-stage ring where a 3-stage one leaves no room (the bf16 heavy program
+    past Dp = 1152): the window mins within the phase-1 budget of the plain version's, the
+    block mins the kernel's own, a launch of the live columns bit-equal to the full one."""
+    args, kw, _ = _sweep_operands(cuda, 8192, 128, "l2", program, n + 1536, n_live=n, d=1536)
+    fn = fused_knn_t._window_mins_t
+    opts = dict(r1=32, emit_block_mins=True)
+    full = fn(*args, **kw, **opts)
+    live = fn(*args, **kw, **opts, n_live=n, zero_cache={})
+    want = fused_knn_t._window_mins_t_ref(*args, **kw, **opts)[0]
+    torch.cuda.synchronize()
+    for f, g in zip(full, live):
+        if f is not None:
+            assert torch.equal(_bits(g), _bits(f))
+    _close_slack(full[0], want, _budget(args, kw, 32))
+    assert torch.equal(_bits(full[1]), _bits(full[0].amin(-1)))
+
+
+@pytest.mark.parametrize("d", [128, 2048])
+@pytest.mark.parametrize("special", ["nan_row", "inf_row", "inf_element"])
+@pytest.mark.parametrize("metric", ["l2", "cosine"])
+def test_b3_f32_non_finite_rows(cuda, metric, special, d):
+    """A NaN row, an all-inf row and one inf element in an f32 mirror, with zero-padded
+    queries, with the query tile in shared memory (Dp = 128) and streamed (2048).  NaN:
+    the kernel's windows are NaN exactly where the plain version's are.  An
+    inf element's mid part is inf - inf = NaN, as in any split product of inf (the JAX
+    kernel's multi-pass HIGHEST product on the MXU too), so each window whose plain value
+    comes out non-finite or whose rows hold the inf is, on the card, NaN or that same
+    value; every other window within the phase-1 budget; the zero query's columns NaN
+    exactly where the plain version's are (0 * inf); a live launch bit-equal to the full."""
+    n_live, r1 = 5, 32
+    args, kw, _ = _sweep_operands(cuda, 8192, 16, metric, "f32", 61, n_live=n_live, d=d)
+    mirror = args[2].clone()
+    row = 777
+    if special == "nan_row":
+        mirror[row] = float("nan")
+    elif special == "inf_row":
+        mirror[row] = float("inf")
+    else:
+        mirror[row, 5] = float("inf")
+    args = args[:2] + (mirror,) + args[3:]
+    opts = dict(r1=r1, emit_block_mins=True)
+    fn = fused_knn_t._window_mins_t
+    got, bm, _ = fn(*args, **kw, **opts)
+    live = fn(*args, **kw, **opts, n_live=n_live, zero_cache={})
+    want = fused_knn_t._window_mins_t_ref(*args, **kw, **opts)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(live[0]), _bits(got)) and torch.equal(_bits(live[1]), _bits(bm))
+    assert torch.equal(_bits(bm), _bits(got.amin(-1)))
+    held = torch.zeros(mirror.shape[0], dtype=torch.bool, device=cuda)
+    held[row] = True
+    nt = mirror.shape[0] // fused_knn_t.SWEEP_TILE
+    held = held.reshape(-1, r1).any(1).reshape(nt, 1, fused_knn_t.WLANE).expand_as(want)
+    odd = held | ~torch.isfinite(want)
+    assert bool(torch.isnan(want[:, n_live:]).any())
+    assert torch.equal(torch.isnan(got[:, n_live:]), torch.isnan(want[:, n_live:]))
+    if special == "nan_row":
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+    same = (_bits(got) == _bits(want)) | torch.isnan(got)
+    assert bool(same[odd].all())
+    dead = (want == MASKED) & ~odd
+    assert torch.equal(got[dead], want[dead])
+    fine = ~odd & ~dead
+    assert bool(((got - want).abs() <= _budget(args, kw, r1))[fine].all())
 
 
 @pytest.mark.parametrize("kind", ["int8", "int8_no_resid", "float32"])
@@ -871,10 +969,13 @@ def test_live_tile_launch_bit_equal_to_full(cuda, program, metric, outputs, n):
         assert torch.equal(_bits(full[2]), _bits(fused_knn_t._topm_pool_ref(own, 8)))
 
 
-@pytest.mark.parametrize("kind", ["gaussian", "hard", "int8_extremes"])
+@pytest.mark.parametrize("kind", ["gaussian", "hard", "int8_extremes", "f32_gaussian",
+                                  "f32_hard"])
 def test_tensor_core_dots_within_the_bar(cuda, kind):
     """The tensor-core body's dots against float64: max |dot - exact| / (|qh| |x|) at
-    most Dp * 2^-23 (the kernel's note bounds it by Dp * (1 + 1/s) * 2^-23)."""
+    most Dp * 2^-23 (the kernel's note bounds it by Dp * (1 + 1/s) * 2^-23 for one bf16
+    pass, and for an f32 mirror's six passes of the split by about
+    (1.048 * Dp * (1 + 1/s) + 1.52) * 2^-23)."""
     from mlvectordb_tpu_torch.probes import tc_error
 
     rng = np.random.default_rng(47)
@@ -885,11 +986,36 @@ def test_tensor_core_dots_within_the_bar(cuda, kind):
         qh = torch.from_numpy(rng.standard_normal((b, 128), dtype=np.float32)).to(torch.bfloat16)
     elif kind == "hard":
         rows, qh = tc_error.hard_rows(rng, n, 128), tc_error.hard_queries(rng, b, 128)
-    else:
+    elif kind == "int8_extremes":
         rows = tc_error.int8_extremes(rng, n, 128)
         qh = tc_error.hard_queries(rng, b, 128)
+    elif kind == "f32_gaussian":
+        rows = torch.from_numpy(rng.standard_normal((n, 128), dtype=np.float32))
+        qh = torch.from_numpy(rng.standard_normal((b, 128), dtype=np.float32))
+    else:
+        rows, qh = tc_error.hard_rows_f32(rng, n, 128), tc_error.hard_queries_f32(rng, b, 128)
     err = tc_error.max_rel_err(qh.to(cuda), rows.to(cuda))
     assert 0.0 <= err <= 128 * 2.0 ** -23, err
+
+
+@pytest.mark.parametrize("b", [16, 128])
+@pytest.mark.parametrize("d", [384, 2048])
+@pytest.mark.parametrize("kind", ["f32_gaussian", "f32_hard"])
+def test_b3_f32_dots_within_the_bar_past_dp_128(cuda, kind, d, b):
+    """B3's dots over an f32 mirror against float64 past Dp = 128, on the 16-query tile
+    (b = 16: its query in shared memory at Dp = 384, streamed at 2048) and the 64-query
+    tile (b = 128: streamed): max |dot - exact| / (|q| |x|) at most Dp * 2^-23."""
+    from mlvectordb_tpu_torch.probes import tc_error
+
+    rng = np.random.default_rng(d + b)
+    n = 8192
+    if kind == "f32_gaussian":
+        rows = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32))
+        q = torch.from_numpy(rng.standard_normal((b, d), dtype=np.float32))
+    else:
+        rows, q = tc_error.hard_rows_f32(rng, n, d), tc_error.hard_queries_f32(rng, b, d)
+    err = tc_error.max_rel_err(q.to(cuda), rows.to(cuda))
+    assert 0.0 <= err <= d * 2.0 ** -23, err
 
 
 # ------------------------------------------------------------------ B4/B5: live columns, tensor cores

@@ -211,6 +211,25 @@ def test_live_columns_without_padding_compute_every_column():
             assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("n_c", [1, 5, 8, 16, 17, 127, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_query_operand_is_the_live_rows(dtype, n_c):
+    """Kernel B1/B3's query operand: the first n_c folded query rows as they are (f32 for
+    an f32 mirror, split by the kernel; bf16 otherwise), [Bq, Dp] with Bq = n_c rounded up
+    to 8 and zero past n_c; a row count already a multiple of 8 is the rows themselves."""
+    rng = np.random.default_rng(n_c)
+    q = torch.from_numpy(rng.standard_normal((132, 384), dtype=np.float32)).to(dtype)
+    q[0, :3] = torch.tensor([2.0 ** -100, -3.0e38, float("nan")])
+    got = T._query_rows(q, n_c)
+    bq = -(-n_c // 8) * 8
+    assert got.dtype == dtype and tuple(got.shape) == (bq, 384) and got.is_contiguous()
+    assert torch.equal(got[:n_c].view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       q[:n_c].view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+    assert not bool(got[n_c:].any())
+    if bq == n_c:
+        assert got.data_ptr() == q.data_ptr()
+
+
 # ------------------------------------------------------------------ the engine
 
 

@@ -252,6 +252,27 @@ def test_split3_is_exact():
     assert bool((lo.double().abs() <= 2.0 ** -16 * xt.double().abs()).all())
 
 
+@pytest.mark.parametrize("n_c", [1, 5, 8, 16, 17, 127, 128])
+def test_f32_query_operand_is_the_split(n_c):
+    """Kernel B4's query operand for f32 rows: the first n_c queries as ``_split3``'s three
+    bf16 parts [3, Bq, Dp], Bq = n_c rounded up to 8, zero past n_c, hi + mid + lo == q
+    element by element; the one-part operand (bf16 rows) is the queries rounded to bf16."""
+    rng = np.random.default_rng(n_c)
+    q = torch.from_numpy(rng.standard_normal((132, 384), dtype=np.float32))
+    q[0, :3] = torch.tensor([2.0 ** -100, -3.0e38, 0.0])
+    q[:, 7] *= 2.0 ** 40
+    got = F._query_parts(q, n_c, split=True)
+    bq = -(-n_c // 8) * 8
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (3, bq, 384)
+    for part, want in zip(got, F._split3(q[:n_c])):
+        assert torch.equal(part[:n_c].view(torch.int16), want.view(torch.int16))
+        assert not bool(part[n_c:].any())
+    assert torch.equal(got.double().sum(0)[:n_c], q[:n_c].double())
+    one = F._query_parts(q, n_c, split=False)
+    assert tuple(one.shape) == (1, bq, 384)
+    assert torch.equal(one[0, :n_c], q[:n_c].to(torch.bfloat16)) and not bool(one[0, n_c:].any())
+
+
 def _hard(rng, n, d, lo_exp, hi_exp):
     """f32 values with full significands over exponents lo_exp .. hi_exp, random signs,
     every other row's second half the negated first half (cancelling sums)."""
