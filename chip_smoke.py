@@ -8,9 +8,11 @@ one line per phase:
   1. device: the card's name and power limit; each kernel's registers and spills
      (-Xptxas -v) and the mma.sync (HMMA) instructions of each tensor-core kernel: the
      sweep kernel's body over bf16, int8 and f32 mirrors (four f32 instantiations, each
-     with at least its six split products) and the six row-major window-min
-     instantiations (cuobjdump of the built library; none, or an FMA body left in the
-     library, is a failure); the native host runtime
+     with at least its six split products; every program's wide and narrow query tile
+     streamed, so that no Dp is refused) and the six row-major window-min
+     instantiations (cuobjdump of the built library; none, a program without its
+     streamed tiles, or an FMA body left in the library, is a failure); the route the
+     sweep kernel takes for each program at Dp = 128 to 8192; the native host runtime
      (native/metafilter.cpp, native/hydrate.c) built beside the kernels into
      build/native/ (the metadata filter must build; whether _hydrate built is printed);
   2. the row-major window-min kernels (the tensor cores: f32 rows as a three-way bf16
@@ -188,8 +190,25 @@ one line per phase:
      card and the CPU (the exact set at the CPU's tier, each mirror).  (The f32 mirror
      sharded runs on the card in tests/test_torch_gpu.py.)  Its record is one JSON line
      starting {"bf16_mirrors".
+ 21. wide embeddings through QueryProcessor: (a) a bf16 store with the same-dtype sweep at
+     1,048,576 x 1536 (BASELINE.json config #5's width, default_rng(63)); (b) an f32
+     store at 524,288 x 3072 (OpenAI text-embedding-3-large's width, default_rng(64))
+     with an int8 mirror (two streams), then with a bf16 mirror; cosine / l2 at B=128
+     and ip / cosine at B=16, k=10, and B=128 at k=100, before and after 1,000 deletes,
+     each set-exact against a float64 oracle on the card (the bf16 store's over its bf16
+     rows), with its tier (one tier; light_ ones only from the light program, whose
+     escalation to the scan flips it to heavy) and transfers ((1, 1) exactly at tier
+     0); (c) phase 5's clustered namespace at 131,072 x 3072 (the first batch escalates
+     and flips, the second runs the heavy program); B1/B3 of every program at the
+     engine's operands (B=128 and 16, k buckets 16 and 128) against plain (the phase-1
+     budget, the pool the plain pool of its own mins, the live launch bit-equal to the
+     full one), timed with its bound, the route it took (the query tile resident or
+     streamed, the ring's depth) and the bf16 torch.matmul yardstick of its one-pass
+     product; B2 checked and timed as in phase 6; exact_knn_t and the engine wall with
+     its host split.  Its record is one JSON line starting {"wide".
 Any failure raises, so the process exits non-zero.  Before them, one JSON line holds the
-IVF and server records, one the distributed engine's and one phase 20's; the last two lines
+IVF and server records, one the distributed engine's, one phase 20's and one phase 21's;
+the last two lines
 are the kernels'
 JSON record (with each kernel's bound: bytes over 3.35 TB/s or operations over the peak
 for their type, whichever is larger; for the sweep kernel and B4/B5 the products of the
@@ -310,6 +329,44 @@ def _mma_counts(lib):
         elif name and "HMMA" in line:
             counts[name] += 1
     return counts, names
+
+
+# B1/B3's programs as (mirror type in the kernel's mangled name, two_pass, the second
+# stream): the bf16 mirror's four, the int8 mirror's three, the f32 mirror's one
+SWEEP_PROGRAMS = {"light": ("t", "0", "0"), "two_pass": ("t", "1", "0"),
+                  "resid": ("t", "0", "1"), "heavy": ("t", "1", "1"),
+                  "int8_light": ("a", "0", "0"), "int8_two_pass": ("a", "1", "0"),
+                  "int8": ("a", "1", "1"), "f32": ("f", "0", "0")}
+_SWEEP_NAME = re.compile(r"sweep_mma_kernelI([taf])Lb([01])ELb([01])ELi(\d+)ELi(\d+)ELb([01])E")
+
+
+def check_streamed_tiles(mma):
+    """Every program of B1/B3 holds a streamed instantiation with mma.sync for its wide and
+    its narrow query tile (so no Dp is refused): a failure otherwise."""
+    streamed = {}
+    for name, hmma in mma.items():
+        if (m := _SWEEP_NAME.search(name)) and m.group(6) == "1" and hmma > 0:
+            streamed.setdefault(m.groups()[:3], set()).add((int(m.group(4)), int(m.group(5))))
+    print(f"  B1/B3 streamed query tiles (n-tiles a warp, ring depth) by program: "
+          f"{ {p: sorted(streamed.get(k, ())) for p, k in SWEEP_PROGRAMS.items()} }")
+    missing = [p for p, k in SWEEP_PROGRAMS.items() if len(streamed.get(k, ())) != 2]
+    if missing:
+        raise AssertionError(f"B1/B3 lacks a streamed wide or narrow tile for {missing}")
+
+
+def print_routes():
+    """The route B1/B3 takes for each engine program at Dp = 128 to 8192, at 16 and 128
+    live queries: the queries a block owns, the query resident or streamed, the ring."""
+    programs = {"light": (torch.bfloat16, False, False), "heavy": (torch.bfloat16, True, True),
+                "int8": (torch.int8, True, True), "int8_one_stream": (torch.int8, True, False),
+                "f32": (torch.float32, False, False)}
+    for dim in (128, 384, 1536, 3072, 8192):
+        line = {}
+        for name, (dtype, two_pass, resid) in programs.items():
+            for bq in (16, 128):
+                r = fused_knn_t.sweep_route(dtype, dim, bq, bq, two_pass=two_pass, resid=resid)
+                line[f"{name} B={bq}"] = f"{r['tile_queries']}q {r['query']} {r['stages']}-stage"
+        print(f"  B1/B3 route at Dp = {dim}: {line}")
 
 
 def _time_ms(fn, iters: int = 10) -> float:
@@ -790,11 +847,13 @@ def _check_result_live(search, label):
 
 def _check_kdists(results, db64, q, label):
     """Sorted returned l2 distances against the float64 oracle's k smallest, within the
-    f32 cancellation of the expansion qn + sqn - 2 q.x (16 ulps of qn + max sqn), since
+    f32 cancellation of the expansion qn + sqn - 2 q.x (16 ulps of qn + max sqn at
+    D = 128, growing as sqrt(D / 128) with the rounding of the D-term f32 sums), since
     ties on clustered data make id sets ambiguous."""
     want = np.sort(_oracle_dists(db64, q, "l2"), axis=1)[:, :K]
     got = np.sort(np.array([[r["score"] for r in rs] for rs in results]), axis=1)
-    tol = 16 * 2.0 ** -24 * ((q.astype(np.float64) ** 2).sum(-1) + (db64 ** 2).sum(-1).max())
+    tol = 16 * max(1.0, (q.shape[1] / 128) ** 0.5) * 2.0 ** -24 * (
+        (q.astype(np.float64) ** 2).sum(-1) + (db64 ** 2).sum(-1).max())
     err = np.abs(got - want)
     print(f"  {label}: max |k-dist - oracle| = {err.max():.3e} (bound {tol.max():.3e})")
     if got.shape != want.shape or not (err <= tol[:, None]).all():
@@ -3239,9 +3298,10 @@ def check_near_tie():
 
 
 def _check_b3(a, kw, label):
-    """B3 at the engine's operands against its plain version on the same call (the
-    phase-1 budget; block mins too), and its live-column launch bit-equal to the full
-    one.  Returns max |err|."""
+    """B1/B3 at the engine's operands against its plain version on the same call (the
+    phase-1 budget; block mins too; a pool the plain pool of the kernel's own window mins,
+    which are within the budget), and its launch of the live columns (``kw["n_live"]``)
+    bit-equal to the full one.  Returns max |err|."""
     got = fused_knn_t._window_mins_t(*a, **kw)
     want = fused_knn_t._window_mins_t_plain(*a, **{**kw, "zero_cache": {}})
     torch.cuda.synchronize()
@@ -3250,12 +3310,20 @@ def _check_b3(a, kw, label):
     for g, w, bd in ((got[0], want[0], budget), (got[1], want[1], budget.amax(-1))):
         if g is not None:
             worst = max(worst, _check_budget(g, w, bd, label)[0])
-    cols = _check_live_tiles(a, kw, B, label)
+    if got[2] is not None:
+        own = fused_knn_t._window_mins_t(*a, **{**kw, "emit_topm": 0, "skip_wm": False})[0]
+        if not _bits_equal(got[2], fused_knn_t._topm_pool_ref(own, kw["emit_topm"])):
+            raise AssertionError(f"{label}: the pool is not the plain pool of its own mins")
+        plain = fused_knn_t._window_mins_t_plain(
+            *a, **{**kw, "zero_cache": {}, "emit_topm": 0, "skip_wm": False})[0]
+        worst = max(worst, _check_budget(own, plain, budget, label)[0])
+    n_live = kw["n_live"]
+    cols = _check_live_tiles(a, kw, n_live, label)
     print(f"  {label}: {a[2].dtype} mirror over {a[2].shape[0]:,} rows, r1={kw['r1']}, qres "
           f"{a[1] is not None}, second stream {a[3] is not None}, bound rows "
           f"{len(kw['eb_rows'])}: max |kernel - plain| {worst} (within the budget); {cols} of "
           f"{a[0].shape[0]} columns computed, every column bit-equal to the full launch")
-    if cols != B:
+    if cols != fused_knn_t._live_columns(a[0].shape[0], n_live):
         raise AssertionError(f"{label}: {cols} columns computed")
     return worst
 
@@ -3414,6 +3482,277 @@ def run_bf16_mirrors(db_np, q_np, dead, gpu):
 
     rec["near_tie_tiers"] = check_near_tie()
     return counts, worst, times, bounds, rec
+
+
+# ---- phase 21: wide embeddings through the engine ----------------------------------------
+
+# (a) BASELINE.json config #5's width (MSMARCO / OpenAI 1536-d, bf16): a bf16 store with
+# the same-dtype sweep; (b) OpenAI text-embedding-3-large's width: an f32 store served
+# with an int8 mirror (two streams) and with a bf16 mirror; (c) phase 5's clustered
+# namespace at that width.  Each cell: (label, config, rows, dimensions, seed, searches)
+WIDE_CELLS = (
+    ("bf16_store_1536", EngineConfig(dtype="bfloat16", sweep_dtype="bfloat16"), 1 << 20, 1536,
+     SEED + 21, (("cosine", B, K), ("ip", 16, K), ("cosine", B, K100))),
+    ("int8_3072", EngineConfig(sweep_dtype="int8"), 1 << 19, 3072, SEED + 22,
+     (("l2", B, K), ("cosine", 16, K), ("l2", B, K100))),
+    ("bf16_mirror_3072", EngineConfig(sweep_dtype="bfloat16"), 1 << 19, 3072, SEED + 22,
+     (("l2", B, K), ("cosine", 16, K), ("l2", B, K100))))
+N_WIDE_CLUSTERED = 131072
+
+
+class WideOracle(DeviceOracle):
+    """DeviceOracle over wide rows: chunks of 2^27 elements (a GiB of float64)."""
+
+    def __init__(self, rows, q_np):
+        super().__init__(rows, q_np)
+        self.CHUNK = max(fused_knn_t.SWEEP_TILE, (1 << 27) // rows.shape[1])
+
+
+def _wide_tier_ok(label, qp, metric, masked, tier, was_light):
+    """A wide batch's tier: one tier; on a bf16 store or an int8 mirror never a light_
+    one; on a bf16 mirror a light_ tier exactly where the light program served (its
+    variant in light mode), and a light batch escalated to the exact scan flips its
+    variant to heavy, as the JAX engine does.  Which tier serves is the certificate's: on
+    gaussian rows this wide its band may not close at tier 0 (PERF.md §6)."""
+    if len(tier) != 1:
+        return False
+    light = tier[0].startswith("light_")
+    if not label.startswith("bf16_mirror"):
+        return not light
+    flipped = qp._cert_mode.get(("wide", metric, masked)) == "heavy"
+    return light == was_light and (tier[0] != "light_exact_scan" or flipped)
+
+
+def _wide_corpus(seed, n, dim):
+    """n x dim gaussian f32 rows and B queries of default_rng(seed), the rows made in 8
+    threads (numpy's generators release the GIL), each from its own spawned stream."""
+    rng = np.random.default_rng(seed)
+    db = np.empty((n, dim), dtype=np.float32)
+    step = n // 8
+
+    def fill(i, g):
+        g.standard_normal(dtype=np.float32, out=db[i * step:(i + 1) * step])
+
+    threads = [threading.Thread(target=fill, args=(i, g)) for i, g in enumerate(rng.spawn(8))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return rng, db, rng.standard_normal((B, dim), dtype=np.float32)
+
+
+def _wide_kernels(name, search, times, bounds, worst, routes):
+    """B1/B3 at the operands of ``search()`` (the engine's, captured): against plain, timed
+    (kernel, plain, every column), its bound, its route and the bf16 torch.matmul yardstick
+    of its one-pass product."""
+    a, kw = _capture("_window_mins_t", search)
+    worst[name] = _check_b3(a, kw, name)
+    times.update(_time_b1(name, a, kw))
+    outs = fused_knn_t._window_mins_t(*a, **kw)
+    bounds[name] = _b3_bound(a, kw, outs)
+    bounds[name + "_full_batch"] = _b3_bound(a, kw, outs, full_batch=True)
+    del outs
+    live = fused_knn_t._live_columns(a[0].shape[0], kw["n_live"])
+    m16 = a[2] if a[2].dtype == torch.bfloat16 else a[2].to(torch.bfloat16)
+    times[name + "_matmul"] = _time_ms(lambda: torch.matmul(m16, a[0][:live].T))
+    del m16
+    routes[name] = fused_knn_t.sweep_route(a[2].dtype, a[2].shape[1], kw["n_live"],
+                                           a[0].shape[0], two_pass=a[1] is not None,
+                                           resid=a[3] is not None)
+    ms, bd = times[name], bounds[name]
+    print(f"  B1/B3 {name}: {a[2].dtype} mirror {tuple(a[2].shape)}, qres {a[1] is not None}, "
+          f"second stream {a[3] is not None}, r1={kw['r1']}, {live} of {a[0].shape[0]} columns, "
+          f"route {routes[name]}: {ms:.4f} ms (every column {times[name + '_full']:.4f}, plain "
+          f"{times[name + '_plain']:.4f}, bf16 torch.matmul of one pass "
+          f"{times[name + '_matmul']:.4f}); bound {bd[0]:.4f} ms ({bd[1]}), share "
+          f"{bd[0] / ms:.1%}; max |kernel - plain| {worst[name]} (within the budget)")
+
+
+def _wide_cell(label, cfg, db, q_np, oracle, dead, searches):
+    """One cell of phase 21: bulk_load, the searches before and after the deletes, then
+    B1/B3 and B2 at the engine's operands.  Returns (launch counts, record, times, bounds,
+    max |err| by kernel, routes)."""
+    dev = torch.device("cuda")
+    n, dim = db.shape
+    qp = QueryProcessor(cfg, device=dev)
+    t0 = time.perf_counter()
+    ids = qp.bulk_load(db, "wide")
+    torch.cuda.synchronize()
+    rec = {"ingest_s": time.perf_counter() - t0}
+    ns = qp.storage.namespace("wide")
+    st = ns.device_state()
+    want = {"bf16_store": (torch.bfloat16, torch.bfloat16), "int8": (torch.float32, torch.int8),
+            "bf16_mirror": (torch.float32, torch.bfloat16)}[label.rsplit("_", 1)[0]]
+    print(f"  {label}: bulk_load {n:,} x {dim} in {rec['ingest_s']:.2f} s, capacity "
+          f"{ns.capacity}, device bytes {ns.nbytes:,}; rows {st.data.dtype}, mirror "
+          f"{st.mirror.dtype}")
+    if (st.data.dtype, st.mirror.dtype) != want or ns.capacity != n:
+        raise AssertionError(f"{label}: the store is not {want} at capacity {n}")
+    if st.data.dtype == torch.bfloat16 and not torch.equal(
+            st.data.view(torch.int16), oracle.rows.view(torch.int16)):
+        raise AssertionError(f"{label}: the store's rows are not the corpus rounded to bf16")
+    outer = _sweep_counts()
+    _set_sweep_counts([0] * len(outer))
+    served, dead_ids = {}, set()
+    # the device memory a search takes beyond the store, at its peak: no path may hold a
+    # [batch, candidates, Dp] block (the tier-2 scan works in [batch, 8 tiles] blocks)
+    peak = 0
+    for when, dead_rows in (("before delete", None), ("after delete", dead)):
+        if dead_rows is not None:
+            dead_ids = _deleted(qp, "wide", ids, dead_rows)
+        for metric, nq, k in searches:
+            masked = dead_rows is not None
+            was_light = qp._cert_mode.get(("wide", metric, masked), "light") == "light"
+            heavy0 = fused_knn_t._window_mins_t.launches_heavy
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            res, tier, xfer = _served(qp, "wide", q_np, metric, nq, k)
+            peak = max(peak, torch.cuda.max_memory_allocated() - base)
+            program = "heavy" if fused_knn_t._window_mins_t.launches_heavy > heavy0 else "one pass"
+            served[f"{metric} B={nq} k={k} {when}"] = (tier, xfer, program)
+            if (xfer[0] != 1 or (tier in (["fast"], ["light_fast"])) != (xfer == (1, 1))
+                    or not _wide_tier_ok(label, qp, metric, masked, tier, was_light)):
+                raise AssertionError(f"{label} {metric} k={k} {when}: {tier} {xfer}")
+            if any(r["id"] in dead_ids for rs in res for r in rs):
+                raise AssertionError(f"{label} {metric}: a deleted id was returned")
+            _check_recall(res, oracle.sets(metric, nq, dead_rows, k=k), ids,
+                          f"{label} {metric} B={nq} k={k} {when}", k=k)
+    c = dict(zip(_COUNT_NAMES, _sweep_counts()))
+    _set_sweep_counts([o + v for o, v in zip(outer, c.values())])
+    rec.update(searches=served, launches=c, modes={str(k_): v for k_, v in qp._cert_mode.items()},
+               search_peak_bytes=peak)
+    print(f"  {label}: (tier, transfers, program) per batch {served}; device memory a "
+          f"search took beyond the store at its peak {rec['search_peak_bytes']:,} B "
+          f"(a [512, 2560, {dim}] f32 block alone would be {512 * 2560 * dim * 4:,})")
+    print(f"  {label}: launches {c}; modes {qp._cert_mode}")
+    if (c["sweep"] != 2 * len(searches) or c["gather"] < 2 * len(searches)
+            or c["cols"] != 2 * sum(nq for _, nq, _ in searches)
+            or (label.startswith("int8") and c["int8"] != c["sweep"])):
+        raise AssertionError(f"{label}: B1/B3 and B2 did not serve every search on its live "
+                             f"columns: {c}")
+
+    # the kernels at the operands of the engine's searches on the tombstoned snapshot
+    st = ns.device_state()
+
+    def search(metric, nq, k, light=None, n_live=None, defer=False):
+        q_pad = torch.zeros((qp.config.bucket_batch(nq), dim), device=dev)
+        q_pad[:nq] = torch.from_numpy(q_np[:nq]).to(dev)
+        return fused_knn_t.exact_knn_t(
+            q_pad, st.mirror, st.data, st.valid, st.sq_norms, k=k, metric=metric,
+            live_prefix=None, sweep_err=st.sweep_err, resid=st.sweep_resid,
+            rscale=st.sweep_rscale, err1=st.sweep_err1, rscale2=st.sweep_rscale2,
+            prep_cache=st.prep_cache, report_tier=True, light=bool(light),
+            n_live=nq if n_live is None else n_live, defer=defer)
+
+    times, bounds, worst, routes = {}, {}, {}, {}
+    lights = (True, False) if label.startswith("bf16_mirror") else (False,)
+    for metric, nq, k in searches:
+        for light in lights:
+            name = f"wide_{label}_{metric}_b{nq}_k{k}" + ("_light" if light else "")
+            _wide_kernels(name, lambda: search(metric, nq, 16 if k == K else 128, light),
+                          times, bounds, worst, routes)
+    metric0 = searches[0][0]
+    for kb in (16, 128):
+        gname = f"wide_gather_{label}_k{kb}"
+        ga, gkw = _capture("_gather_score", lambda: search(metric0, B, kb))
+        t, b, _, worst[gname] = time_gather(gname, ga, gkw)
+        times.update(t)
+        bounds.update(b)
+        times[f"exact_knn_t_{label}_k{kb}"] = _time_ms(lambda: search(metric0, B, kb))
+        _check_result_live(lambda n_: search(metric0, B, kb, n_live=n_, defer=True),
+                           f"{label} {metric0} k bucket {kb}")
+    wall = _engine_wall(qp, q_np, namespace="wide", metric=metric0)
+    rec["engine_wall_ms"] = wall
+    rec["engine_split_ms"] = _engine_split(qp, q_np, namespace="wide", metric=metric0)
+    times[f"engine_wall_{label}_median"] = statistics.median(wall)
+    print(f"  {label}: exact_knn_t {metric0} B={B} k bucket 16 / 128 "
+          f"{times[f'exact_knn_t_{label}_k16']:.4f} / {times[f'exact_knn_t_{label}_k128']:.4f} "
+          f"ms; engine wall runs (ms) {wall}; split (median ms, host clock) "
+          f"{rec['engine_split_ms']}")
+    return c, rec, times, bounds, worst, routes
+
+
+def run_wide(gpu):
+    """Phase 21 (see the module docstring).  Returns (launch counts by cell, {kernel: max
+    |err|}, {time name: ms}, {bound name: bound}, {kernel: route}, the phase's record)."""
+    dev = torch.device("cuda")
+    counts, worst, times, bounds, routes, rec = {}, {}, {}, {}, {}, {"card": gpu}
+    corpus = {}
+    for label, cfg, n, dim, seed, searches in WIDE_CELLS:
+        t0 = time.perf_counter()
+        if seed not in corpus:
+            corpus.clear()
+            torch.cuda.empty_cache()
+            rng, db, q_np = _wide_corpus(seed, n, dim)
+            rows = torch.from_numpy(db).to(dev)
+            if cfg.dtype == "bfloat16":
+                rows = rows.to(torch.bfloat16)
+            oracle = WideOracle(rows, q_np)
+            near = sorted({next(iter(s)) for s in oracle.sets(searches[0][0], B, k=1)})
+            others = rng.choice(np.setdiff1d(np.arange(n), near), 1000 - len(near),
+                                replace=False)
+            dead = np.asarray(sorted(near + others.tolist()))
+            corpus[seed] = (db, q_np, oracle, dead)
+        db, q_np, oracle, dead = corpus[seed]
+        print(f"  {label}: corpus {n:,} x {dim} gaussian f32 of default_rng({seed}) and its "
+              f"oracle in {time.perf_counter() - t0:.1f} s")
+        c, r, t, b, w, ro = _wide_cell(label, cfg, db, q_np, oracle, dead, searches)
+        counts[label], rec[label] = c, r
+        times.update(t)
+        bounds.update(b)
+        worst.update(w)
+        routes.update(ro)
+        torch.cuda.empty_cache()
+    corpus.clear()
+    torch.cuda.empty_cache()
+
+    # (c) phase 5's clustered namespace at Dp = 3072: the light program escalates and
+    # flips, the heavy program serves the next batch
+    dim = 3072
+    rng = np.random.default_rng(SEED + 23)
+    centres = rng.standard_normal((8, dim)).astype(np.float32) * 0.05
+    xc = (centres[rng.integers(0, 8, N_WIDE_CLUSTERED)]
+          + rng.standard_normal((N_WIDE_CLUSTERED, dim)).astype(np.float32) * 1e-3
+          ).astype(np.float32)
+    qc = (centres[rng.integers(0, 8, 2 * B)]
+          + rng.standard_normal((2 * B, dim)).astype(np.float32) * 1e-3).astype(np.float32)
+    xc64 = xc.astype(np.float64)
+    qp = QueryProcessor(SWEEP, device=dev)
+    qp.bulk_load(xc, "clustered")
+    outer = _sweep_counts()
+    _set_sweep_counts([0] * len(outer))
+    served = {}
+    for i, when in enumerate(("first batch (light)", "second batch (after the flip)")):
+        qb = qc[i * B:(i + 1) * B]
+        heavy0 = fused_knn_t._window_mins_t.launches_heavy
+        res, tier, xfer = _served(qp, "clustered", qb, "l2", B, K)
+        heavy = fused_knn_t._window_mins_t.launches_heavy - heavy0
+        served[when] = (tier, xfer, heavy)
+        print(f"  clustered {N_WIDE_CLUSTERED:,} x {dim} {when}: tier {tier}, transfers {xfer}, "
+              f"heavy launches {heavy}, mode {qp._cert_mode.get(('clustered', 'l2', False))}")
+        _check_kdists(res, xc64, qb, f"clustered x {dim} {when}")
+        if i == 0 and (tier != ["light_exact_scan"]
+                       or qp._cert_mode.get(("clustered", "l2", False)) != "heavy"):
+            raise AssertionError("the light program did not escalate and flip to heavy")
+        if i == 1 and (heavy != 1 or any(t.startswith("light_") for t in tier)):
+            raise AssertionError("the second clustered batch did not run the heavy program")
+    c = dict(zip(_COUNT_NAMES, _sweep_counts()))
+    _set_sweep_counts([o + v for o, v in zip(outer, c.values())])
+    counts["clustered_3072"] = c
+    rec["clustered_3072"] = {"searches": served, "launches": c}
+    st = qp.storage.namespace("clustered").device_state()
+    q_pad = torch.zeros((512, dim), device=dev)
+    q_pad[:B] = torch.from_numpy(qc[B:]).to(dev)
+    _wide_kernels("wide_clustered_3072_heavy", lambda: fused_knn_t.exact_knn_t(
+        q_pad, st.mirror, st.data, st.valid, st.sq_norms, k=16, metric="l2",
+        live_prefix=st.high_water, sweep_err=st.sweep_err, resid=st.sweep_resid,
+        rscale=st.sweep_rscale, err1=st.sweep_err1, rscale2=st.sweep_rscale2,
+        prep_cache=st.prep_cache, report_tier=True, n_live=B), times, bounds, worst, routes)
+    del qp, st, q_pad, xc, xc64
+    torch.cuda.empty_cache()
+    rec["routes"] = routes
+    return counts, worst, times, bounds, routes, rec
 
 
 # ---- phase 18: the server over phase 17's processor --------------------------------------
@@ -3621,6 +3960,9 @@ def main() -> int:
         raise AssertionError(f"a tensor-core kernel holds no mma.sync, B4/B5 lacks one of its "
                              f"six instantiations (2 row types x 3 query tiles), B3's f32 body "
                              f"one of its four, or the FMA body is still built: {mma}")
+
+    check_streamed_tiles(mma)
+    print_routes()
 
     rng = np.random.default_rng(SEED)
     db_np = rng.standard_normal((N, D), dtype=np.float32)
@@ -4039,6 +4381,17 @@ def main() -> int:
     times.update(t20_)
     print(f"  phase 20 took {rec20['seconds']:.1f} s")
 
+    # ---- 21. wide embeddings through the engine ------------------------------------------
+    print(f"phase 21 wide embeddings: QueryProcessor at Dp = 1536 (bf16 store, {1 << 20:,} rows) "
+          f"and 3072 (f32 store, {1 << 19:,} rows, int8 and bf16 mirrors; a clustered "
+          f"{N_WIDE_CLUSTERED:,} x 3072 namespace): B1/B3 with its query tile streamed, B2, "
+          f"on {gpu}")
+    t21 = time.perf_counter()
+    c21, w21, t21_, b21, routes21, rec21 = run_wide(gpu)
+    rec21["seconds"] = time.perf_counter() - t21
+    times.update(t21_)
+    print(f"  phase 21 took {rec21['seconds']:.1f} s")
+
     # each kernel's bound at the operands timed above: every input read once, every
     # output written once; the products over the peak for their type (B1/B3 and B4/B5:
     # of the live queries, and of the whole padded batch beside it; B4/B5 over f32 rows
@@ -4063,6 +4416,7 @@ def main() -> int:
     bounds.update(b15)
     bounds.update(b19)
     bounds.update(b20)
+    bounds.update(b21)
     for name, (ms, by, nbytes, ops) in bounds.items():
         base = name.removesuffix("_full_batch")
         timed = times[name] if base == name else times[base + "_full"]
@@ -4105,7 +4459,9 @@ def main() -> int:
         k-bucket-128 operands and Dp = 1536."""
         e.update({"rows": main_rows, "timed_launch_rows": TIMED_ROWS[key],
                   "index_select_ms": times[key + "_index_select"],
-                  "hot_ms": times[key + "_hot"], "wide_dp": gather_wide[key]})
+                  "hot_ms": times[key + "_hot"]})
+        if key in gather_wide:
+            e["wide_dp"] = gather_wide[key]
         if k128:
             e.update({f"k128_{f}": times[k128 + s] for f, s in (
                 ("ms", ""), ("plain_ms", "_plain"), ("full_launch_ms", "_full"),
@@ -4298,10 +4654,53 @@ def main() -> int:
             else:
                 e = f32_entry(e, key, rec20["f32"]["bound_fma_ms"])
         record["kernels"].append(e)
+    # phase 21: B1/B3 and B2 at wide Dp, each program at the engine's B=128 k=10 operands,
+    # with its B=16 and k-bucket-128 launches beside; launches per program in its cell
+    cells = {"bf16_store_1536": ("cosine", "ip"), "int8_3072": ("l2", "cosine"),
+             "bf16_mirror_3072": ("l2", "cosine")}
+    wide_b1 = (("sweep_min_wide_same_dtype_1536", "bf16_store_1536", "",
+                c21["bf16_store_1536"]["sweep"]),
+               ("sweep_min_wide_int8_3072", "int8_3072", "", c21["int8_3072"]["int8"]),
+               ("sweep_min_wide_light_3072", "bf16_mirror_3072", "_light",
+                c21["bf16_mirror_3072"]["sweep"] - c21["bf16_mirror_3072"]["sweep_heavy"]),
+               ("sweep_min_wide_heavy_3072", "bf16_mirror_3072", "",
+                c21["bf16_mirror_3072"]["sweep_heavy"]))
+    for name, cell, suffix, launches_ in wide_b1:
+        m128, m16 = cells[cell]
+        key = f"wide_{cell}_{m128}_b{B}_k{K}{suffix}"
+        e = entry(name, "sweep_min.cu", "mlvectordb_tpu/ops/pallas_knn_t.py:221", launches_,
+                  w21[key], key)
+        e.update({"share": bounds[key][0] / times[key], "route": routes21[key],
+                  "matmul_ms": times[key + "_matmul"]})
+        for extra, k_ in ((f"b16_{m16}", f"wide_{cell}_{m16}_b16_k{K}{suffix}"),
+                          ("k128", f"wide_{cell}_{m128}_b{B}_k{K100}{suffix}")):
+            e.update({f"{extra}_ms": times[k_], f"{extra}_plain_ms": times[k_ + "_plain"],
+                      f"{extra}_bound_ms": bounds[k_][0], f"{extra}_route": routes21[k_],
+                      f"{extra}_max_abs_err": w21[k_]})
+        record["kernels"].append(e)
+    key = "wide_clustered_3072_heavy"
+    e = entry("sweep_min_wide_heavy_clustered_3072", "sweep_min.cu",
+              "mlvectordb_tpu/ops/pallas_knn_t.py:221", c21["clustered_3072"]["sweep_heavy"],
+              w21[key], key)
+    e.update({"share": bounds[key][0] / times[key], "route": routes21[key],
+              "matmul_ms": times[key + "_matmul"]})
+    record["kernels"].append(e)
+    for cell in cells:
+        key = f"wide_gather_{cell}_k16"
+        e = gather_entry(entry(f"gather_score_wide_{cell}", "gather_score.cu",
+                               "mlvectordb_tpu/ops/pallas_gather.py:33", c21[cell]["gather"],
+                               w21[key], key), key, c21[cell]["gather_rows"],
+                         f"wide_gather_{cell}_k128")
+        e.update({"share": bounds[key][0] / times[key],
+                  "exact_knn_t_ms": times[f"exact_knn_t_{cell}_k16"],
+                  "exact_knn_t_k128_ms": times[f"exact_knn_t_{cell}_k128"],
+                  "engine_wall_ms": times[f"engine_wall_{cell}_median"]})
+        record["kernels"].append(e)
     # the IVF and server phases run no hand-written kernel of their own: their record
     print(json.dumps({"ivf": ivf_rec, "server": server_rec}, default=str))
     print(json.dumps({"mesh": mesh_rec}, default=str))
     print(json.dumps({"bf16_mirrors": rec20}, default=str))
+    print(json.dumps({"wide": rec21}, default=str))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s on {gpu}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -95,16 +95,15 @@
 // What the design does about it.  Tensor-core body (bf16 and int8 mirrors):
 // mma.sync.m16n8k16 bf16 x bf16 -> f32, one accumulator per pass (qh.m, qres.m,
 // qh.resid).  A block of 16 warps owns one tile (4096 rows) and a tile of 128 (light) or
-// 64 (heavy) queries, or of 16 where the launch computes no more; the queries sit in
-// shared memory for the whole tile.  The warps work in pairs: a pair owns 16 whole
-// windows of each 128-window sub-block and streams their rows 16 at a time (one m-tile)
-// through a 3-stage ring of cp.async copies, 128 dimensions a stage, so the next rows
-// arrive during this step's products; each warp of the pair multiplies the stage by its
-// half of the query tile.  The n-tile count is a template parameter, so the product loop
-// has no branch.  int8 codes become bf16 in registers after the shared-memory load.  A
-// thread reads 8 consecutive dimensions of a row and of a query with one load each: the k
-// order inside an mma is permuted the same way on both operands, which changes no
-// product.  The epilogue applies the per-row terms to each accumulator element in JAX's
+// 64 (heavy) queries, or of 16 where the launch computes no more.  The warps work in
+// pairs: a pair owns 16 whole windows of each 128-window sub-block and streams their rows
+// 16 at a time (one m-tile) through a ring of cp.async copies, 128 dimensions a stage, so
+// the next rows arrive during this step's products; each warp of the pair multiplies the
+// stage by its half of the query tile.  The n-tile count is a template parameter, so the
+// product loop has no branch.  int8 codes become bf16 in registers after the shared-memory
+// load.  A thread reads 8 consecutive dimensions of a row and of a query with one load
+// each: the k order inside an mma is permuted the same way on both operands, which changes
+// no product.  The epilogue applies the per-row terms to each accumulator element in JAX's
 // order (__fadd_rn / __fmul_rn / __fsub_rn, no contraction), takes the window min over
 // rows in the thread and then across lanes with shuffles, and leaves it in shared memory,
 // from which the block writes its window mins in coalesced rows and forms the block mins
@@ -116,18 +115,29 @@
 // them with the query tile's three parts (hi, mid, lo).  The kernel takes the f32 query as
 // it is and splits it itself.  Its tile is 64 queries (two accumulators, as the heavy
 // programs; 128 would not fit beside three parts), or 16 for a batch that needs no more.
-// Where the tile's three parts fit beside the ring (Dp <= 128 for 64 queries, 1280 for 16)
-// they are split once, at the fill, into shared memory, as a bf16 mirror's qh and qres
-// sit there.  Past that the query streams, one 64-dimension chunk a step, in lockstep
-// across the block: during step z its threads copy the f32 values of step z + 1's chunk
-// from L2 (BN x 256 bytes) and, after the step's products, split the values each copied
-// into the slot of bf16 parts step z + 1 reads (two slots, one block barrier a step in
-// place of the pair's).  So no Dp is refused, and 128 live queries are two tiles at every
-// Dp that read the rows' bytes twice: a row tile's two blocks stand next to each other in
-// the grid, so the second read comes mostly from L2.  Sixteen-query tiles past Dp = 128
-// would repeat each row's split eight times (probes/time_sweep.py: 4.72 ms at 2^20 x 384
-// against the FMA body's 4.16).  wgmma and TMA would not help while the product is not
-// what sets the time.
+//
+// The query tile.  Where its parts fit beside a 3-stage ring (the wide tile at Dp = 128
+// for the light, heavy and f32 programs, up to 256 or 512 for the others; the 16-query
+// one up to 3840 for one bf16 pass, 1152 for the heavy program, 1920 for int8's two
+// streams, 1280 for an f32 query) they sit in
+// shared memory for the block's life, an f32 query split once at the fill.  A 16-query
+// tile whose parts fit beside 2 stages only keeps them there too (a bf16 or int8 mirror:
+// up to 4864, 1920 and 2432), which beat streaming them by ~10% for the heavy program at
+// Dp = 1536 (probes/time_sweep.py --routes).  Past that the query streams, one stage's
+// dimensions a step, in lockstep across the block: during step z its threads copy step
+// z + 1's chunk of each part from L2 into the slot that step reads (two slots, one block
+// barrier a step in place of the pair's; an f32 query's values are copied raw and, after
+// the step's products, split by the threads that copied them).  The wide tile's parts and
+// two slots leave room for 3 stages except for the bf16 mirror's light and heavy
+// programs, which stream beside 2 (the 128-query light tile beside 2 stages beat a
+// 64-query one beside 3 by 1.3-1.4x from Dp = 768).  So no Dp is refused, and more than 16
+// live queries take the wide tile at every Dp: 128 live queries are one tile (light) or
+// two, whose second read of a row tile comes mostly from L2, since a row tile's blocks
+// stand next to each other in the grid.  Sixteen-query tiles in its place read every row
+// once per 16 queries and lost by 2.1-2.8x at every Dp from 256 to 3072 (bf16 light and
+// heavy, int8; an f32 query, which each tile would split again, by more).  A streamed
+// tile's products are the resident tile's in the same order: its outputs are the same
+// bits.  wgmma and TMA would not help while the product is not what sets the time.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -200,31 +210,40 @@ constexpr bool IS_F32 = sizeof(MT) == 4;
 template <typename MT, bool TWO_PASS, bool RESID>
 constexpr int nt_max() { return (TWO_PASS || RESID || IS_F32<MT>) ? 4 : 8; }
 
-// QS (an f32 mirror only): the query tile streams, one 64-dimension chunk a step: its f32
-// values [BN][64] copied from L2 a step ahead, then split into a slot of its bf16 parts
-// [2 slots][3][BN][64]; otherwise the whole tile sits in shared memory as bf16 parts for
-// the block's life
+// QS: the query tile streams, one stage's dimensions a step (a bf16 or int8 mirror's 128,
+// an f32 mirror's 64): each part copied from L2 a step ahead into one of two slots
+// [2 slots][PARTS_Q][BN][Q_DIMS] of bf16 (an f32 query: its f32 values [BN][64] copied,
+// then split into the slot's hi, mid and lo parts); otherwise the whole tile sits in
+// shared memory as bf16 parts for the block's life
 template <typename MT, bool TWO_PASS, bool RESID, int NT, int NST, bool QS>
 struct MmaShape {
   static constexpr int BN = 16 * NT;  // queries a block owns: NT n-tiles for each warp of a pair
   static constexpr int A_BYTES = 16 * MmaRows<MT>::ROW_BYTES;
   static constexpr int STAGE = A_BYTES + (RESID ? 16 * KC : 0);
-  // the resident query tile's bf16 parts: qh (an f32 mirror: hi, mid, lo), qres
-  static constexpr int PARTS_Q = QS ? 0 : IS_F32<MT> ? 3 : TWO_PASS ? 2 : 1;
-  static constexpr int Q_RAW = BN * 64 * 4, Q_SLOT = 3 * BN * 64 * 2;  // streamed chunk
+  // the query tile's bf16 parts: qh (an f32 mirror: hi, mid, lo), qres
+  static constexpr int PARTS_Q = IS_F32<MT> ? 3 : TWO_PASS ? 2 : 1;
+  static constexpr int Q_DIMS = MmaRows<MT>::DIMS;  // a streamed slot's dimensions
+  static constexpr int Q_RAW = IS_F32<MT> ? BN * Q_DIMS * 4 : 0;
+  static constexpr int Q_SLOT = PARTS_Q * BN * Q_DIMS * 2;
   // stages, queries, staged mins, qe, running pool (values, positions, NaN flags)
-  static int smem(int D) {
+  static constexpr int smem(int D) {
     return MMA_PAIRS * NST * STAGE + (QS ? Q_RAW + 2 * Q_SLOT : PARTS_Q * BN * D * 2) +
            BN * RES_LD * 4 + 2 * BN * 4 + BN * RUN_MAX * 8 + BN * 4;
   }
 };
+
+// the ring depth of a streamed tile: NSTAGE where it fits beside the slots, else 2 (the
+// bf16 mirror's 128-query light tile and its heavy program's 64-query one)
+template <typename MT, bool TWO_PASS, bool RESID, int NT>
+constexpr int qs_stages() {
+  return MmaShape<MT, TWO_PASS, RESID, NT, NSTAGE, true>::smem(0) <= SMEM_MAX ? NSTAGE : 2;
+}
 
 template <typename MT, bool TWO_PASS, bool RESID, int NT, int NST, bool QS>
 __global__ void __launch_bounds__(MMA_WARPS * 32, 1) sweep_mma_kernel(const MmaArgs a) {
   using S = MmaShape<MT, TWO_PASS, RESID, NT, NST, QS>;
   using Rows = MmaRows<MT>;
   constexpr bool F32 = IS_F32<MT>;
-  static_assert(!QS || (F32 && !TWO_PASS && !RESID), "only an f32 query is streamed");
   constexpr bool ACC2 = TWO_PASS || F32;  // a second accumulator: qres.m, or the cross passes
   constexpr int BN = S::BN;
   extern __shared__ __align__(16) char smem[];
@@ -238,12 +257,12 @@ __global__ void __launch_bounds__(MMA_WARPS * 32, 1) sweep_mma_kernel(const MmaA
   const int bn = min(BN, a.Bq - q0);       // the block's queries; the tile's rest is zeros
   const int r1 = a.r1, gsub = 32 / r1;
   const int kc = a.D / Rows::DIMS;
-  // bytes of one query row of one part: the resident tile's D dimensions, or a slot's 64
-  const int qrow = QS ? 128 : a.D * 2;
+  // bytes of one query row of one part: the resident tile's D dimensions, or a slot's
+  const int qrow = (QS ? S::Q_DIMS : a.D) * 2;
   const float INF = inf_f();
 
   char* my = smem + pair * NST * S::STAGE;
-  char* qs = smem + MMA_PAIRS * NST * S::STAGE;  // [PARTS_Q][BN] rows, or raw + 2 slots
+  char* qs = smem + MMA_PAIRS * NST * S::STAGE;  // [PARTS_Q][BN] rows, or [raw] + 2 slots
   float* res = reinterpret_cast<float*>(qs + (QS ? S::Q_RAW + 2 * S::Q_SLOT
                                                  : S::PARTS_Q * BN * qrow));  // [BN][RES_LD]
   float* qe_s = res + BN * RES_LD;                                        // [BN][2]
@@ -316,14 +335,27 @@ __global__ void __launch_bounds__(MMA_WARPS * 32, 1) sweep_mma_kernel(const MmaA
       }
     }
   };
-  // QS: the query chunk of step z (dimensions (z % kc) * 64 .. +63 of the block's queries,
-  // zero past them), 16 bytes (4 values) a copy; each thread later splits the values it
-  // copied itself, so a wait for its own copies is all the split needs
+  // QS: the query chunk of step z (dimensions (z % kc) * Q_DIMS .. of the block's queries,
+  // zero past them), 16 bytes a copy.  An f32 query: its values into the raw buffer, which
+  // each thread later splits where it copied them itself, so a wait for its own copies is
+  // all the split needs.  Else each part straight into slot z & 1, row r's 16-byte chunk k
+  // of 8 dimensions at k ^ ((r & 1) << 2), as in the resident tile
   auto issue_q = [&](int z) {
-    const float* src = static_cast<const float*>(a.qh) + (long long)q0 * a.D + (z % kc) * 64;
-    for (int i = threadIdx.x; i < BN * 16; i += blockDim.x) {
-      const int r = i >> 4, ch = i & 15;
-      cp_async16_or_zero(qs + i * 16, src + (long long)min(r, bn - 1) * a.D + ch * 4, r < bn);
+    const long long col = (long long)(z % kc) * S::Q_DIMS;
+    if constexpr (F32) {
+      const float* src = static_cast<const float*>(a.qh) + (long long)q0 * a.D + col;
+      for (int i = threadIdx.x; i < BN * 16; i += blockDim.x) {
+        const int r = i >> 4, ch = i & 15;
+        cp_async16_or_zero(qs + i * 16, src + (long long)min(r, bn - 1) * a.D + ch * 4, r < bn);
+      }
+    } else {
+      char* slot = qs + (z & 1) * S::Q_SLOT;
+      for (int i = threadIdx.x; i < S::PARTS_Q * BN * 16; i += blockDim.x) {
+        const int p = i / (BN * 16), r = (i >> 4) % BN, ch = i & 15;
+        const uint16_t* part = p ? a.qres : static_cast<const uint16_t*>(a.qh);
+        cp_async16_or_zero(slot + (p * BN + r) * qrow + ((ch ^ ((r & 1) << 2)) * 16),
+                           part + (q0 + min(r, bn - 1)) * (long long)a.D + col + ch * 8, r < bn);
+      }
     }
   };
   // ... into slot z & 1 as hi, mid, lo: row r's 16-byte chunk k of 8 dimensions at
@@ -351,8 +383,8 @@ __global__ void __launch_bounds__(MMA_WARPS * 32, 1) sweep_mma_kernel(const MmaA
 
   // commit groups: [QS: the query chunk of step 0], the rows of stages 0 .. NST - 2; then
   // at step z [the query chunk of z + 1 and] the rows of z + NST - 1, so that waiting for
-  // all but the newest group finds stage z's rows in place, and after step z's products
-  // the query chunk of z + 1
+  // all but the newest NST - 2 groups finds stage z's rows and query chunk in place, and
+  // (an f32 query) after step z's products the raw chunk of z + 1
   if constexpr (QS) {
     issue_q(0);
     cp_async_commit();
@@ -362,7 +394,7 @@ __global__ void __launch_bounds__(MMA_WARPS * 32, 1) sweep_mma_kernel(const MmaA
     if (z < total) issue(z);
     cp_async_commit();
   }
-  if constexpr (QS) {
+  if constexpr (QS && F32) {
     cp_async_wait<NST - 1>();
     split_q(0);
   }
@@ -370,7 +402,8 @@ __global__ void __launch_bounds__(MMA_WARPS * 32, 1) sweep_mma_kernel(const MmaA
     cp_async_wait<NST - 2>();
     // both warps' copies of step z are visible to both, and both have left step z - 1,
     // whose buffer is refilled here; a streamed query: the whole block, whose slot z & 1
-    // was filled at step z - 1 and whose slot (z + 1) & 1 is refilled at this step
+    // was filled (an f32 query: split) at step z - 1 and whose slot (z + 1) & 1 is
+    // refilled at this step
     if constexpr (QS) {
       __syncthreads();
       if (z + 1 < total) issue_q(z + 1);
@@ -431,7 +464,7 @@ __global__ void __launch_bounds__(MMA_WARPS * 32, 1) sweep_mma_kernel(const MmaA
         }
       }
       if constexpr (QS) {
-        // the query chunk of step z + 1, into the slot this step does not read
+        // the query chunk of step z + 1, split into the slot this step does not read
         cp_async_wait<1>();
         if (z + 1 < total) split_q(z + 1);
       }
@@ -450,8 +483,8 @@ __global__ void __launch_bounds__(MMA_WARPS * 32, 1) sweep_mma_kernel(const MmaA
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
           const int at = q_at + n * 8 * qrow + (j ^ (g & 1)) * 64;
-          b[n] = *reinterpret_cast<const uint4*>(qs + at);
-          if constexpr (TWO_PASS) p[n] = *reinterpret_cast<const uint4*>(qs + BN * qrow + at);
+          b[n] = *reinterpret_cast<const uint4*>(qb + at);
+          if constexpr (TWO_PASS) p[n] = *reinterpret_cast<const uint4*>(qb + BN * qrow + at);
         }
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
@@ -644,6 +677,7 @@ struct Args {
 template <typename MT, bool TWO_PASS, bool RESID, int NT, int NST, bool QS = false>
 int launch_mma_nt(const Args& a, const void* mirror) {
   using S = MmaShape<MT, TWO_PASS, RESID, NT, NST, QS>;
+  static_assert(!QS || S::smem(0) <= SMEM_MAX, "a streamed tile fits at any D");
   const int smem = S::smem(a.D);
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   const long long blocks = a.cap / TILE_ROWS * ((a.Bq + S::BN - 1) / S::BN);
@@ -659,29 +693,76 @@ int launch_mma_nt(const Args& a, const void* mirror) {
 }
 
 // The query tile follows the live count: the widest tile the program's registers hold,
-// or the narrow one (16 queries) for a batch that needs no more.  Its queries stay in
-// shared memory where they fit beside a 3-stage ring; else an f32 query streams (any Dp:
-// past 128 for the wide tile, past 1280 for the narrow one), and the other programs take
-// the narrow tile, beside a 2-stage ring where 3 stages leave no room: up to Dp = 1920
-// for the bf16 mirror's heavy program (1152 with 3 stages), 2432 for the int8 one (1920)
-// and 4864 for one bf16 pass (3840); wider, their launch is refused.
+// or the narrow one (16 queries) for a batch that needs no more.  The wide tile keeps its
+// queries in shared memory where they fit beside a 3-stage ring and streams them
+// otherwise; 16-query tiles in its place, each reading every row, lost at every Dp timed
+// (probes/time_sweep.py --routes: 2.1-2.8x slower at 128 live queries, Dp = 256 to 3072).
+// The narrow tile keeps its queries resident beside 3 stages, or 2 where 3 leave no room
+// (a bf16 or int8 mirror; the 2-stage resident tile beat the streamed one by ~10% for the
+// heavy program at Dp = 1536), and streams them past that.  So no Dp is refused.
+struct Route {
+  int nt, nst;  // n-tiles a warp takes, ring depth
+  bool qs;      // the query streamed
+};
+
+template <typename MT, bool TWO_PASS, bool RESID>
+Route pick_route(int D, int Bq) {
+  constexpr int WIDE = nt_max<MT, TWO_PASS, RESID>();
+  if (Bq > 16 * NT_NARROW) {
+    if (MmaShape<MT, TWO_PASS, RESID, WIDE, NSTAGE, false>::smem(D) <= SMEM_MAX)
+      return {WIDE, NSTAGE, false};
+    return {WIDE, qs_stages<MT, TWO_PASS, RESID, WIDE>(), true};
+  }
+  if (MmaShape<MT, TWO_PASS, RESID, NT_NARROW, NSTAGE, false>::smem(D) <= SMEM_MAX)
+    return {NT_NARROW, NSTAGE, false};
+  if (!IS_F32<MT> && MmaShape<MT, TWO_PASS, RESID, NT_NARROW, 2, false>::smem(D) <= SMEM_MAX)
+    return {NT_NARROW, 2, false};
+  return {NT_NARROW, qs_stages<MT, TWO_PASS, RESID, NT_NARROW>(), true};
+}
+
 template <typename MT, bool TWO_PASS, bool RESID>
 int launch_mma(const Args& a, const void* mirror) {
   constexpr int WIDE = nt_max<MT, TWO_PASS, RESID>();
-  constexpr bool F32 = IS_F32<MT>;
+  constexpr int WIDE_QS = qs_stages<MT, TWO_PASS, RESID, WIDE>();
+  constexpr int NARROW_QS = qs_stages<MT, TWO_PASS, RESID, NT_NARROW>();
   if (a.Bq % 8 || a.Bc > a.Bq || a.D % KC) return (int)cudaErrorInvalidValue;
-  const int nt = a.Bq > 16 * NT_NARROW ? WIDE : NT_NARROW;
-  if (nt == WIDE && MmaShape<MT, TWO_PASS, RESID, WIDE, NSTAGE, false>::smem(a.D) <= SMEM_MAX)
-    return launch_mma_nt<MT, TWO_PASS, RESID, WIDE, NSTAGE>(a, mirror);
-  if constexpr (F32) {
-    if (nt == WIDE) return launch_mma_nt<MT, false, false, WIDE, NSTAGE, true>(a, mirror);
+  const Route r = pick_route<MT, TWO_PASS, RESID>(a.D, a.Bq);
+  if (r.nt == WIDE)
+    return r.qs ? launch_mma_nt<MT, TWO_PASS, RESID, WIDE, WIDE_QS, true>(a, mirror)
+                : launch_mma_nt<MT, TWO_PASS, RESID, WIDE, NSTAGE>(a, mirror);
+  if (r.qs) return launch_mma_nt<MT, TWO_PASS, RESID, NT_NARROW, NARROW_QS, true>(a, mirror);
+  if constexpr (!IS_F32<MT>) {
+    if (r.nst == 2) return launch_mma_nt<MT, TWO_PASS, RESID, NT_NARROW, 2>(a, mirror);
   }
-  if (MmaShape<MT, TWO_PASS, RESID, NT_NARROW, NSTAGE, false>::smem(a.D) <= SMEM_MAX)
-    return launch_mma_nt<MT, TWO_PASS, RESID, NT_NARROW, NSTAGE>(a, mirror);
-  if constexpr (F32)
-    return launch_mma_nt<MT, false, false, NT_NARROW, NSTAGE, true>(a, mirror);
-  else
-    return launch_mma_nt<MT, TWO_PASS, RESID, NT_NARROW, 2>(a, mirror);
+  return launch_mma_nt<MT, TWO_PASS, RESID, NT_NARROW, NSTAGE>(a, mirror);
+}
+
+template <typename MT, bool TWO_PASS, bool RESID>
+struct Program {
+  using T = MT;
+  static constexpr bool two_pass = TWO_PASS, resid = RESID;
+};
+
+// f(Program<...>{}) for the program of a mirror type and its passes (see
+// mlvdb_sweep_min), or `none` where the kernel has no such program
+template <typename F>
+int with_program(int mirror_type, bool two_pass, bool use_resid, int none, F f) {
+  switch (mirror_type) {
+    case 0:
+      if (two_pass && use_resid) return f(Program<uint16_t, true, true>{});
+      if (two_pass) return f(Program<uint16_t, true, false>{});
+      if (use_resid) return f(Program<uint16_t, false, true>{});
+      return f(Program<uint16_t, false, false>{});
+    case 1:
+      if (two_pass && use_resid) return f(Program<int8_t, true, true>{});
+      if (two_pass) return f(Program<int8_t, true, false>{});
+      if (use_resid) break;
+      return f(Program<int8_t, false, false>{});
+    case 2:
+      if (two_pass || use_resid) break;
+      return f(Program<float, false, false>{});
+  }
+  return none;
 }
 
 }  // namespace
@@ -715,20 +796,21 @@ extern "C" int mlvdb_sweep_min(const void* qh, const void* qres, const void* mir
                out, bm, pool, cap, D, B, Bc, Bq, r1, n_eb, m, out_bp ? cap / r1 : 0,
                static_cast<cudaStream_t>(stream)};
   const bool two_pass = qres != nullptr, use_resid = resid != nullptr;
-  switch (mirror_type) {
-    case 0:
-      if (two_pass && use_resid) return launch_mma<uint16_t, true, true>(a, mirror);
-      if (two_pass) return launch_mma<uint16_t, true, false>(a, mirror);
-      if (use_resid) return launch_mma<uint16_t, false, true>(a, mirror);
-      return launch_mma<uint16_t, false, false>(a, mirror);
-    case 1:
-      if (two_pass && use_resid) return launch_mma<int8_t, true, true>(a, mirror);
-      if (two_pass) return launch_mma<int8_t, true, false>(a, mirror);
-      if (use_resid) break;
-      return launch_mma<int8_t, false, false>(a, mirror);
-    case 2:
-      if (two_pass || use_resid) break;
-      return launch_mma<float, false, false>(a, mirror);
-  }
-  return (int)cudaErrorInvalidValue;
+  return with_program(mirror_type, two_pass, use_resid, (int)cudaErrorInvalidValue, [&](auto p) {
+    using P = decltype(p);
+    return launch_mma<typename P::T, P::two_pass, P::resid>(a, mirror);
+  });
+}
+
+// The route mlvdb_sweep_min takes for a program (mirror_type, two_pass = a qres operand,
+// use_resid = a resid operand) at D dimensions and Bq query rows: 100 * (queries a block
+// owns) + 10 * (ring depth) + (1 where the query tile streams), or -1 where the kernel has
+// no such program.
+extern "C" int mlvdb_sweep_route(int D, int Bq, int mirror_type, int two_pass, int use_resid) {
+  if (D <= 0 || D % KC || Bq <= 0 || Bq % 8) return -1;
+  return with_program(mirror_type, two_pass, use_resid, -1, [&](auto p) {
+    using P = decltype(p);
+    const Route r = pick_route<typename P::T, P::two_pass, P::resid>(D, Bq);
+    return 100 * 16 * r.nt + 10 * r.nst + (r.qs ? 1 : 0);
+  });
 }

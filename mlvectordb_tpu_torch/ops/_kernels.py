@@ -101,10 +101,11 @@ def library() -> ctypes.CDLL:
     lib.mlvdb_sweep_min.argtypes = [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I,
         _I, _P]
+    lib.mlvdb_sweep_route.argtypes = [_I, _I, _I, _I, _I]
     lib.mlvdb_gather_score.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
     lib.mlvdb_int8_mma_min.argtypes = [_P, _P, _P, _LL, _I, _I, _P]
     lib.mlvdb_int8_stream_sum.argtypes = [_P, _P, _LL, _I, _I, _P]
-    for fn in (lib.mlvdb_window_min, lib.mlvdb_sweep_min,
+    for fn in (lib.mlvdb_window_min, lib.mlvdb_sweep_min, lib.mlvdb_sweep_route,
                lib.mlvdb_gather_score, lib.mlvdb_int8_mma_min, lib.mlvdb_int8_stream_sum):
         fn.restype = _I
     return lib

@@ -379,6 +379,23 @@ def _live_columns(batch: int, n_live) -> int:
     return min(batch, -(-max(int(n_live), 1) // LIVE_STEP) * LIVE_STEP)
 
 
+def sweep_route(mirror_dtype, dim: int, n_live, batch: int, *, two_pass: bool,
+                resid: bool) -> dict:
+    """The route kernel B1/B3 takes for the program (``two_pass``: a qres operand,
+    ``resid``: the residual codes) over a ``mirror_dtype`` mirror of ``dim`` dimensions, on
+    the columns a launch of ``batch`` queries with ``n_live`` live computes: the queries a
+    block owns, its ring depth, and whether its query tile streams through the block or
+    sits in shared memory.  Asks the built library (on the machine with the card)."""
+    bq = -(-_live_columns(batch, n_live) // LIVE_STEP) * LIVE_STEP
+    code = _kernels.library().mlvdb_sweep_route(dim, bq, _MIRROR_TYPES[mirror_dtype][0],
+                                                int(two_pass), int(resid))
+    if code < 0:
+        raise ValueError(f"the kernel has no such program: {mirror_dtype} Dp={dim} "
+                         f"two_pass={two_pass} resid={resid}")
+    return {"tile_queries": code // 100, "stages": code // 10 % 10,
+            "query": "streamed" if code % 10 else "resident"}
+
+
 def _sweep_launch(qh, qres, mirror, resid, rscale, scale, bias, *, r1, emit_block_mins,
                   emit_topm, skip_wm, qe, eb_rows, transposed, n_c):
     """Launch kernel B1/B3 on the first ``n_c`` query columns of outputs ``B = len(qh)``
@@ -897,11 +914,18 @@ def _cert_plan(*, certify, light, mixed, lossy_sweep, int8_sweep, use_resid,
     return (), (), (("rel", rel),)
 
 
+def _row_step(rows: torch.Tensor) -> int:
+    """Rows a pass over stored rows takes at a time: 2^27 elements (2^20 rows at Dp = 128),
+    so that a chunk's float64 copy stays at a GiB at any width."""
+    return max(1, (1 << 27) // max(rows.shape[1], 128))
+
+
 def row_sq_norms(rows: torch.Tensor) -> torch.Tensor:
-    """Squared norms of stored rows, summed in float64 and rounded to f32, 2^20 rows at a
-    time: the norms a compaction gives the store (JAX namespace.py:786)."""
+    """Squared norms of stored rows, summed in float64 and rounded to f32, a chunk of
+    ``_row_step`` rows at a time: the norms a compaction gives the store (JAX
+    namespace.py:786)."""
     return torch.cat([(r.double() * r.double()).sum(-1).float()
-                      for r in torch.split(rows, 1 << 20)])
+                      for r in torch.split(rows, _row_step(rows))])
 
 
 def _errors_over_rows(rows, mirror, rscale, resid, rscale2, *, use_resid):
@@ -911,7 +935,7 @@ def _errors_over_rows(rows, mirror, rscale, resid, rscale2, *, use_resid):
     or with the second stream ``||row - s1*z1 - s2*z2||``, in the quantizer's own
     expressions (``_codes``), so rows a rebuild quantized give its error norms."""
     errs, errs1 = [], []
-    step = 1 << 20
+    step = _row_step(rows)
     for lo in range(0, rows.shape[0], step):
         b = rows[lo : lo + step].float()
         if mirror.dtype == torch.float32:
@@ -969,7 +993,7 @@ def _prep_terms(valid, sq_norms, hw, rscale, sweep_err, err1, *, cap, metric, ma
 
     def norm_gap():   # the rank's norm against the rows' own (see _cert_plan)
         own = torch.cat([(r.float() * r.float()).sum(-1)
-                         for r in torch.split(rows, 1 << 20)])
+                         for r in torch.split(rows, _row_step(rows))])
         if metric == "l2":
             return (sqn - own).abs()
         return (torch.sqrt(sqn) - torch.sqrt(own)).abs()   # times inv_norm in eb_row
@@ -1246,9 +1270,14 @@ def _fused_t(q, mirror, rescan, valid, sq_norms, hw, resid, prep, *, k, metric, 
     okq = check_exact(d1, th1)                            # [B] per-query proof
 
     def exact_fallback(fetch_):
-        # under C13 the scan scores the stored rows as the rescan does: their own norms
-        # and the query unrounded
+        # over a bf16 store the scan scores the stored rows as the rescan does: their own
+        # norms and the query unrounded (C13's; for the same-dtype sweep ROADMAP C15, where
+        # the JAX package ranks bf16(q) with the written rows' norms)
         own = prep.get("rank_norms")
+        if own is None and rescan.dtype == torch.bfloat16:
+            own = prep.get("scan_norms")
+            if own is None:
+                own = prep["scan_norms"] = row_sq_norms(rescan)
         d, i = exact_knn(q32, rescan, valid, sq_norms.float() if own is None else own, k=k,
                          metric=metric, db_tile=8 * SWEEP_TILE, round_query=own is None)
         d, i = fetch_(d, i)

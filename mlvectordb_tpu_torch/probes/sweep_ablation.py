@@ -77,8 +77,8 @@ def _build_variants():
             text = text.replace(old, new)
         (out / f"{name}.cu").write_text(text)
         procs[name] = subprocess.Popen(
-            [_kernels._nvcc(), *_kernels._ARCH, "-Xcompiler", "-fPIC", "-shared", "-o",
-             str(out / f"{name}.so"), str(out / f"{name}.cu")],
+            [_kernels._nvcc(), *_kernels._ARCH, "-I", str(_kernels._CSRC), "-Xcompiler",
+             "-fPIC", "-shared", "-o", str(out / f"{name}.so"), str(out / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     fns = {"full": _kernels.library().mlvdb_sweep_min}
     for name, proc in procs.items():

@@ -21,6 +21,10 @@ Rules held against JAX on every search:
     port brings its tier-1 result down first and the escalation's result in counted
     copies of its own (an intended divergence, ROADMAP §C); JAX escalates on the device.
     The filter mask's upload is not counted, on either side.
+Where a bf16 store's sweep escalates to the exact scan, the port's answer is held to the
+float64 oracle over the stored rows instead of to JAX's (ROADMAP C15: JAX's scan ranks
+bf16(q) with the written rows' norms; the port's scores the stored rows as its rescan
+does); the tiers and transfers are still JAX's.
 """
 
 import types
@@ -183,19 +187,51 @@ def _same_hits(jr, tr):
                                    sorted(r["score"] for r in a), rtol=1e-5, atol=1e-4)
 
 
-def _filtered_both(jqp, tqp, qs, k, metric, spec, namespace="ns"):
+def _stored_rows_exact(x, ids, metas, live):
+    """The check of a bf16 store's scan (ROADMAP C15): the port's results are the float64
+    oracle's over the stored rows (bf16(x)) with the f32 query, among the matching live
+    rows: the returned rows' oracle distances are its smallest, their scores those
+    distances (ties and scores within _same_hits' tolerance)."""
+    rows = torch.from_numpy(x).to(torch.bfloat16).double().numpy()
+    sq = (rows * rows).sum(1)
+    row_of = {u: i for i, u in enumerate(ids)}
+
+    def check(tr, qs, metric, spec):
+        allowed = live & np.array([filters.matches_filter(m, spec) for m in metas])
+        q = qs.astype(np.float64)
+        dots, qn = q @ rows.T, (q * q).sum(1)[:, None]
+        d = {"l2": lambda: sq[None] - 2.0 * dots + qn, "ip": lambda: 1.0 - dots,
+             "cosine": lambda: 1.0 - dots / np.sqrt(np.maximum(sq[None] * qn, 1e-30))}[metric]()
+        d[:, ~allowed] = np.inf
+        for b, rs in enumerate(tr):
+            want = np.sort(d[b])[: len(rs)]
+            got = np.sort([d[b, row_of[r["id"]]] for r in rs])
+            score = np.sort([1.0 - r["score"] if metric == "cosine" else r["score"] for r in rs])
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+            np.testing.assert_allclose(score, want, rtol=1e-5, atol=1e-4)
+
+    return check
+
+
+def _filtered_both(jqp, tqp, qs, k, metric, spec, namespace="ns", scan_exact=None):
     """One filtered batch through both engines; asserts results, tiers and transfers
-    equal (see the module docstring).  Returns (port results, the tier names it added)."""
+    equal (see the module docstring; ``scan_exact``: the check of a batch the port's
+    exact scan served in place of JAX's results).  Returns (port results, the tier names
+    it added)."""
     jx, tx = dict(jqp.transfer_counts), dict(tqp.transfer_counts)
     t0 = tqp.cert_tier_counts(namespace)
     jr = jqp.find_similar_batch([JaxDTO(v) for v in qs], k, namespace, metric, filter=spec)
     tr = tqp.find_similar_batch([VectorDTO(v) for v in qs], k, namespace, metric,
                                 filter=spec)
     _settle(jqp)
-    _same_hits(jr, tr)
-    assert all(filters.matches_filter(r["metadata"], spec) for rs in tr for r in rs)
     assert tqp.cert_tier_counts(namespace) == jqp.cert_tier_counts(namespace)
     tier = [t for t, c in tqp.cert_tier_counts(namespace).items() if c != t0.get(t, 0)]
+    if scan_exact is not None and tier == ["exact_scan"]:
+        assert [len(a) for a in jr] == [len(b) for b in tr]
+        scan_exact(tr, qs, metric, spec)
+    else:
+        _same_hits(jr, tr)
+    assert all(filters.matches_filter(r["metadata"], spec) for rs in tr for r in rs)
     jd = {d: jqp.transfer_counts[d] - jx[d] for d in jx}
     td = {d: tqp.transfer_counts[d] - tx[d] for d in tx}
     assert jd == {"h2d": 1, "d2h": 1} and td["h2d"] == 1
@@ -218,6 +254,8 @@ def test_filtered_search_matches_jax(jax_on_tpu, config, metric):
     qs = rng.standard_normal((B, D), dtype=np.float32)
     r_of = np.array([m["r"] for m in metas])
     live = np.ones(N, bool)
+    scan_exact = (_stored_rows_exact(x, ids, metas, live) if config == "same_dtype"
+                  else None)
     tiers = set()
     for stage in ("fresh", "deleted", "compacted"):
         if stage == "deleted":
@@ -236,7 +274,7 @@ def test_filtered_search_matches_jax(jax_on_tpu, config, metric):
             for spec in ({"r": {"$lt": 0}}, {"r": {"$lt": 3}}, {"r": {"$lt": k - 1}},
                          {"r": {"$lt": k}}, {"p": 0}):
                 match = live & np.array([filters.matches_filter(m, spec) for m in metas])
-                tr, tier = _filtered_both(jqp, tqp, qs, k, metric, spec)
+                tr, tier = _filtered_both(jqp, tqp, qs, k, metric, spec, scan_exact=scan_exact)
                 tiers.update(tier)
                 assert [len(r) for r in tr] == [min(k, int(match.sum()))] * B, (stage, spec)
     if CONFIGS[config].get("sweep_dtype"):

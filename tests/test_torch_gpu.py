@@ -490,14 +490,25 @@ def test_b3_f32_live_launch_bit_equal_to_full(cuda, d, n):
             assert torch.equal(_bits(full[2]), _bits(fused_knn_t._topm_pool_ref(full[0], 8)))
 
 
+def _wide_operands(dev, program, n_live, d, b=128, n=8192):
+    """Kernel B1/B3's operands for ``program`` (a key of PROGRAMS or "same_dtype") over
+    ``n`` rows of ``d`` dimensions, queries from ``n_live`` on zero."""
+    if program == "same_dtype":
+        return _same_dtype_operands(dev, n, b, "l2", n_live + d, n_live=n_live, d=d)
+    return _sweep_operands(dev, n, b, "l2", program, n_live + d, n_live=n_live, d=d)
+
+
 @pytest.mark.parametrize("n", [5, 128])
-@pytest.mark.parametrize("program", ["light", "heavy", "int8_two_pass", "int8_resid"])
-def test_sweep_kernel_at_dp_1536(cuda, program, n):
-    """Every other program at Dp = 1536, on the 16-query tile: the heavy ones' two query
-    parts beside a 2-stage ring where a 3-stage one leaves no room (the bf16 heavy program
-    past Dp = 1152): the window mins within the phase-1 budget of the plain version's, the
-    block mins the kernel's own, a launch of the live columns bit-equal to the full one."""
-    args, kw, _ = _sweep_operands(cuda, 8192, 128, "l2", program, n + 1536, n_live=n, d=1536)
+@pytest.mark.parametrize("d", [1536, 3072, 4096, 8192])
+@pytest.mark.parametrize("program", ["light", "heavy", "int8_two_pass", "int8_resid",
+                                     "same_dtype"])
+def test_sweep_kernel_at_wide_dp(cuda, program, d, n):
+    """Every bf16 and int8 program at Dp = 1536 to 8192, where the query tile's parts do
+    not fit beside the ring and stream through the block (the 16-query tile at n = 5, the
+    program's wide tile at n = 128): the window mins within the phase-1 budget of the
+    plain version's, the block mins the kernel's own, a launch of the live columns
+    bit-equal to the full one."""
+    args, kw, _ = _wide_operands(cuda, program, n, d)
     fn = fused_knn_t._window_mins_t
     opts = dict(r1=32, emit_block_mins=True)
     full = fn(*args, **kw, **opts)
@@ -505,10 +516,88 @@ def test_sweep_kernel_at_dp_1536(cuda, program, n):
     want = fused_knn_t._window_mins_t_ref(*args, **kw, **opts)[0]
     torch.cuda.synchronize()
     for f, g in zip(full, live):
+        assert (f is None) == (g is None)
         if f is not None:
             assert torch.equal(_bits(g), _bits(f))
     _close_slack(full[0], want, _budget(args, kw, 32))
     assert torch.equal(_bits(full[1]), _bits(full[0].amin(-1)))
+
+
+@pytest.mark.parametrize("n", [5, 128])
+@pytest.mark.parametrize("skip_wm", [False, True])
+@pytest.mark.parametrize("program", ["light", "heavy", "int8_resid", "same_dtype"])
+def test_sweep_pool_at_dp_3072(cuda, program, skip_wm, n):
+    """The k-bucket-128 program's pool (r1 = 16, m = 8), with and without the window
+    mins, over a streamed query tile at Dp = 3072: the pool the plain pool of the kernel's
+    own window mins, which are within the phase-1 budget of plain; live bit-equal to
+    full."""
+    args, kw, _ = _wide_operands(cuda, program, n, 3072)
+    fn = fused_knn_t._window_mins_t
+    opts = dict(r1=16, emit_topm=8, skip_wm=skip_wm)
+    full = fn(*args, **kw, **opts)
+    live = fn(*args, **kw, **opts, n_live=n, zero_cache={})
+    own = fn(*args, **kw, r1=16)[0]
+    want = fused_knn_t._window_mins_t_ref(*args, **kw, r1=16)[0]
+    torch.cuda.synchronize()
+    assert (full[0] is None) == skip_wm
+    for f, g in zip(full, live):
+        if f is not None:
+            assert torch.equal(_bits(g), _bits(f))
+    if not skip_wm:
+        assert torch.equal(_bits(full[0]), _bits(own))
+    _close_slack(own, want, _budget(args, kw, 16))
+    assert torch.equal(_bits(full[2]), _bits(fused_knn_t._topm_pool_ref(own, 8)))
+
+
+def _f32_operands(dev, d, b, n_live, n=8192):
+    """An f32 mirror's operands made in numpy alone (no torch reduction), so that the
+    kernel's outputs depend on the kernel only: the folded l2 query -2q in f32, the rows,
+    a bias row of squared norms with ~1% tombstones (3e38) and a dead last tile."""
+    rng = np.random.default_rng(d + n_live)
+    rows = rng.standard_normal((n, d), dtype=np.float32)
+    q = np.zeros((b, d), dtype=np.float32)
+    q[:n_live] = rng.standard_normal((n_live, d), dtype=np.float32)
+    bias = (rows.astype(np.float64) ** 2).sum(1).astype(np.float32)
+    bias[rng.random(n) < 0.01] = MASKED
+    bias[-fused_knn_t.SWEEP_TILE:] = MASKED
+    args = tuple(None if x is None else torch.from_numpy(x).to(dev)
+                 for x in (-2.0 * q, None, rows, None, None, None, bias))
+    return args, dict(qe=None, eb_rows=())
+
+
+# sha256 of the f32 mirror's outputs on _f32_operands (window mins and block mins at
+# r1 = 32, then the window mins and pool at r1 = 16, m = 8) at (Dp, live queries), as the
+# kernel before the bf16 and int8 query tiles streamed computed them on an H100
+F32_DIGESTS = {
+    "128_5": "4d4c527d01936eceeb2223bcaa035b1f781eee536aaf6f4d7875a3cfa5b3dbe3",
+    "128_128": "34ef0f9e4dc68ab19211b4eac1f6883993a47849dfed04fba2f4194a58642098",
+    "384_5": "5f2d64621c35b4a419a02ac1c93080cd14b3bcd173eef0bbd5eb6b98281a6ac3",
+    "384_128": "7bdd9c1f15c228b6e0837344fb5c2f503e3a31f6b552c7b9577c34695bc5b2f1",
+    "2048_5": "09e7db653336278e0c064feffa69c41bb97ebf1d3a1ecd9df99c95465b4d3dfa",
+    "2048_128": "c817440ddc90234c162227fea85e3eaf189f15fea51f190914415cf03f9f42ea",
+}
+
+
+def _f32_digests(dev):
+    import hashlib
+
+    out = {}
+    for d, n_live in ((128, 5), (128, 128), (384, 5), (384, 128), (2048, 5), (2048, 128)):
+        args, kw = _f32_operands(dev, d, 128, n_live)
+        h = hashlib.sha256()
+        for opts in (dict(r1=32, emit_block_mins=True), dict(r1=16, emit_topm=8)):
+            for o in fused_knn_t._window_mins_t(*args, **kw, **opts, n_live=n_live,
+                                                zero_cache={}):
+                if o is not None:
+                    h.update(o.cpu().numpy().tobytes())
+        out[f"{d}_{n_live}"] = h.hexdigest()
+    return out
+
+
+def test_b3_f32_outputs_unchanged(cuda):
+    """The f32 mirror's outputs bit for bit as before the bf16 and int8 query tiles
+    streamed: its resident and streamed tiles, narrow and wide, at Dp = 128, 384, 2048."""
+    assert _f32_digests(cuda) == F32_DIGESTS
 
 
 @pytest.mark.parametrize("d", [128, 2048])
@@ -812,13 +901,13 @@ def test_engine_rescan_live_rows_match_all_rows(cuda, monkeypatch, cfg, k):
             assert [r["score"] for r in ra] == [r["score"] for r in rb]
 
 
-def _same_dtype_operands(dev, n, b, metric, seed, n_live=None):
+def _same_dtype_operands(dev, n, b, metric, seed, n_live=None, d=128):
     """Kernel B1's operands for the same-dtype sweep (a bf16 store's rows as the mirror):
     one pass, the bound row sqrt(sqn) scaled by |qres| for l2/ip, none for cosine;
-    queries from ``n_live`` on are the engine's zero padding."""
+    queries from ``n_live`` on are the engine's zero padding; ``d`` dimensions."""
     rng = np.random.default_rng(seed)
-    data = torch.from_numpy(rng.standard_normal((n, 128), dtype=np.float32)).to(dev)
-    q = torch.from_numpy(rng.standard_normal((b, 128), dtype=np.float32)).to(dev)
+    data = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(dev)
+    q = torch.from_numpy(rng.standard_normal((b, d), dtype=np.float32)).to(dev)
     if n_live is not None:
         q[n_live:] = 0.0
     valid = torch.from_numpy(rng.random(n) > 0.01).to(dev)
@@ -838,7 +927,7 @@ def _same_dtype_operands(dev, n, b, metric, seed, n_live=None):
     qe = torch.stack([scales[t] for t in tags], 1).contiguous() if wb else None
     args = (qh, None, rows, None, None, prep["scale_row"], prep["bias_row"])
     qn = torch.linalg.vector_norm(q, dim=1) * (2.0 if metric == "l2" else 1.0)
-    slack = 128 * 2.0 ** -22 * qn * (1.0 if metric == "cosine" else prep["maxd"])
+    slack = d * 2.0 ** -22 * qn * (1.0 if metric == "cosine" else prep["maxd"])
     return args, dict(qe=qe, eb_rows=prep["eb_rows"]), slack
 
 
