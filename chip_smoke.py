@@ -88,7 +88,9 @@ one line per phase:
      query and live columns included), then the phase-3 searches before and after the
      deletes, each set-exact against a float64 oracle over the bf16-rounded rows with the
      f32 query; launch counts and query columns, device bytes, times at the engine's
-     operands as in phase 6 (the bf16 product alone as the yardstick);
+     operands as in phase 6 (the bf16 product alone as the yardstick); ROADMAP C3's near
+     tie at 1,048,576 rows before a compaction: row A first at distance 0 through B4, B5
+     and the scan, its norm in the store its stored row's;
  12. DEEP: a bf16 store with the same-dtype sweep (sweep_dtype="bfloat16": the mirror is
      the rows themselves, one pass) at 8,388,608 x 128: cosine B=128 k=10, l2 B=128
      k=10, ip B=16 k=10 and cosine B=128 k=100, before and after 1,000 deletes, each
@@ -178,16 +180,18 @@ one line per phase:
      with two streams, and "float32") on phase 3's rows (1,048,576 x 128 of
      default_rng(42), not cut): the device bytes equal to the exact arithmetic (rows at
      2 B, the mirror at its own width, liveness, norms, the per-row vectors) and to
-     plan_capacity; l2 at B=128, ip and cosine at B=16, k = 10 and 100, before and after
+     plan_capacity; the mirror the stored rows' codes or widening and the norms the
+     rows' f32 sums (ROADMAP C17) after the writes and after compact(); l2 at B=128, ip
+     and cosine at B=16, k = 10 and 100, before and after
      phase 3's 1,000 deletes, each set-exact against phase 11's oracle over the
      bf16-rounded rows with the f32 query, with its tier and transfers ((1, 1) at tier 0,
      no light_ tier) and the launch counts (B3 over the mirror's type, B2 over the bf16
      rows, the live query columns alone); B3 and B2 at the engine's l2 B=128 operands
      against their plain versions (the phase-1 budget, the live launch bit-equal to the
      full one), timed with their bounds (the f32 mirror also at B = 16 and with its route,
-     as in phase 9); compact(), the mirror rebuilt from the rows, and
-     one l2 batch on it; one l2 batch with one int8 stream; ROADMAP C13's near tie on the
-     card and the CPU (the exact set at the CPU's tier, each mirror).  (The f32 mirror
+     as in phase 9); the prep a snapshot's first search pays; compact() and one l2 batch
+     on it; one l2 batch with one int8 stream; ROADMAP C17's near tie on the card and the
+     CPU (the exact set at the tier the CPU tests pin, each mirror).  (The f32 mirror
      sharded runs on the card in tests/test_torch_gpu.py.)  Its record is one JSON line
      starting {"bf16_mirrors".
  21. wide embeddings through QueryProcessor: (a) a bf16 store with the same-dtype sweep at
@@ -205,7 +209,9 @@ one line per phase:
      full one), timed with its bound, the route it took (the query tile resident or
      streamed, the ring's depth) and the bf16 torch.matmul yardstick of its one-pass
      product; B2 checked and timed as in phase 6; exact_knn_t and the engine wall with
-     its host split.  Its record is one JSON line starting {"wide".
+     its host split; each search's device memory beyond the store at its peak within
+     fused_knn_t.search_bytes_bound (ROADMAP C16).  Its record is one JSON line starting
+     {"wide".
 Any failure raises, so the process exits non-zero.  Before them, one JSON line holds the
 IVF and server records, one the distributed engine's, one phase 20's and one phase 21's;
 the last two lines
@@ -1788,6 +1794,59 @@ def run_bf16_row_major(db_np, q_np, dead, self_row, q_pad):
     return counts, times, bounds, cols
 
 
+def check_c3(db_np):
+    """Phase 11: ROADMAP C3's construction (tests/test_torch_filters.py) at full row count,
+    before any compaction: the phase-3 rows moved 8 away from the all-ones query, row A
+    (100) written 2^-8 - 2^-12 above 1.0 in every element (its bf16 row is the query, its
+    written norm 0.94 larger), 40 decoys at 0.25-0.38 and 0.71.  The store's norm of A is
+    its stored row's (ROADMAP C17); A comes first at distance 0 through B4 (no holes),
+    through B5 (after one far delete) and through the scan (use_pallas=False).  Returns
+    {path: (first row, its score, the launches of the path's kernel)}."""
+    dev = torch.device("cuda")
+    x = db_np + np.float32(8)
+    a_row = 100
+    x[a_row] = np.float32(1 + 2.0 ** -8 - 2.0 ** -12)
+    for i, r in enumerate(range(1000, 1000 + 40 * 64, 64)):
+        x[r] = 1.0
+        x[r, i % D] += np.float32(0.5 + i / 128 if i < 16 else 0.84375)
+    q = [VectorDTO(np.ones(D, np.float32))]
+    ids = [uuid.UUID(int=i + 1) for i in range(len(x))]
+    rows = torch.from_numpy(x).to(dev).to(torch.bfloat16)
+    d = torch.cat([((c.double() - 1.0) ** 2).sum(1) for c in torch.split(rows, 1 << 18)])
+    best = torch.topk(d, K + 1, largest=False)
+    want = set(best.indices[:K].tolist())
+    if a_row not in want or not float(best.values[K]) > float(best.values[K - 1]):
+        raise AssertionError(f"C3's construction: exact top {K} {sorted(want)}")
+    del rows, d
+    seen = {}
+    for path, cfg in (("B4", BF16_ROWS), ("scan", EngineConfig(dtype="bfloat16",
+                                                                use_pallas=False))):
+        qp = QueryProcessor(cfg, device=dev)
+        qp.bulk_load(x, "c3", ids=ids)
+        ns = qp.storage.namespace("c3")
+        written = float((x[a_row].astype(np.float64) ** 2).sum())
+        stored = float(ns.device_state().sq_norms[a_row])
+        if stored != float(D):
+            raise AssertionError(f"C3: A's norm in the store is {stored}, not its stored row's")
+        steps = [(path, None)] + ([("B5", ids[5000])] if path == "B4" else [])
+        for name, gone in steps:
+            if gone is not None:
+                qp.delete([gone], "c3")
+            fn = fused_knn._window_mins_masked if name == "B5" else fused_knn._window_mins_fast
+            before = fn.launches_bf16
+            res = qp.find_similar_batch(q, K, "c3", "l2")[0]
+            launched = fn.launches_bf16 - before
+            seen[name] = (res[0]["id"].int - 1, res[0]["score"], launched)
+            if ({r["id"].int - 1 for r in res} != want or seen[name][:2] != (a_row, 0.0)
+                    or (name != "scan") != (launched == 1)):
+                raise AssertionError(f"C3 {name}: {seen[name]}, exact top {K} {sorted(want)}")
+        del qp, ns
+    print(f"  C3 at {N:,} rows before a compaction: A's norm in the store {stored} (its "
+          f"written value's {written:.4f}); (first row, score, kernel launches) per path "
+          f"{seen}: the exact set, A first at distance 0")
+    return seen
+
+
 def _slack_rows(st, q, metric):
     """The certificate's accumulation slack Dp * 2^-22 * |qh| * maxd per query."""
     sqn = torch.where(st.valid, st.sq_norms, torch.zeros_like(st.sq_norms))
@@ -3256,7 +3315,7 @@ BF16_MIRRORS = (("int8", EngineConfig(dtype="bfloat16", sweep_dtype="int8")),
 
 
 def _near_tie_rows():
-    """ROADMAP C13's construction (tests/test_torch_bf16_mirrors.py, l2): 8,192 rows of
+    """ROADMAP C17's construction (tests/test_torch_bf16_mirrors.py, l2): 8,192 rows of
     128, row 100 written half an ulp minus a little off 1.5 (its bf16 row is 1.5, the
     all-ones query's nearest; its written value ranks 0.49 worse), 40 decoys one per
     window between the two, the rest far.  Returns (rows, query, the exact top 10 over the
@@ -3272,10 +3331,16 @@ def _near_tie_rows():
     return x, q, set(np.argsort(((b - 1.0) ** 2).sum(1), kind="stable")[:K].tolist())
 
 
+# the tier of C17's near tie (l2) that tests/test_torch_bf16_mirrors.py pins for the port
+# and its JAX twin: the one-stream int8 band fails the proof, the others certify
+NEAR_TIE_TIERS = {"int8": {"fast": 1}, "int8_one_stream": {"exact_scan": 1},
+                  "f32": {"fast": 1}}
+
+
 def check_near_tie():
-    """Phase 20: C13's construction for each mirror (int8 with one and two streams, f32)
+    """Phase 20: C17's construction for each mirror (int8 with one and two streams, f32)
     on the card and on the CPU: the exact set over the stored rows, row 100 first, at the
-    CPU's tier.  Returns {mirror: tier}."""
+    tier the CPU tests pin.  Returns {mirror: tier}."""
     x, q, want = _near_tie_rows()
     ids = [uuid.UUID(int=i + 1) for i in range(len(x))]
     tiers = {}
@@ -3289,11 +3354,13 @@ def check_near_tie():
             res = qp.find_similar_batch([VectorDTO(q[0])], K, "tie", "l2")[0]
             seen.append(({r["id"].int - 1 for r in res}, res[0]["id"].int - 1,
                          qp.cert_tier_counts("tie")))
-        if seen[0] != seen[1] or seen[1][0] != want or seen[1][1] != 100:
-            raise AssertionError(f"C13 {name}: CPU {seen[0]}, card {seen[1]}, exact {want}")
+        if (seen[0] != seen[1] or seen[1][0] != want or seen[1][1] != 100
+                or seen[1][2] != NEAR_TIE_TIERS[name]):
+            raise AssertionError(f"C17 {name}: CPU {seen[0]}, card {seen[1]}, exact {want}, "
+                                 f"pinned tier {NEAR_TIE_TIERS[name]}")
         tiers[name] = seen[1][2]
-    print(f"  C13 near tie (l2): the exact set over the stored rows, row 100 first, on the "
-          f"card at the CPU's tier: {tiers}")
+    print(f"  C17 near tie (l2): the exact set over the stored rows, row 100 first, on the "
+          f"card at the CPU's tier, the tier the CPU tests pin: {tiers}")
     return tiers
 
 
@@ -3326,6 +3393,28 @@ def _check_b3(a, kw, label):
     if cols != fused_knn_t._live_columns(a[0].shape[0], n_live):
         raise AssertionError(f"{label}: {cols} columns computed")
     return worst
+
+
+def _check_rows_derived(st, label, when, compacted=False):
+    """ROADMAP C17 on the card: the store's mirror is the stored rows' codes (int8, two
+    streams) or widening (f32), bit for bit, and its norms the rows' f32 sums (within
+    sqrt(Dp) ulps of the float64 sums; equal to them after a compaction)."""
+    if label == "int8":
+        z1, s1, z2, s2, e2, e1 = fused_knn_t.quantize_int8_resid_rows(st.data)
+        same = all(torch.equal(a, b) for a, b in (
+            (st.mirror, z1), (st.sweep_rscale, s1), (st.sweep_resid, z2),
+            (st.sweep_rscale2, s2), (st.sweep_err, e2), (st.sweep_err1, e1)))
+        del z1, z2
+    else:
+        same = torch.equal(st.mirror, st.data.float())
+    rebuild = fused_knn_t.row_sq_norms(st.data)
+    gap = float(((st.sq_norms - rebuild).abs() / rebuild.clamp_min(1e-30)).max())
+    kind = "codes" if label == "int8" else "widening"
+    print(f"  {label} {when}: mirror == the stored rows' {kind} {same}; max "
+          f"|sq_norms - float64 norms| / norm {gap:.3e} (sqrt(Dp) ulps "
+          f"{D ** 0.5 * 2.0 ** -23:.3e})")
+    if not same or gap > D ** 0.5 * 2.0 ** -23 or (compacted and gap != 0.0):
+        raise AssertionError(f"{label} {when}: the store's arrays are not its rows'")
 
 
 def run_bf16_mirrors(db_np, q_np, dead, gpu):
@@ -3362,6 +3451,7 @@ def run_bf16_mirrors(db_np, q_np, dead, gpu):
                 or ns.nbytes != plan.data_bytes + cap * (5 + per_row)
                 or not torch.equal(st.data[:N].view(torch.int16), rows.view(torch.int16))):
             raise AssertionError(f"{label}: the bf16 store or its mirror is not as planned")
+        _check_rows_derived(st, label, "after the bulk load (write upkeep)")
         outer = _sweep_counts()
         _set_sweep_counts([0] * len(outer))
         served, dead_ids = {}, set()
@@ -3429,27 +3519,24 @@ def run_bf16_mirrors(db_np, q_np, dead, gpu):
         times.update(t)
         bounds.update(b)
         times[f"exact_knn_t_{label}_bf16_store"] = _time_ms(search)
-        # the query-independent prep a snapshot's first search pays: with C13's terms (the
-        # rows' own norms, the bound rows measured against them) and with JAX's plan
-        prep_kw = dict(metric="l2", live_prefix=None, sweep_err=st.sweep_err,
-                       resid=st.sweep_resid, rscale=st.sweep_rscale, err1=st.sweep_err1,
-                       rscale2=st.sweep_rscale2)
-        times[f"prep_c13_{label}"] = _time_ms(lambda: fused_knn_t.search_prep(
-            st.mirror, st.valid, st.sq_norms, rows=st.data, **prep_kw))
-        times[f"prep_jax_plan_{label}"] = _time_ms(lambda: fused_knn_t.search_prep(
-            st.mirror, st.valid, st.sq_norms, **prep_kw))
-        print(f"  {label}: prep of a snapshot's first l2 search {times[f'prep_c13_{label}']:.4f} "
-              f"ms with C13's terms, {times[f'prep_jax_plan_{label}']:.4f} ms with JAX's plan")
+        # the query-independent prep a snapshot's first search pays: JAX's plan over the
+        # stored rows (an earlier version measured its bound rows against the rows and
+        # summed their norms a snapshot: 7.009 ms int8, 4.200 ms f32 on an NVIDIA H100
+        # 80GB HBM3 at 700.00 W, PERF.md)
+        times[f"prep_first_search_{label}"] = _time_ms(lambda: fused_knn_t.search_prep(
+            st.mirror, st.valid, st.sq_norms, metric="l2", live_prefix=None,
+            sweep_err=st.sweep_err, resid=st.sweep_resid, rscale=st.sweep_rscale,
+            err1=st.sweep_err1, rscale2=st.sweep_rscale2, rescan_dtype=st.data.dtype))
+        print(f"  {label}: prep of a snapshot's first l2 search "
+              f"{times[f'prep_first_search_{label}']:.4f} ms on {gpu} (with C13's bound "
+              f"rows and rank norms it was 7.009 ms int8 / 4.200 ms f32, PERF.md)")
         _check_result_live(lambda n: search(n, defer=True), f"bf16 store, {label} mirror, l2")
         times[f"engine_wall_{label}_bf16_store_median"] = statistics.median(
             _engine_wall(qp, q_np))
         # a compaction rebuilds the mirror from the stored rows; one l2 batch on it
         ns.compact()
         st = ns.device_state()
-        rebuilt = (fused_knn_t.quantize_int8_resid_rows(st.data)[0] if label == "int8"
-                   else st.data.float())
-        if not torch.equal(st.mirror, rebuilt):
-            raise AssertionError(f"{label}: the compaction did not rebuild the mirror from the rows")
+        _check_rows_derived(st, label, "after compact()", compacted=True)
         c0 = _sweep_counts()
         res, tier, xfer = _served(qp, "sift", q_np, "l2", B, K)
         moved = dict(zip(_COUNT_NAMES, (v - o for v, o in zip(_sweep_counts(), c0))))
@@ -3595,8 +3682,9 @@ def _wide_cell(label, cfg, db, q_np, oracle, dead, searches):
     _set_sweep_counts([0] * len(outer))
     served, dead_ids = {}, set()
     # the device memory a search takes beyond the store, at its peak: no path may hold a
-    # [batch, candidates, Dp] block (the tier-2 scan works in [batch, 8 tiles] blocks)
-    peak = 0
+    # [batch, candidates, Dp] block (the tier-2 scan works in [batch, 8 tiles] blocks);
+    # each search within fused_knn_t.search_bytes_bound (ROADMAP C16)
+    peak, peak_bound, over = 0, 0, []
     for when, dead_rows in (("before delete", None), ("after delete", dead)):
         if dead_rows is not None:
             dead_ids = _deleted(qp, "wide", ids, dead_rows)
@@ -3608,7 +3696,14 @@ def _wide_cell(label, cfg, db, q_np, oracle, dead, searches):
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             res, tier, xfer = _served(qp, "wide", q_np, metric, nq, k)
-            peak = max(peak, torch.cuda.max_memory_allocated() - base)
+            took = torch.cuda.max_memory_allocated() - base
+            bound = fused_knn_t.search_bytes_bound(ns.capacity, ns.dpad,
+                                                   qp.config.bucket_batch(nq),
+                                                   qp.config.bucket_k(k))
+            if took > bound:
+                over.append((metric, nq, k, when, took, bound))
+            if took >= peak:
+                peak, peak_bound = took, bound
             program = "heavy" if fused_knn_t._window_mins_t.launches_heavy > heavy0 else "one pass"
             served[f"{metric} B={nq} k={k} {when}"] = (tier, xfer, program)
             if (xfer[0] != 1 or (tier in (["fast"], ["light_fast"])) != (xfer == (1, 1))
@@ -3621,10 +3716,14 @@ def _wide_cell(label, cfg, db, q_np, oracle, dead, searches):
     c = dict(zip(_COUNT_NAMES, _sweep_counts()))
     _set_sweep_counts([o + v for o, v in zip(outer, c.values())])
     rec.update(searches=served, launches=c, modes={str(k_): v for k_, v in qp._cert_mode.items()},
-               search_peak_bytes=peak)
+               search_peak_bytes=peak, search_peak_bound_bytes=peak_bound)
     print(f"  {label}: (tier, transfers, program) per batch {served}; device memory a "
-          f"search took beyond the store at its peak {rec['search_peak_bytes']:,} B "
-          f"(a [512, 2560, {dim}] f32 block alone would be {512 * 2560 * dim * 4:,})")
+          f"search took beyond the store at its peak {rec['search_peak_bytes']:,} B, its "
+          f"bound {peak_bound:,} B (a [512, 2560, {dim}] f32 block alone would be "
+          f"{512 * 2560 * dim * 4:,})")
+    if over:
+        raise AssertionError(f"{label}: searches beyond fused_knn_t.search_bytes_bound "
+                             f"(metric, B, k, when, bytes, bound): {over}")
     print(f"  {label}: launches {c}; modes {qp._cert_mode}")
     if (c["sweep"] != 2 * len(searches) or c["gather"] < 2 * len(searches)
             or c["cols"] != 2 * sum(nq for _, nq, _ in searches)
@@ -4295,6 +4394,7 @@ def main() -> int:
     c11, t11, b11, k11 = run_bf16_row_major(db_np, q_np, dead, self_row, q_pad)
     times.update(t11)
     b4_cols.update(k11)
+    c3 = check_c3(db_np)
 
     # ---- 12. DEEP: the same-dtype certified sweep ----------------------------------------
     print(f"phase 12 DEEP: QueryProcessor(dtype='bfloat16', sweep_dtype='bfloat16') at "
@@ -4374,7 +4474,7 @@ def main() -> int:
     # ---- 20. a bf16 store with an int8 or f32 mirror --------------------------------------
     print(f"phase 20 bf16 store with an int8 or f32 mirror: QueryProcessor(dtype='bfloat16', "
           f"sweep_dtype='int8' | 'float32') at {N:,} x {D}: B3 over the mirror, B2 over the "
-          f"bf16 rows, C13's near tie, on {gpu}")
+          f"bf16 rows, C17's near tie, on {gpu}")
     t20 = time.perf_counter()
     c20, w20, t20_, b20, rec20 = run_bf16_mirrors(db_np, q_np, dead, gpu)
     rec20["seconds"] = time.perf_counter() - t20
@@ -4647,8 +4747,7 @@ def main() -> int:
             mirror = key.split("_")[1]
             e.update({"exact_knn_t_ms": times[f"exact_knn_t_{mirror}_bf16_store"],
                       "engine_wall_ms": times[f"engine_wall_{mirror}_bf16_store_median"],
-                      "prep_c13_ms": times[f"prep_c13_{mirror}"],
-                      "prep_jax_plan_ms": times[f"prep_jax_plan_{mirror}"]})
+                      "prep_first_search_ms": times[f"prep_first_search_{mirror}"]})
             if mirror == "int8":
                 e["launches_one_stream"] = c20["int8_one_stream"]["int8"]
             else:

@@ -5,17 +5,17 @@
 ``bulk_upsert`` as the JAX ``load_snapshot`` does; under ``sweep_dtype="bfloat16"`` that
 builds the bf16 mirror and the residual arrays from the rows, and under
 ``dtype="bfloat16"`` the snapshot's f32 values round to bf16 on the device as the JAX
-store rounds them (its norms taken from the f32 values, as there).  Data plays the role of
-weights here: a namespace served by the JAX package can be served by this one with the
-same ids.
+store rounds them (a snapshot holds the stored rows, so its values are already bf16
+values).  Data plays the role of weights here: a namespace served by the JAX package can
+be served by this one with the same ids.
 
 ``sweep_arrays_from_jax`` turns a JAX namespace's sweep arrays (numpy copies of its
 window-major ``_data_t`` and ``_sweep_resid`` and its per-row vectors) into the port's
 row-major ones, for a bf16, int8 or f32 mirror, so the two stores can be shown to hold the
 same codes; for a mirror of the rows' own type (an f32 store's f32 mirror, a bf16 store's
 same-dtype mirror) the result equals the port's ``data``.  A bf16 store's int8 or f32
-mirror holds what its writes and rebuilds gave it, on both sides alike: a snapshot holds
-the stored bf16 rows, so a store loaded from one has them in its mirror too.
+mirror is the port's function of the stored rows; the JAX package's holds the written
+values of the rows written since its last rebuild (ROADMAP C17).
 
 ``ivf_from_jax`` carries a trained JAX ``IVFIndex`` across to a port store holding the same
 ids: its centroids, every id's cluster slot and the spill copies, through the index's
@@ -26,7 +26,8 @@ search one layout.
 ``ShardedNamespaceStore`` on a mesh with as many shards: its global rows, liveness and
 norms, its host tables, ``shard_capacity`` and every shard's free list and high-water
 mark, so both stores hold every id in the same slot, answer alike and hand out the same
-next slot.  The port's sweep arrays are built from the rows.
+next slot.  The port's sweep arrays are built from the rows, and a bf16 store's norms
+too: the JAX store's are the written values' until its first compaction (ROADMAP C17).
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ import numpy as np
 import torch
 
 from .config import EngineConfig
-from .ops.fused_knn_t import R1MAX, SWEEP_TILE, WLANE
+from .ops.fused_knn_t import R1MAX, SWEEP_TILE, WLANE, row_sq_norms
 from .store.ivf import IVFIndex
 from .store.namespace import NamespaceStore
 
@@ -104,6 +105,8 @@ def sharded_from_jax(jax_store, port_store):
                 t = getattr(cell, f)
                 setattr(cell, f, torch.from_numpy(np.array(a[s * c:(s + 1) * c])).to(
                     cell.device, t.dtype))
+            if cell.data.dtype == torch.bfloat16:
+                cell.sq_norms = row_sq_norms(cell.data)
             port_store._build_cell_sweep(cell)
     port_store._slot_ids = list(jax_store._slot_ids)
     port_store._slot_meta = list(jax_store._slot_meta)

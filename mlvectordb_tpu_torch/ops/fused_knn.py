@@ -44,7 +44,7 @@ import torch
 
 from . import _kernels
 from .distances import MASKED, require_f32_matmul
-from .fused_knn_t import _live_columns
+from .fused_knn_t import _live_columns, settled_topk
 from .topk import exact_knn
 
 
@@ -326,7 +326,7 @@ def _select_and_rescan(q, qn_row, data, maskadd, hw, wmin1t, *, k, metric, db_ti
         dist = torch.where(rows < hw, dist, torch.full_like(dist, float(MASKED)))
 
     kk = min(k, dist.shape[1])
-    best_d, p = torch.topk(dist, kk, dim=1, largest=False)
+    best_d, p = settled_topk(dist, rows, q, data, kk=kk, metric=metric)
     best_i = torch.gather(rows, 1, p).to(torch.int32)
     if kk < k:
         best_d = torch.cat([best_d, best_d.new_full((B, k - kk), float(MASKED))], dim=1)

@@ -12,10 +12,10 @@ types (``EngineConfig.sweep_dtype``):
           (``quantize_int8_resid_rows``): 2 B/element in place of bf16's 3;
   f32   — the rows themselves (the store's own tensor: no copy); over a bf16 store an
           f32 tensor of its own.
-Over a bf16 store an int8 or f32 mirror holds what its writes gave it (the written f32
-values, quantized or copied) until a rebuild gives it the stored rows: the certificate then
-measures the mirror against the rows the rescan scores (``_plan``, ROADMAP C13).
-A search runs:
+Every mirror, its certificate arrays and the store's norms are computed from the stored
+rows, at write time as at a rebuild (store/namespace.py), so the JAX package's certificate
+plan (``_plan``) holds over the rows the rescan scores; the one term it lacks is the
+same-dtype sweep's norm gap (ROADMAP C2).  A search runs:
 
   phase 1  — kernels B1/B3 (``csrc/sweep_min.cu``, ``_window_mins_t``): one pass over the
              mirror ranks every row against every folded query and writes only the min
@@ -681,6 +681,48 @@ def _sorted_topk(x, kk: int):
     return sv[:, :kk], si[:, :kk]
 
 
+_SETTLE_CHUNK = 16  # candidates a settling pass widens to float64 at a time
+
+
+def settled_topk(dist, rows, q32, data, *, kk: int, metric: str, n_live=None,
+                 spare: int = 4):
+    """(values, positions) of the ``kk`` smallest f32 distances per row of ``dist`` [B, W]
+    (``rows`` [B, W]: the candidates' rows of ``data``), sorted by (f32 distance, float64
+    distance to ``q32`` [B, Dp], position): rows whose f32 distances tie come in the
+    order of their exact distances (ROADMAP C4), where the JAX package's ``lax.top_k``
+    takes the earlier position; masked and NaN candidates keep their positions' order.
+    The first kk + ``spare`` candidates are settled, so a tie that straddles the k-th
+    place is too; their float64 distances are taken ``_SETTLE_CHUNK`` at a time (a row
+    past the store, a NaN pool entry's, read clamped as the rescan reads it).
+    ``n_live``: rows past it hold row ``n_live``'s candidates and distances
+    (``_rescan_windows``), so they take its float64 distances too."""
+    sv, order = torch.sort(dist, dim=1, stable=True)
+    w = min(kk + spare, dist.shape[1])
+    sv, order = sv[:, :w], order[:, :w]
+    B = dist.shape[0]
+    m = B if n_live is None else min(B, n_live + 1)
+    idx = torch.clamp(torch.gather(rows[:m], 1, order[:m]).long(), 0, data.shape[0] - 1)
+    q = q32[:m].double()[:, None, :]
+    parts = []
+    for c in range(0, w, _SETTLE_CHUNK):
+        x = data[idx[:, c:c + _SETTLE_CHUNK]].double()                  # [m, chunk, Dp]
+        if metric == "l2":
+            parts.append(((x - q) ** 2).sum(-1))
+        elif metric == "ip":
+            parts.append(-(x * q).sum(-1))
+        else:
+            parts.append(-(x * q).sum(-1) / torch.sqrt(
+                torch.clamp_min((x * x).sum(-1) * (q * q).sum(-1), 1e-300)))
+    d64 = torch.cat(parts, dim=1)
+    if m < B:
+        d64 = torch.cat([d64, d64[m - 1:].expand(B - m, w)])
+    d64 = torch.where(sv < float(MASKED) / 2, d64, torch.full_like(d64, float("inf")))
+    by64 = torch.sort(d64, dim=1, stable=True).indices
+    perm = torch.gather(by64, 1, torch.sort(torch.gather(sv, 1, by64), dim=1,
+                                            stable=True).indices)
+    return torch.gather(sv, 1, perm)[:, :kk], torch.gather(order, 1, perm)[:, :kk]
+
+
 def _topk_min(x, kk: int, tuning: Tuning):
     """Smallest-kk (values, positions): top-k for small kk, a sort for large."""
     if kk >= tuning.sort_topk_from and x.shape[1] > kk:
@@ -799,8 +841,7 @@ def _select_and_rescan(q32, qn_row, rescan, maskadd, hw, wmin_t, *, k, metric, r
 
     f = _pos_to_window(p, g)                              # [B, s1] fine windows
     best_d, best_i = _rescan_windows(q32, qn_row, rescan, maskadd, hw, f, k=k,
-                                     metric=metric, r1=r1, masked=masked, tuning=tuning,
-                                     n_live=n_live)
+                                     metric=metric, r1=r1, masked=masked, n_live=n_live)
     return best_d, best_i, thresh
 
 
@@ -831,19 +872,19 @@ def _select_topm_and_rescan(q32, qn_row, rescan, maskadd, hw, topm, *, k, metric
     thresh = tile_floor if s1 >= pool else torch.minimum(v1[:, -1], tile_floor)
     f = _pos_to_window(p, g)
     best_d, best_i = _rescan_windows(q32, qn_row, rescan, maskadd, hw, f, k=k,
-                                     metric=metric, r1=r1, masked=masked, tuning=tuning,
-                                     n_live=n_live)
+                                     metric=metric, r1=r1, masked=masked, n_live=n_live)
     return best_d, best_i, thresh
 
 
 def _rescan_windows(q32, qn_row, rescan, maskadd, hw, f, *, k, metric, r1, masked,
-                    tuning=DEFAULT_TUNING, n_live=None):
+                    n_live=None):
     """Exact f32 rescan of the selected windows ``f`` [B, s1] (pallas_knn_t.py:792-861)
     of the rows ``rescan`` (f32, or a bf16 store's own rows read as f32) through kernel
-    B2, then the metric formula, the mask and the final top-k.  The kernel writes only
-    (dots, sqn) per row, so nothing is chunked.  ``n_live``: rows from it on are zero
-    queries whose windows were selected from one zero-query column; they all take row
-    ``n_live``'s windows (the same up to ties), and B2 computes that row only
+    B2, then the metric formula, the mask and the final top-k (``settled_topk``: rows
+    whose f32 distances tie in float64 order, ROADMAP C4).  The kernel writes only
+    (dots, sqn) per row, so nothing is chunked but the settling.  ``n_live``: rows from
+    it on are zero queries whose windows were selected from one zero-query column; they
+    all take row ``n_live``'s windows (the same up to ties), and B2 computes that row only
     (``_gather_score``), so each padded row's ids and dots come from the same windows."""
     B, s1 = f.shape
     f = torch.sort(f, dim=1).values.to(torch.int32).contiguous()
@@ -865,7 +906,7 @@ def _rescan_windows(q32, qn_row, rescan, maskadd, hw, f, *, k, metric, r1, maske
     else:
         dd = torch.where(rws < hw, dd, torch.full_like(dd, float(MASKED)))
     kk = min(k, dd.shape[1])
-    best_d, pk = _topk_min(dd, kk, tuning)
+    best_d, pk = settled_topk(dd, rws, q32, rescan, kk=kk, metric=metric, n_live=n_live)
     best_i = torch.gather(rws, 1, pk)
     if kk < k:
         best_d = torch.cat([best_d, best_d.new_full((B, k - kk), float(MASKED))], dim=1)
@@ -882,13 +923,15 @@ def _cert_plan(*, certify, light, mixed, lossy_sweep, int8_sweep, use_resid,
     each, and the scalar error terms beyond the f32 accumulation slack.
 
     One intended divergence (ROADMAP C2): the same-dtype sweep (a bf16 mirror of bf16
-    rows) ranks with bias and cosine scale rows made from ``sq_norms``, which hold the
-    written f32 rows' norms until a compaction, while the rescan scores the stored bf16
-    rows.  JAX's plan carries only the query's rounding, so on near-ties whose two norms
-    differ it can certify a wrong set at tier 0 (tests/test_torch_row_live.py shows both
-    answers).  The port adds the gap: "norm_gap" per row, |sqn - |bf16 row|^2| for l2
-    (scale 1: "one") and ||x| - |bf16 row|| / |x| for cosine (scale |q|: "qh"); ip ranks
-    no norm."""
+    rows) ranks with bias and cosine scale rows made from ``sq_norms``, while the rescan
+    scores the stored rows with norms of its own summation.  JAX's plan carries only the
+    query's rounding, and its store holds the written f32 rows' norms until a compaction,
+    so on near-ties whose two norms differ it can certify a wrong set at tier 0
+    (tests/test_torch_row_live.py shows both answers).  The port adds the gap: "norm_gap"
+    per row, |sqn - |bf16 row|^2| for l2 (scale 1: "one") and ||x| - |bf16 row|| / |x| for
+    cosine (scale |q|: "qh"); ip ranks no norm.  The port's store keeps the stored rows'
+    norms (ROADMAP C17), so the gap is zero after a write and one rounding after a
+    compaction."""
     if not certify:
         return (), (), ()
     if not mixed:
@@ -914,10 +957,28 @@ def _cert_plan(*, certify, light, mixed, lossy_sweep, int8_sweep, use_resid,
     return (), (), (("rel", rel),)
 
 
-def _row_step(rows: torch.Tensor) -> int:
+def _row_step(dpad: int) -> int:
     """Rows a pass over stored rows takes at a time: 2^27 elements (2^20 rows at Dp = 128),
     so that a chunk's float64 copy stays at a GiB at any width."""
-    return max(1, (1 << 27) // max(rows.shape[1], 128))
+    return max(1, (1 << 27) // max(dpad, 128))
+
+
+def search_bytes_bound(cap: int, dpad: int, batch: int, k: int) -> int:
+    """Device bytes one certified search over ``cap`` rows of width ``dpad`` may allocate
+    beyond the store and the prep its snapshot already holds, at the engine's padded
+    ``batch`` and k bucket ``k`` (ROADMAP C16): one ``_row_step`` chunk of the rows in
+    float64 (a pass over the stored rows: the norm-gap row's f32 copy and products stay
+    within it), the exact scan's tile of 8 * SWEEP_TILE rows widened to f32 with six
+    [batch, 8 * SWEEP_TILE] f32 blocks beside it (products, distances, mask, the fold),
+    phase 1's window mins three times over (the tile-major output, its [B, P] copy, the
+    selection), four f32 arrays of the widest rescan's candidates (8 * max(64, 2k + 48)
+    windows of r1 rows) and eight per-row prep vectors."""
+    r1 = _pick_r1(batch, cap, k)
+    chunk = min(cap, _row_step(dpad)) * dpad * 8
+    scan = 8 * SWEEP_TILE * dpad * 4 + 6 * batch * 8 * SWEEP_TILE * 4
+    phase1 = 3 * (cap // r1) * batch * 4
+    rescan = 4 * batch * min(8 * max(64, 2 * k + 48), cap // r1) * r1 * 4
+    return chunk + scan + phase1 + rescan + 8 * cap * 4
 
 
 def row_sq_norms(rows: torch.Tensor) -> torch.Tensor:
@@ -925,56 +986,26 @@ def row_sq_norms(rows: torch.Tensor) -> torch.Tensor:
     ``_row_step`` rows at a time: the norms a compaction gives the store (JAX
     namespace.py:786)."""
     return torch.cat([(r.double() * r.double()).sum(-1).float()
-                      for r in torch.split(rows, _row_step(rows))])
-
-
-def _errors_over_rows(rows, mirror, rscale, resid, rscale2, *, use_resid):
-    """ROADMAP C13: what phase 1 reads, measured against the stored rows the rescan
-    scores, per row: ``(err, err1)``.  An f32 mirror: ``err = ||row - m||`` (zero where a
-    rebuild wrote the rows).  int8 codes: ``err1 = ||row - s1*z1||`` and ``err`` the same,
-    or with the second stream ``||row - s1*z1 - s2*z2||``, in the quantizer's own
-    expressions (``_codes``), so rows a rebuild quantized give its error norms."""
-    errs, errs1 = [], []
-    step = _row_step(rows)
-    for lo in range(0, rows.shape[0], step):
-        b = rows[lo : lo + step].float()
-        if mirror.dtype == torch.float32:
-            d = b - mirror[lo : lo + step]
-            errs.append(torch.sqrt((d * d).sum(-1)))
-            continue
-        d1 = b - rscale[lo : lo + step, None] * mirror[lo : lo + step].float()
-        e1 = torch.sqrt((d1 * d1).sum(-1))
-        errs1.append(e1)
-        if use_resid:
-            d2 = d1 - rscale2[lo : lo + step, None] * resid[lo : lo + step].float()
-            e1 = torch.sqrt((d2 * d2).sum(-1))
-        errs.append(e1)
-    return torch.cat(errs), (torch.cat(errs1) if errs1 else None)
+                      for r in torch.split(rows, _row_step(rows.shape[1]))])
 
 
 def _prep_terms(valid, sq_norms, hw, rscale, sweep_err, err1, *, cap, metric, masked,
-                use_resid, wb_sources, rscale2=None, int8_sweep=False, rows=None,
-                mirror=None, resid=None, own_norms=False):
+                use_resid, wb_sources, rscale2=None, int8_sweep=False, rows=None):
     """Query-independent prep (pallas_knn_t.py:958-1012) in store-row order: the bias
     and scale rows, the residual multiplier row, the live-max norm and the
     certificate's per-row bound rows.  ``int8_sweep``: ``rscale`` is the primary dequant
     scale s1, folded into the scale row, and the residual multiplier is s2 / s1
     (``rscale2`` = s2), so that (z1.q + (z2.q)*(s2/s1)) * s1 = s1*z1.q + s2*z2.q.
-    ``rows``: the stored rows the rescan scores, for the "norm_gap" bound row and the
-    bound rows measured against them ("err_rows", "err1_rows": ``mirror`` and ``resid``
-    are then the codes).  ``own_norms`` (ROADMAP C13): phase 1 and the exact scan rank
-    with the stored rows' own norms (``row_sq_norms``), given back as "rank_norms" (None
-    otherwise); the live-max norm stays the written rows'."""
+    ``rows``: the stored rows the rescan scores, for the "norm_gap" bound row."""
     dev = sq_norms.device
     sqn = sq_norms.float()
-    rank = row_sq_norms(rows) if own_norms else sqn
     if masked:
         maskadd = torch.where(valid, 0.0, float(MASKED)).to(torch.float32)
     else:
         maskadd = torch.where(torch.arange(cap, device=dev) < hw, 0.0,
                               float(MASKED)).to(torch.float32)
-    bias = (rank + maskadd) if metric == "l2" else maskadd
-    inv_norm = torch.rsqrt(torch.clamp_min(rank, 1e-30)) if metric == "cosine" else None
+    bias = (sqn + maskadd) if metric == "l2" else maskadd
+    inv_norm = torch.rsqrt(torch.clamp_min(sqn, 1e-30)) if metric == "cosine" else None
     scale = inv_norm
     if int8_sweep:
         scale = rscale if inv_norm is None else rscale * inv_norm
@@ -992,26 +1023,19 @@ def _prep_terms(valid, sq_norms, hw, rscale, sweep_err, err1, *, cap, metric, ma
         return torch.where(live, e, torch.zeros_like(e)).contiguous()
 
     def norm_gap():   # the rank's norm against the rows' own (see _cert_plan)
-        own = torch.cat([(r.float() * r.float()).sum(-1)
-                         for r in torch.split(rows, _row_step(rows))])
+        own = []
+        for chunk in torch.split(rows, _row_step(rows.shape[1])):
+            r = chunk.float()   # one f32 copy a chunk: at most a chunk's float64 bytes
+            own.append((r * r).sum(-1))
+        own = torch.cat(own)
         if metric == "l2":
             return (sqn - own).abs()
         return (torch.sqrt(sqn) - torch.sqrt(own)).abs()   # times inv_norm in eb_row
 
-    over_rows = {}
-
-    def measured(i):   # C13's bound rows: (err, err1) against the stored rows
-        if not over_rows:
-            over_rows["e"] = _errors_over_rows(rows, mirror, rscale, resid, rscale2,
-                                               use_resid=use_resid)
-        return over_rows["e"][i]
-
     srcs = {"sqn_sqrt": lambda: torch.sqrt(sqn), "sweep_err": lambda: sweep_err,
-            "err1": lambda: err1, "norm_gap": norm_gap, "err_rows": lambda: measured(0),
-            "err1_rows": lambda: measured(1)}
+            "err1": lambda: err1, "norm_gap": norm_gap}
     return {"bias_row": bias.contiguous(), "scale_row": scale, "rscale_row": rscale_row,
-            "maxd": maxd, "eb_rows": tuple(eb_row(srcs[s]()) for s in wb_sources),
-            "rank_norms": rank if own_norms else None}
+            "maxd": maxd, "eb_rows": tuple(eb_row(srcs[s]()) for s in wb_sources)}
 
 
 def _mixed(mirror_dtype, rescan_dtype) -> bool:
@@ -1022,12 +1046,6 @@ def _mixed(mirror_dtype, rescan_dtype) -> bool:
             or mirror_dtype == torch.int8)
 
 
-def _off_rows(mirror_dtype, rescan_dtype) -> bool:
-    """An f32 or int8 mirror over a bf16 store's rows: the mirror holds the written f32
-    values until a rebuild gives it the stored rows (ROADMAP C13)."""
-    return rescan_dtype == torch.bfloat16 and mirror_dtype in (torch.float32, torch.int8)
-
-
 def _plan(*, certify, light, metric, mirror_dtype, rescan_dtype, sweep_err, resid, rscale,
           err1, rscale2):
     """(use_resid, wb_sources, q_tags, err_tags) of a mirror of ``mirror_dtype`` over rows
@@ -1036,15 +1054,14 @@ def _plan(*, certify, light, metric, mirror_dtype, rescan_dtype, sweep_err, resi
     neither; the residual pass needs its arrays, and for an int8 mirror the second scale
     as well.
 
-    One intended divergence (ROADMAP C13): over a bf16 store an f32 or int8 mirror's
-    upkeep writes the written f32 values, so until a compaction it ranks rows the rescan
-    does not score, and JAX's plan (no bound for an f32 mirror; for int8 the codes' error
-    against the written values) can certify a wrong set at tier 0
-    (tests/test_torch_bf16_mirrors.py shows both answers).  The port measures the bound
-    rows against the stored rows ("err_rows" in place of "sweep_err", "err1_rows" in
-    place of "err1", scaled by the same query norms; for an f32 mirror "err_rows" scaled
-    by |q|) and ranks with the stored rows' norms (``_prep_terms``' ``own_norms``), which
-    leaves no norm gap to carry: still at most two bound rows."""
+    The plan is JAX's (``_cert_plan``, with C2's norm-gap row for the same-dtype sweep).
+    It bounds the mirror against the rows the rescan scores because the port's store
+    computes every mirror, certificate array and norm from the stored rows, at write
+    time too: over a bf16 store an int8 mirror's error norms are then the codes' error
+    against the stored rows and an f32 mirror is those rows widened, exact.  The JAX
+    store computes them from the written f32 values until its first compaction, and
+    its plan can then certify a set that is wrong over the stored rows (ROADMAP C17;
+    tests/test_torch_bf16_mirrors.py shows both answers)."""
     bf_sweep = mirror_dtype == torch.bfloat16
     int8_sweep = mirror_dtype == torch.int8
     mixed = _mixed(mirror_dtype, rescan_dtype)
@@ -1054,28 +1071,15 @@ def _plan(*, certify, light, metric, mirror_dtype, rescan_dtype, sweep_err, resi
         certify=certify, light=light, mixed=mixed, lossy_sweep=bf_sweep or int8_sweep,
         int8_sweep=int8_sweep, use_resid=use_resid, has_sweep_err=sweep_err is not None,
         has_err1=err1 is not None, metric=metric)
-    if certify and _off_rows(mirror_dtype, rescan_dtype):
-        measured = {"sweep_err": "err_rows", "err1": "err1_rows"}
-        if measured.keys() & set(wb):
-            wb = tuple(measured.get(w, w) for w in wb)
-        else:
-            wb, q_tags = wb + ("err_rows",), q_tags + ("qh",)
     return use_resid, wb, q_tags, err_tags
 
 
 def search_prep(mirror, valid, sq_norms, *, metric, live_prefix, certify=True, light=False,
                 sweep_err=None, resid=None, rscale=None, err1=None, rscale2=None,
-                rescan_dtype=torch.float32, rows=None):
+                rescan_dtype=torch.float32):
     """The query-independent prep dict of one search over rows of ``rescan_dtype``
     (pallas_knn_t.py:1377-1427), as ``exact_knn_t`` caches it per snapshot; pass it back
-    through ``prep=``.  ``rows``: the rows the rescan scores (their dtype then replaces
-    ``rescan_dtype``; default the mirror), needed for an int8 or f32 mirror of bf16 rows."""
-    if rows is None:
-        if _off_rows(mirror.dtype, rescan_dtype):
-            raise ValueError("an int8 or f32 mirror of bf16 rows needs the rows")
-        rows = mirror
-    else:
-        rescan_dtype = rows.dtype
+    through ``prep=``."""
     cap = mirror.shape[0]
     use_resid, wb_sources, _, _ = _plan(
         certify=certify, light=light, metric=metric, mirror_dtype=mirror.dtype,
@@ -1085,9 +1089,7 @@ def search_prep(mirror, valid, sq_norms, *, metric, live_prefix, certify=True, l
     return _prep_terms(valid, sq_norms, cap if masked else live_prefix, rscale, sweep_err,
                        err1, cap=cap, metric=metric, masked=masked, use_resid=use_resid,
                        wb_sources=wb_sources, rscale2=rscale2,
-                       int8_sweep=mirror.dtype == torch.int8, rows=rows, mirror=mirror,
-                       resid=resid,
-                       own_norms=certify and _off_rows(mirror.dtype, rescan_dtype))
+                       int8_sweep=mirror.dtype == torch.int8, rows=mirror)
 
 
 # ------------------------------------------------------------------ the search
@@ -1270,16 +1272,10 @@ def _fused_t(q, mirror, rescan, valid, sq_norms, hw, resid, prep, *, k, metric, 
     okq = check_exact(d1, th1)                            # [B] per-query proof
 
     def exact_fallback(fetch_):
-        # over a bf16 store the scan scores the stored rows as the rescan does: their own
-        # norms and the query unrounded (C13's; for the same-dtype sweep ROADMAP C15, where
-        # the JAX package ranks bf16(q) with the written rows' norms)
-        own = prep.get("rank_norms")
-        if own is None and rescan.dtype == torch.bfloat16:
-            own = prep.get("scan_norms")
-            if own is None:
-                own = prep["scan_norms"] = row_sq_norms(rescan)
-        d, i = exact_knn(q32, rescan, valid, sq_norms.float() if own is None else own, k=k,
-                         metric=metric, db_tile=8 * SWEEP_TILE, round_query=own is None)
+        # the scan scores the stored rows as the rescan does, with the f32 query (over a
+        # bf16 store ROADMAP C15: the JAX package ranks bf16(q) there)
+        d, i = exact_knn(q32, rescan, valid, sq_norms.float(), k=k, metric=metric,
+                         db_tile=8 * SWEEP_TILE, round_query=False)
         d, i = fetch_(d, i)
         return d, i, 2
 
@@ -1353,8 +1349,7 @@ def exact_knn_t(q, mirror, rescan_data, valid, sq_norms, *, k, metric, live_pref
                     valid, sq_norms, hw, rscale, sweep_err, err1, cap=cap, metric=metric,
                     masked=masked, use_resid=use_resid, wb_sources=wb_sources,
                     rscale2=rscale2, int8_sweep=mirror.dtype == torch.int8,
-                    rows=rescan_data, mirror=mirror, resid=resid,
-                    own_norms=certify and _off_rows(mirror.dtype, rescan_data.dtype))
+                    rows=rescan_data)
                 if prep_cache is not None:
                     prep_cache[key] = prep  # GIL-atomic; a racing reader recomputes
         res = _fused_t(q, mirror, rescan_data, valid, sq_norms, hw, resid, prep, k=k,

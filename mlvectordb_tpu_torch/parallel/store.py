@@ -12,10 +12,13 @@ Device state: for every (replica, shard) cell of the mesh, the shard's rows
 the sweep arrays of the port's certified sweep where the configuration keeps them: a
 bf16 mirror with its per-row ``sweep_err`` (an f32 store under ``sweep_dtype="bfloat16"``;
 no residual stream, as in the JAX package's sharded store), an f32 mirror of a bf16
-shard's rows (no certificate arrays: write upkeep copies the written values, a rebuild
-widens the rows, as the JAX package's sharded store does), or the rows themselves (a
-mirror of the rows' own type).  An int8 ``sweep_dtype`` runs without a mirror (the masked
-row-major kernel per shard), as the JAX package's sharded store does.  A snapshot
+shard's rows (no certificate arrays: the stored rows widened, at write time as at a
+rebuild; the JAX package's sharded store copies the written values until a rebuild,
+ROADMAP C17), or the rows themselves (a mirror of the rows' own type).  As in the
+unsharded store, a write batch is rounded once to the rows' type and the norms and the
+mirror are computed from the rounded rows.  An int8 ``sweep_dtype`` runs without a
+mirror (the masked row-major kernel per shard), as the JAX package's sharded store
+does.  A snapshot
 (``ShardedState``) holds one per-shard ``DeviceState`` per cell, each with its own prep
 dict: prep is query-independent but shard-dependent.
 
@@ -39,7 +42,7 @@ from ..config import DEFAULT_CONFIG, EngineConfig
 from ..ops.fused_knn_t import SWEEP_TILE, sweep_err_norms
 from ..store.namespace import (DeviceState, NamespaceStore, _clear_slots, _grow,
                                _scatter_mirror, _scatter_rows, _scatter_sweep_err,
-                               _storage_dtype)
+                               _storage_dtype, _stored)
 from .sharding import ShardingManager
 
 
@@ -315,14 +318,16 @@ class ShardedNamespaceStore(NamespaceStore):
 
     def _scatter_write(self, slots: np.ndarray, vals: np.ndarray) -> None:
         """Apply a write batch to every replica of each owner shard: one copy of the
-        shard's slots and rows to each distinct device."""
+        shard's slots and rows to each distinct device, the rows rounded there once to
+        the store's type."""
         for s, pos, loc in self._by_shard(slots):
             sent = {}
             for row in self._cells:
                 cell = row[s]
                 if cell.device not in sent:
+                    rows = torch.from_numpy(vals[pos]).to(cell.device)
                     sent[cell.device] = (torch.from_numpy(loc).to(cell.device),
-                                         torch.from_numpy(vals[pos]).to(cell.device))
+                                         _stored(rows, cell.data))
                 loc_t, vals_t = sent[cell.device]
                 cell.data, cell.valid, cell.sq_norms = _scatter_rows(
                     cell.data, cell.valid, cell.sq_norms, loc_t, vals_t)

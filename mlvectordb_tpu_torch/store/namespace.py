@@ -4,8 +4,9 @@ Device state (capacity grows in powers of two):
   data     [capacity, dim_padded]  float32, or bfloat16 under config.dtype="bfloat16"
                                    (the written f32 rows rounded); lane-padded with zeros
   valid    [capacity]              bool — False = never-written, tombstoned, or freed slot
-  sq_norms [capacity]              f32  — squared norms: of the written f32 rows, and after
-                                   a compaction of the stored rows (the JAX package's rule)
+  sq_norms [capacity]              f32  — squared norms of the stored rows: an f32 sum at
+                                   write time, a float64 sum rounded to f32 after a
+                                   compaction (the JAX package's two formulas)
 With a ``sweep_dtype`` (the certified sweep, ops/fused_knn_t), beside them a ROW-major
 sweep mirror [capacity, dim_padded] (the JAX package's is window-major [dpad, cap]; see
 fused_knn_t) and the certificate's per-row arrays:
@@ -21,11 +22,16 @@ fused_knn_t) and the certificate's per-row arrays:
               package keeps a transposed copy); over a bf16 store it is a tensor of its
               own, with no certificate arrays (as in the JAX package)
 Over a bf16 store (config.dtype="bfloat16") the bf16 mirror is data itself for the same
-reason (the same-dtype sweep: no certificate arrays).  An int8 or f32 mirror of a bf16
-store holds what the JAX package's holds: write upkeep codes or copies the written f32
-values, a whole rebuild (first mirror-eligible capacity, compaction, page-in) the stored
-bf16 rows, so until a compaction its rows differ from the rows the rescan scores
-(fused_knn_t measures the certificate's bound rows against the stored rows: ROADMAP C13).
+reason (the same-dtype sweep: no certificate arrays).
+
+Every array derived from a row is a function of the row as stored.  A write rounds the
+batch once to the store's type, and the norms, the int8 codes, scales and error norms and
+an f32 mirror's copy are computed from those rounded rows, so at every step they equal
+what a whole rebuild (first mirror-eligible capacity, compaction, page-in) gives, and the
+certificate of fused_knn_t bounds the rows its rescan scores.  On an f32 store the
+rounded rows are the written ones.  The JAX package computes a bf16 store's norms and
+int8 or f32 mirror from the written f32 values until its first compaction, and ranks
+rows it does not store until then (ROADMAP C3, C17).
 
 Host state: slot -> uuid / metadata / float32 values, uuid -> slot map, free-slot stack,
 and, where the native library builds, ``meta_columns``: the slot-aligned columnar copy of
@@ -108,7 +114,8 @@ class DeviceState(NamedTuple):
 # moment earlier may still read the old tensors.  Writing in place under CUDA streams
 # is a later, tested decision.
 def _scatter_rows(data, valid, sq_norms, slots, vals):
-    """Device-side upsert: scatter rows + norms, set liveness (copy-on-write)."""
+    """Device-side upsert: scatter rows + norms, set liveness (copy-on-write).  ``vals``
+    are the rows as stored (``_stored``): the norms are theirs."""
     vals32 = vals.float()
     data = data.clone().index_put_((slots,), vals32.to(data.dtype))
     sq_norms = sq_norms.clone().index_put_((slots,), (vals32 * vals32).sum(-1))
@@ -116,9 +123,15 @@ def _scatter_rows(data, valid, sq_norms, slots, vals):
     return data, valid, sq_norms
 
 
+def _stored(vals, data):
+    """A write batch as ``data`` stores it, widened to f32: the values every derived array
+    is computed from (the written values on an f32 store)."""
+    return vals.to(data.dtype).float()
+
+
 def _scatter_mirror(mirror, slots, vals):
-    """Sweep-mirror upkeep: the written rows in the mirror's type, a bf16 mirror's
-    rounded, an f32 mirror's as written (copy-on-write)."""
+    """Sweep-mirror upkeep: the stored rows in the mirror's type, a bf16 mirror's
+    rounded, an f32 mirror's widened (copy-on-write)."""
     return mirror.clone().index_put_((slots,), vals.float().to(mirror.dtype))
 
 
@@ -128,7 +141,7 @@ def _scatter_sweep_err(err, slots, vals):
 
 
 def _scatter_int8(mirror, rscale, err, slots, vals):
-    """The int8 primary mirror: the written rows' codes, scales and error norms
+    """The int8 primary mirror: the stored rows' codes, scales and error norms
     (copy-on-write)."""
     z, s, e = quantize_int8_rows(vals)
     return (mirror.clone().index_put_((slots,), z), rscale.clone().index_put_((slots,), s),
@@ -136,7 +149,7 @@ def _scatter_int8(mirror, rscale, err, slots, vals):
 
 
 def _scatter_int8_resid(mirror, rscale, resid, rscale2, err, err1, slots, vals):
-    """The two-level int8 mirror: both code streams of the written rows, their scales and
+    """The two-level int8 mirror: both code streams of the stored rows, their scales and
     error norms, in one quantization (copy-on-write)."""
     out = quantize_int8_resid_rows(vals)
     return tuple(t.clone().index_put_((slots,), v)
@@ -144,7 +157,7 @@ def _scatter_int8_resid(mirror, rscale, resid, rscale2, err, err1, slots, vals):
 
 
 def _scatter_resid(err, err1, rscale, resid, slots, vals):
-    """The int8 residual codes, their scales and both error norms of the written rows,
+    """The int8 residual codes, their scales and both error norms of the stored rows,
     in one quantization (copy-on-write)."""
     z, scale, e2, e1 = quantize_resid_rows(vals)
     return (
@@ -468,10 +481,11 @@ class NamespaceStore:
 
     def _scatter_write(self, slots: np.ndarray, vals: np.ndarray) -> None:
         """Apply one write batch to the device arrays: one host->device copy each for
-        the slots and the padded rows.  No padding of the batch width is needed: eager
-        torch compiles nothing per shape."""
+        the slots and the padded rows, which are rounded once to the store's type and
+        feed every derived array.  No padding of the batch width is needed: eager torch
+        compiles nothing per shape."""
         slots_t = torch.from_numpy(slots).to(self.device, torch.int64)
-        vals_t = torch.from_numpy(vals).to(self.device)
+        vals_t = _stored(torch.from_numpy(vals).to(self.device), self._data)
         self._data, self._valid, self._sq_norms = _scatter_rows(
             self._data, self._valid, self._sq_norms, slots_t, vals_t
         )

@@ -17,9 +17,11 @@ Tolerances:
     data (and to a float64 brute force over the bf16 rows with the f32 query); distances
     within 1e-4 relative + 1e-4 (both rescan the same bf16 rows in f32 with the same
     formulas);
-  * store arrays: rows bit-equal; squared norms of the written f32 rows within
-    sqrt(Dp) ulps (another summation order) before a compaction, and equal after it
-    (both sum the stored rows in float64 and round once).
+  * store arrays: rows bit-equal; the port's squared norms are the stored rows' (ROADMAP
+    C17), so its twin in the JAX package is a JAX store written bf16(x) in place of x:
+    within sqrt(Dp) ulps of the twin's (another summation order) before a compaction,
+    and equal after it (both sum the stored rows in float64 and round once); a JAX
+    store written x holds the written rows' norms until then.
 """
 
 import types
@@ -359,8 +361,15 @@ def _store_config(cls, sweep, **kw):
 
 
 def _assert_store_matches_jax(jns, tns, *, rebuilt):
-    """The port's bf16 store arrays against the JAX store's (see the module docstring)."""
+    """The port's bf16 store arrays against the JAX twin's, a JAX store written the
+    bf16-rounded values (see the module docstring), and against the port's own
+    compaction of its rows: norms within sqrt(Dp) ulps, equal once compacted."""
     st = tns.device_state()
+    rebuild = T.row_sq_norms(st.data)
+    if rebuilt:
+        assert torch.equal(st.sq_norms, rebuild)
+    else:
+        assert bool((torch.abs(st.sq_norms - rebuild) <= ULP * rebuild + 1e-30).all())
     assert st.data.dtype == torch.bfloat16
     assert np.array_equal(st.data.view(torch.int16).numpy(),
                           np.asarray(jns._data).view(np.int16))
@@ -385,35 +394,68 @@ def _assert_store_matches_jax(jns, tns, *, rebuilt):
                              for t in (st.data, st.valid, st.sq_norms))
 
 
+def _assert_jax_written_norms(jns, tns, changed):
+    """ROADMAP C17: a JAX store written x holds the port's rows and liveness, but its
+    norms are the written rows' until a compaction: off the port's by more than
+    sqrt(Dp) ulps on nearly every live row that rounding changed (``changed``; the
+    rounding errors of a row can cancel in its norm), within them elsewhere (another
+    summation order)."""
+    st = tns.device_state()
+    assert np.array_equal(st.data.view(torch.int16).numpy(),
+                          np.asarray(jns._data).view(np.int16))
+    assert np.array_equal(st.valid.numpy(), np.asarray(jns._valid))
+    got, want = st.sq_norms.numpy(), np.asarray(jns._sq_norms)
+    near = np.abs(got - want) <= ULP * want + 1e-30
+    live = st.valid.numpy()
+    assert (near & changed & live).sum() <= 0.05 * (changed & live).sum()
+    assert near[~changed & live].all()
+
+
 @pytest.mark.parametrize("sweep", [None, "bfloat16"])
 def test_bf16_store_upkeep_matches_jax(sweep):
+    """Writes, overwrites, growth, deletes and a compaction on a port store, a JAX store
+    written the same values (x) and its twin written bf16(x): the port's arrays are the
+    twin's at every step and its own compaction's; the JAX store written x holds the
+    written rows' norms until its compaction, which gives it the port's (C17)."""
     rng = np.random.default_rng(390 + (sweep is None))
     jns = JaxNamespaceStore("w", _store_config(JaxConfig, sweep, use_pallas=False))
+    twin = JaxNamespaceStore("w", _store_config(JaxConfig, sweep, use_pallas=False))
     tns = NamespaceStore("w", _store_config(EngineConfig, sweep), device="cpu")
     x = rng.standard_normal((3000, D), dtype=np.float32) * 2.0
     ids = [uuid.UUID(int=i + 1) for i in range(len(x))]
-    for ns in (jns, tns):
-        ns.bulk_upsert(x, ids)
-    _assert_store_matches_jax(jns, tns, rebuilt=False)      # bulk load
+    for ns, v in ((jns, x), (twin, _bf16(x)), (tns, x)):
+        ns.bulk_upsert(v, ids)
+    _assert_store_matches_jax(twin, tns, rebuilt=False)      # bulk load
+    changed = np.zeros(4096, bool)
+    changed[:3000] = (x != _bf16(x)).any(1)
+    _assert_jax_written_norms(jns, tns, changed)
     more = rng.standard_normal((3000, D), dtype=np.float32)
     more_ids = [uuid.UUID(int=i + 10_000) for i in range(len(more))]
     over = rng.standard_normal((4, D), dtype=np.float32)
-    for ns, vec in ((jns, JaxVector), (tns, Vector)):
-        ns.bulk_upsert(more, more_ids)                       # growth past the first tile
-        ns.upsert([vec(v, {}, id=ids[i]) for i, v in zip((5, 17, 2999, 0), over)])
-    assert tns.capacity == jns.capacity == 8192
-    _assert_store_matches_jax(jns, tns, rebuilt=False)
-    # before a compaction the norms are the written f32 rows', not the bf16 rows'
+    for ns, vec, r in ((jns, JaxVector, lambda v: v), (twin, JaxVector, _bf16),
+                       (tns, Vector, lambda v: v)):
+        ns.bulk_upsert(r(more), more_ids)                    # growth past the first tile
+        ns.upsert([vec(r(v), {}, id=ids[i]) for i, v in zip((5, 17, 2999, 0), over)])
+    assert tns.capacity == jns.capacity == twin.capacity == 8192
+    _assert_store_matches_jax(twin, tns, rebuilt=False)
+    changed = np.concatenate([changed, np.zeros(4096, bool)])
+    changed[3000:6000] = (more != _bf16(more)).any(1)
+    changed[[5, 17, 2999, 0]] = (over != _bf16(over)).any(1)
+    _assert_jax_written_norms(jns, tns, changed)
+    # the norms are the bf16 rows' f32 sums at write time, not the written f32 rows'
     st = tns.device_state()
-    bf = st.data[: 3000].float()
-    assert not torch.equal(st.sq_norms[5], (bf[5] * bf[5]).sum())
-    for ns in (jns, tns):
+    bf = st.data[: 6000].float()
+    assert torch.equal(st.sq_norms[: 6000], (bf * bf).sum(-1))
+    assert not np.array_equal(np.asarray(jns._sq_norms)[5], float((bf[5] * bf[5]).sum()))
+    for ns in (jns, twin, tns):
         ns.delete(ids[:500])                                 # tombstones, below the ratio
-    _assert_store_matches_jax(jns, tns, rebuilt=False)
-    for ns in (jns, tns):
+    _assert_store_matches_jax(twin, tns, rebuilt=False)
+    _assert_jax_written_norms(jns, tns, changed)
+    for ns in (jns, twin, tns):
         ns.delete(ids[500:2500])                             # above it: compaction
     assert tns._tombstones == 0 and tns.capacity == jns.capacity == 4096
-    _assert_store_matches_jax(jns, tns, rebuilt=True)
+    _assert_store_matches_jax(twin, tns, rebuilt=True)
+    _assert_store_matches_jax(jns, tns, rebuilt=True)        # a compaction: the same arrays
     # hydration returns the written f32 values; a snapshot the stored rows as f32
     live = tns.device_state().high_water
     assert np.array_equal(tns.get(ids[2500]).values, x[2500])

@@ -1,12 +1,15 @@
 """A bf16 store with an int8 or f32 sweep mirror (``EngineConfig(dtype="bfloat16",
 sweep_dtype="int8" | "float32")``) against the JAX package, on the CPU.
 
-The store keeps what the JAX store keeps: write upkeep quantizes or copies the written
-f32 values, a whole rebuild (the first mirror-eligible capacity, a compaction, a page-in)
-the stored bf16 rows.  Until a compaction the mirror therefore ranks rows the rescan does
-not score.  The JAX certificate carries no term for that gap, and on a near-tie built for
-it proves a wrong set; the port measures its bound rows against the stored rows and ranks
-with their own norms (ROADMAP C13), and both outputs are asserted below.
+Every array the port's store derives from a row (its norm, its int8 codes, scales and
+error norms, its f32 mirror row) is a function of the row as stored, at write time as at
+a rebuild (ROADMAP C17).  The JAX store computes them from the written f32 values until a
+whole rebuild (the first mirror-eligible capacity, a compaction, a page-in) gives it the
+stored rows, and until then its certificate, which carries no term for that gap, can
+prove a set that is wrong over the rows its rescan scores.  So the port is held to two
+JAX stores: its twin, written bf16(x) as f32 in place of x, whose arrays and answers it
+gives; and the JAX store written x, whose arrays and answers it does not give before a
+compaction.  Both are asserted below.
 
 The port's kernel wrappers run their plain torch versions on CPU tensors; the JAX side
 runs with ``use_pallas=False`` for the store and with its Pallas kernels in interpret mode,
@@ -14,20 +17,21 @@ told it runs on a TPU, for the engine.  Inputs are made with numpy from a seed.
 
 Tolerances:
   * data, valid and an f32 mirror: bit-equal to JAX's; sq_norms bit-equal after a
-    rebuild (compaction, page-in) and within sqrt(Dp) * 2^-23 relative of the written
-    rows' norms before one (another summation order);
+    compaction and within sqrt(Dp) * 2^-23 relative of the f32 sums of the values they
+    came from otherwise (another summation order);
   * int8 codes: bit-equal to JAX's (through ``convert.rows_from_sweep_layout``), scales
     equal, error norms within sqrt(Dp) * 2^-23 relative, wherever JAX's arrays come from
     its eager quantizer (a rebuild); rows its jitted write upkeep quantized are held to
     the rule of tests/test_torch_int8.py (scales within 1 ulp, codes equal where they
     are, the second stream's scale within 2^-14 and its codes within one unit);
-  * the port's arrays: bit-equal to its own quantizer (or copy) of the values each row
-    came from, the written values or the stored rows;
-  * searches: id sets equal to JAX's on gaussian data; scores within 1e-4 of a float64
-    oracle over the stored bf16 rows with the f32 query; tiers equal to JAX's except
-    where C13 diverges (pinned in each test).
+  * the port's arrays: bit-equal to its own whole rebuild over its current rows
+    (``_build_sweep``, ``_build_cell_sweep``), norms within sqrt(Dp) * 2^-23 relative of
+    ``row_sq_norms`` of them, after any write sequence;
+  * searches: id sets equal to the twin's and to a float64 oracle over the stored bf16
+    rows with the f32 query; scores within 1e-4 of it; tiers equal to the twin's.
 """
 
+import copy
 import types
 import uuid
 
@@ -96,23 +100,60 @@ def _carried(jns):
         opt(jns._sweep_rscale), opt(jns._sweep_err1), opt(jns._sweep_rscale2), device="cpu")
 
 
-def _assert_store_matches_jax(kind, jns, tns, src, *, rebuilt, norms_rebuilt=None):
-    """Rows and liveness bit-equal to JAX's, norms as the module docstring says
-    (``norms_rebuilt``: a compaction computed every one; default ``rebuilt``); the port's
-    sweep arrays its own quantizer's (or copy's) of ``src``, each row's source values;
-    JAX's arrays equal to them (``rebuilt``: every mirror row came from JAX's eager
-    quantizer) or within the jitted upkeep's rule."""
+def _assert_norms(got, rows, *, exact):
+    """``got`` [cap] the norms of ``rows`` [cap, Dp]: a compaction's (``row_sq_norms``)
+    bit for bit, or (``exact`` False) within sqrt(Dp) * 2^-23 relative of them."""
+    want = T.row_sq_norms(torch.as_tensor(rows))
+    got = torch.as_tensor(got)
+    if exact:
+        assert torch.equal(got, want)
+    else:
+        assert bool((torch.abs(got - want) <= ULP * want + 1e-30).all())
+
+
+def _assert_rebuild_invariant(ns):
+    """The port's invariant (ROADMAP C17): every array its store derives from the rows
+    equals what a whole rebuild gives over its current rows (``_build_sweep``, or per
+    cell ``_build_cell_sweep``, on a copy), bit for bit, and the norms equal
+    ``row_sq_norms`` of them within sqrt(Dp) * 2^-23 relative."""
+    if getattr(ns, "_cells", None) is not None:
+        from mlvectordb_tpu_torch.parallel.store import _Cell
+
+        for row in ns._cells:
+            for cell in row:
+                again = _Cell(cell.device, cell.data, cell.valid, cell.sq_norms)
+                ns._build_cell_sweep(again)
+                for name in ("mirror", "sweep_err"):
+                    got, want = getattr(cell, name), getattr(again, name)
+                    assert (got is None) == (want is None), name
+                    assert got is None or torch.equal(got, want), name
+                _assert_norms(cell.sq_norms, cell.data, exact=False)
+        return
+    again = copy.copy(ns)
+    again._build_sweep()
+    for name in ("_mirror", "_sweep_err", "_sweep_resid", "_sweep_rscale", "_sweep_err1",
+                 "_sweep_rscale2"):
+        got, want = getattr(ns, name), getattr(again, name)
+        assert (got is None) == (want is None), name
+        assert got is None or torch.equal(got, want), name
+    _assert_norms(ns._sq_norms, ns._data, exact=False)
+
+
+def _assert_store_matches_jax(kind, jns, tns, src, *, rebuilt, norms_rebuilt=None,
+                              norm_src=None):
+    """The JAX store ``jns`` against the port's: rows and liveness bit-equal; its norms
+    and sweep arrays the port's own norms and quantizer (or copy) of ``src``, the values
+    each of its rows came from (``norm_src``: its norms' values where they differ;
+    ``norms_rebuilt``: a compaction computed every norm, default ``rebuilt``;
+    ``rebuilt``: every mirror row came from JAX's eager quantizer, else within the
+    jitted upkeep's rule).  The port's own arrays are its rebuild's."""
     st = tns.device_state()
     np.testing.assert_array_equal(st.data.float().numpy(), np.asarray(jns._data, np.float32))
     np.testing.assert_array_equal(st.valid.numpy(), np.asarray(jns._valid))
-    got, want = st.sq_norms.numpy(), np.asarray(jns._sq_norms)
-    if rebuilt if norms_rebuilt is None else norms_rebuilt:
-        np.testing.assert_array_equal(got, want)
-    else:
-        assert (np.abs(got - want) <= ULP * want + 1e-30).all()
+    _assert_norms(np.asarray(jns._sq_norms), src if norm_src is None else norm_src,
+                  exact=rebuilt if norms_rebuilt is None else norms_rebuilt)
+    _assert_rebuild_invariant(tns)
     names = _NAMES[kind]
-    for name, want in zip(names, _mine(kind, src)):
-        assert torch.equal(getattr(st, name), want), name
     assert st.mirror is not st.data and st.mirror.dtype == (
         torch.float32 if kind == "float32" else torch.int8)
     if kind == "float32":
@@ -120,93 +161,191 @@ def _assert_store_matches_jax(kind, jns, tns, src, *, rebuilt, norms_rebuilt=Non
     carried = _carried(jns)
     for name in set(carried) - set(names):
         assert carried[name] is None and getattr(st, name) is None, name
+    want = dict(zip(names, _mine(kind, src)))
     if kind == "float32" or rebuilt:
         for name in names:
-            got, want = getattr(st, name).numpy(), carried[name].numpy()
+            got, w = carried[name].numpy(), want[name].numpy()
             if name in ("sweep_err", "sweep_err1"):
-                assert (np.abs(got - want) <= ULP * np.abs(want) + 1e-30).all(), name
+                assert (np.abs(got - w) <= ULP * np.abs(w) + 1e-30).all(), name
             else:
-                np.testing.assert_array_equal(got, want, err_msg=name)
+                np.testing.assert_array_equal(got, w, err_msg=name)
         return
-    z1, jz1 = st.mirror.numpy(), carried["mirror"].numpy()
-    s1, js1 = st.sweep_rscale.numpy(), carried["sweep_rscale"].numpy()
+    z1, jz1 = want["mirror"].numpy(), carried["mirror"].numpy()
+    s1, js1 = want["sweep_rscale"].numpy(), carried["sweep_rscale"].numpy()
     assert (np.abs(s1.view(np.int32) - js1.view(np.int32)) <= 1).all()
     flipped = (z1 != jz1).any(1)
     assert not (flipped & (s1 == js1)).any() and (np.abs(z1 - jz1.astype(int)) <= 1).all()
     if kind == "int8":
         same = ~flipped
-        s2, js2 = st.sweep_rscale2.numpy()[same], carried["sweep_rscale2"].numpy()[same]
+        s2, js2 = want["sweep_rscale2"].numpy()[same], carried["sweep_rscale2"].numpy()[same]
         assert (np.abs(s2 - js2) <= 2.0 ** -14 * js2).all()
-        dz2 = np.abs(st.sweep_resid.numpy()[same].astype(int)
+        dz2 = np.abs(want["sweep_resid"].numpy()[same].astype(int)
                      - carried["sweep_resid"].numpy()[same])
         assert dz2.max() <= 1 and (dz2 != 0).mean() <= 1e-3
+
+
+def _assert_written_values_diverge(kind, jns, tns, written, norm_written=None):
+    """ROADMAP C17: the JAX store written x (``written``: the values its mirror rows came
+    from; ``norm_written``: its norms', default the same) holds other norms and mirror
+    rows than the port on the live rows that bf16 rounding changed: an f32 mirror's rows
+    differ on each, the norms and the int8 error norms by more than sqrt(Dp) ulps on
+    nearly each (a row's rounding errors can cancel).  Returns how many rows' norms and
+    how many rows' mirror rows came from changed values."""
+    st = tns.device_state()
+    stored, live = st.data.float().numpy(), st.valid.numpy()
+    carried = _carried(jns)
+
+    def apart(a, b, changed):
+        n = changed.sum()
+        return (np.abs(a - b) > ULP * np.abs(b) + 1e-30)[changed].sum() >= 0.95 * n
+
+    norm_changed = (written if norm_written is None else norm_written) != stored
+    norm_changed = norm_changed.any(1) & live
+    assert apart(np.asarray(jns._sq_norms), st.sq_norms.numpy(), norm_changed)
+    changed = (written != stored).any(1) & live
+    if kind == "float32":
+        assert (carried["mirror"].numpy() != st.mirror.numpy()).any(1)[changed].all()
+    else:
+        assert apart(carried["sweep_err"].numpy(), st.sweep_err.numpy(), changed)
+    return int(norm_changed.sum()), int(changed.sum())
 
 
 @pytest.mark.parametrize("kind", list(MIRRORS))
 def test_store_upkeep_and_rebuilds_match_jax(kind):
     """Bulk load at capacity 4096, growth past the first tile, overwrites, deletes below
     and above the compaction ratio, a compaction, writes after it, then offload and
-    page-in: at every step the JAX store's arrays.  Upkeep rows come from the written
-    values (not the stored rows) and every rebuild from the stored bf16 rows."""
+    page-in, on the port, its JAX twin (written bf16(x)) and a JAX store written x: at
+    every step the port's arrays are the twin's and its own rebuild's; the JAX store
+    written x holds the written values' until its compaction and for the rows written
+    after it (C17)."""
     rng = np.random.default_rng(301 + len(kind))
     jns = JaxNamespaceStore("w", _cfg(JaxConfig, kind, use_pallas=False))
+    twin = JaxNamespaceStore("w", _cfg(JaxConfig, kind, use_pallas=False))
     tns = NamespaceStore("w", _cfg(EngineConfig, kind), device="cpu")
-    src = np.zeros((4096, D), np.float32)     # the values each mirror row came from
+    written = np.zeros((4096, D), np.float32)     # the values JAX's mirror rows came from
 
     def write(vals, vids, single=False):
-        for ns, vec in ((jns, JaxVector), (tns, Vector)):
+        nonlocal written
+        for ns, vec, v in ((jns, JaxVector, vals), (twin, JaxVector, _bf16(vals)),
+                           (tns, Vector, vals)):
             if single:
-                ns.upsert([vec(v, {}, id=i) for v, i in zip(vals, vids)])
+                ns.upsert([vec(r, {}, id=i) for r, i in zip(v, vids)])
             else:
-                ns.bulk_upsert(vals, vids)
-        nonlocal src
-        if tns.capacity > src.shape[0]:
-            src = np.concatenate([src, np.zeros((tns.capacity - src.shape[0], D), np.float32)])
-        src[[tns._id_to_slot[i] for i in vids]] = vals
+                ns.bulk_upsert(v, vids)
+        if tns.capacity > written.shape[0]:
+            written = np.concatenate(
+                [written, np.zeros((tns.capacity - written.shape[0], D), np.float32)])
+        written[[tns._id_to_slot[i] for i in vids]] = vals
+
+    def check(rebuilt, norms_rebuilt=None, norm_written=None):
+        stored = tns.device_state().data.float().numpy()
+        _assert_store_matches_jax(kind, twin, tns, stored, rebuilt=rebuilt,
+                                  norms_rebuilt=norms_rebuilt)
+        _assert_store_matches_jax(kind, jns, tns, written, rebuilt=rebuilt,
+                                  norms_rebuilt=norms_rebuilt, norm_src=norm_written)
+        return _assert_written_values_diverge(kind, jns, tns, written, norm_written)
 
     def rebuilt():
-        nonlocal src
-        src = tns.device_state().data.float().numpy().copy()
+        nonlocal written
+        written = tns.device_state().data.float().numpy().copy()
 
     x = rng.standard_normal((3000, D), dtype=np.float32) * 2.0
     ids = [uuid.UUID(int=i + 1) for i in range(len(x))]
     write(x, ids)                                            # bulk load
-    assert tns.capacity == jns.capacity == 4096
-    _assert_store_matches_jax(kind, jns, tns, src, rebuilt=False)
-    # the written values, not the stored rows: the mirror is not a rebuild of the rows
-    st = tns.device_state()
-    assert not torch.equal(st.mirror, _mine(kind, st.data.float().numpy())[0])
+    assert tns.capacity == jns.capacity == twin.capacity == 4096
+    assert check(rebuilt=False) == (3000, 3000)
     more = rng.standard_normal((3000, D), dtype=np.float32)
     more_ids = [uuid.UUID(int=i + 10_000) for i in range(len(more))]
     write(more, more_ids)                                    # growth past the first tile
     over = rng.standard_normal((4, D), dtype=np.float32)
     write(over, [ids[i] for i in (5, 17, 2999, 0)], single=True)   # overwrites
     assert tns.capacity == jns.capacity == 8192
-    _assert_store_matches_jax(kind, jns, tns, src, rebuilt=False)
-    for ns in (jns, tns):
+    assert check(rebuilt=False) == (6000, 6000)
+    for ns in (jns, twin, tns):
         ns.delete(ids[:500])                                 # below the ratio
     assert tns._tombstones == 500 and tns.capacity == 8192
-    _assert_store_matches_jax(kind, jns, tns, src, rebuilt=False)
-    for ns in (jns, tns):
+    assert check(rebuilt=False) == (5500, 5500)
+    for ns in (jns, twin, tns):
         ns.delete(ids[500:2500])                             # above it: compaction
     assert tns._tombstones == 0 and tns.capacity == jns.capacity == 4096
     rebuilt()
-    _assert_store_matches_jax(kind, jns, tns, src, rebuilt=True)
-    st = tns.device_state()
-    assert torch.equal(st.mirror, _mine(kind, st.data.float().numpy())[0])
+    assert check(rebuilt=True) == (0, 0)                     # the three stores agree
     late = rng.standard_normal((40, D), dtype=np.float32)
     write(late, [uuid.UUID(int=i + 50_000) for i in range(len(late))])   # upkeep again
-    _assert_store_matches_jax(kind, jns, tns, src, rebuilt=False)
-    for ns in (jns, tns):
+    assert check(rebuilt=False) == (40, 40)
+    for ns in (jns, twin, tns):
         assert ns.offload() and ns.ensure_resident()        # page-in rebuilds from rows
+    # a page-in rebuilds the mirror from the rows and keeps the norms: the late rows'
+    # written values' in the JAX store written x
+    norm_written = written
     rebuilt()
-    _assert_store_matches_jax(kind, jns, tns, src, rebuilt=True, norms_rebuilt=False)
+    assert check(rebuilt=True, norms_rebuilt=False, norm_written=norm_written) == (40, 0)
     st = tns.device_state()
     arrays = [st.data, st.valid, st.sq_norms] + [getattr(st, n) for n in _NAMES[kind]]
     assert tns.nbytes == sum(t.numel() * t.element_size() for t in arrays)
     vectors = {"int8": 4, "int8_one_stream": 2, "float32": 0}[kind]
     plan = plan_capacity(tns.live_count, D, tns.config)
     assert tns.nbytes == plan.data_bytes + tns.capacity * (5 + 4 * vectors)
+
+
+@pytest.mark.parametrize("layout", ["unsharded", "sharded_1x8"])
+@pytest.mark.parametrize("sweep", [None, "bfloat16", *MIRRORS])
+def test_derived_arrays_equal_a_rebuild_of_the_rows(sweep, layout):
+    """ROADMAP C17's invariant: after every step of a write sequence (writes below the
+    mirror's first eligible capacity, growth to it and past it, overwrites at another
+    scale, deletes, a compaction, writes after it), every array a bf16 store derives
+    from its rows is what a whole rebuild gives over its current rows, for every sweep
+    type, unsharded and on a (1, 8) mesh."""
+    from mlvectordb_tpu_torch.parallel import make_distributed_processor
+
+    kw = MIRRORS.get(sweep, dict(sweep_dtype=sweep))
+    cfg = EngineConfig(dtype="bfloat16", initial_capacity=1024, capacity_multiple=1024,
+                       use_pallas=False, **kw)
+    if layout == "unsharded":
+        qp = QueryProcessor(cfg, device="cpu")
+    else:
+        qp = make_distributed_processor(1, 8, cfg, devices=[torch.device("cpu")] * 8)
+    rng = np.random.default_rng(71)
+    dim = 16
+    rows = rng.standard_normal((200, dim)).astype(np.float32)
+    ids = [uuid.UUID(int=i + 1) for i in range(len(rows))]
+    qp.upsert_many([VectorDTO(r, {"i": i}, id=v) for i, (r, v) in enumerate(zip(rows, ids))],
+                   "ns")
+    ns = qp.storage.namespace("ns")
+    _assert_rebuild_invariant(ns)                 # below the first eligible capacity
+    bulk = rng.standard_normal((5000, dim)).astype(np.float32) * 3.0
+    bulk_ids = qp.bulk_load(bulk, "ns")
+    _assert_rebuild_invariant(ns)                 # the mirror built, then kept up
+    # a mirror of its own: an int8 or f32 one, and sharded only an f32 one (C14)
+    own_mirror = sweep in MIRRORS and (layout == "unsharded" or sweep == "float32")
+
+    def has_mirror():
+        if layout == "unsharded":
+            return ns._mirror is not None and ns._mirror is not ns._data
+        return all(c.mirror is not None and c.mirror is not c.data
+                   for row in ns._cells for c in row)
+
+    assert has_mirror() == own_mirror
+    qp.upsert_many([VectorDTO(bulk[i] * 0.37, None, id=bulk_ids[i]) for i in range(50)]
+                   + [VectorDTO(rows[i] * 5.1, None, id=ids[i]) for i in range(20)], "ns")
+    qp.delete(bulk_ids[100:400], "ns")
+    _assert_rebuild_invariant(ns)
+    if layout == "unsharded":
+        more = rng.standard_normal((4000, dim)).astype(np.float32)
+        qp.bulk_load(more, "ns")                  # growth: the mirror's appended rows
+        assert ns.capacity == 16384
+        _assert_rebuild_invariant(ns)
+    with qp._write_lock:
+        ns.compact()
+    _assert_rebuild_invariant(ns)
+    late = rng.standard_normal((40, dim)).astype(np.float32) * 0.01
+    qp.bulk_load(late, "ns")
+    _assert_rebuild_invariant(ns)
+    assert has_mirror() == own_mirror
+    stored = ns.device_state().gathered()[0].float()[:, :dim]
+    for i, v in zip(bulk_ids[:50], bulk[:50] * 0.37):         # hydration: the written values
+        assert np.array_equal(ns.get(i).values, v)
+        assert torch.equal(stored[ns._id_to_slot[i]], torch.from_numpy(_bf16(v)))
 
 
 # ------------------------------------------------------------------ the engine
@@ -226,8 +365,9 @@ def _clustered(seed, n, b, n_centres, spread, noise):
 @pytest.fixture(scope="module", params=list(MIRRORS))
 def engines(request):
     """One namespace of 20,000 gaussian rows and one clustered one (12,288 rows, 16
-    centres of scale 4, noise 0.02) in the JAX engine and in the port's, both on a bf16
-    store with this mirror (tests/test_torch_int8.py's ``engines`` on a bf16 store)."""
+    centres of scale 4, noise 0.02) in the JAX engine written x, in its twin written
+    bf16(x) and in the port's, all on a bf16 store with this mirror
+    (tests/test_torch_int8.py's ``engines`` on a bf16 store)."""
     rng = np.random.default_rng(261)
     x = rng.standard_normal((20_000, D), dtype=np.float32)
     ids = [uuid.UUID(int=int(v)) for v in rng.integers(1, 2**62, len(x))]
@@ -236,11 +376,12 @@ def engines(request):
     with pytest.MonkeyPatch.context() as mp:
         _jax_on_tpu(mp)
         jqp = JaxQueryProcessor(config=JaxConfig(**cfg))
+        twin = JaxQueryProcessor(config=JaxConfig(**cfg))
         tqp = QueryProcessor(EngineConfig(**cfg), device="cpu")
-        for qp in (jqp, tqp):
-            qp.bulk_load(x, "ns", ids=ids)
-            qp.bulk_load(xc, "c")
-        yield request.param, rng, ids, jqp, tqp, qc
+        for qp, r in ((jqp, lambda v: v), (twin, _bf16), (tqp, lambda v: v)):
+            qp.bulk_load(r(x), "ns", ids=ids)
+            qp.bulk_load(r(xc), "c")
+        yield request.param, rng, ids, jqp, twin, tqp, qc
 
 
 def _oracle(tqp, ns, queries, k, metric):
@@ -267,14 +408,16 @@ def _served(qp, ns, before):
             if c != before.get(t, 0)}
 
 
-def _search(jqp, tqp, queries, k, metric, ns):
-    """(JAX's results, port's results, JAX's tiers, port's tiers, port's transfers)."""
-    jt, tt, xfer = (dict(jqp.cert_tier_counts(ns)), dict(tqp.cert_tier_counts(ns)),
-                    dict(tqp.transfer_counts))
-    jr = jqp.find_similar_batch([JaxDTO(v) for v in queries], k, ns, metric)
+def _search(qps, tqp, queries, k, metric, ns):
+    """(each JAX processor's results, the port's results, each JAX processor's tiers, the
+    port's tiers, the port's transfers)."""
+    before = [dict(p.cert_tier_counts(ns)) for p in qps]
+    tt, xfer = dict(tqp.cert_tier_counts(ns)), dict(tqp.transfer_counts)
+    jrs = [p.find_similar_batch([JaxDTO(v) for v in queries], k, ns, metric) for p in qps]
     tr = tqp.find_similar_batch([VectorDTO(v) for v in queries], k, ns, metric)
     moved = (tqp.transfer_counts["h2d"] - xfer["h2d"], tqp.transfer_counts["d2h"] - xfer["d2h"])
-    return jr, tr, _served(jqp, ns, jt), _served(tqp, ns, tt), moved
+    return (jrs, tr, [_served(p, ns, b) for p, b in zip(qps, before)], _served(tqp, ns, tt),
+            moved)
 
 
 def _scores(res, metric):
@@ -283,58 +426,67 @@ def _scores(res, metric):
                      for rs in res])
 
 
-# (mirror, stage, k, metric) -> (JAX's tier, the port's tier) where they differ on the
-# gaussian namespace: the one-stream int8 proof is the tightest, and a bound measured
-# against the stored rows (C13) escalates the port's ip k=100 search where JAX's, measured
-# against the written values, certifies (both answers are the exact set); at cosine
-# k=100 both escalate, and JAX's scan ranks bf16(q) with the written rows' norms, a set
-# off the stored rows' exact one, where the port's scan scores them as its rescan does
-GAUSSIAN_PINS = {("int8_one_stream", "after", 100, "ip"): ("fast", "exact_scan")}
+def _ids(res):
+    return [{r["id"] for r in rs} for rs in res]
+
+
+# (mirror, stage, k, metric) -> (the twin's tier, the port's tier) where they differ on
+# the gaussian namespace: none, the port's certificate is the twin's over the same rows
+GAUSSIAN_PINS = {}
+# where the JAX engines return other sets than the port: at cosine k=100 all three
+# escalate, and JAX's scan ranks bf16(q) (with the written rows' norms in the engine
+# written x), a set off the stored rows' exact one, where the port's scores the f32 query
+# against them as its rescan does (ROADMAP C15)
 GAUSSIAN_JAX_OFF = {("int8_one_stream", "after", 100, "cosine")}
 
 
 def test_engine_gaussian_matches_jax_before_and_after_deletes(engines):
     """l2, ip and cosine at k=10 and 100 over 16 queries, before and after 300 deletes:
-    the port's sets are the float64 oracle's over the stored rows and JAX's; tiers are
-    JAX's (C13's pins apart); tier 0 is one copy each way; no light_ tier."""
-    kind, rng, ids, jqp, tqp, _ = engines
+    the port's sets are the float64 oracle's over the stored rows, its tiers its JAX
+    twin's; tier 0 is one copy each way; no light_ tier.  The twin and the JAX engine
+    written x return the port's sets (GAUSSIAN_JAX_OFF apart) at the same tiers."""
+    kind, rng, ids, jqp, twin, tqp, _ = engines
     queries = rng.standard_normal((16, D), dtype=np.float32)
     gone = [ids[i] for i in rng.choice(len(ids), 300, replace=False)]
     with pytest.MonkeyPatch.context() as mp:
         _jax_on_tpu(mp)
         for stage in ("before", "after"):
             if stage == "after":
-                assert (sorted(map(str, jqp.delete(gone, "ns")))
-                        == sorted(map(str, tqp.delete(gone, "ns"))))
+                removed = [sorted(map(str, p.delete(gone, "ns"))) for p in (jqp, twin, tqp)]
+                assert removed[0] == removed[1] == removed[2]
             for k in (10, 100):
                 for metric in ("l2", "ip", "cosine"):
                     key = (kind, stage, k, metric)
-                    jr, tr, jt, tt, xfer = _search(jqp, tqp, queries, k, metric, "ns")
+                    (jr, wr), tr, (jt, wt), tt, xfer = _search(
+                        (jqp, twin), tqp, queries, k, metric, "ns")
                     want_d, want_i = _oracle(tqp, "ns", queries, k, metric)
                     slots = [{tqp.storage.namespace("ns")._id_to_slot[r["id"]] for r in rs}
                              for rs in tr]
                     assert slots == [set(o.tolist()) for o in want_i], key
                     np.testing.assert_allclose(_scores(tr, metric), want_d, rtol=1e-4,
                                                atol=1e-4)
-                    same = [{r["id"] for r in a} == {r["id"] for r in b}
-                            for a, b in zip(jr, tr)]
-                    assert all(same) == (key not in GAUSSIAN_JAX_OFF), key
+                    for res in (jr, wr):
+                        same = [a == b for a, b in zip(_ids(res), _ids(tr))]
+                        assert all(same) == (key not in GAUSSIAN_JAX_OFF), key
                     pin = GAUSSIAN_PINS.get(key)
-                    assert (jt, tt) == (({pin[0]: 1}, {pin[1]: 1}) if pin else (jt, jt)), key
+                    assert (wt, tt) == (({pin[0]: 1}, {pin[1]: 1}) if pin else (wt, wt)), key
+                    assert jt == tt, key
                     assert xfer == (1, 1) if tt == {"fast": 1} else xfer[0] == 1
     assert not any(t.startswith("light_") for t in tqp.cert_tier_counts("ns"))
     assert tqp._cert_mode == {}
 
 
-# the clustered namespace: (JAX's tiers, the port's tiers) per metric at k=10.  Its rows
-# round to a few bf16 points per cluster, so the written values and the stored rows
-# rank differently: JAX's answers (its tier 0 on ip over an f32 or two-stream int8
-# mirror, its scan elsewhere) are off the stored rows' exact distances, the port's
-# escalate to its scan, which scores the stored rows as its rescan does (C13)
+# the clustered namespace: per metric at k=10, (the tier of the JAX engine written x, the
+# twin's tier, which is the port's).  Its rows round to a few bf16 points per cluster, so
+# the written values and the stored rows rank differently: the answers of the JAX engine
+# written x (its tier 0 on ip over an f32 or two-stream int8 mirror, its scan elsewhere)
+# are off the stored rows' exact distances.  The port and the twin rank the stored rows:
+# ip certifies over an f32 or two-stream int8 mirror; the l2 and cosine escalations are
+# bf16 ties, and the port's scan scores the stored rows as its rescan does (C15)
 CLUSTERED_TIERS = {
-    "float32": {"l2": ("exact_scan", "exact_scan"), "ip": ("fast", "exact_scan"),
+    "float32": {"l2": ("exact_scan", "exact_scan"), "ip": ("fast", "fast"),
                 "cosine": ("exact_scan", "exact_scan")},
-    "int8": {"l2": ("exact_scan", "exact_scan"), "ip": ("fast", "exact_scan"),
+    "int8": {"l2": ("exact_scan", "exact_scan"), "ip": ("fast", "fast"),
              "cosine": ("exact_scan", "exact_scan")},
     "int8_one_stream": {"l2": ("exact_scan", "exact_scan"), "ip": ("exact_scan", "exact_scan"),
                         "cosine": ("exact_scan", "exact_scan")},
@@ -344,22 +496,22 @@ CLUSTERED_TIERS = {
 def test_engine_clustered_is_exact_over_the_stored_rows(engines):
     """Tight clusters: the port's sorted distances equal the float64 oracle's over the
     stored rows within f32 rounding (1e-4 relative + 1e-4 + 16 ulps of the products'
-    scale: |q|^2 + max |row|^2 for l2, |q| max |row| for ip), JAX's do not (ROADMAP
-    C13); the tiers are pinned."""
-    kind, _, _, jqp, tqp, qc = engines
+    scale: |q|^2 + max |row|^2 for l2, |q| max |row| for ip), those of the JAX engine
+    written x do not (ROADMAP C17); the tiers are pinned, the port's the twin's."""
+    kind, _, _, jqp, twin, tqp, qc = engines
     xc = tqp.storage.namespace("c").device_state().data.float().numpy()
     qn, xn = (qc * qc).sum(-1), (xc * xc).sum(-1).max()
     scale = {"l2": qn + xn, "ip": np.sqrt(qn * xn), "cosine": 0 * qn}
     with pytest.MonkeyPatch.context() as mp:
         _jax_on_tpu(mp)
         for metric in ("l2", "ip", "cosine"):
-            jr, tr, jt, tt, _ = _search(jqp, tqp, qc, 10, metric, "c")
+            (jr, _), tr, (jt, wt), tt, _ = _search((jqp, twin), tqp, qc, 10, metric, "c")
             want, _ = _oracle(tqp, "c", qc, 10, metric)
             atol = (1e-4 + 16 * 2.0 ** -24 * scale[metric])[:, None]
             assert (np.abs(_scores(tr, metric) - want) <= 1e-4 * np.abs(want) + atol).all()
             assert not (np.abs(_scores(jr, metric) - want) <= 1e-4 * np.abs(want) + atol).all()
             j, t = CLUSTERED_TIERS[kind][metric]
-            assert (jt, tt) == ({j: 1}, {t: 1}), metric
+            assert (jt, wt, tt) == ({j: 1}, {t: 1}, {t: 1}), metric
     assert not any(t.startswith("light_") for t in tqp.cert_tier_counts("c"))
 
 
@@ -367,7 +519,7 @@ def test_engine_bytes_match_the_capacity_plan(engines):
     """``nbytes`` of each namespace: the rows at 2 B, the mirror at its own width (an f32
     tensor of its own, or one or two int8 code streams), liveness, norms and the per-row
     vectors; ``plan_capacity`` counts the same bytes per element."""
-    kind, _, _, _, tqp, _ = engines
+    kind, _, _, _, _, tqp, _ = engines
     for name in ("ns", "c"):
         ns = tqp.storage.namespace(name)
         st = ns.device_state()
@@ -380,7 +532,7 @@ def test_engine_bytes_match_the_capacity_plan(engines):
         assert ns.nbytes == ns.capacity * (D * (2 + width) + 5) + per_row
 
 
-# ------------------------------------------------------------------ ROADMAP C13
+# ------------------------------------------------------------------ ROADMAP C17
 
 
 def _near_tie(metric):
@@ -416,16 +568,23 @@ def _near_tie(metric):
     return x, q, a_row, decoys
 
 
+# the tier of the near tie per mirror and metric (the port's, its twin's and the JAX
+# engine's written x): the one-stream int8 band fails every l2 and cosine proof here
+def _near_tie_tier(kind, metric):
+    return "exact_scan" if kind == "int8_one_stream" and metric != "ip" else "fast"
+
+
 @pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
 @pytest.mark.parametrize("kind", list(MIRRORS))
 def test_certificate_covers_the_written_values_gap(kind, metric):
-    """A bf16 store before any compaction: JAX ranks row A by its written value and
-    proves a set without it (at tier 0, or through its scan, which ranks bf16(q) with the
-    written norms, where the one-stream int8 band fails the proof), a wrong set over the
-    stored rows.  The port's bound rows measure the mirror against the
-    stored rows and its scan scores them as its rescan does: the exact set comes back, A
-    first, at JAX's tier.  After a compaction (the mirror rebuilt from the rows) JAX's
-    plan holds and both return the exact set."""
+    """A bf16 store before any compaction (ROADMAP C17).  The JAX engine written x ranks
+    row A by its written value and proves a set without it (at tier 0, or through its
+    scan, which ranks bf16(q) with the written norms, where the one-stream int8 band
+    fails the proof), a wrong set over the stored rows.  The port's store computes its
+    mirror and norms from the stored rows, so JAX's own plan, which it keeps, proves the
+    exact set, A first, at the same tier, as its twin written bf16(x) does.  After a
+    compaction (the mirror rebuilt from the rows) the JAX engine written x gives it too.
+    ``search_prep`` gives the engine's prep: JAX's bound rows, none for an f32 mirror."""
     x, q, a_row, decoys = _near_tie(metric)
     ids = [uuid.UUID(int=i + 1) for i in range(len(x))]
     b = _bf16(x).astype(np.float64)
@@ -434,49 +593,50 @@ def test_certificate_covers_the_written_values_gap(kind, metric):
     want = set(np.argsort(dist, kind="stable")[:10].tolist())
     assert a_row in want and np.sort(dist)[10] > np.sort(dist)[9]
     cfg = dict(dtype="bfloat16", **MIRRORS[kind])
+    tier = _near_tie_tier(kind, metric)
     with pytest.MonkeyPatch.context() as mp:
         _jax_on_tpu(mp)
         jqp = JaxQueryProcessor(config=JaxConfig(**cfg))
+        twin = JaxQueryProcessor(config=JaxConfig(**cfg))
         tqp = QueryProcessor(EngineConfig(**cfg), device="cpu")
-        for qp in (jqp, tqp):
-            qp.bulk_load(x, "ns", ids=ids)
-        # the one-stream int8 band fails every l2 and cosine proof here, in both packages
-        tier = "exact_scan" if kind == "int8_one_stream" and metric != "ip" else "fast"
+        for qp, v in ((jqp, x), (twin, _bf16(x)), (tqp, x)):
+            qp.bulk_load(v, "ns", ids=ids)
         for stage in ("written values", "compacted"):
             if stage == "compacted":
-                for qp in (jqp, tqp):
+                for qp in (jqp, twin, tqp):
                     with qp._write_lock:
                         qp.storage.namespace("ns").compact()
-            jt, tt = dict(jqp.cert_tier_counts("ns")), dict(tqp.cert_tier_counts("ns"))
-            jr = jqp.find_similar_batch([JaxDTO(q)], 10, "ns", metric)[0]
-            tr = tqp.find_similar_batch([VectorDTO(q)], 10, "ns", metric)[0]
-            jax_set = {r["id"].int - 1 for r in jr}
-            port_set = {r["id"].int - 1 for r in tr}
+            before = [dict(p.cert_tier_counts("ns")) for p in (jqp, twin, tqp)]
+            jr, wr, tr = (p.find_similar_batch([D_(q)], 10, "ns", metric)[0]
+                          for p, D_ in ((jqp, JaxDTO), (twin, JaxDTO), (tqp, VectorDTO)))
+            jax_set, twin_set, port_set = ({r["id"].int - 1 for r in res}
+                                           for res in (jr, wr, tr))
             assert port_set == want and tr[0]["id"] == ids[a_row], stage
-            assert _served(tqp, "ns", tt) == {tier: 1}, stage
-            assert _served(jqp, "ns", jt) == {tier: 1}, stage
+            assert twin_set == want and wr[0]["id"] == ids[a_row], stage
+            served = [_served(p, "ns", t) for p, t in zip((jqp, twin, tqp), before)]
+            assert served == [{tier: 1}] * 3, stage
             if stage == "written values":
                 assert a_row not in jax_set and jax_set != want    # the reference
             else:
                 assert jax_set == want
             st = tqp.storage.namespace("ns").device_state()
-            bound = [p["eb_rows"][0] for key, p in st.prep_cache.items() if key != "zero_query"]
-            assert len(bound) == 1
-            # search_prep gives the engine's prep when it is handed the stored rows
+            preps = [p for key, p in st.prep_cache.items() if key != "zero_query"]
+            assert len(preps) == 1
             mine = T.search_prep(st.mirror, st.valid, st.sq_norms, metric=metric,
                                  live_prefix=st.high_water, sweep_err=st.sweep_err,
                                  resid=st.sweep_resid, rscale=st.sweep_rscale,
-                                 err1=st.sweep_err1, rscale2=st.sweep_rscale2, rows=st.data)
-            assert torch.equal(mine["eb_rows"][0], bound[0])
-            assert torch.equal(mine["rank_norms"], T.row_sq_norms(st.data))
-            with pytest.raises(ValueError, match="needs the rows"):
-                T.search_prep(st.mirror, st.valid, st.sq_norms, metric=metric,
-                              live_prefix=st.high_water, rescan_dtype=torch.bfloat16)
-            if kind == "float32":   # ||stored row - mirror row||: zero for bf16-exact rows
-                assert float(bound[0][decoys[0]]) == 0.0
-                assert (float(bound[0][a_row]) > 0.0) == (stage == "written values")
-
-
+                                 err1=st.sweep_err1, rscale2=st.sweep_rscale2,
+                                 rescan_dtype=torch.bfloat16)
+            assert len(mine["eb_rows"]) == len(preps[0]["eb_rows"])
+            assert all(torch.equal(a, c) for a, c in zip(mine["eb_rows"], preps[0]["eb_rows"]))
+            assert torch.equal(mine["bias_row"], preps[0]["bias_row"])
+            if kind == "float32":   # an f32 mirror of the stored rows: exact, no bound
+                assert mine["eb_rows"] == ()
+            else:                   # the codes' error against the stored rows
+                e = (st.sweep_err if metric != "cosine"
+                     else st.sweep_err * torch.rsqrt(st.sq_norms))
+                live = torch.arange(st.capacity) < st.high_water
+                assert torch.equal(mine["eb_rows"][0], torch.where(live, e, 0.0))
 # ------------------------------------------------------------------ the mesh
 
 
@@ -525,12 +685,16 @@ def test_sharded_knn_f32_mirror_of_bf16_rows_matches_jax(mesh_rows, mesh, metric
 @pytest.mark.parametrize("kind", ["int8", "float32"])
 def test_sharded_store_keeps_jaxs_mirror_per_cell(kind):
     """A (2, 4) distributed processor on a bf16 store: under an f32 sweep each cell keeps
-    an f32 mirror of its own (write upkeep: the written values; growth by zero rows;
-    page-in: the rows widened), under int8 none (the masked row-major kernel per shard,
-    as in the JAX package); its answers are JAX's distributed processor's and the float64
-    oracle's over the stored rows, before and after a delete."""
+    an f32 mirror of its own, the cell's stored rows widened at every step (ROADMAP C17;
+    JAX's distributed store written the same x holds the written values of the rows
+    written since the mirror was built, until a page-in rebuilds it), under int8 none
+    (the masked row-major kernel per shard, as in the JAX package); its answers are the
+    JAX processor's and the float64 oracle's over the stored rows, before and after a
+    delete.  ``convert.sharded_from_jax`` of the JAX store gives the port's arrays: its
+    norms and mirror rebuilt from the rows carried over."""
     from mlvectordb_tpu.parallel import make_distributed_processor as jmake
-    from mlvectordb_tpu_torch.parallel import make_distributed_processor
+    from mlvectordb_tpu_torch.convert import sharded_from_jax
+    from mlvectordb_tpu_torch.parallel import ShardedNamespaceStore, make_distributed_processor
 
     rng = np.random.default_rng(31)
     # a first capacity below a tile a shard: the JAX store raises on the first int8 write
@@ -552,8 +716,10 @@ def test_sharded_store_keeps_jaxs_mirror_per_cell(kind):
     assert ns.shard_capacity == jns.shard_capacity > 4096
 
     def check_cells(written):
-        """``written``: the ids whose mirror rows hold their written values (the rest:
-        their stored rows, widened)."""
+        """The port's cells: the rows widened.  JAX's: ``written``, the ids whose mirror
+        rows hold their written values (the rest: their stored rows, widened)."""
+        c = ns.shard_capacity
+        jax_mirror = None if kind == "int8" else np.asarray(jns._data_t)
         for row in ns.device_state().shards:
             for s, cell in enumerate(row):
                 if kind == "int8":
@@ -561,18 +727,21 @@ def test_sharded_store_keeps_jaxs_mirror_per_cell(kind):
                     continue
                 assert cell.mirror.dtype == torch.float32 and cell.mirror is not cell.data
                 assert cell.sweep_err is None
+                assert torch.equal(cell.mirror, cell.data.float())
                 want = cell.data.float().clone()
                 for vid in written:
                     slot = ns._id_to_slot[vid]
-                    if slot // ns.shard_capacity == s:
-                        want[slot % ns.shard_capacity, :16] = torch.from_numpy(
-                            ns._slot_values[slot])
-                assert torch.equal(cell.mirror, want)
+                    if slot // c == s:
+                        want[slot % c, :16] = torch.from_numpy(ns._slot_values[slot])
+                got = convert.rows_from_sweep_layout(jax_mirror[:, s * c:(s + 1) * c])
+                np.testing.assert_array_equal(got, want.numpy())
+        _assert_rebuild_invariant(ns)
 
     # the first eligible capacity came with the bulk load: the mirror was built from the
     # rows then (the first 200 ids'), the bulk load's own rows written after it
     check_cells(written=bulk_ids)
-    assert ns.offload() and ns.ensure_resident()
+    for p in (ns, jns):
+        assert p.offload() and p.ensure_resident()
     check_cells(written=())
     for p in (qp, jqp):
         p.delete(ids[:3], "ns")
@@ -591,6 +760,29 @@ def test_sharded_store_keeps_jaxs_mirror_per_cell(kind):
         np.testing.assert_allclose([r["score"] for rs in got for r in rs],
                                    [r["score"] for rs in want for r in rs],
                                    rtol=2e-4, atol=2e-4)
+    # carried across after writes since the page-in: JAX's norms of those rows are the
+    # written values', the carried store's the stored rows'
+    more = rng.standard_normal((30, 16)).astype(np.float32) * 7.0
+    jqp.upsert_many([JaxDTO(r, None, id=v) for r, v in zip(more, bulk_ids[:30])], "ns")
+    qp.upsert_many([VectorDTO(r, None, id=v) for r, v in zip(more, bulk_ids[:30])], "ns")
+    mesh = make_distributed_processor(2, 4, EngineConfig(**kw),
+                                      devices=[torch.device("cpu")] * 8)
+    carried = sharded_from_jax(jns, ShardedNamespaceStore("ns", mesh.sharding_manager,
+                                                          mesh.config))
+    _assert_rebuild_invariant(carried)
+    slots = [ns._id_to_slot[v] for v in bulk_ids[:30]]
+    jax_norms = np.asarray(jns._sq_norms)[slots]
+    for r_port, r_carried in zip(ns.device_state().shards, carried.device_state().shards):
+        for a, c in zip(r_port, r_carried):
+            assert torch.equal(a.data.view(torch.int16), c.data.view(torch.int16))
+            assert (a.mirror is None) == (c.mirror is None)
+            assert a.mirror is None or torch.equal(a.mirror, c.mirror)
+            _assert_norms(a.sq_norms, c.data, exact=False)
+            assert torch.equal(c.sq_norms, T.row_sq_norms(c.data))
+    written_norms = (more * more).sum(1)
+    assert (np.abs(jax_norms - written_norms) <= ULP * written_norms).all()
+    stored_norms = (_bf16(more).astype(np.float64) ** 2).sum(1)
+    assert (np.abs(jax_norms - stored_norms) > ULP * stored_norms).mean() >= 0.9
 
 
 # ------------------------------------------------------------------ carry-over, durability
@@ -624,9 +816,9 @@ def _assert_answers_equal(jqp, tqp, queries):
 @pytest.mark.parametrize("kind", list(MIRRORS))
 def test_carry_over_and_snapshots_in_both_packages(tmp_path, kind):
     """``convert.store_from_jax_snapshot`` of a JAX store of this config, and each
-    package's snapshot loaded by the other: the same rows, a mirror built from the
-    snapshot's values (the stored bf16 rows, through ``bulk_upsert``), the same answers
-    as JAX's loaded store, at tier 0."""
+    package's snapshot loaded by the other: the same rows, a mirror and norms built from
+    the snapshot's values (the stored bf16 rows, through ``bulk_upsert``), the same
+    answers as JAX's loaded store, at tier 0."""
     from mlvectordb_tpu.engine.persist import load_storage as jax_load_storage
 
     jqp, tqp, queries, cfg = _filled(kind)
@@ -638,6 +830,7 @@ def test_carry_over_and_snapshots_in_both_packages(tmp_path, kind):
     assert carried.capacity == jns.capacity == 16384 and n == 8700
     np.testing.assert_array_equal(st.data[:n].float().numpy(), snap["values"])
     assert torch.equal(st.mirror, _mine(kind, st.data.float().numpy())[0])
+    _assert_rebuild_invariant(carried)
     jqp.save(str(tmp_path / "jax"))
     tqp.save(str(tmp_path / "port"))
     with pytest.MonkeyPatch.context() as mp:
@@ -650,6 +843,7 @@ def test_carry_over_and_snapshots_in_both_packages(tmp_path, kind):
             np.testing.assert_array_equal(
                 lst.data.float().numpy(), np.asarray(jl.storage.namespace("ns")._data, np.float32))
             assert torch.equal(lst.mirror, _mine(kind, lst.data.float().numpy())[0])
+            _assert_rebuild_invariant(tl.storage.namespace("ns"))
             _assert_answers_equal(jl, tl, queries)
             assert tl.cert_tier_counts("ns") == jl.cert_tier_counts("ns") == {"fast": 3}
 
@@ -657,8 +851,10 @@ def test_carry_over_and_snapshots_in_both_packages(tmp_path, kind):
 @pytest.mark.parametrize("kind", list(MIRRORS))
 def test_wal_replay_gives_jaxs_store(tmp_path, kind):
     """A log the port wrote (a bulk load, overwrites, deletes) replayed by both packages:
-    the JAX store's rows and mirror, whose rows come from the logged values (write
-    upkeep; a deleted row keeps its last one), and the same answers."""
+    the same rows and liveness; the JAX store's mirror and norms come from the logged
+    values (write upkeep; a deleted row keeps its last one), the port's from the stored
+    rows, which its twin (the log's values rounded, written through the JAX store) holds
+    too (ROADMAP C17); the same answers as the JAX engine's replay."""
     cfg = dict(dtype="bfloat16", **MIRRORS[kind])
     rng = np.random.default_rng(43)
     log = str(tmp_path / "wal")
@@ -678,6 +874,12 @@ def test_wal_replay_gives_jaxs_store(tmp_path, kind):
     written[: len(x)] = x
     written[:20] *= 0.5
     _assert_store_matches_jax(kind, jns, tns, written, rebuilt=False)
+    assert _assert_written_values_diverge(kind, jns, tns, written) == (8700, 8700)
+    twin = JaxNamespaceStore("ns", JaxConfig(**cfg, use_pallas=False))
+    twin.bulk_upsert(_bf16(written[: len(x)]), ids)
+    twin.delete(ids[100:400])
+    stored = tns.device_state().data.float().numpy()
+    _assert_store_matches_jax(kind, twin, tns, stored, rebuilt=False)
     queries = rng.standard_normal((8, D), dtype=np.float32)
     with pytest.MonkeyPatch.context() as mp:
         _jax_on_tpu(mp)

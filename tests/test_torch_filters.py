@@ -599,44 +599,101 @@ def test_result_cache_is_keyed_by_the_filter():
     assert tqp._result_cache_hits == 3
 
 
-# ------------------------------------------------------------------ ROADMAP C3
+# ------------------------------------------------------------------ ROADMAP C3, C17
 
-def test_c3_bf16_store_masked_row_major_and_scan_match_jax(jax_on_tpu):
-    """ROADMAP C3: a bf16 store before its first compaction ranks with the written f32
-    rows' norms (B5's l2 bias row and the exact scan), while the rescan scores the stored
-    bf16 rows.  On C2's construction (tests/test_torch_row_live.py) row A rounds to the
-    query (distance 0 over the stored rows) with an f32 norm larger by 0.94, behind 16
-    decoys at 0.25-0.38 and 24 at 0.71.  A filter holding every row sends the row-major
-    search through B5; ``use_pallas=False`` is the scan.  The port returns JAX's answer
-    on both paths.  B5's selection is wide enough to take A's window, and the rescan over
-    the stored rows puts A first at distance 0 before and after a compaction; the scan
-    ranks with the norms alone, so before a compaction A is left out of its top 10, and
-    after one (norms of the stored rows) A comes first."""
-    n, k = 32768, 10
+
+def _c3_rows(n=32768):
+    """C2's construction (tests/test_torch_row_live.py): row A (100) rounds to the
+    all-ones query, distance 0 over the stored rows, but its written f32 norm is larger by
+    0.94; 16 decoys sit at 0.25-0.38 and 24 more at 0.71 (l2; for cosine their direction
+    is as close: A's written value is 0.0038 off the query's, the 16 decoys 0.001-0.0015);
+    the other rows are far."""
     rng = np.random.default_rng(0)
     x = (rng.standard_normal((n, D)) + 8).astype(np.float32)
-    q = np.ones(D, np.float32)
-    a_row = 100
-    x[a_row] = np.float32(1 + 2.0 ** -8 - 2.0 ** -12)
+    x[100] = np.float32(1 + 2.0 ** -8 - 2.0 ** -12)
     for i, r in enumerate(range(1000, 1000 + 40 * 64, 64)):
         x[r] = 1.0
         x[r, i % D] += np.float32(0.5 + i / 128 if i < 16 else 0.84375)
-    ids = [uuid.UUID(int=i + 1) for i in range(n)]
-    metas = [{"all": True} for _ in range(n)]
+    return x, np.ones(D, np.float32), 100
+
+
+def _c3_searches(x, q, metric, k=10):
+    """A filter holding every row sends the row-major search through B5
+    (``use_pallas=True``); ``use_pallas=False`` is the scan.  Per path and stage (before
+    and after a compaction): the answers of the JAX engine written x, of its twin written
+    bf16(x) and of the port."""
+    ids = [uuid.UUID(int=i + 1) for i in range(len(x))]
+    metas = [{"all": True} for _ in range(len(x))]
     spec = {"all": True}
+    xb = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    out = {}
     for use_pallas in (True, False):
-        jqp, tqp = _load_both({"dtype": "bfloat16", "use_pallas": use_pallas}, x, ids, metas)
+        cfg = {"dtype": "bfloat16", "use_pallas": use_pallas}
+        jqp, tqp = _load_both(cfg, x, ids, metas)
+        twin = JaxQueryProcessor(config=JaxConfig(**cfg))
+        twin.bulk_load(xb, "ns", ids=ids, metadatas=metas)
         for stage in ("written norms", "compacted"):
             if stage == "compacted":
-                for qp in (jqp, tqp):
+                for qp in (jqp, twin, tqp):
                     with qp._write_lock:
                         qp.storage.namespace("ns").compact()
-            jr = jqp.find_similar_batch([JaxDTO(q)], k, "ns", "l2", filter=spec)
-            tr = tqp.find_similar_batch([VectorDTO(q)], k, "ns", "l2", filter=spec)
-            assert [r["id"] for r in tr[0]] == [r["id"] for r in jr[0]], (use_pallas, stage)
-            np.testing.assert_allclose([r["score"] for r in tr[0]],
-                                       [r["score"] for r in jr[0]], rtol=1e-5, atol=1e-4)
-            found = ids[a_row] in {r["id"] for r in tr[0]}
-            assert found == (use_pallas or stage == "compacted"), (use_pallas, stage)
-            if found:
-                assert tr[0][0]["id"] == ids[a_row] and tr[0][0]["score"] == 0.0
+            out[use_pallas, stage] = (
+                jqp.find_similar_batch([JaxDTO(q)], k, "ns", metric, filter=spec)[0],
+                twin.find_similar_batch([JaxDTO(q)], k, "ns", metric, filter=spec)[0],
+                tqp.find_similar_batch([VectorDTO(q)], k, "ns", metric, filter=spec)[0])
+    return ids, out
+
+
+def _same_answer(a, b):
+    assert [r["id"] for r in a] == [r["id"] for r in b]
+    np.testing.assert_allclose([r["score"] for r in a], [r["score"] for r in b], rtol=1e-5,
+                               atol=1e-4)
+
+
+def _assert_c3(x, q, a_row, metric, separates):
+    """The port returns A first at distance 0 on both paths before and after a
+    compaction, as its JAX twin does.  The JAX engine written x does too, save on the
+    scan before a compaction (``separates``): it ranks with the written norms and leaves A
+    out of its top 10."""
+    xb = torch.from_numpy(x).to(torch.bfloat16).double().numpy()
+    qd = q.astype(np.float64)
+    dist = (((xb - qd) ** 2).sum(1) if metric == "l2"
+            else 1 - xb @ qd / np.sqrt((xb * xb).sum(1) * (qd * qd).sum()) if metric == "cosine"
+            else 1 - xb @ qd)
+    want = set(np.argsort(dist, kind="stable")[:10].tolist())
+    assert np.sort(dist)[10] > np.sort(dist)[9]
+    ids, out = _c3_searches(x, q, metric)
+    best = {"l2": 0.0, "cosine": 1.0}.get(metric)
+    for (use_pallas, stage), (jr, wr, tr) in out.items():
+        key = (use_pallas, stage)
+        assert {r["id"].int - 1 for r in tr} == want, key
+        if a_row in want:
+            assert tr[0]["id"] == ids[a_row] and tr[0]["score"] == best, key
+        _same_answer(tr, wr)
+        found = ids[a_row] in {r["id"] for r in jr}
+        if separates and not use_pallas and stage == "written norms":
+            assert not found, key                        # the reference's wrong set
+        else:
+            _same_answer(tr, jr)
+
+
+def test_c3_bf16_store_masked_row_major_and_scan_match_jax(jax_on_tpu):
+    """ROADMAP C3 and C17: a bf16 store before its first compaction, l2.  The JAX store
+    ranks with the written f32 rows' norms (B5's l2 bias row and the exact scan) while its
+    rescan scores the stored bf16 rows; the port's store holds the stored rows' norms.  On
+    C2's construction B5's selection takes A's window in both packages and the rescan
+    puts A first at distance 0; the scan ranks with the norms alone, so before a
+    compaction the JAX engine written x leaves A out of its top 10, where the port and
+    the JAX twin written bf16(x) return A first.  After a compaction (norms of the stored
+    rows) all three agree."""
+    x, q, a_row = _c3_rows()
+    _assert_c3(x, q, a_row, "l2", separates=True)
+
+
+def test_c3_bf16_store_cosine_row_major_and_scan_are_exact(jax_on_tpu):
+    """C3's construction under cosine, which ranks with the norms on the scan: before a
+    compaction the JAX engine written x leaves A out there, while the port and the twin
+    return A first at similarity 1.  (ip ranks with no norm on the row-major path, so the
+    written norms cannot separate the packages there.)"""
+    x, q, a_row = _c3_rows()
+    _assert_c3(x, q, a_row, "cosine", separates=True)

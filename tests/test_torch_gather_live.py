@@ -29,6 +29,7 @@ import pytest
 import torch
 
 from mlvectordb_tpu.ops import pallas_knn_t as J
+from mlvectordb_tpu_torch.ops import fused_knn as F
 from mlvectordb_tpu_torch.ops import fused_knn_t as T
 from mlvectordb_tpu_torch.ops.distances import MASKED
 
@@ -263,3 +264,108 @@ def test_escalation_rescans_with_the_live_count_only_on_the_whole_batch(monkeypa
     tier2 = (T.FQ_CONTAIN, None) if batch > T.FQ_CONTAIN else (batch, n_live)
     assert spy.calls == [(batch, n_live), (batch, None), tier2, (tier2[0], None)]
     assert live.resolve()[2] == 1                      # no exact scan
+
+
+# ------------------------------------------------------------------ ROADMAP C4
+
+
+def _c4_pairs(metric, B=64, r1=8, cap=16384):
+    """One pair of candidates per query, each in windows of its own, the rest far rows.
+    Queries 0-15: q + e and q - e with e orthogonal to q in small dyadic values, whose
+    distances are equal in exact arithmetic and computed exactly.  Queries 16-63 the same
+    with gaussian rows, whose float64 distances differ by less than an ulp of the f32 one
+    (those that f32 rounding moved apart are left out).  Returns (db, q, pairs, float64
+    distances of each pair)."""
+    rng = np.random.default_rng(4)
+    db = (rng.standard_normal((cap, D)) + 20).astype(np.float32)
+    q = np.zeros((B, D), np.float32)
+    pairs = []
+    for b in range(B):
+        if b < 16:      # e on the query's zero half
+            q[b, : D // 2] = rng.integers(-32, 32, D // 2) / 8.0
+            e = np.concatenate([np.zeros(D // 2), rng.choice([-0.125, 0.125], D // 2)])
+        else:
+            q[b] = rng.standard_normal(D)
+            e = rng.standard_normal(D) * 0.1
+            e -= (e @ q[b]) / (q[b].astype(np.float64) @ q[b]) * q[b]
+        lo, hi = 16 + b * 2 * r1, 16 + (b * 2 + 1) * r1 + 3
+        db[lo], db[hi] = q[b] + e, q[b] - e
+        pairs.append((lo, hi))
+    q64, x64 = q.astype(np.float64), db.astype(np.float64)
+    d64 = []
+    for b, pair in enumerate(pairs):
+        a, c = (x64[r] for r in pair)
+        if metric == "l2":
+            d64.append([((v - q64[b]) ** 2).sum() for v in (a, c)])
+        else:
+            d64.append([1 - v @ q64[b] / np.sqrt((v @ v) * (q64[b] @ q64[b])) for v in (a, c)])
+    return db, q, pairs, np.array(d64)
+
+
+@pytest.mark.parametrize("metric", ["l2", "cosine"])
+def test_c4_sub_ulp_pairs_in_the_rescan(metric):
+    """ROADMAP C4: two candidates less than one f32 ulp apart in the certified rescan.  The
+    f32 sums decide their order in both packages (a shared exposure: each package sums
+    in its own order, B2 in its one-warp-a-row predecessor's).  Where a package computes
+    the two the same f32 distance, the JAX package returns the lower slot first
+    (``lax.top_k``) and the port
+    the row nearer in float64 (``settled_topk``), the lower slot on an exact tie: the
+    exact pairs come back in slot order from both, and among the gaussian pairs both
+    packages tie on, the port's order is the float64 one and differs from JAX's on some
+    (an intended divergence; both asserted)."""
+    r1, cap, k = 8, 16384, 4
+    db, q, pairs, d64 = _c4_pairs(metric)
+    B = len(q)
+    f = np.sort(np.stack([[lo // r1, hi // r1, 1500 + b, 1800 + b]
+                          for b, (lo, hi) in enumerate(pairs)]).astype(np.int32), 1)
+    maskadd = np.zeros(cap, np.float32)
+    qn = (q * q).sum(-1, keepdims=True)
+    jd, ji = J._rescan_windows(jnp.asarray(q), jnp.asarray(qn), jnp.asarray(db),
+                               jnp.asarray(maskadd), cap, jnp.asarray(f), k=k, metric=metric,
+                               r1=r1, masked=True)
+    td, ti = T._rescan_windows(_t(q), _t(qn), _t(db), _t(maskadd), cap, _t(f), k=k,
+                               metric=metric, r1=r1, masked=True)
+    jd, ji, td, ti = np.asarray(jd), np.asarray(ji), td.numpy(), ti.numpy()
+    near = ties = differ = 0
+    for b, pair in enumerate(pairs):
+        assert sorted(ji[b, :2].tolist()) == sorted(ti[b, :2].tolist()) == list(pair), b
+        if abs(d64[b, 0] - d64[b, 1]) >= np.spacing(np.float32(d64[b, 0])):
+            assert b >= 16, b       # f32 rounding of q +- e moved a gaussian pair apart
+            continue
+        near += 1
+        if td[b, 0] == td[b, 1]:    # the port's tie: the float64 order, then the slot
+            assert ti[b, :2].tolist() == list(pair if d64[b, 0] <= d64[b, 1] else pair[::-1]), b
+        if jd[b, 0] == jd[b, 1]:    # JAX's tie: the slot order
+            assert ji[b, :2].tolist() == list(pair), b
+        if td[b, 0] == td[b, 1] and jd[b, 0] == jd[b, 1]:
+            ties += 1
+            differ += ji[b, :2].tolist() != ti[b, :2].tolist()
+        elif b < 16:
+            raise AssertionError(f"query {b}: an exact pair computed apart")
+    assert near >= 40 and ties >= 17 and differ >= 1
+
+
+@pytest.mark.parametrize("metric", ["l2", "cosine"])
+def test_c4_row_major_rescan_settles_ties_in_float64(metric):
+    """C4 on the row-major path (``exact_knn_fused``, the masked kernel B5's plain version
+    and its rescan): each query's pair are its two nearest rows; where the f32 rescan
+    gives them the same distance and float64 does not, the row nearer in float64 comes
+    first, so k = 1 returns it (rows tied in float64 too keep their candidate order, the
+    order of their windows' phase-1 minima)."""
+    db, q, pairs, d64 = _c4_pairs(metric, cap=32768)
+    valid = np.ones(len(db), bool)
+    valid[-5:] = False                                        # the masked kernel
+    sq = (db.astype(np.float64) ** 2).sum(-1).astype(np.float32)
+    td, ti = F.exact_knn_fused(_t(q), _t(db), _t(valid), _t(sq), k=2, metric=metric,
+                               live_prefix=None)
+    d1, i1 = F.exact_knn_fused(_t(q), _t(db), _t(valid), _t(sq), k=1, metric=metric,
+                               live_prefix=None)
+    td, ti, i1 = td.numpy(), ti.numpy(), i1.numpy()
+    ties = 0
+    for b, pair in enumerate(pairs):
+        assert sorted(ti[b].tolist()) == list(pair), b
+        if td[b, 0] == td[b, 1] and d64[b, 0] != d64[b, 1]:
+            ties += 1
+            want = list(pair if d64[b, 0] < d64[b, 1] else pair[::-1])
+            assert ti[b].tolist() == want and i1[b, 0] == want[0], b
+    assert ties >= 10

@@ -678,8 +678,9 @@ def test_int8_f32_engine_on_cuda_matches_cpu(cuda, kind):
 @pytest.mark.parametrize("kind", ["int8", "int8_no_resid", "float32"])
 def test_bf16_store_mirrors_engine_on_cuda_matches_cpu(cuda, kind):
     """A bf16 store with an int8 or f32 mirror (its rows written, so the mirror holds the
-    written values): the CPU's ids, scores within 1e-4 and tiers, B3 over the mirror's
-    type and B2 over the bf16 rows launched once a search, never a light_ tier."""
+    stored rows' codes or copy, ROADMAP C17): the CPU's ids, scores within 1e-4 and
+    tiers, B3 over the mirror's type and B2 over the bf16 rows launched once a search,
+    never a light_ tier."""
     rng = np.random.default_rng(31)
     x = rng.standard_normal((20000, 128), dtype=np.float32)
     q = [VectorDTO(v) for v in rng.standard_normal((16, 128), dtype=np.float32)]
@@ -712,7 +713,7 @@ def test_bf16_store_mirrors_engine_on_cuda_matches_cpu(cuda, kind):
 
 @pytest.mark.parametrize("kind", ["int8", "int8_no_resid", "float32"])
 def test_bf16_store_certificate_gap_on_cuda_matches_cpu(cuda, kind):
-    """ROADMAP C13's construction (tests/test_torch_bf16_mirrors.py, l2): row A's written
+    """ROADMAP C17's construction (tests/test_torch_bf16_mirrors.py, l2): row A's written
     value ranks behind 40 decoys, its stored bf16 row is the query's nearest.  The card
     returns the CPU's answer, the exact set over the stored rows with A first, at the
     CPU's tier."""
@@ -735,6 +736,55 @@ def test_bf16_store_certificate_gap_on_cuda_matches_cpu(cuda, kind):
     b = torch.from_numpy(x).to(torch.bfloat16).double().numpy()
     want = {ids[i] for i in np.argsort(((b - 1.0) ** 2).sum(1), kind="stable")[:10]}
     assert out[0] == out[1] and out[1][0] == want and out[1][1] == ids[100]
+
+
+def test_wide_tier2_search_memory_is_bounded(cuda):
+    """ROADMAP C16: a 1536-d bf16 store with the same-dtype sweep (131,072 clustered rows,
+    8 centres x 0.05, noise 1e-3, as tests/test_torch_wide_dp.py's C15 case) whose l2
+    batch escalates to the exact scan.  Each search's device memory beyond the store at
+    its peak (the first one builds the snapshot's prep) stays within
+    ``fused_knn_t.search_bytes_bound``: a ``_row_step`` chunk of the rows in float64, the
+    scan's widened tile and [B, 8 * SWEEP_TILE] blocks, phase 1's outputs, the rescan's
+    candidates and the prep rows; the answers are the float64 oracle's over the stored
+    rows, within phase 21's f32 rounding of l2's expansion where rows tie that closely."""
+    dim, n, b, k = 1536, 1 << 17, 128, 10
+    rng = np.random.default_rng(16)
+    centres = rng.standard_normal((8, dim)).astype(np.float32) * 0.05
+    x = (centres[rng.integers(0, 8, n)]
+         + rng.standard_normal((n, dim)).astype(np.float32) * 1e-3).astype(np.float32)
+    q = (centres[rng.integers(0, 8, b)]
+         + rng.standard_normal((b, dim)).astype(np.float32) * 1e-3).astype(np.float32)
+    qp = QueryProcessor(EngineConfig(dtype="bfloat16", sweep_dtype="bfloat16"), device=cuda)
+    ids = qp.bulk_load(x, "wide")
+    ns = qp.storage.namespace("wide")
+    bound = fused_knn_t.search_bytes_bound(ns.capacity, ns.dpad, qp.config.bucket_batch(b),
+                                           qp.config.bucket_k(k))
+    rows = ns.device_state().data[:n].double()
+    qd = torch.from_numpy(q).to(cuda, torch.float64)
+    d = ((qd * qd).sum(1)[:, None] + (rows * rows).sum(1)[None] - 2 * qd @ rows.T).cpu().numpy()
+    # chip_smoke's _check_kdists: 16 ulps of qn + max sqn, growing as sqrt(D / 128) with
+    # the rounding of the D-term f32 sums
+    tol = (16 * 2.0 ** -24 * np.sqrt(dim / 128)
+           * ((q * q).sum(1) + float((rows * rows).sum(1).max()))[:, None])
+    want = np.sort(d, 1)[:, :k]
+    del rows, qd
+    slot = {v: i for i, v in enumerate(ids)}
+    peaks = []
+    for shift in (0.0, 1e-4):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(qp.cert_tier_counts("wide"))
+        res = qp.find_similar_batch([VectorDTO(v + np.float32(shift)) for v in q], k, "wide",
+                                    "l2")
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        tier = {t for t, c in qp.cert_tier_counts("wide").items() if c != before.get(t, 0)}
+        assert tier & {"exact_scan", "light_exact_scan"}, tier
+        if shift == 0.0:
+            got = np.sort([[d[i, slot[r["id"]]] for r in rs] for i, rs in enumerate(res)], 1)
+            assert (np.abs(got - want) <= tol).all()
+    assert max(peaks) <= bound, (peaks, bound)
 
 
 @pytest.mark.parametrize("metric", ["l2", "cosine"])

@@ -595,16 +595,18 @@ def test_build_places_like_jax_with_the_same_centroids(spill, centroids, monkeyp
     np.testing.assert_array_equal(tivf.valid3.numpy(), np.asarray(jivf.valid3))
 
 
-def _pair(dtype, n=3000, dim=24):
-    """A JAX and a port processor holding the same clustered rows under the same ids."""
+def _pair(dtype, n=3000, dim=24, twin=False):
+    """A JAX and a port processor holding the same clustered rows under the same ids
+    (``twin``: the JAX one written them rounded to bf16, the values a bf16 store holds)."""
     rng = np.random.default_rng(5)
     rows, _ = clustered_data(rng, n_clusters=30, per=n // 30, dim=dim, spread=0.6)
     ids = [uuid.UUID(int=int(v)) for v in rng.integers(1, 2**62, len(rows))]
     metas = [{"i": i} for i in range(len(rows))]
     jqp = JaxQueryProcessor(config=JaxConfig(**SMALL, dtype=dtype))
     tqp = QueryProcessor(EngineConfig(**SMALL, dtype=dtype), device="cpu")
-    for qp in (jqp, tqp):
-        qp.bulk_load(rows, "ns", ids=ids, metadatas=metas)
+    stored = torch.from_numpy(rows).to(torch.bfloat16).float().numpy() if twin else rows
+    for qp, values in ((jqp, stored), (tqp, rows)):
+        qp.bulk_load(values, "ns", ids=ids, metadatas=metas)
     queries = rows[rng.integers(0, len(rows), 6)] + 0.3 * rng.standard_normal(
         (6, dim)).astype(np.float32)
     return jqp, tqp, rows, ids, queries, rng
@@ -616,7 +618,9 @@ def _carry_across(jqp, tqp):
     ns.version += 1
 
 
-def _assert_same_ivf_answers(jqp, tqp, queries, nprobes, metrics=("l2", "ip", "cosine")):
+def _assert_same_ivf_answers(jqp, tqp, queries, nprobes, metrics=("l2", "ip", "cosine"),
+                             twin=False):
+    """``twin``: ``jqp`` was written the bf16-rounded rows, which it hydrates."""
     for metric in metrics:
         for nprobe in nprobes:
             jr = jqp.find_similar_batch([JaxDTO(q) for q in queries], 10, "ns", metric,
@@ -635,15 +639,21 @@ def _assert_same_ivf_answers(jqp, tqp, queries, nprobes, metrics=("l2", "ip", "c
                                            atol=1e-6 * scale if metric == "l2" else 1e-5)
                 for ra, rb in zip(a, b):
                     assert ra["metadata"] == rb["metadata"]
-                    np.testing.assert_array_equal(ra["values"], rb["values"])
+                    got = torch.from_numpy(rb["values"])
+                    np.testing.assert_array_equal(
+                        ra["values"], (got.to(torch.bfloat16).float() if twin else got).numpy())
 
 
 @pytest.mark.parametrize("spill", [1, 2])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_carried_jax_index_gives_jax_ids(dtype, spill):
     """A JAX-trained index carried across: the same layout (every id in its slot, spill
-    copies too), and JAX's ids at nprobe 1, 2 and C for every metric."""
-    jqp, tqp, rows, ids, queries, _ = _pair(dtype)
+    copies too), and JAX's ids at nprobe 1, 2 and C for every metric.  The index's norms
+    are its store's, which on a bf16 store are the stored rows' (ROADMAP C17), so there
+    the JAX side is its twin, written the bf16-rounded rows; a JAX store written the f32
+    rows gives its index the written rows' norms (asserted)."""
+    bf16 = dtype == "bfloat16"
+    jqp, tqp, rows, ids, queries, _ = _pair(dtype, twin=bf16)
     jqp.build_ivf("ns", n_clusters=16, seed=2, spill=spill)
     _carry_across(jqp, tqp)
     jivf, tivf = jqp.storage.namespace("ns").ivf, tqp.storage.namespace("ns").ivf
@@ -654,7 +664,17 @@ def test_carried_jax_index_gives_jax_ids(dtype, spill):
     np.testing.assert_allclose(tivf.sqn3.numpy(), np.asarray(jivf.sqn3), rtol=1e-6)
     np.testing.assert_array_equal(tivf.data3.float().numpy(),
                                   np.asarray(jivf.data3, np.float32))
-    _assert_same_ivf_answers(jqp, tqp, queries, (1, 2, 16))
+    _assert_same_ivf_answers(jqp, tqp, queries, (1, 2, 16), twin=bf16)
+    if bf16:
+        written = _pair(dtype)[0]
+        written.build_ivf("ns", n_clusters=16, seed=2, spill=spill)
+        wivf = written.storage.namespace("ns").ivf
+        assert wivf._id_to_slot == jivf._id_to_slot
+        np.testing.assert_array_equal(np.asarray(wivf.data3, np.float32),
+                                      np.asarray(jivf.data3, np.float32))
+        live = np.asarray(wivf.valid3)
+        off = np.abs(np.asarray(wivf.sqn3) - tivf.sqn3.numpy()) > 1e-6 * tivf.sqn3.numpy()
+        assert off[live].mean() > 0.9
 
 
 def test_carried_index_follows_the_same_writes_as_jax():

@@ -34,6 +34,7 @@ from mlvectordb_tpu.ops import pallas_knn as J
 from mlvectordb_tpu_torch import EngineConfig, QueryProcessor, VectorDTO
 from mlvectordb_tpu_torch.ops import _kernels
 from mlvectordb_tpu_torch.ops import fused_knn as F
+from mlvectordb_tpu_torch.ops import fused_knn_t as T
 from mlvectordb_tpu_torch.ops.distances import MASKED
 from mlvectordb_tpu_torch.ops.topk import exact_knn
 
@@ -407,12 +408,14 @@ def test_library_name_follows_headers(tmp_path, monkeypatch):
 
 
 def test_same_dtype_certificate_covers_the_norm_gap():
-    """A bf16 store with the same-dtype sweep, before any compaction: its bias row holds
-    the written f32 rows' norms.  Row A rounds to the query itself (distance 0 over the
-    stored rows) but its f32 norm is larger by 0.94; sixteen decoys sit at 0.25-0.38 and
-    24 more at 0.71.  JAX's plan carries only the query's rounding: it ranks A's window
-    behind the decoys and proves the decoys at tier 0, a wrong set.  The port's plan
-    carries the norm gap: A's window ranks first and the exact set comes back."""
+    """A bf16 store with the same-dtype sweep, before any compaction.  Row A rounds to the
+    query itself (distance 0 over the stored rows) but its written f32 norm is larger by
+    0.94; sixteen decoys sit at 0.25-0.38 and 24 more at 0.71.  The JAX store's bias row
+    holds the written norms and its plan carries only the query's rounding: it ranks A's
+    window behind the decoys and proves the decoys at tier 0, a wrong set.  The port's
+    store holds the stored rows' norms (ROADMAP C17), so its norm-gap row is zero and the
+    exact set comes back at tier 0.  Handed the written norms, as the JAX store holds
+    them, the port's plan carries the gap (ROADMAP C2): A's window still ranks first."""
     rng = np.random.default_rng(0)
     x = (rng.standard_normal((N, D)) + 8).astype(np.float32)          # far rows
     q = np.ones(D, np.float32)                                         # bf16-exact
@@ -443,6 +446,19 @@ def test_same_dtype_certificate_covers_the_norm_gap():
     # the port: the exact set over the stored rows, A first at distance 0
     assert port_set == want and tr[0]["id"] == ids[a_row] and tr[0]["score"] == 0.0
     assert tqp.cert_tier_counts("ns") == {"fast": 1}
-    prep = tqp.storage.namespace("ns").device_state().prep_cache
-    gaps = [p["eb_rows"][1] for p in prep.values()]
-    assert len(gaps) == 1 and float(gaps[0][a_row]) > 0.9 and float(gaps[0][1000]) == 0.0
+    st = tqp.storage.namespace("ns").device_state()
+    gaps = [p["eb_rows"][1] for p in st.prep_cache.values()]
+    assert len(gaps) == 1 and float(gaps[0].abs().max()) == 0.0
+    # the written rows' norms, as the JAX store holds them: a gap of 0.94 on A's row
+    written = np.zeros((st.capacity, st.data.shape[1]), np.float32)
+    written[:N, :D] = x
+    sqn = torch.from_numpy((written * written).sum(-1))
+    cache = {}
+    q_t = torch.zeros((8, st.data.shape[1]))
+    q_t[0, :D] = torch.from_numpy(q)
+    d, i, tier = T.exact_knn_t(q_t, st.data, st.data, st.valid, sqn, k=K, metric="l2",
+                               live_prefix=st.high_water, prep_cache=cache,
+                               report_tier=True)
+    gap = [p["eb_rows"][1] for p in cache.values() if isinstance(p, dict) and "eb_rows" in p]
+    assert float(gap[0][a_row]) > 0.9 and float(gap[0][1000]) == 0.0
+    assert tier == 0 and set(i[0].tolist()) == want and int(i[0, 0]) == a_row
