@@ -90,7 +90,10 @@ one line per phase:
      f32 query; launch counts and query columns, device bytes, times at the engine's
      operands as in phase 6 (the bf16 product alone as the yardstick); ROADMAP C3's near
      tie at 1,048,576 rows before a compaction: row A first at distance 0 through B4, B5
-     and the scan, its norm in the store its stored row's;
+     and the scan, its norm in the store its stored row's; ROADMAP C18 at 1,048,576 rows
+     (the phase-3 corpus copied to the card): 64 pairs q +- e per metric that the plain
+     f32 formula orders strictly against float64, through B2's rescan, B5's row-major
+     rescan and the scan, l2 and cosine, each pair first in float64 order;
  12. DEEP: a bf16 store with the same-dtype sweep (sweep_dtype="bfloat16": the mirror is
      the rows themselves, one pass) at 8,388,608 x 128: cosine B=128 k=10, l2 B=128
      k=10, ip B=16 k=10 and cosine B=128 k=100, before and after 1,000 deletes, each
@@ -212,8 +215,12 @@ one line per phase:
      its host split; each search's device memory beyond the store at its peak within
      fused_knn_t.search_bytes_bound (ROADMAP C16).  Its record is one JSON line starting
      {"wide".
+After each phase, one line counts ROADMAP C18's float64 settles in it: the queries
+settled, those whose returned set or order the settle changed against the pure f32 order,
+and those flagged for the wider settle (the timing loops are not counted).
 Any failure raises, so the process exits non-zero.  Before them, one JSON line holds the
-IVF and server records, one the distributed engine's, one phase 20's and one phase 21's;
+IVF and server records, one C18's (phase 11's paths and every phase's settle counts), one
+the distributed engine's, one phase 20's and one phase 21's;
 the last two lines
 are the kernels'
 JSON record (with each kernel's bound: bytes over 3.35 TB/s or operations over the peak
@@ -227,6 +234,7 @@ and imports no JAX.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import re
 import shutil
@@ -248,8 +256,8 @@ from mlvectordb_tpu_torch.utils.capacity import plan_capacity
 from mlvectordb_tpu_torch.utils.health import deep_health
 from mlvectordb_tpu_torch.utils.metrics import render_metrics
 from mlvectordb_tpu_torch.utils.tracing import PROFILER, RECORDER
-from mlvectordb_tpu_torch.ops import _kernels, fused_knn, fused_knn_t
-from mlvectordb_tpu_torch.ops.distances import MASKED
+from mlvectordb_tpu_torch.ops import _kernels, fused_knn, fused_knn_t, settle, topk
+from mlvectordb_tpu_torch.ops.distances import MASKED, require_f32_matmul
 from mlvectordb_tpu_torch.parallel import make_distributed_processor
 from mlvectordb_tpu_torch.parallel.mesh import mesh_devices
 from mlvectordb_tpu_torch.probes.time_gather import time_ms as _time_cold_ms
@@ -375,6 +383,51 @@ def print_routes():
         print(f"  B1/B3 route at Dp = {dim}: {line}")
 
 
+def _untallied(fn):
+    """``fn`` with ROADMAP C18's settle tally off (``settle.TALLY``), so that no timing
+    carries its counting."""
+    @functools.wraps(fn)
+    def run(*a, **kw):
+        saved, settle.TALLY = settle.TALLY, None
+        try:
+            return fn(*a, **kw)
+        finally:
+            settle.TALLY = saved
+    return run
+
+
+_C18 = {"phase": None, "counts": {}}
+
+
+def _c18_phase(label):
+    """ROADMAP C18's settle counts of the phase that ends here, printed and kept: the
+    queries the float64 settle ordered, those whose returned set or order it changed
+    against the pure f32 order, and those flagged for the wider settle; then the tally
+    starts again for ``label`` (None: the last phase ended)."""
+    got, settle.TALLY = settle.TALLY or [], None if label is None else []
+    if _C18["phase"] is not None:
+        n = [sum(int(t[0]) for t in got), sum(int(t[1]) for t in got),
+             sum(int(t[2]) for t in got)]
+        _C18["counts"][_C18["phase"]] = dict(zip(("settled", "changed", "flagged"), n))
+        print(f"  C18 settle in {_C18['phase']}: {n[0]} queries settled in float64, {n[1]} "
+              f"of them changed against the f32 order, {n[2]} flagged for the wider settle")
+    _C18["phase"] = label
+    return _C18["counts"]
+
+
+def _xfer_mark(qp):
+    """``qp``'s copy counts now, for ``_xfer``."""
+    return dict(qp.transfer_counts, settle=qp.settle_copies)
+
+
+def _xfer(qp, mark):
+    """(h2d, d2h) copies of ``qp`` since ``mark``, less those of ROADMAP C18's wider
+    settle of flagged queries (``settle_copies``, counted per phase in the C18 line)."""
+    return (qp.transfer_counts["h2d"] - mark["h2d"],
+            qp.transfer_counts["d2h"] - mark["d2h"] - (qp.settle_copies - mark["settle"]))
+
+
+@_untallied
 def _time_ms(fn, iters: int = 10) -> float:
     """Mean device time of one call, by CUDA events around ``iters`` calls after a warm one."""
     fn()
@@ -388,6 +441,7 @@ def _time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+@_untallied
 def _engine_wall(qp, q_np, runs: int = 5, k: int = K, namespace="sift", metric="l2",
                  filter=None):
     """Host wall times (ms) of find_similar_batch at B=128, l2, k=10 (or ``k``, the
@@ -402,6 +456,7 @@ def _engine_wall(qp, q_np, runs: int = 5, k: int = K, namespace="sift", metric="
     return wall
 
 
+@_untallied
 def _engine_split(qp, q_np, runs: int = 5, k: int = K, namespace="sift", metric="l2",
                   filter=None):
     """Median host ms of the parts of find_similar_batch at B=128, l2, k=10 (or ``k``,
@@ -878,9 +933,9 @@ def run_sweep_path(db_np, q_np, oracle, dead, self_row, before_delete):
     ns = qp.storage.namespace("sift")
     print(f"  bulk_load: {len(ids)} rows in {time.perf_counter() - t0:.2f} s, capacity "
           f"{ns.capacity}, device bytes {ns.nbytes:,}")
-    x0 = dict(qp.transfer_counts)
+    x0 = _xfer_mark(qp)
     res = qp.find_similar_batch([VectorDTO(v) for v in q_np], K, "sift", "l2")
-    xfer = (qp.transfer_counts["h2d"] - x0["h2d"], qp.transfer_counts["d2h"] - x0["d2h"])
+    xfer = _xfer(qp, x0)
     print(f"  transfers per search (h2d, d2h): {xfer}, tiers {qp.cert_tier_counts('sift')}")
     if xfer != (1, 1):
         raise AssertionError(f"transfer rule broken: {xfer}")
@@ -923,11 +978,11 @@ def run_sweep_path(db_np, q_np, oracle, dead, self_row, before_delete):
     for i, label in enumerate(("first batch (light)", "second batch (after the flip)")):
         qb = qc[i * B:(i + 1) * B]
         before = qp.cert_tier_counts("clustered")
-        x0 = dict(qp.transfer_counts)
+        x0 = _xfer_mark(qp)
         res = qp.find_similar_batch([VectorDTO(v) for v in qb], K, "clustered", "l2")
         after = qp.cert_tier_counts("clustered")
         served = [t for t in after if after[t] != before.get(t, 0)]
-        xfer = (qp.transfer_counts["h2d"] - x0["h2d"], qp.transfer_counts["d2h"] - x0["d2h"])
+        xfer = _xfer(qp, x0)
         print(f"  clustered {label}: tier {served}, transfers {xfer}, mode "
               f"{qp._cert_mode.get(('clustered', 'l2', False), 'light')}")
         _check_kdists(res, xc64, qb, f"clustered {label}")
@@ -1076,11 +1131,10 @@ def run_k100_searches(qp, ids, q_np, oracle, dead, when):
 
     with _spying("_window_mins_t", record):
         for metric, nq in (("l2", B), ("ip", 16), ("cosine", 16)):
-            x0, t0 = dict(qp.transfer_counts), qp.cert_tier_counts("sift")
+            x0, t0 = _xfer_mark(qp), qp.cert_tier_counts("sift")
             res = qp.find_similar_batch([VectorDTO(v) for v in q_np[:nq]], K100, "sift",
                                         metric)
-            xfer = (qp.transfer_counts["h2d"] - x0["h2d"],
-                    qp.transfer_counts["d2h"] - x0["d2h"])
+            xfer = _xfer(qp, x0)
             tier = [t for t, n in qp.cert_tier_counts("sift").items() if n != t0.get(t, 0)]
             served[metric] = (tier, xfer)
             if (tier, xfer) != (["light_fast"], (1, 1)) and (
@@ -1401,11 +1455,10 @@ def run_mirror_path(cfg, label, db_np, q_np, oracle, dead):
                 raise AssertionError(f"{label}: delete did not leave tombstones")
         for metric, nq in (("l2", B), ("ip", 16), ("cosine", 16)):
             for k in (K, K100):
-                x0, t0_ = dict(qp.transfer_counts), qp.cert_tier_counts("sift")
+                x0, t0_ = _xfer_mark(qp), qp.cert_tier_counts("sift")
                 res = qp.find_similar_batch([VectorDTO(v) for v in q_np[:nq]], k, "sift",
                                             metric)
-                xfer = (qp.transfer_counts["h2d"] - x0["h2d"],
-                        qp.transfer_counts["d2h"] - x0["d2h"])
+                xfer = _xfer(qp, x0)
                 tier = [t for t, c in qp.cert_tier_counts("sift").items()
                         if c != t0_.get(t, 0)]
                 served[f"{metric} k={k} {when}"] = (tier, xfer)
@@ -1688,9 +1741,9 @@ class DeviceOracle(Oracle):
 
 def _served(qp, namespace, q_np, metric, nq, k):
     """One find_similar_batch: (results, the tiers it added, its (h2d, d2h) transfers)."""
-    x0, t0 = dict(qp.transfer_counts), qp.cert_tier_counts(namespace)
+    x0, t0 = _xfer_mark(qp), qp.cert_tier_counts(namespace)
     res = qp.find_similar_batch([VectorDTO(v) for v in q_np[:nq]], k, namespace, metric)
-    xfer = (qp.transfer_counts["h2d"] - x0["h2d"], qp.transfer_counts["d2h"] - x0["d2h"])
+    xfer = _xfer(qp, x0)
     tier = [t for t, c in qp.cert_tier_counts(namespace).items() if c != t0.get(t, 0)]
     return res, tier, xfer
 
@@ -1845,6 +1898,117 @@ def check_c3(db_np):
           f"written value's {written:.4f}); (first row, score, kernel launches) per path "
           f"{seen}: the exact set, A first at distance 0")
     return seen
+
+
+def _c18_pairs(rng, metric, n_pairs, slots):
+    """ROADMAP C18's pairs: per query q + e and q - e (e orthogonal to q: equal distances in
+    exact arithmetic), kept where the plain f32 formula (numpy, every step rounded to f32)
+    orders them strictly against float64.  Returns (queries, rows [n, 2, D], float64
+    distances [n, 2], the slots)."""
+    f = np.float32
+
+    def f32(q, x):
+        qn, sqn, dot = f(q @ q), f(x @ x), f(q @ x)
+        if metric == "l2":
+            return max(f(f(qn + sqn) - f(2) * dot), f(0))
+        return f(f(1) - dot * f(f(1) / np.sqrt(f(qn * sqn))))
+
+    def f64(q, x):
+        q, x = q.astype(np.float64), x.astype(np.float64)
+        if metric == "l2":
+            return ((x - q) ** 2).sum()
+        return 1 - x @ q / np.sqrt((x @ x) * (q @ q))
+
+    qs, rows, d64 = [], [], []
+    while len(qs) < n_pairs:
+        q = rng.standard_normal(D).astype(f)
+        e = rng.standard_normal(D) * 0.1
+        e -= (e @ q) / (q.astype(np.float64) @ q) * q
+        a, c = (q + e).astype(f), (q - e).astype(f)
+        da, dc = f64(q, a), f64(q, c)
+        if da != dc and (f32(q, a) - f32(q, c)) * (da - dc) < 0:
+            qs.append(q)
+            rows.append((a, c))
+            d64.append((da, dc))
+    return np.stack(qs), np.array(rows), np.array(d64), [slots(b) for b in range(n_pairs)]
+
+
+def check_c18(db_np):
+    """Phase 11: ROADMAP C18 at 2^20 rows, on the phase-3 corpus copied to the card (no
+    engine ingest): 64 queries per metric, each with a pair q + e, q - e (e orthogonal to
+    q) planted over two phase-3 rows in different tiles, kept where the plain f32 formula
+    orders the pair strictly against float64; 1,000 other rows dead.  Through B2's rescan
+    (``exact_knn_t`` over a bf16 mirror, heavy program, masked), B5's row-major rescan
+    (``exact_knn_fused``, masked) and the scan (``topk.exact_knn``, the f32 query), l2 and
+    cosine, k = 10: every pair comes first in float64 order, the rest of the ten is the
+    float64 oracle's set.  Prints per path the kernel's launches, the pairs the card's
+    own f32 product (cuBLAS, the scan's) orders against float64, and the settle's counts.
+    Returns {path_metric: {...}}."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 18)
+    nq = 64
+    data = torch.from_numpy(db_np).to(dev)
+    valid = torch.ones(N, dtype=torch.bool, device=dev)
+    dead = rng.choice(np.arange(N // 2, N), 1000, replace=False)
+    valid[torch.from_numpy(dead).to(dev)] = False
+    out = {}
+    for metric in ("l2", "cosine"):
+        q_np, rows, d64, slots = _c18_pairs(
+            rng, metric, nq, lambda b: (N // 256 * b + 11, N // 2 - N // 128 * (b + 1) + 5))
+        if len(set(np.ravel(slots).tolist())) != 2 * nq:
+            raise AssertionError("C18: two pairs share a slot")
+        saved = data[torch.tensor(np.ravel(slots), device=dev)].clone()
+        data[torch.tensor(np.ravel(slots), device=dev)] = torch.from_numpy(
+            rows.reshape(-1, D)).to(dev)
+        sq = fused_knn_t.row_sq_norms(data)
+        mirror = data.to(torch.bfloat16)
+        err = fused_knn_t.sweep_err_norms(data)
+        q = torch.from_numpy(q_np).to(dev)
+        oracle = DeviceOracle(data, q_np).sets(metric, nq, dead)
+        x = torch.from_numpy(rows.reshape(-1, D)).to(dev)
+        pair = torch.repeat_interleave(q, 2, 0)
+        require_f32_matmul()
+        dot = torch.bmm(pair[:, None, :], x[:, :, None]).flatten()   # cuBLAS, as the scan's
+        qn, xn = (pair * pair).sum(-1), (x * x).sum(-1)
+        f32 = (torch.clamp_min(qn + xn - 2.0 * dot, 0.0) if metric == "l2"
+               else 1.0 - dot * torch.rsqrt(qn * xn)).reshape(nq, 2).cpu().numpy()
+        reversed_f32 = int(((f32[:, 0] - f32[:, 1]) * (d64[:, 0] - d64[:, 1]) < 0).sum())
+        want = [list(s if d[0] < d[1] else s[::-1]) for s, d in zip(slots, d64)]
+        paths = {
+            "B2": (fused_knn_t._gather_score, lambda: fused_knn_t.exact_knn_t(
+                q, mirror, data, valid, sq, k=K, metric=metric, sweep_err=err, light=False,
+                report_tier=True)),
+            "B5": (fused_knn._window_mins_masked, lambda: fused_knn.exact_knn_fused(
+                q, data, valid, sq, k=K, metric=metric, live_prefix=None) + (None,)),
+            "scan": (None, lambda: topk.exact_knn(
+                q, data, valid, sq, k=K, metric=metric, db_tile=8 * fused_knn_t.SWEEP_TILE,
+                round_query=False) + (None,)),
+        }
+        for path, (fn, call) in paths.items():
+            before = 0 if fn is None else fn.launches
+            saved_tally, settle.TALLY = settle.TALLY, []
+            d, i, tier = call()
+            tally = settle.TALLY
+            settle.TALLY = saved_tally
+            got = i.cpu().numpy()
+            launched = None if fn is None else fn.launches - before
+            rec = {"launches": launched, "tier": tier, "pairs": nq,
+                   "f32_product_reversed": reversed_f32,
+                   "settled": sum(int(t[0]) for t in tally),
+                   "changed": sum(int(t[1]) for t in tally),
+                   "flagged": sum(int(t[2]) for t in tally)}
+            out[f"{path}_{metric}"] = rec
+            bad = [b for b in range(nq) if got[b, :2].tolist() != want[b]
+                   or set(got[b].tolist()) != oracle[b]]
+            print(f"  C18 {path} {metric} at {N:,} rows: {nq} pairs first in float64 order "
+                  f"({nq - len(bad)} of {nq}); {rec}")
+            if bad or launched == 0 or (tier or 0) > 1:
+                raise AssertionError(f"C18 {path} {metric}: queries {bad[:8]} not in float64 "
+                                     f"order or not the oracle's set; {rec}")
+            if not (torch.diff(d, dim=1) >= 0).all():
+                raise AssertionError(f"C18 {path} {metric}: distances not non-decreasing")
+        data[torch.tensor(np.ravel(slots), device=dev)] = saved
+    return out
 
 
 def _slack_rows(st, q, metric):
@@ -2287,10 +2451,10 @@ def run_hybrid(gpu):
             ("half", HYBRID_FILTERS[0][1], K100)]
         for name, spec, k in searches:
             allowed = torch.from_numpy(_glove_allowed(N_GLOVE, name)).to(dev) & alive
-            x0, t_0 = dict(qp.transfer_counts), qp.cert_tier_counts("glove")
+            x0, t_0 = _xfer_mark(qp), qp.cert_tier_counts("glove")
             res = qp.find_similar_batch([VectorDTO(v) for v in qg], k, "glove", "cosine",
                                         filter=spec)
-            xfer = (qp.transfer_counts["h2d"] - x0["h2d"], qp.transfer_counts["d2h"] - x0["d2h"])
+            xfer = _xfer(qp, x0)
             tier = [t for t, c in qp.cert_tier_counts("glove").items() if c != t_0.get(t, 0)]
             states.append(ns.device_state())        # kept alive: their ids stay distinct
             pairs.add((id(states[-1]), filters.filter_cache_key(spec)))
@@ -2491,13 +2655,13 @@ def _served16(qp, qs, k, label):
     and B1 and B2 launched, else it raises."""
     outer = _sweep_counts()
     _set_sweep_counts([0] * len(outer))
-    before, x0 = qp.cert_tier_counts("sift"), dict(qp.transfer_counts)
+    before, x0 = qp.cert_tier_counts("sift"), _xfer_mark(qp)
     res = qp.find_similar_batch(qs, k, "sift", "l2")
     counts = dict(zip(_COUNT_NAMES, _sweep_counts()))
     _set_sweep_counts(outer)
     after = qp.cert_tier_counts("sift")
     tiers = {t: n - before.get(t, 0) for t, n in after.items() if n != before.get(t, 0)}
-    xfer = (qp.transfer_counts["h2d"] - x0["h2d"], qp.transfer_counts["d2h"] - x0["d2h"])
+    xfer = _xfer(qp, x0)
     print(f"  {label} k={k}: tiers {tiers}, transfers {xfer}, B1 launches {counts['sweep']}, "
           f"B2 launches {counts['gather']}")
     if xfer != (1, 1) or set(tiers) - {"fast", "light_fast"} or counts["sweep"] < 1 or (
@@ -2830,9 +2994,9 @@ def _ivf_curve(qp, ns, qs, q_np, oracle, row_of, label):
     transfers (1, 1) per search; the full probe exact.  Returns (curve, ms, rows at C)."""
     curve, ms, prev, full = {}, {}, None, None
     for nprobe in NPROBES:
-        x0 = dict(qp.transfer_counts)
+        x0 = _xfer_mark(qp)
         res = qp.find_similar_batch(qs, K, "ivf", "l2", nprobe=nprobe)
-        xfer = (qp.transfer_counts["h2d"] - x0["h2d"], qp.transfer_counts["d2h"] - x0["d2h"])
+        xfer = _xfer(qp, x0)
         if xfer != (1, 1):
             raise AssertionError(f"{label} nprobe={nprobe}: transfers {xfer}")
         rows = _ivf_rows(res, row_of)
@@ -3020,10 +3184,10 @@ def _set_mesh_counts(values):
 def _mesh_search(qp, namespace, q_np, metric, nq, k, nprobe=None):
     """One find_similar_batch on a distributed processor: (results, its (h2d, d2h)
     transfers, the launches it added per kernel)."""
-    x0, c0 = dict(qp.transfer_counts), _mesh_counts()
+    x0, c0 = _xfer_mark(qp), _mesh_counts()
     res = qp.find_similar_batch([VectorDTO(v) for v in q_np[:nq]], k, namespace, metric,
                                 nprobe=nprobe)
-    xfer = (qp.transfer_counts["h2d"] - x0["h2d"], qp.transfer_counts["d2h"] - x0["d2h"])
+    xfer = _xfer(qp, x0)
     return res, xfer, dict(zip(_MESH_NAMES, (c - b for c, b in zip(_mesh_counts(), c0))))
 
 
@@ -4024,6 +4188,7 @@ def main() -> int:
     t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     gpu = _gpu_line()
+    _c18_phase("phase 1")
     print(f"phase 1 device: {kind} | torch {torch.__version__} cuda {torch.version.cuda}"
           " | nvidia-smi name, power.limit:")
     print(gpu)
@@ -4070,12 +4235,14 @@ def main() -> int:
     oracle = Oracle(db64, q_np)
 
     # ---- 2. row-major kernels against their plain versions ---------------------------
+    _c18_phase("phase 2")
     print("phase 2 row-major kernels vs plain on the card")
     worst, b4_ratio = check_kernels(db_np)
     check_window_min_nan(db_np)
     wide = check_wide_dims()
 
     # ---- 3. the row-major main path at SIFT-1M shape ---------------------------------
+    _c18_phase("phase 3")
     print(f"phase 3 row-major path: QueryProcessor at {N:,} x {D} f32")
     dev = torch.device("cuda")
     for fn in (fused_knn._window_mins_fast, fused_knn._window_mins_masked):
@@ -4087,9 +4254,9 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"  bulk_load: {len(ids)} rows in {time.perf_counter() - t0:.2f} s, capacity "
           f"{qp.storage.namespace('sift').capacity}")
-    x0 = dict(qp.transfer_counts)
+    x0 = _xfer_mark(qp)
     res = qp.find_similar_batch([VectorDTO(v) for v in q_np], K, "sift", "l2")
-    xfer = (qp.transfer_counts["h2d"] - x0["h2d"], qp.transfer_counts["d2h"] - x0["d2h"])
+    xfer = _xfer(qp, x0)
     print(f"  transfers per search (h2d, d2h): {xfer}")
     if xfer != (1, 1):
         raise AssertionError(f"transfer rule broken: {xfer}")
@@ -4141,11 +4308,13 @@ def main() -> int:
                              f"live {want_cols}")
 
     # ---- 4. sweep kernels against their plain versions ---------------------------------
+    _c18_phase("phase 4")
     print("phase 4 certified sweep kernels vs plain on the card")
     worst.update(check_sweep_kernels(db_np))
     gather_wide = check_gather_wide()
 
     # ---- 5. the certified sweep path ----------------------------------------------------
+    _c18_phase("phase 5 (and phase 7 before the deletes)")
     print(f"phase 5 certified sweep path: QueryProcessor(sweep_dtype='bfloat16') at {N:,} x {D}")
     fused_knn_t._window_mins_t.launches = 0
     fused_knn_t._window_mins_t.launches_heavy = 0
@@ -4171,6 +4340,7 @@ def main() -> int:
         raise AssertionError(f"a kernel of the sweep path never launched: {launches}")
 
     # ---- 6. times (informative) -------------------------------------------------------
+    _c18_phase("phase 6")
     print(f"phase 6 times on {gpu} (CUDA events, mean of 10 after a warm call)")
     state = ns.device_state()
     data = state.data
@@ -4256,6 +4426,7 @@ def main() -> int:
           f"{split_masked}, sweep path {split_sweep}")
 
     # ---- 7. the k-bucket-128 certified sweep program -----------------------------------
+    _c18_phase("phase 7")
     print(f"phase 7 k-bucket-128 sweep program: pool kernel, k=100 engine, range search, NaN "
           f"query, on {gpu}")
     worst["pool"] = check_pool_kernel(db_np)
@@ -4319,6 +4490,7 @@ def main() -> int:
     times.update(t7)
 
     # ---- 8. the int8 mirror -------------------------------------------------------------
+    _c18_phase("phase 8")
     print(f"phase 8 int8 mirror (sweep_dtype='int8', two int8 streams): kernel B3 vs plain, "
           f"QueryProcessor at {N:,} x {D}, on {gpu}")
     worst["b3"] = check_b3_kernels(db_np, B3_PROGRAMS[:3])
@@ -4334,11 +4506,11 @@ def main() -> int:
     ids1 = qp1.bulk_load(db_np, "sift")
     outer = _sweep_counts()
     _set_sweep_counts([0] * len(outer))
-    x0 = dict(qp1.transfer_counts)
+    x0 = _xfer_mark(qp1)
     res = qp1.find_similar_batch([VectorDTO(v) for v in q_np], K, "sift", "l2")
     c1 = dict(zip(_COUNT_NAMES, _sweep_counts()))
     _set_sweep_counts(outer)
-    xfer = (qp1.transfer_counts["h2d"] - x0["h2d"], qp1.transfer_counts["d2h"] - x0["d2h"])
+    xfer = _xfer(qp1, x0)
     print(f"  int8, one stream: l2 B={B} k={K} served by {qp1.cert_tier_counts('sift')}, "
           f"transfers {xfer}, launches {c1}")
     _check_recall(res, oracle.sets("l2", B), ids1, "int8 one stream l2 B=128")
@@ -4347,6 +4519,7 @@ def main() -> int:
     del qp1, ids1, res
 
     # ---- 9. the f32 mirror ---------------------------------------------------------------
+    _c18_phase("phase 9")
     print(f"phase 9 f32 mirror (sweep_dtype='float32'): kernel B3 vs plain, QueryProcessor "
           f"at {N:,} x {D}, on {gpu}")
     worst["b3"].update(check_b3_kernels(db_np, B3_PROGRAMS[3:]))
@@ -4378,12 +4551,14 @@ def main() -> int:
     operands.update(operandsf)
 
     # ---- 10. probe B7 -------------------------------------------------------------------
+    _c18_phase("phase 10")
     print(f"phase 10 int8 probe (B7): B3's int8 pass (bf16 mma.sync) vs int8 mma.sync vs the "
           f"stream floor, "
           f"{N:,} x {D} codes, B=128, on {gpu}")
     probe = run_int8_probe(qp8.storage.namespace("sift").device_state().mirror, rng)
 
     # ---- 11. a bf16 store, row-major -------------------------------------------------------
+    _c18_phase("phase 11")
     print(f"phase 11 bf16 store, row-major (dtype='bfloat16'): kernels B4/B5 over bf16 rows vs "
           f"plain, QueryProcessor at {N:,} x {D}, on {gpu}")
     errs, ratios = check_kernels(db_np, torch.bfloat16)
@@ -4395,19 +4570,23 @@ def main() -> int:
     times.update(t11)
     b4_cols.update(k11)
     c3 = check_c3(db_np)
+    c18 = check_c18(db_np)
 
     # ---- 12. DEEP: the same-dtype certified sweep ----------------------------------------
+    _c18_phase("phase 12")
     print(f"phase 12 DEEP: QueryProcessor(dtype='bfloat16', sweep_dtype='bfloat16') at "
           f"{N_DEEP:,} x {D}, on {gpu}")
     c12, worst["same_dtype"], worst["gather_bf16"], t12, b12, deep_rows, deep = run_deep()
     times.update(t12)
 
     # ---- 13. probe B6 ----------------------------------------------------------------------
+    _c18_phase("phase 13")
     print(f"phase 13 output-layout probe (B6): [B, P] vs tile-major over the phase-12 rows, "
           f"on {gpu}")
     b6 = run_out_layout(deep_rows, rng)
 
     # ---- 14. live columns at the engine's operands; the tensor cores' error --------------
+    _c18_phase("phase 14")
     print(f"phase 14 B1/B3 at the engine's operands of phases 6-9: the live-column launch "
           f"against the full one; the tensor-core dots against float64, on {gpu}")
     b1_names = ("sweep_light", "sweep_heavy", "topm", "topm_heavy", "b3_int8", "b3_int8_k128",
@@ -4422,6 +4601,7 @@ def main() -> int:
     del deep_rows
 
     # ---- 15. filtered (hybrid) search at the GloVe-1.2M shape -----------------------------
+    _c18_phase("phase 15")
     print(f"phase 15 hybrid: QueryProcessor(sweep_dtype='bfloat16') at {N_GLOVE:,} x "
           f"{D_GLOVE} with metadata filters (B1 over a masked bias row, B2; B5 over a "
           f"filter), on {gpu}")
@@ -4432,12 +4612,14 @@ def main() -> int:
           f"ms (2^20 rows, 0.1% tombstones)")
 
     # ---- 16. durability and operations on phase 6's namespace ----------------------------
+    _c18_phase("phase 16")
     print(f"phase 16 durability and operations: snapshot, WAL crash recovery, offload, "
           f"warmup and the operations surface on phase 6's namespace ({N:,} x {D}, bf16 "
           f"mirror, after its deletes), on {gpu}")
     c16, f16 = run_durability(qps, sweep_ids, db_np, q_np, oracle, dead, gpu)
 
     # ---- 17. IVF at the SIFT-1M stand-in; 18. the server over it ----------------------
+    _c18_phase("phases 17-18")
     print(f"phase 17 IVF: QueryProcessor(EngineConfig()) at the SIFT-1M stand-in "
           f"({N_IVF:,} x {D_IVF} clustered rows), build_ivf with the defaults (spill 1 and "
           f"2), {NQ_IVF} queries, l2, k={K}, nprobe {NPROBES}")
@@ -4460,6 +4642,7 @@ def main() -> int:
     del ivf_qp
 
     # ---- 19. the distributed engine ------------------------------------------------------
+    _c18_phase("phase 19")
     print(f"phase 19 distributed engine: make_distributed_processor, DEEP ({N_DEEP:,} x {D} "
           f"bf16) on a (1, 4) mesh and the SIFT-1M shape on (2, 2), on {gpu}")
     t19 = time.perf_counter()
@@ -4472,6 +4655,7 @@ def main() -> int:
     del deep
 
     # ---- 20. a bf16 store with an int8 or f32 mirror --------------------------------------
+    _c18_phase("phase 20")
     print(f"phase 20 bf16 store with an int8 or f32 mirror: QueryProcessor(dtype='bfloat16', "
           f"sweep_dtype='int8' | 'float32') at {N:,} x {D}: B3 over the mirror, B2 over the "
           f"bf16 rows, C17's near tie, on {gpu}")
@@ -4482,6 +4666,7 @@ def main() -> int:
     print(f"  phase 20 took {rec20['seconds']:.1f} s")
 
     # ---- 21. wide embeddings through the engine ------------------------------------------
+    _c18_phase("phase 21")
     print(f"phase 21 wide embeddings: QueryProcessor at Dp = 1536 (bf16 store, {1 << 20:,} rows) "
           f"and 3072 (f32 store, {1 << 19:,} rows, int8 and bf16 mirrors; a clustered "
           f"{N_WIDE_CLUSTERED:,} x 3072 namespace): B1/B3 with its query tile streamed, B2, "
@@ -4491,6 +4676,7 @@ def main() -> int:
     rec21["seconds"] = time.perf_counter() - t21
     times.update(t21_)
     print(f"  phase 21 took {rec21['seconds']:.1f} s")
+    c18_counts = _c18_phase(None)
 
     # each kernel's bound at the operands timed above: every input read once, every
     # output written once; the products over the peak for their type (B1/B3 and B4/B5:
@@ -4797,6 +4983,7 @@ def main() -> int:
         record["kernels"].append(e)
     # the IVF and server phases run no hand-written kernel of their own: their record
     print(json.dumps({"ivf": ivf_rec, "server": server_rec}, default=str))
+    print(json.dumps({"c18": {"paths": c18, "settle_counts": c18_counts}}, default=str))
     print(json.dumps({"mesh": mesh_rec}, default=str))
     print(json.dumps({"bf16_mirrors": rec20}, default=str))
     print(json.dumps({"wide": rec21}, default=str))

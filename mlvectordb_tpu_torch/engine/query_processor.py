@@ -153,8 +153,11 @@ class QueryProcessor:
         # host<->device transfer audit counters: the serving path does exactly ONE
         # host->device (the query batch) and ONE device->host ((dist, idx) fetched
         # together, with the per-query proof on the certified sweep) per search; an
-        # escalation after a failed proof adds its own counted copies
+        # escalation after a failed proof adds its own counted copies, and so does the
+        # wider float64 settle of a flagged query (ROADMAP C18), whose copies
+        # ``settle_copies`` counts apart as well
         self.transfer_counts = {"h2d": 0, "d2h": 0}
+        self.settle_copies = 0
         # certified sweep: tier counts per namespace, and the light/heavy dispatch mode
         # per (namespace, metric, masked variant)
         self._cert_lock = threading.Lock()
@@ -518,20 +521,17 @@ class QueryProcessor:
                 sweep_light=use_light,
                 sweep_prep=prep_cache, sweep_defer=True, n_live=B,
             )
-            if isinstance(out, SweepResult):
-                # ONE device->host transfer: the int32 ids travel bit-cast beside the
-                # f32 distances, and the per-query proof beside them
-                parts = (out.dist, out.idx) + (() if out.okq is None else (out.okq,))
-            else:
-                parts = out[:2]
+            # ONE device->host transfer: the int32 ids travel bit-cast beside the f32
+            # distances, and the per-query proof and the settle's flags beside them
+            parts = out.parts() if isinstance(out, SweepResult) else out[:2]
             self.transfer_counts["d2h"] += 1
             host = fetch(*parts)
         dist, idx = host[0], host[1]
         if isinstance(out, SweepResult):
-            tier = out.tier
-            if out.okq is not None and not host[2].all():
-                # a proof failed: the escalation's own copies are counted through fetch
-                dist, idx, tier = out.escalate(host[2], self._counted_fetch)
+            # a failed proof escalates, a flagged query is settled wider (ROADMAP C18):
+            # their own copies are counted through fetch
+            dist, idx, tier = out.finish(host, self._counted_fetch, self._settle_fetch)
+        if isinstance(out, SweepResult) and state.mirror is not None:
             self._record_cert_tier(namespace, tier, light=use_light)
             if use_light and tier == 2:
                 # the light band is too wide for this corpus: switch this (namespace,
@@ -554,17 +554,18 @@ class QueryProcessor:
         with trace_span("knn_sharded", namespace=namespace, k=kb, batch=Bb):
             out = ns.sharded_search(q_dev, kb, metric, valid_override=valid, state=state,
                                     prep=prep, n_live=B, defer=True)
-            parts = (out.dist, out.idx) + (() if out.okq is None else (out.okq,))
             self.transfer_counts["d2h"] += 1
-            host = fetch(*parts)
-        dist, idx = host[0], host[1]
-        if out.okq is not None and not host[2].all():
-            dist, idx, _tier = out.escalate(host[2], self._counted_fetch)
+            host = fetch(*out.parts())
+        dist, idx, _tier = out.finish(host, self._counted_fetch, self._settle_fetch)
         return dist[:B, :k_eff], idx[:B, :k_eff], ns, state.host_tables
 
     def _counted_fetch(self, *tensors):
         self.transfer_counts["d2h"] += 1
         return fetch(*tensors)
+
+    def _settle_fetch(self, *tensors):
+        self.settle_copies += 1
+        return self._counted_fetch(*tensors)
 
     # certificate-tier names, indexed by the tier the sweep reports (ops/fused_knn_t)
     _TIER_NAMES = {0: "fast", 1: "widened", 2: "exact_scan", -1: "disengaged"}

@@ -44,7 +44,8 @@ import torch
 
 from . import _kernels
 from .distances import MASKED, require_f32_matmul
-from .fused_knn_t import _live_columns, settled_topk
+from .fused_knn_t import SweepResult, _live_columns
+from .settle import Settled
 from .topk import exact_knn
 
 
@@ -276,7 +277,8 @@ del _fn
 
 
 def _select_and_rescan(q, qn_row, data, maskadd, hw, wmin1t, *, k, metric, db_tile, masked, r1):
-    """Hierarchical selection over phase-1 window mins + exact rescan of candidates.
+    """Hierarchical selection over phase-1 window mins + exact rescan of candidates, whose
+    top-k is settled in float64 (``settle.Settled``, ROADMAP C18).
 
     wmin1t is [W1, B] (transposed); all wide reductions happen on small tensors.
     ``masked=False`` (fast path: live prefix [0, hw), no tombstones) masks candidates
@@ -325,13 +327,8 @@ def _select_and_rescan(q, qn_row, data, maskadd, hw, wmin1t, *, k, metric, db_ti
     else:
         dist = torch.where(rows < hw, dist, torch.full_like(dist, float(MASKED)))
 
-    kk = min(k, dist.shape[1])
-    best_d, p = settled_topk(dist, rows, q, data, kk=kk, metric=metric)
-    best_i = torch.gather(rows, 1, p).to(torch.int32)
-    if kk < k:
-        best_d = torch.cat([best_d, best_d.new_full((B, k - kk), float(MASKED))], dim=1)
-        best_i = torch.cat([best_i, best_i.new_zeros((B, k - kk))], dim=1)
-    return best_d, best_i
+    return Settled(dist, rows.to(torch.int32), q, data, qn_row, sqn_c,
+                   kk=min(k, dist.shape[1]), k=k, metric=metric)
 
 
 def exact_knn_fused(
@@ -345,6 +342,7 @@ def exact_knn_fused(
     db_tile: int = DB_TILE,
     live_prefix: int | None = None,
     n_live: int | None = None,
+    defer: bool = False,
 ):
     """Drop-in fused backend for ops.topk.exact_knn (same contract).
 
@@ -359,6 +357,10 @@ def exact_knn_fused(
 
     Falls back to the tiled scan for shapes the fused path does not cover (small
     namespaces, capacities not tileable, oversized k), as the JAX version does.
+
+    ``defer``: return a ``fused_knn_t.SweepResult`` (tier -1, no proof) whose ``need``
+    flags the queries the rescan's float64 settle must settle again wider (ROADMAP C18),
+    so the caller brings them down in its one copy; else those are settled here.
     """
     cap = data.shape[0]
     B = q.shape[0]
@@ -373,7 +375,9 @@ def exact_knn_fused(
         or q.shape[1] % 128 != 0
         or k * r1 > cap
     ):
-        return exact_knn(q[:nq], data, valid, sq_norms, k=k, metric=metric, db_tile=db_tile)
+        d, i, key = exact_knn(q[:nq], data, valid, sq_norms, k=k, metric=metric,
+                              db_tile=db_tile, with_key=True)
+        return SweepResult(d, i, None, -1, key=key) if defer else (d, i)
 
     q32 = q.float()
     Bk = -(-B // 4) * 4  # the kernels take query batches in multiples of 4
@@ -387,18 +391,22 @@ def exact_knn_fused(
 
     if live_prefix is not None:
         wmin1t = _window_mins_fast(data, qtarr, qn, live_prefix, **kw)
-        return _select_and_rescan(
+        st = _select_and_rescan(
             q32[:nq], qn_row, data, None, live_prefix, wmin1t[:, :nq],
             k=k, metric=metric, db_tile=tile, masked=False, r1=r1,
         )
-
-    maskadd = torch.where(valid, 0.0, float(MASKED)).to(torch.float32)   # [N]
-    if metric == "l2":
-        bias = (sq_norms.float() + maskadd).reshape(cap, 1)
     else:
-        bias = maskadd.reshape(cap, 1)
-    wmin1t = _window_mins_masked(data, qtarr, qn, bias, **kw)
-    return _select_and_rescan(
-        q32[:nq], qn_row, data, maskadd, cap, wmin1t[:, :nq],
-        k=k, metric=metric, db_tile=tile, masked=True, r1=r1,
-    )
+        maskadd = torch.where(valid, 0.0, float(MASKED)).to(torch.float32)   # [N]
+        if metric == "l2":
+            bias = (sq_norms.float() + maskadd).reshape(cap, 1)
+        else:
+            bias = maskadd.reshape(cap, 1)
+        wmin1t = _window_mins_masked(data, qtarr, qn, bias, **kw)
+        st = _select_and_rescan(
+            q32[:nq], qn_row, data, maskadd, cap, wmin1t[:, :nq],
+            k=k, metric=metric, db_tile=tile, masked=True, r1=r1,
+        )
+    if defer:
+        return SweepResult(st.dist, st.idx, None, -1, settled=st)
+    d, i, _ = st.resolve()
+    return d, i

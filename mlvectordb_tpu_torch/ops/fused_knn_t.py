@@ -49,9 +49,10 @@ version (``*_ref``) for a CPU tensor; there is no fallback between the two.
 
 Control flow.  ``jax.lax.cond`` has no eager counterpart: choosing the tier means reading
 the per-query proof on the host.  ``exact_knn_t(..., defer=True)`` therefore returns a
-``SweepResult`` holding the tier-1 ``(dist, idx)`` and ``okq`` on the device, so the engine
-brings all three down in its one packed copy; ``SweepResult.escalate`` runs only after a
-proof has failed and reports each further copy through the caller's ``fetch``.
+``SweepResult`` holding the tier-1 ``(dist, idx)``, ``okq`` and the float64 settle's flags
+(``need``, ROADMAP C18) on the device, so the engine brings them down in its one packed
+copy; ``SweepResult.finish`` escalates only after a proof has failed, or settles a flagged
+query wider, and reports each further copy through the caller's ``fetch``.
 
 The JAX package's ``MLVDB_*`` environment globals are the fields of ``Tuning``, passed
 explicitly, with the JAX defaults; ``Tuning(topm_enable=False)`` is its ``MLVDB_TOPM=0``
@@ -68,6 +69,7 @@ import torch
 
 from . import _kernels
 from .distances import MASKED, require_f32_matmul
+from .settle import Settled, widen_host
 from .topk import exact_knn
 
 SWEEP_TILE = 4096           # rows per tile of the tile-major window-min output
@@ -681,48 +683,6 @@ def _sorted_topk(x, kk: int):
     return sv[:, :kk], si[:, :kk]
 
 
-_SETTLE_CHUNK = 16  # candidates a settling pass widens to float64 at a time
-
-
-def settled_topk(dist, rows, q32, data, *, kk: int, metric: str, n_live=None,
-                 spare: int = 4):
-    """(values, positions) of the ``kk`` smallest f32 distances per row of ``dist`` [B, W]
-    (``rows`` [B, W]: the candidates' rows of ``data``), sorted by (f32 distance, float64
-    distance to ``q32`` [B, Dp], position): rows whose f32 distances tie come in the
-    order of their exact distances (ROADMAP C4), where the JAX package's ``lax.top_k``
-    takes the earlier position; masked and NaN candidates keep their positions' order.
-    The first kk + ``spare`` candidates are settled, so a tie that straddles the k-th
-    place is too; their float64 distances are taken ``_SETTLE_CHUNK`` at a time (a row
-    past the store, a NaN pool entry's, read clamped as the rescan reads it).
-    ``n_live``: rows past it hold row ``n_live``'s candidates and distances
-    (``_rescan_windows``), so they take its float64 distances too."""
-    sv, order = torch.sort(dist, dim=1, stable=True)
-    w = min(kk + spare, dist.shape[1])
-    sv, order = sv[:, :w], order[:, :w]
-    B = dist.shape[0]
-    m = B if n_live is None else min(B, n_live + 1)
-    idx = torch.clamp(torch.gather(rows[:m], 1, order[:m]).long(), 0, data.shape[0] - 1)
-    q = q32[:m].double()[:, None, :]
-    parts = []
-    for c in range(0, w, _SETTLE_CHUNK):
-        x = data[idx[:, c:c + _SETTLE_CHUNK]].double()                  # [m, chunk, Dp]
-        if metric == "l2":
-            parts.append(((x - q) ** 2).sum(-1))
-        elif metric == "ip":
-            parts.append(-(x * q).sum(-1))
-        else:
-            parts.append(-(x * q).sum(-1) / torch.sqrt(
-                torch.clamp_min((x * x).sum(-1) * (q * q).sum(-1), 1e-300)))
-    d64 = torch.cat(parts, dim=1)
-    if m < B:
-        d64 = torch.cat([d64, d64[m - 1:].expand(B - m, w)])
-    d64 = torch.where(sv < float(MASKED) / 2, d64, torch.full_like(d64, float("inf")))
-    by64 = torch.sort(d64, dim=1, stable=True).indices
-    perm = torch.gather(by64, 1, torch.sort(torch.gather(sv, 1, by64), dim=1,
-                                            stable=True).indices)
-    return torch.gather(sv, 1, perm)[:, :kk], torch.gather(order, 1, perm)[:, :kk]
-
-
 def _topk_min(x, kk: int, tuning: Tuning):
     """Smallest-kk (values, positions): top-k for small kk, a sort for large."""
     if kk >= tuning.sort_topk_from and x.shape[1] > kk:
@@ -765,9 +725,9 @@ def _select_and_rescan(q32, qn_row, rescan, maskadd, hw, wmin_t, *, k, metric, r
                        s_sel=None, r2=R2, spec_l2=False, wmin2=None, tuning=DEFAULT_TUNING,
                        n_live=None):
     """Hierarchical window selection on the tile-major window mins + exact rescan
-    (pallas_knn_t.py:624-789).  Returns ``(best_d, best_i, thresh)``: every window not
-    rescanned has (optimistic) window-min >= thresh; +inf when every window was.
-    ``n_live``: handed to the rescan (``_rescan_windows``)."""
+    (pallas_knn_t.py:624-789).  Returns ``(settled, thresh)``: the rescan's ``Settled``
+    top-k (``_rescan_settle``); every window not rescanned has (optimistic) window-min >=
+    thresh, +inf when every window was.  ``n_live``: handed to the rescan."""
     nt, B, out_w = wmin_t.shape
     P = nt * out_w
     dev = q32.device
@@ -840,9 +800,8 @@ def _select_and_rescan(q32, qn_row, rescan, maskadd, hw, wmin_t, *, k, metric, r
         thresh = floor if s1 >= P else torch.minimum(v1[:, -1], floor)
 
     f = _pos_to_window(p, g)                              # [B, s1] fine windows
-    best_d, best_i = _rescan_windows(q32, qn_row, rescan, maskadd, hw, f, k=k,
-                                     metric=metric, r1=r1, masked=masked, n_live=n_live)
-    return best_d, best_i, thresh
+    return _rescan_settle(q32, qn_row, rescan, maskadd, hw, f, k=k, metric=metric, r1=r1,
+                          masked=masked, n_live=n_live), thresh
 
 
 def _select_topm_and_rescan(q32, qn_row, rescan, maskadd, hw, topm, *, k, metric, r1,
@@ -852,7 +811,8 @@ def _select_topm_and_rescan(q32, qn_row, rescan, maskadd, hw, topm, *, k, metric
     candidates.  A window never rescanned is either in the pool and not selected (>= the
     s-th selected value) or outside its tile's top m (>= that tile's m-th min >= the pool
     floor); both fold into ``thresh``, so a tile hiding more than m candidates escalates
-    the certificate.  ``n_live``: handed to the rescan (``_rescan_windows``)."""
+    the certificate.  Returns ``(settled, thresh)`` as ``_select_and_rescan`` does.
+    ``n_live``: handed to the rescan."""
     nt, _, B = topm.shape
     g = R1MAX // r1
     out_w = g * WLANE
@@ -871,21 +831,21 @@ def _select_topm_and_rescan(q32, qn_row, rescan, maskadd, hw, topm, *, k, metric
         p = torch.gather(win, 1, ci)
     thresh = tile_floor if s1 >= pool else torch.minimum(v1[:, -1], tile_floor)
     f = _pos_to_window(p, g)
-    best_d, best_i = _rescan_windows(q32, qn_row, rescan, maskadd, hw, f, k=k,
-                                     metric=metric, r1=r1, masked=masked, n_live=n_live)
-    return best_d, best_i, thresh
+    return _rescan_settle(q32, qn_row, rescan, maskadd, hw, f, k=k, metric=metric, r1=r1,
+                          masked=masked, n_live=n_live), thresh
 
 
-def _rescan_windows(q32, qn_row, rescan, maskadd, hw, f, *, k, metric, r1, masked,
-                    n_live=None):
+def _rescan_settle(q32, qn_row, rescan, maskadd, hw, f, *, k, metric, r1, masked,
+                   n_live=None):
     """Exact f32 rescan of the selected windows ``f`` [B, s1] (pallas_knn_t.py:792-861)
     of the rows ``rescan`` (f32, or a bf16 store's own rows read as f32) through kernel
-    B2, then the metric formula, the mask and the final top-k (``settled_topk``: rows
-    whose f32 distances tie in float64 order, ROADMAP C4).  The kernel writes only
-    (dots, sqn) per row, so nothing is chunked but the settling.  ``n_live``: rows from
-    it on are zero queries whose windows were selected from one zero-query column; they
-    all take row ``n_live``'s windows (the same up to ties), and B2 computes that row only
-    (``_gather_score``), so each padded row's ids and dots come from the same windows."""
+    B2, then the metric formula, the mask and the final top-k, settled in float64
+    (``settle.Settled``, ROADMAP C18: the JAX package's ``lax.top_k`` keeps the f32
+    order).  The kernel writes only (dots, sqn) per row, so nothing is chunked but the
+    settling.  ``n_live``: rows from it on are zero queries whose windows were selected
+    from one zero-query column; they all take row ``n_live``'s windows (the same up to
+    ties), and B2 computes that row only (``_gather_score``), so each padded row's ids and
+    dots come from the same windows."""
     B, s1 = f.shape
     f = torch.sort(f, dim=1).values.to(torch.int32).contiguous()
     if n_live is not None and n_live + 1 < B:
@@ -905,12 +865,17 @@ def _rescan_windows(q32, qn_row, rescan, maskadd, hw, f, *, k, metric, r1, maske
         dd = dd + maskadd[torch.clamp(rws.long(), 0, maskadd.shape[0] - 1)]
     else:
         dd = torch.where(rws < hw, dd, torch.full_like(dd, float(MASKED)))
-    kk = min(k, dd.shape[1])
-    best_d, pk = settled_topk(dd, rws, q32, rescan, kk=kk, metric=metric, n_live=n_live)
-    best_i = torch.gather(rws, 1, pk)
-    if kk < k:
-        best_d = torch.cat([best_d, best_d.new_full((B, k - kk), float(MASKED))], dim=1)
-        best_i = torch.cat([best_i, best_i.new_zeros((B, k - kk))], dim=1)
+    return Settled(dd, rws, q32, rescan, qn_row, sqn_c, kk=min(k, dd.shape[1]), k=k,
+                   metric=metric, n_live=n_live)
+
+
+def _rescan_windows(q32, qn_row, rescan, maskadd, hw, f, *, k, metric, r1, masked,
+                    n_live=None):
+    """Device ``(best_d, best_i)`` of ``_rescan_settle``, every flagged query settled
+    again at the width that covers its band (a host read of the flags)."""
+    best_d, best_i, _ = _rescan_settle(q32, qn_row, rescan, maskadd, hw, f, k=k,
+                                       metric=metric, r1=r1, masked=masked,
+                                       n_live=n_live).resolve()
     return best_d, best_i
 
 
@@ -1096,51 +1061,92 @@ def search_prep(mirror, valid, sq_norms, *, metric, live_prefix, certify=True, l
 
 def fetch(*tensors):
     """Bring device tensors to the host in ONE copy: they travel packed as f32 (int32
-    bit-cast, bool as 0/1) and are unpacked to numpy arrays of their own dtypes."""
+    bit-cast, float64 as two f32 words, bool as 0/1) and are unpacked to numpy arrays of
+    their own dtypes."""
     flat = []
     for t in tensors:
-        if t.dtype == torch.int32:
-            flat.append(t.reshape(-1).view(torch.float32))
+        if t.dtype in (torch.int32, torch.float64):
+            flat.append(t.reshape(-1).contiguous().view(torch.float32))
         else:
             flat.append(t.reshape(-1).to(torch.float32))
     host = torch.cat(flat).cpu().numpy()
     out, pos = [], 0
     for t in tensors:
-        n = t.numel()
-        part = host[pos : pos + n].reshape(tuple(t.shape))
+        n = t.numel() * (2 if t.dtype == torch.float64 else 1)
+        part = host[pos : pos + n]
         pos += n
         if t.dtype == torch.int32:
             part = part.view(np.int32)
+        elif t.dtype == torch.float64:
+            part = part.copy().view(np.float64)
         elif t.dtype == torch.bool:
             part = part != 0
-        out.append(part)
+        out.append(part.reshape(tuple(t.shape)))
     return out
 
 
 class SweepResult:
-    """Tier-1 result of one certified search, still on the device.
+    """Tier-1 result of one exact search, still on the device.
 
-    ``dist``/``idx`` [B, k] and the per-query proof ``okq`` [B] bool (None when no proof
-    is needed: margin mode, or the shape gate sent the search to the scan, ``tier`` -1).
-    A caller brings the three down together; if any proof failed it calls
-    ``escalate(okq_host, fetch)``, which returns host ``(dist, idx, tier)`` and makes
-    each of its own copies through ``fetch`` (so the caller can count them)."""
+    ``dist``/``idx`` [B, k], the per-query proof ``okq`` [B] bool (None when no proof is
+    needed: margin mode, the row-major path, or the shape gate sent the search to the
+    scan, ``tier`` -1), and ROADMAP C18's ``need`` [B] int32 (None where the path settled
+    its flags itself): nonzero where the float64 settle left out a candidate within the
+    f32 band of the k-th.  ``key`` [B, k]: the float64 distances the list is ordered by
+    (the sharded merge orders by them).  A caller brings ``parts()`` down in one copy and
+    calls ``finish``, which escalates a failed proof and settles flagged queries wider,
+    each further copy through the caller's ``fetch`` (so the caller can count them)."""
 
-    def __init__(self, dist, idx, okq, tier, escalate=None):
+    def __init__(self, dist, idx, okq, tier, escalate=None, *, settled=None, key=None,
+                 need=None):
         self.dist, self.idx, self.okq, self.tier = dist, idx, okq, tier
         self._escalate = escalate
+        self.settled = settled
+        self.key = settled.key if settled is not None else key
+        self.need = settled.need if settled is not None else need
 
-    def escalate(self, okq_host: np.ndarray, fetch: Callable = fetch):
-        return self._escalate(okq_host, fetch)
+    def parts(self):
+        """The tensors of the caller's one copy: dist, idx, and okq and need if present."""
+        return tuple(t for t in (self.dist, self.idx, self.okq, self.need) if t is not None)
+
+    def finish(self, host, fetch_: Callable = fetch, settle_fetch: Callable = None):
+        """Host ``(dist, idx, tier)`` from the fetched ``parts()``: the escalation where a
+        proof failed, each copy through ``fetch_``; else every flagged query settled again
+        at its width, each copy through ``settle_fetch`` (default ``fetch_``), the tier
+        kept: one copy, two on the sharded merge (the shards' lists, then the settle)."""
+        dist, idx, rest = host[0], host[1], list(host[2:])
+        okq = rest.pop(0) if self.okq is not None else None
+        need = rest.pop(0) if self.need is not None else None
+        if okq is not None and not okq.all():
+            return self._escalate(okq, need, fetch_, False)[:3]
+        if need is None or not need.any():
+            return dist, idx, self.tier
+        settle_fetch = settle_fetch or fetch_
+        if self.settled is None:
+            return self._escalate(okq, need, settle_fetch, False)[:3]
+        rows = np.arange(len(need))
+        dist, idx = widen_host([dist, idx], need, [(self.settled, rows, rows)], settle_fetch)
+        return dist, idx, self.tier
+
+    def escalate(self, okq_host: np.ndarray, fetch: Callable = fetch, keys: bool = False,
+                 need_host=None):
+        """Host ``(dist, idx, tier)`` after a failed proof, plus the float64 keys with
+        ``keys``; the escalation settles its own flags."""
+        out = self._escalate(okq_host, need_host, fetch, keys)
+        return out if keys else out[:3]
 
     def resolve(self):
-        """Device ``(dist, idx, tier)``: the proof read here, escalation if it failed."""
-        if self.okq is None:
+        """Device ``(dist, idx, tier)``: the proof and the flags read here, escalation
+        or the wider settle if they ask for it."""
+        small = [t for t in (self.okq, self.need) if t is not None]
+        if not small:
             return self.dist, self.idx, self.tier
-        okq = self.okq.cpu().numpy()
-        if okq.all():
+        host = fetch(*small)
+        okq = host[0] if self.okq is not None else None
+        need = host[-1] if self.need is not None else None
+        if (okq is None or okq.all()) and (need is None or not need.any()):
             return self.dist, self.idx, self.tier
-        d, i, tier = self.escalate(okq)
+        d, i, tier = self.finish(fetch(self.dist, self.idx) + host)
         dev = self.dist.device
         return torch.from_numpy(d).to(dev), torch.from_numpy(i).to(dev), tier
 
@@ -1228,6 +1234,13 @@ def _fused_t(q, mirror, rescan, valid, sq_norms, hw, resid, prep, *, k, metric, 
             err = err + t[1] * qh_l2 * (1.0 if metric == "cosine" else maxd)
 
     def check_exact(best_d, thresh, sel=None):
+        """Per query: every window not rescanned ranks at least ``thresh - err``, above
+        the k-th's rank.  ``best_d[:, k-1]`` is fl32 of the largest float64 distance of
+        the settled k (ROADMAP C18).  ``err`` covers phase 1's sums and the mirror's
+        terms, not the rescan's own f32 band: that band no longer enters, since the
+        k-th is float64's, but its half-ulp rounding and the subtraction below do, and
+        the slack falls below one rounding of the rank where |q| < maxd / (8 Dp) at l2
+        (ROADMAP C19, open: JAX's margin is the same)."""
         qn = qn_row if sel is None else qn_row[sel]
         ql = q_l2 if sel is None else q_l2[sel]
         e = err if sel is None else err[sel]
@@ -1253,7 +1266,7 @@ def _fused_t(q, mirror, rescan, valid, sq_norms, hw, resid, prep, *, k, metric, 
 
     def select(s_sel, sub=slice(None), live=None):
         """Selection and rescan at width s_sel for the queries ``sub`` (``live``: the
-        rescan's live count, for the whole batch only)."""
+        rescan's live count, for the whole batch only): ``(Settled, thresh)``."""
         return _select_and_rescan(
             q32[sub], qn_col[sub], rescan, maskadd, hw, wmin_t[:, sub, :], k=k,
             metric=metric, r1=r1, masked=masked, s_sel=s_sel, r2=r2, spec_l2=certify,
@@ -1262,46 +1275,59 @@ def _fused_t(q, mirror, rescan, valid, sq_norms, hw, resid, prep, *, k, metric, 
 
     if use_topm:
         # tier 1 from the pool: a tile hiding more than m candidates lowers thresh
-        d1, i1, th1 = _select_topm_and_rescan(
+        st1, th1 = _select_topm_and_rescan(
             q32, qn_col, rescan, maskadd, hw, topm, k=k, metric=metric, r1=r1,
             masked=masked, s_sel=s1_w, m=m_top, tuning=tuning, n_live=n_live)
     else:
-        d1, i1, th1 = select(s1_w, live=n_live)
+        st1, th1 = select(s1_w, live=n_live)
+    d1, i1 = st1.dist, st1.idx
     if not certify:
-        return SweepResult(d1, i1, None, 0)
+        return SweepResult(d1, i1, None, 0, settled=st1)
     okq = check_exact(d1, th1)                            # [B] per-query proof
 
-    def exact_fallback(fetch_):
+    def exact_fallback(fetch_, keys):
         # the scan scores the stored rows as the rescan does, with the f32 query (over a
-        # bf16 store ROADMAP C15: the JAX package ranks bf16(q) there)
-        d, i = exact_knn(q32, rescan, valid, sq_norms.float(), k=k, metric=metric,
-                         db_tile=8 * SWEEP_TILE, round_query=False)
+        # bf16 store ROADMAP C15: the JAX package ranks bf16(q) there); it settles its
+        # own flags
+        d, i, key = exact_knn(q32, rescan, valid, sq_norms.float(), k=k, metric=metric,
+                              db_tile=8 * SWEEP_TILE, round_query=False, with_key=True,
+                              n_live=n_live)
+        if keys:
+            d, i, key = fetch_(d, i, key)
+            return d, i, 2, key
         d, i = fetch_(d, i)
-        return d, i, 2
+        return d, i, 2, None
 
-    def escalate(okq_host, fetch_):
+    def escalate(okq_host, _need_host, fetch_, keys):
         if not tier2_exists:                              # skip_wm lands here too
-            return exact_fallback(fetch_)
+            return exact_fallback(fetch_, keys)
         nfail = int((~okq_host).sum())
         contain = tuning.contain and B > FQ_CONTAIN and not skip_wm
+        extra = lambda key: (key,) if keys else ()        # noqa: E731
         if contain and nfail <= FQ_CONTAIN:
             # contained: re-prove the failing queries (stable order, padded with passing
             # ones, as lax.top_k pads) at tier-2 width; the rest keep tier 1
             fidx = torch.sort((~okq).to(torch.float32), descending=True,
                               stable=True).indices[:FQ_CONTAIN]
-            d_f, i_f, th_f = select(s2_w, sub=fidx)
-            ok_f = check_exact(d_f, th_f, sel=fidx).all()
-            d_m = d1.index_copy(0, fidx, d_f)
-            i_m = i1.index_copy(0, fidx, i_f)
-            d, i, ok = fetch_(d_m, i_m, ok_f)
+            st_f, th_f = select(s2_w, sub=fidx)
+            ok_f = check_exact(st_f.dist, th_f, sel=fidx).all()
+            host = fetch_(d1.index_copy(0, fidx, st_f.dist), i1.index_copy(0, fidx, st_f.idx),
+                          ok_f, st1.need.index_copy(0, fidx, st_f.need),
+                          *extra(st1.key.index_copy(0, fidx, st_f.key)))
+            fx = fidx.cpu().numpy()
+            kept = np.setdiff1d(np.arange(B), fx)
+            groups = [(st1, kept, kept), (st_f, fx, np.arange(len(fx)))]
         else:
-            d2, i2, th2 = select(s2_w, live=n_live)
-            d, i, ok = fetch_(d2, i2, check_exact(d2, th2).all())
-        if bool(ok):
-            return d, i, 1
-        return exact_fallback(fetch_)
+            st2, th2 = select(s2_w, live=n_live)
+            host = fetch_(st2.dist, st2.idx, check_exact(st2.dist, th2).all(), st2.need,
+                          *extra(st2.key))
+            groups = [(st2, np.arange(B), np.arange(B))]
+        if not bool(host[2]):
+            return exact_fallback(fetch_, keys)
+        out = widen_host([host[0], host[1]] + host[4:], host[3], groups, fetch_)
+        return out[0], out[1], 1, (out[2] if keys else None)
 
-    return SweepResult(d1, i1, okq, 0, escalate)
+    return SweepResult(d1, i1, okq, 0, escalate, settled=st1)
 
 
 def exact_knn_t(q, mirror, rescan_data, valid, sq_norms, *, k, metric, live_prefix=None,
@@ -1330,9 +1356,9 @@ def exact_knn_t(q, mirror, rescan_data, valid, sq_norms, *, k, metric, live_pref
     if (cap < 2 * SWEEP_TILE or cap % SWEEP_TILE != 0 or B % qt_w != 0 or Dp % 128 != 0
             or k * r1 > cap or r1 not in (1, 2, 4, 8, 16, 32)
             or (mirror.dtype == torch.int8 and rscale is None)):  # codes need their scales
-        d, i = exact_knn(q, rescan_data, valid, sq_norms, k=k, metric=metric,
-                         db_tile=SWEEP_TILE)
-        res = SweepResult(d, i, None, -1)
+        d, i, key = exact_knn(q, rescan_data, valid, sq_norms, k=k, metric=metric,
+                              db_tile=SWEEP_TILE, with_key=True, n_live=n_live)
+        res = SweepResult(d, i, None, -1, key=key)
     else:
         masked = live_prefix is None
         hw = cap if masked else int(live_prefix)

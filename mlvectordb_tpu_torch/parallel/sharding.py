@@ -12,7 +12,8 @@ of ``mlvectordb_tpu/parallel/sharding.py``.
     by adding ``shard * shard_rows``, and the shards' ``[B, k]`` lists fold with
     ``merge_topk`` in shard order 0..S-1 on the replica's first device, as the JAX
     package's ``lax.scan`` over the all-gathered candidates does (span
-    ``knn_sharded.merge``).
+    ``knn_sharded.merge``), ordered by each shard's float64 keys where JAX orders by f32
+    (ROADMAP C18).
 
 ``shard_for_vector``, ``all_shards`` and ``place_database`` are the JAX package's
 surface that its tests drive; the engine's write and search paths do not call them.
@@ -25,7 +26,7 @@ is issued before anything is read back, so on several cards the shards run at on
 from __future__ import annotations
 
 import uuid as uuid_mod
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -51,13 +52,21 @@ def _pad_k(d: torch.Tensor, i: torch.Tensor, k: int):
 
 
 def merge_shard_results(dists: Sequence[torch.Tensor], idxs: Sequence[torch.Tensor],
-                        k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fold per-shard top-k lists in shard order on the first list's device."""
+                        k: int, keys: Optional[Sequence[torch.Tensor]] = None):
+    """Fold per-shard top-k lists in shard order on the first list's device.  With each
+    shard's float64 keys [B, k] (computed on its own device), the fold orders by them and
+    shard order breaks only float64 ties (ROADMAP C18); returns (dist, idx, key).  Without
+    (the IVF probe's approximate lists), by the f32 distances: (dist, idx)."""
     bd, bi = dists[0], idxs[0]
-    for d, i in zip(dists[1:], idxs[1:]):
-        bd, bi = merge_topk(bd, bi, d.to(bd.device, non_blocking=True),
-                            i.to(bd.device, non_blocking=True), k=k)
-    return bd, bi
+    bk = None if keys is None else keys[0]
+    for j, (d, i) in enumerate(zip(dists[1:], idxs[1:]), 1):
+        d, i = d.to(bd.device, non_blocking=True), i.to(bd.device, non_blocking=True)
+        if bk is None:
+            bd, bi = merge_topk(bd, bi, d, i, k=k)
+        else:
+            bd, bi, bk = merge_topk(bd, bi, d, i, k=k, key_a=bk,
+                                    key_b=keys[j].to(bd.device, non_blocking=True))
+    return (bd, bi) if keys is None else (bd, bi, bk)
 
 
 class ShardingManager:
@@ -130,17 +139,17 @@ class ShardingManager:
     @staticmethod
     def _local(q, st: DeviceState, valid, prep, *, k, metric, n_live, db_tile):
         """One shard's search, issued without a host sync: the certified sweep over a
-        mirror (deferred: its proof stays on the device), else the masked row-major
-        kernel.  JAX's arguments: certify, the heavy program, no residual stream."""
+        mirror, else the masked row-major kernel, each deferred (its proof and its
+        settle's flags stay on the device).  JAX's arguments: certify, the heavy program,
+        no residual stream."""
         if st.mirror is not None:
             return exact_knn_t(q, st.mirror, st.data, valid, st.sq_norms, k=k,
                                metric=metric, live_prefix=None, sweep_err=st.sweep_err,
                                certify=True, light=False, prep_cache=prep, defer=True,
                                n_live=n_live)
-        d, i = exact_knn_fused(q, st.data, valid, st.sq_norms, k=k, metric=metric,
+        return exact_knn_fused(q, st.data, valid, st.sq_norms, k=k, metric=metric,
                                db_tile=min(db_tile, st.data.shape[0]), live_prefix=None,
-                               n_live=n_live)
-        return SweepResult(d, i, None, -1)
+                               n_live=n_live, defer=True)
 
     def sharded_knn(self, q: torch.Tensor, shards, *, k: int, metric: str,
                     n_live: Optional[int] = None, valid=None, prep=None,
@@ -162,8 +171,8 @@ class ShardingManager:
         c = shards[0][0].data.shape[0]
         kk = min(k, c)
         br, replicas = self._replica_rows(q.shape[0], n_live)
-        cands = {}      # replica -> [(dist, global idx) per shard] on its first device
-        proofs = []     # (replica, shard, live rows, SweepResult) of certified shards
+        cands = {}      # replica -> [(dist, global idx, key) per shard] on its first device
+        results = []    # (replica, shard, live rows, SweepResult) of every shard
         for r, lo, nq in replicas:
             q_r = q[lo:lo + br]
             first = self.device(r, 0)
@@ -177,61 +186,87 @@ class ShardingManager:
                 res = self._local(q_r.to(dev, non_blocking=True), st, v, pc, k=kk,
                                   metric=metric, n_live=None if n_live is None else nq,
                                   db_tile=db_tile)
-                row.append(self._candidates(res.dist, res.idx, s, c, nq, first))
-                if res.okq is not None:
-                    proofs.append((r, s, nq, res))
+                row.append(self._candidates(res, s, c, nq, first))
+                results.append((r, s, nq, res))
             cands[r] = row
 
         def merged(lists, dev):
-            """Every replica's shard lists folded in shard order, padded to k, on dev."""
+            """Every replica's shard lists folded in shard order by their float64 keys,
+            padded to k, on dev."""
             with trace_span("knn_sharded.merge", replicas=len(replicas),
                             shards=self.n_shards, k=k):
                 ds, is_ = [], []
                 for r, _lo, _nq in replicas:
-                    bd, bi = merge_shard_results(*zip(*lists[r]), k=kk)
+                    ds_r, is_r, ks_r = zip(*lists[r])
+                    bd, bi, _ = merge_shard_results(ds_r, is_r, kk, keys=ks_r)
                     bd, bi = _pad_k(bd, bi, k)
                     ds.append(bd.to(dev, non_blocking=True))
                     is_.append(bi.to(dev, non_blocking=True))
                 return torch.cat(ds), torch.cat(is_)
 
         dist, idx = merged(cands, home)
-        okq = torch.cat([res.okq.to(home, non_blocking=True)
-                         for *_, res in proofs]) if proofs else None
+        okqs = [res.okq for *_, res in results if res.okq is not None]
+        needs = [res.need for *_, res in results if res.need is not None]
+        okq = torch.cat([t.to(home, non_blocking=True) for t in okqs]) if okqs else None
+        need = torch.cat([t.to(home, non_blocking=True) for t in needs]) if needs else None
 
-        def escalate(okq_host: np.ndarray, fetch_=fetch):
-            """Escalate each shard whose proof failed (its own counted copies), fetch
-            every other shard's tier-1 candidates in one more copy, and merge all of
-            them on the host: nothing is copied back to the device."""
-            tier, pos, lists = 0, 0, {r: [None] * self.n_shards for r, *_ in replicas}
-            for r, s, nq, res in proofs:
-                part = okq_host[pos:pos + res.okq.shape[0]]
-                pos += res.okq.shape[0]
-                if part.all():
-                    continue
-                d, i, t = res.escalate(part, fetch_)
-                tier = max(tier, t)
-                lists[r][s] = (torch.from_numpy(np.ascontiguousarray(d[:nq])),
-                               torch.from_numpy(np.ascontiguousarray(i[:nq]) + s * c))
+        def escalate(okq_host, need_host, fetch_=fetch, _keys=False):
+            """Escalate each shard whose proof failed (its own counted copies), fetch every
+            other shard's tier-1 candidates with their float64 keys in one more copy,
+            settle the flagged queries among them wider in one more, and merge all of them
+            on the host by those keys: nothing is copied back to the device."""
+            tier, po, pn = 0, 0, 0
+            lists = {r: [None] * self.n_shards for r, *_ in replicas}
+            flagged = []                    # (replica, shard, live rows, result, widths)
+            for r, s, nq, res in results:
+                okp = ndp = None
+                if res.okq is not None:
+                    okp = okq_host[po:po + res.okq.shape[0]]
+                    po += res.okq.shape[0]
+                if res.need is not None:
+                    ndp = need_host[pn:pn + res.need.shape[0]]
+                    pn += res.need.shape[0]
+                if okp is not None and not okp.all():
+                    d, i, t, key = res.escalate(okp, fetch_, keys=True)
+                    tier = max(tier, t)
+                    lists[r][s] = (torch.from_numpy(np.ascontiguousarray(d[:nq])),
+                                   torch.from_numpy(np.ascontiguousarray(i[:nq]) + s * c),
+                                   torch.from_numpy(np.ascontiguousarray(key[:nq])))
+                elif ndp is not None and ndp[:nq].any():
+                    flagged.append((r, s, nq, res, ndp))
             rest = [(r, s) for r, row in lists.items() for s, got in enumerate(row)
                     if got is None]
             host = fetch_(*(t for r, s in rest for t in cands[r][s])) if rest else []
             for j, (r, s) in enumerate(rest):
-                lists[r][s] = (torch.from_numpy(host[2 * j]),
-                               torch.from_numpy(host[2 * j + 1]))
+                lists[r][s] = [a.copy() for a in host[3 * j:3 * j + 3]]
+            parts, spots = [], []
+            for r, s, nq, res, ndp in flagged:
+                sel = np.flatnonzero(ndp[:nq])
+                d, i, key = res.settled.widen(sel, int(ndp[sel].max()))
+                parts += [d, i + s * c, key]
+                spots.append((r, s, sel))
+            got = fetch_(*parts) if parts else []
+            for j, (r, s, sel) in enumerate(spots):
+                for a in range(3):
+                    lists[r][s][a][sel] = got[3 * j + a]
+            for r, s in rest:
+                lists[r][s] = tuple(torch.from_numpy(a) for a in lists[r][s])
             d, i = merged(lists, torch.device("cpu"))
-            return d.numpy(), i.numpy(), tier
+            return d.numpy(), i.numpy(), tier, None
 
-        out = SweepResult(dist, idx, okq, -1 if okq is None else 0, escalate)
+        out = SweepResult(dist, idx, okq, -1 if okq is None else 0, escalate, need=need)
         if defer:
             return out
         d, i, _tier = out.resolve()
         return d, i
 
     @staticmethod
-    def _candidates(d, i, shard, c, nq, device):
-        """A shard's live rows with global slots, on the replica's first device."""
-        return (d[:nq].to(device, non_blocking=True),
-                (i[:nq] + shard * c).to(device, non_blocking=True))
+    def _candidates(res, shard, c, nq, device):
+        """A shard's live rows with global slots and their float64 keys, on the
+        replica's first device."""
+        return (res.dist[:nq].to(device, non_blocking=True),
+                (res.idx[:nq] + shard * c).to(device, non_blocking=True),
+                res.key[:nq].to(device, non_blocking=True))
 
     def sharded_ivf_probe(self, q, centroids, cnorms, data3: Grid, valid3: Grid,
                           sqn3: Grid, *, k: int, metric: str, nprobe: int):

@@ -167,7 +167,13 @@ def test_exact_knn_fused_bf16_matches_pallas(live, metric):
 @pytest.mark.parametrize("metric", METRICS)
 def test_exact_scan_bf16_rows_matches_jax(metric):
     """ops/distances rounds the query to the rows' type, as the JAX package does: the
-    scan of a bf16 store (tier 2 and small namespaces) ranks bf16(q) . bf16(row)."""
+    scan of a bf16 store (tier 2 and small namespaces) ranks bf16(q) . bf16(row).  The
+    norms beside it: JAX adds the ones it is handed (here the written f32 rows', as a JAX
+    store holds them until its first compaction), and returns the top 10 of that f32
+    formula; the port's float64 settle (ROADMAP C18) scores the stored rows themselves
+    (the norms the port's store holds, C17) and returns, in order, the float64 top 10 of
+    |q|^2 - |bf16(q)|^2 + |bf16(row) - bf16(q)|^2 (ip: 1 - bf16(q) . bf16(row); cosine:
+    1 - bf16(q) . bf16(row) / (|q| |bf16(row)|)), each distance fl32 of that value."""
     rng, db, q = _gaussian(320 + len(metric), 3000, 8)
     valid = rng.random(3000) > 0.1
     sq = (db * db).sum(-1).astype(np.float32)
@@ -175,7 +181,26 @@ def test_exact_scan_bf16_rows_matches_jax(metric):
                              jnp.asarray(sq), k=10, metric=metric, db_tile=1024)
     td, ti = exact_knn(_t(q), _t(db).to(torch.bfloat16), _t(valid), _t(sq), k=10,
                        metric=metric, db_tile=1024)
-    _assert_same((jd, ji), (td.numpy(), ti.numpy()), tier=False)
+    jd, ji, td, ti = np.asarray(jd), np.asarray(ji), td.numpy(), ti.numpy()
+    rows = _bf16(db).astype(np.float64)
+    qr, q64 = _bf16(q).astype(np.float64), q.astype(np.float64)
+    qq, dots = (q64 * q64).sum(-1)[:, None], qr @ rows.T
+    if metric == "l2":
+        port = qq - (qr * qr).sum(-1)[:, None] + np.stack([((rows - v) ** 2).sum(-1) for v in qr])
+        jax_ = qq + sq[None, :].astype(np.float64) - 2 * dots
+    elif metric == "ip":
+        port = jax_ = 1 - dots
+    else:
+        port = 1 - dots / np.sqrt(qq * (rows * rows).sum(-1)[None, :])
+        jax_ = 1 - dots / np.sqrt(qq * sq[None, :].astype(np.float64))
+    port[:, ~valid] = jax_[:, ~valid] = np.inf
+    want = np.argsort(port, axis=1, kind="stable")[:, :10]
+    np.testing.assert_array_equal(ti, want)                      # the port: float64
+    np.testing.assert_array_equal(td, np.take_along_axis(port, want, 1).astype(np.float32))
+    for b in range(len(q)):                                      # JAX: its formula, in f32
+        assert set(ji[b].tolist()) == set(np.argsort(jax_[b], kind="stable")[:10].tolist()), b
+    np.testing.assert_allclose(jd, np.take_along_axis(jax_, ji, 1), rtol=1e-5, atol=1e-4)
+    assert (np.diff(jd, axis=1) >= 0).all()
 
 
 # ------------------------------------------------------------------ the same-dtype sweep

@@ -42,6 +42,7 @@ from mlvectordb_tpu.ops import backend as jax_backend
 from mlvectordb_tpu_torch import EngineConfig, QueryProcessor, VectorDTO, filters
 from mlvectordb_tpu_torch.engine import query_processor as qp_mod
 from mlvectordb_tpu_torch.ops.fused_knn_t import SWEEP_TILE
+from mlvectordb_tpu_torch.ops.settle import f32_band
 
 from .test_torch_sweep import _clustered
 
@@ -187,6 +188,42 @@ def _same_hits(jr, tr):
                                    sorted(r["score"] for r in a), rtol=1e-5, atol=1e-4)
 
 
+def _f32_boundary(x, ids, metas, live):
+    """_same_hits, but for ROADMAP C18: where JAX's set differs from the port's, the port's
+    rows are the float64 oracle's over the matching live rows ``x`` (as stored), in its
+    order, and each row
+    JAX returned in their place lies within the f32 band (``settle.f32_band``) of the
+    oracle's k-th distance: JAX's f32 top k, the port's float64 one."""
+    x64 = x.astype(np.float64)
+    row_of = {u: i for i, u in enumerate(ids)}
+
+    def check(jr, tr, qs, metric, spec):
+        assert [len(a) for a in jr] == [len(b) for b in tr]
+        allowed = live & np.array([filters.matches_filter(m, spec) for m in metas])
+        for q, a, b in zip(qs, jr, tr):
+            if {r["id"] for r in a} == {r["id"] for r in b}:
+                _same_hits([a], [b])
+                continue
+            q64 = q.astype(np.float64)
+            if metric == "l2":
+                d = ((x64 - q64) ** 2).sum(-1)
+            elif metric == "ip":
+                d = 1 - x64 @ q64
+            else:
+                d = 1 - x64 @ q64 / np.sqrt((x64 * x64).sum(-1) * (q64 @ q64))
+            d[~allowed] = np.inf
+            want = np.argsort(d, kind="stable")[:len(b)]
+            assert [row_of[r["id"]] for r in b] == want.tolist()
+            band = float(f32_band(metric, torch.tensor(float(q64 @ q64)),
+                                  torch.tensor(float((x64[allowed] ** 2).sum(-1).max())),
+                                  x.shape[1]))
+            kth = d[want[-1]]
+            for r in a:
+                assert abs(d[row_of[r["id"]]] - kth) <= band or row_of[r["id"]] in want
+
+    return check
+
+
 def _stored_rows_exact(x, ids, metas, live):
     """The check of a bf16 store's scan (ROADMAP C15): the port's results are the float64
     oracle's over the stored rows (bf16(x)) with the f32 query, among the matching live
@@ -213,11 +250,12 @@ def _stored_rows_exact(x, ids, metas, live):
     return check
 
 
-def _filtered_both(jqp, tqp, qs, k, metric, spec, namespace="ns", scan_exact=None):
+def _filtered_both(jqp, tqp, qs, k, metric, spec, namespace="ns", scan_exact=None,
+                   boundary=None):
     """One filtered batch through both engines; asserts results, tiers and transfers
     equal (see the module docstring; ``scan_exact``: the check of a batch the port's
-    exact scan served in place of JAX's results).  Returns (port results, the tier names
-    it added)."""
+    exact scan served in place of JAX's results; ``boundary``: ``_f32_boundary``'s check
+    in place of ``_same_hits``).  Returns (port results, the tier names it added)."""
     jx, tx = dict(jqp.transfer_counts), dict(tqp.transfer_counts)
     t0 = tqp.cert_tier_counts(namespace)
     jr = jqp.find_similar_batch([JaxDTO(v) for v in qs], k, namespace, metric, filter=spec)
@@ -229,6 +267,8 @@ def _filtered_both(jqp, tqp, qs, k, metric, spec, namespace="ns", scan_exact=Non
     if scan_exact is not None and tier == ["exact_scan"]:
         assert [len(a) for a in jr] == [len(b) for b in tr]
         scan_exact(tr, qs, metric, spec)
+    elif boundary is not None:
+        boundary(jr, tr, qs, metric, spec)
     else:
         _same_hits(jr, tr)
     assert all(filters.matches_filter(r["metadata"], spec) for rs in tr for r in rs)
@@ -429,8 +469,9 @@ def test_filtered_and_unfiltered_masked_searches_never_share_prep(jax_on_tpu, mo
                                                                   config):
     """In one tombstoned snapshot an unfiltered (masked) search and a filtered one of 70
     queries (the 512 bucket: padded rows served from the zero-query column), in turns and
-    at k = 10 and 100, each give JAX's answer and the answer of a fresh processor that
-    served only that call; the snapshot's own prep and zero-query columns and the
+    at k = 10 and 100, each give JAX's answer (up to the f32 boundary of ROADMAP C18:
+    ``_f32_boundary``) and the answer of a fresh processor that served only that call;
+    the snapshot's own prep and zero-query columns and the
     filter's are distinct objects built from different liveness; the filter's mask
     reaches the device once per snapshot."""
     cfg = CONFIGS[config]
@@ -449,6 +490,11 @@ def test_filtered_and_unfiltered_masked_searches_never_share_prep(jax_on_tpu, mo
     real_upload = qp_mod._upload_mask
     monkeypatch.setattr(qp_mod, "_upload_mask",
                         lambda m, d: uploads.append(m.shape) or real_upload(m, d))
+    live = np.ones(N, bool)
+    live[[ids.index(g) for g in gone]] = False
+    stored = torch.from_numpy(x).to(torch.bfloat16).float().numpy() if cfg.get(
+        "dtype") == "bfloat16" else x
+    boundary = _f32_boundary(stored, ids, metas, live)
     for rnd in range(2):
         for k in (10, 100):
             for f in (None, spec):
@@ -457,7 +503,7 @@ def test_filtered_and_unfiltered_masked_searches_never_share_prep(jax_on_tpu, mo
                 tr = tqp.find_similar_batch([VectorDTO(v) for v in qs + rnd], k, "ns",
                                             "l2", filter=f)
                 _settle(jqp)
-                _same_hits(jr, tr)
+                boundary(jr, tr, qs + rnd, "l2", f)
                 if rnd == 0:
                     _identical(tr, fresh[(k, f is None)])
     assert tqp.cert_tier_counts("ns") == jqp.cert_tier_counts("ns")
@@ -483,8 +529,9 @@ def test_filtered_heavy_flip_files_prep_in_the_filter_scope_only(jax_on_tpu):
     """The port's form of tests/test_engine.py's test_heavy_warm_uses_filter_scoped_prep:
     a clustered namespace whose light proof fails under a filter switches its masked
     variant to the heavy program; the snapshot's own prep dict then holds nothing but the
-    filter's scope, which holds the light and the heavy prep.  Tiers and results equal
-    JAX's, whose heavy warm runs in the background and is awaited."""
+    filter's scope, which holds the light and the heavy prep.  Tiers equal JAX's, whose
+    heavy warm runs in the background and is awaited, and so do results, up to the f32
+    boundary of ROADMAP C18 (``_f32_boundary``: the clusters' near-ties)."""
     rng, x, q = _clustered(81, 3 * SWEEP_TILE, 8, 8, 0.05, 1e-3)
     n = x.shape[0]
     ids = [uuid.UUID(int=i + 1) for i in range(n)]
@@ -492,8 +539,10 @@ def test_filtered_heavy_flip_files_prep_in_the_filter_scope_only(jax_on_tpu):
     jqp, tqp = _load_both({"sweep_dtype": "bfloat16"}, x, ids, metas, "c")
     spec = {"p": 1}
     state = tqp.storage.namespace("c").device_state()
+    boundary = _f32_boundary(x, ids, metas, np.ones(n, bool))
     for rnd in range(2):
-        _filtered_both(jqp, tqp, q + np.float32(rnd * 1e-4), 10, "l2", spec, "c")
+        _filtered_both(jqp, tqp, q + np.float32(rnd * 1e-4), 10, "l2", spec, "c",
+                       boundary=boundary)
     assert tqp._cert_mode == {("c", "l2", True): "heavy"}
     assert jqp._cert_mode == tqp._cert_mode
     counts = tqp.cert_tier_counts("c")
@@ -505,7 +554,7 @@ def test_filtered_heavy_flip_files_prep_in_the_filter_scope_only(jax_on_tpu):
                                            if isinstance(k2, tuple))
     # unfiltered traffic runs its own (unmasked) variant, light until its own proof
     # fails, with prep of its own beside the filter's scope
-    _, tier = _filtered_both(jqp, tqp, q, 10, "l2", None, "c")
+    _, tier = _filtered_both(jqp, tqp, q, 10, "l2", None, "c", boundary=boundary)
     assert tier == ["light_exact_scan"] and jqp._cert_mode == tqp._cert_mode == {
         ("c", "l2", True): "heavy", ("c", "l2", False): "heavy"}
     own = [k2 for k2 in state.prep_cache if k2[0] != "filter"]

@@ -166,10 +166,12 @@ def test_exact_knn_fused_batch_not_multiple_of_four(oracle):
 @pytest.mark.parametrize("live", [True, False])
 def test_exact_knn_fused_l2_rescan_is_jax_formula(live):
     """The row-major l2 rescan scores max(qn + ||row||^2 - 2 q.row, 0), as the JAX
-    package's _select_and_rescan does (pallas_knn.py:260-262).  Integer rows keep every
-    norm and dot exact in f32 whatever the summation order, while qn + ||row||^2 passes
-    2^24 and rounds once: the two rescans agree bit for bit, where a sum of squared
-    differences would return the unrounded distances."""
+    package's _select_and_rescan does (pallas_knn.py:260-262), and the port settles the
+    top k in float64 (ROADMAP C18).  Integer rows keep every norm and dot exact in f32
+    whatever the summation order, while qn + ||row||^2 passes 2^24 and rounds once: JAX
+    returns that expansion bit for bit, in its order; the port returns the same rows with
+    fl32 of their exact distances, in their exact order, which the expansion's rounding
+    does not reach."""
     n, b = 2 * tfused.DB_TILE, 8
     rng = np.random.default_rng(16)
     db = rng.integers(-500, 501, (n, D)).astype(np.float32)
@@ -184,11 +186,18 @@ def test_exact_knn_fused_l2_rescan_is_jax_formula(live):
                                      jnp.asarray(sq), k=10, metric="l2", live_prefix=lp)
     td, ti = tfused.exact_knn_fused(*(torch.from_numpy(a) for a in (q, db, valid, sq)), k=10,
                                     metric="l2", live_prefix=lp)
-    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
-    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
-    assert (ti.numpy()[:, 0] == near).all() and valid[ti.numpy()].all()
-    direct = ((db[ti.numpy()].astype(np.float64) - q[:, None, :]) ** 2).sum(-1)
-    assert (td.numpy() != direct).any()          # the expansion's rounding shows
+    jd, ji, td, ti = np.asarray(jd), np.asarray(ji), td.numpy(), ti.numpy()
+    assert [set(r) for r in ti.tolist()] == [set(r) for r in ji.tolist()]
+    q64 = q.astype(np.float64)
+    dots = np.einsum("bd,bkd->bk", q64, db[ji].astype(np.float64))
+    qn = (q64 * q64).sum(-1)[:, None]
+    expansion = np.maximum((qn + sq[ji]).astype(np.float32) - 2 * dots, 0).astype(np.float32)
+    np.testing.assert_array_equal(jd, expansion)        # JAX: the f32 expansion, rounded once
+    direct = ((db[ti].astype(np.float64) - q[:, None, :]) ** 2).sum(-1)
+    np.testing.assert_array_equal(td, direct.astype(np.float32))   # the port: fl32(float64)
+    assert (np.diff(direct, axis=1) >= 0).all()         # in float64 order
+    assert (ti[:, 0] == near).all() and valid[ti].all()
+    assert (jd != ((db[ji].astype(np.float64) - q[:, None, :]) ** 2).sum(-1)).any()
 
 
 def test_small_capacity_falls_back_to_scan():

@@ -1566,3 +1566,69 @@ def test_sharded_search_across_cards():
                                      ids, q, 1, n, "l2")
     _same_sharded_answers(got, want)
     assert launched == [0, n, n]
+
+
+def _c18_pairs(metric, B, c, seed=180):
+    """ROADMAP C18's pairs: per query q + e and q - e (e orthogonal to q: equal distances
+    in exact arithmetic) that the plain f32 formula orders strictly against float64, the
+    two rows in shard 0 and in shard 1 + b % 7 of a (1, 8) mesh of c rows a shard; the
+    other rows gaussian offset by 20.  Returns (db, q, pairs, float64 distances)."""
+    f = np.float32
+    rng = np.random.default_rng(seed + len(metric))
+    db = (rng.standard_normal((8 * c, 128)) + 20).astype(f)
+
+    def f32(q, x):
+        qn, sqn, dot = f(q @ q), f(x @ x), f(q @ x)
+        if metric == "l2":
+            return max(f(f(qn + sqn) - f(2) * dot), f(0))
+        return f(f(1) - dot * f(f(1) / np.sqrt(f(qn * sqn))))
+
+    def f64(q, x):
+        q, x = q.astype(np.float64), x.astype(np.float64)
+        if metric == "l2":
+            return ((x - q) ** 2).sum()
+        return 1 - x @ q / np.sqrt((x @ x) * (q @ q))
+
+    qs, pairs, d64 = [], [], []
+    while len(qs) < B:
+        q = rng.standard_normal(128).astype(f)
+        e = rng.standard_normal(128) * 0.1
+        e -= (e @ q) / (q.astype(np.float64) @ q) * q
+        a, b = (q + e).astype(f), (q - e).astype(f)
+        da, dc = f64(q, a), f64(q, b)
+        if da == dc or (f32(q, a) - f32(q, b)) * (da - dc) >= 0:
+            continue
+        lo, hi = 16 + 8 * len(qs), c * (1 + len(qs) % 7) + 300 + 8 * len(qs)
+        db[lo], db[hi] = a, b
+        qs.append(q)
+        pairs.append((lo, hi))
+        d64.append((da, dc))
+    return db, np.stack(qs), pairs, np.array(d64)
+
+
+@pytest.mark.parametrize("sweep", [False, True], ids=["row_major", "bf16_mirror"])
+@pytest.mark.parametrize("metric", ["l2", "cosine"])
+def test_c18_sharded_merge_on_cuda_orders_by_float64(cuda, metric, sweep):
+    """ROADMAP C18 on the card: a (1, 8) mesh of [cuda] * 8, 8,192 rows a shard (B5, or
+    B1 + B2 over a bf16 mirror), each query's pair in two shards.  Every pair comes back
+    first in float64 order, with the CPU mesh's ids; the merge ordered by the shards'
+    float64 keys, computed on the card."""
+    from mlvectordb_tpu_torch.parallel import ShardingManager, build_mesh
+
+    db, q, pairs, d64 = _c18_pairs(metric, 32, 8192)
+    valid = np.ones(len(db), bool)
+    sq = (db.astype(np.float64) ** 2).sum(-1).astype(np.float32)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        sm = ShardingManager(build_mesh(1, 8, devices=[dev] * 8))
+        data = torch.from_numpy(db).to(dev)
+        extra = (data.to(torch.bfloat16), fused_knn_t.sweep_err_norms(data)) if sweep else ()
+        shards = sm.place_database(data, torch.from_numpy(valid).to(dev),
+                                   torch.from_numpy(sq).to(dev), *extra)
+        d, i = sm.sharded_knn(torch.from_numpy(q).to(dev), shards, k=2, metric=metric)
+        out[dev.type] = d.cpu().numpy(), i.cpu().numpy()
+    d, i = out["cuda"]
+    for b, pair in enumerate(pairs):
+        assert i[b].tolist() == list(pair if d64[b, 0] < d64[b, 1] else pair[::-1]), b
+        assert d[b, 0] <= d[b, 1], b
+    np.testing.assert_array_equal(i, out["cpu"][1])

@@ -328,7 +328,10 @@ def test_k1024_bucket_matches_jax():
 def test_contained_escalation_matches_jax():
     """One query aims at a tight far-away cluster that the light band cannot separate;
     the other 15 are benign.  Only that query's proof fails, so both sides re-prove an
-    8-query sub-batch at the tier-2 width and report tier 1 without the exact scan."""
+    8-query sub-batch at the tier-2 width and report tier 1 without the exact scan.  The
+    cluster's distances (~1e-4) lie far inside l2's f32 cancellation band: JAX returns
+    its f32 values, within that band of the port's; the port returns fl32 of the float64
+    distances, in their order (ROADMAP C18)."""
     n = 20 * TILE                                  # 16 queries x 160 windows x 32 rows
     rng, db, q = _gaussian(41, n, 16)
     centre = np.full(D, 4.0, np.float32)
@@ -336,7 +339,10 @@ def test_contained_escalation_matches_jax():
     q[0] = centre + rng.standard_normal(D).astype(np.float32) * 1e-3
     j, t = _both(db, q, np.ones(n, bool), metric="l2", k=10, light=True)
     assert t[2] == j[2] == 1
-    _assert_same_distances(j, t)
+    _assert_same_distances(j, t, scale=_l2_scale(db, q))
+    exact = ((db[t[1]].astype(np.float64) - q[:, None, :]) ** 2).sum(-1)
+    np.testing.assert_array_equal(t[0], exact.astype(np.float32))
+    assert (np.diff(exact, axis=1) >= 0).all()
     _assert_same_sets((j[0][1:], j[1][1:]), (t[0][1:], t[1][1:]))
 
 
