@@ -28,7 +28,13 @@ one line per phase:
      at B=16), delete of 1,000 ids and search again, each held to set-exact
      recall@10 = 1.0 against a float64 numpy oracle, plus the launch counts and the query
      columns computed (the live ones alone) showing which kernels served it and the
-     one-h2d/one-d2h transfer rule;
+     one-h2d/one-d2h transfer rule; every batch proven at tier 0 (ROADMAP C20: the
+     row-major path records the tier it proved; phases 6, 11, 15's B5 over a filter and
+     19b's sharded B5 assert the same, 19b by its proofs' count and one copy each way);
+     then C20's near duplicates (``check_near_duplicates``): 64 rows c + N(0, 1e-4^2) of
+     one c ~ N(0, 10^2) in a 2^20-row namespace of their own, 128 queries c + N(0, 1)
+     through B4 and, after the deletes, B5: escalated, the float64 oracle's ids in order
+     (0 missed), the tier mix and the kernels' launches printed (phase 11: bf16 rows);
   4. the certified sweep kernels against their plain versions on the card: the sweep
      window-min kernel (bf16 mirror: the tensor cores), light and heavy, l2/ip/cosine,
      N = 65,536 and 1,048,576, B = 512, ~1% tombstones in the bias row, each window min
@@ -163,10 +169,11 @@ one line per phase:
      median of 5), and gRPC Search and BatchSearch where grpc imports.  Where aiohttp or
      pydantic does not import, phase 18 prints one line naming it and does not run.
  19. the distributed engine (parallel.make_distributed_processor; the mesh's cells are
-     the visible cards in turn, so one card holds them all): (a) phase 12's DEEP rows and
-     ids on a (1, 4) mesh (the same-dtype sweep per shard), cosine k=10 and k=100 and
-     l2 k=10 at B=128 before and after phase 12's 1,000 deletes: recall 1.0 against the
-     bf16-row oracle, phase 12's processor's answers after the deletes, one launch of B1
+     the visible cards in turn, so one card holds them all): (a) the first half of phase
+     12's DEEP rows (4,194,304; the depth cut to keep the run inside its time limit) and
+     their ids on a (1, 4) mesh (the same-dtype sweep per shard), cosine k=10 and k=100
+     and l2 k=10 at B=128 before and after phase 12's deletes among them: recall 1.0
+     against the bf16-row oracle and its distances as the scores, one launch of B1
      and of B2 per shard and search, transfers (1, 1) on every search whose shards all
      certified; the capacity and device bytes; B1 and B2 at a shard's operands against
      their plain versions and timed with their bounds, the merge of the shards' lists as
@@ -1639,6 +1646,101 @@ def _matmul_ms(data, q_live):
     return _time_ms(lambda: torch.matmul(data, ql.T))
 
 
+# ---- ROADMAP C20: the row-major path's proof (phases 3, 6, 11, 15, 19b) -------------------
+
+def _row_major_mark(qp, namespace):
+    """``qp``'s copies and ``namespace``'s tier counts now, for ``_row_major_tier0``."""
+    return _xfer_mark(qp), dict(qp.cert_tier_counts(namespace))
+
+
+def _row_major_tier0(qp, namespace, mark, label):
+    """Every search of ``namespace`` since ``mark`` (the row-major path records the tier
+    it proved each batch at, ROADMAP C20) served at tier 0 with one copy each way (a
+    flagged query's float64 settle counted apart).  Returns the number of searches."""
+    x0, t0 = mark
+    h2d, d2h = _xfer(qp, x0)
+    tiers = {t: n - t0.get(t, 0) for t, n in qp.cert_tier_counts(namespace).items()
+             if n != t0.get(t, 0)}
+    print(f"  {label}: {h2d} row-major searches, tiers {tiers}, copies back {d2h}")
+    if not h2d or tiers != {"fast": h2d} or d2h != h2d:
+        raise AssertionError(f"{label}: not every batch proven at tier 0 with (1, 1) copies: "
+                             f"tiers {tiers}, transfers ({h2d}, {d2h})")
+    return h2d
+
+
+_ROW_COUNTERS = ((fused_knn._window_mins_fast, "launches"),
+                 (fused_knn._window_mins_masked, "launches"))
+
+
+def check_near_duplicates(qp, db_np, dead, label):
+    """ROADMAP C20 at 2^20 rows, in a namespace of its own on ``qp`` (the default config's
+    processor of phase 3, or phase 11's bf16 store): the phase-3 rows with 64 of them
+    overwritten by near duplicates c + N(0, 1e-4^2) of one centre c ~ N(0, 10^2), 128
+    queries c + N(0, 1), l2 k=10, through B4 (no tombstones), then B5 after ``dead`` (the
+    phase's 1,000 deletes, none of the 64) are deleted.  The f32 error of the l2 expansion
+    grows with |q|^2 + |x|^2, so the 64 windows of the duplicates lie inside phase 1's
+    error, beyond the 32 the selection keeps: the proof fails at tier 0 and the widened
+    tier 1 serves.  Each batch: the float64 oracle's ids in order (the duplicates as
+    stored, ties by slot; every other row farther than any of them by the triangle
+    inequality), its tier mix and copies, B4's and B5's launches (counted apart and put
+    back).  The namespace is dropped after.  Returns the record."""
+    n = len(db_np)
+    rng = np.random.default_rng(SEED + 20)
+    dup_rows = np.sort(rng.choice(np.setdiff1d(np.arange(n), dead), 64, replace=False))
+    c = rng.normal(0, 10, D)
+    x = db_np.copy()
+    x[dup_rows] = (c + rng.normal(0, 1e-4, (64, D))).astype(np.float32)
+    q_np = (c + rng.normal(0, 1, (B, D))).astype(np.float32)
+    ids = [uuid.UUID(int=i + 1) for i in range(n)]
+    row_of = {u: i for i, u in enumerate(ids)}
+    qp.bulk_load(x, "dup", ids=ids)
+    st = qp.storage.namespace("dup").device_state()
+    dev = st.data.device
+    stored = st.data[torch.from_numpy(dup_rows).to(dev)].double().cpu().numpy()
+    q64 = q_np.astype(np.float64)
+    d_dup = ((q64[:, None, :] - stored[None]) ** 2).sum(-1)              # [B, 64]
+    want = dup_rows[np.argsort(d_dup, axis=1, kind="stable")[:, :K]]     # slots ascending
+    others = torch.ones(st.capacity, dtype=torch.bool, device=dev)
+    others[torch.from_numpy(dup_rows).to(dev)] = False
+    far = float(torch.where(others & st.valid, st.sq_norms, 0.0).max().sqrt()) * (1 + 1e-3)
+    gap = ((np.linalg.norm(q64, axis=1) - far) ** 2).min()
+    if not gap > np.sort(d_dup, axis=1)[:, K - 1].max():
+        raise AssertionError(f"{label}: a row outside the duplicates could be nearer")
+    outer = [getattr(fn, a) for fn, a in _ROW_COUNTERS]
+    for fn, a in _ROW_COUNTERS:
+        setattr(fn, a, 0)
+    rec = {}
+    for when in ("B4", "B5"):
+        if when == "B5":
+            qp.delete([ids[i] for i in dead], "dup")
+        mark = _row_major_mark(qp, "dup")
+        res = qp.find_similar_batch([VectorDTO(v) for v in q_np], K, "dup", "l2")
+        xfer = _xfer(qp, mark[0])
+        tiers = {t: n - mark[1].get(t, 0) for t, n in qp.cert_tier_counts("dup").items()
+                 if n != mark[1].get(t, 0)}
+        got = np.array([[row_of[r["id"]] for r in rs] for rs in res])
+        missed = int(sum(len(set(w) - set(g)) for w, g in zip(want.tolist(), got.tolist())))
+        rec[when] = {"tiers": tiers, "transfers": xfer, "missed": missed,
+                     "order_equal": bool((got == want).all())}
+    launched = dict(zip(("fast", "masked"), [getattr(fn, a) for fn, a in _ROW_COUNTERS]))
+    for (fn, a), v, c in zip(_ROW_COUNTERS, outer, launched.values()):
+        setattr(fn, a, v + c)
+    rec["launches"] = launched
+    qp.delete_namespace("dup")
+    del st
+    torch.cuda.empty_cache()
+    print(f"  C20 near duplicates ({label}, {n:,} rows, 64 duplicates, B={B} l2 k={K}): "
+          f"launches {launched}")
+    print(f"  C20 near duplicates ({label}): {rec}")
+    # escalated (tier 1, or the scan should the widened proof fail too), never tier 0
+    if (launched != {"fast": 1, "masked": 1}
+            or any(rec[w]["missed"] or not rec[w]["order_equal"]
+                   or rec[w]["tiers"] not in ({"widened": 1}, {"exact_scan": 1})
+                   or rec[w]["transfers"][0] != 1 for w in ("B4", "B5"))):
+        raise AssertionError(f"C20 near duplicates ({label}): {rec}")
+    return rec
+
+
 # ---- phase 10: probe B7 (int8 convert vs int8 tensor cores vs the stream floor) ----------
 
 INT8_PEAK = 1979e12  # dense int8 tensor-core operations per second, H100 SXM at 700 W
@@ -1796,7 +1898,7 @@ def run_bf16_row_major(db_np, q_np, dead, self_row, q_pad):
             dead_ids = _deleted(qp, "sift", ids, dead_rows)
         for metric, nq in (("l2", B), ("ip", 16), ("cosine", 16)):
             res, tier, xfer = _served(qp, "sift", q_np, metric, nq, K)
-            if xfer != (1, 1) or tier:
+            if xfer != (1, 1) or tier != ["fast"]:   # proven at tier 0 (ROADMAP C20)
                 raise AssertionError(f"bf16 row-major {metric} {when}: {tier} {xfer}")
             if any(r["id"] in dead_ids for rs in res for r in rs):
                 raise AssertionError(f"bf16 row-major {metric}: a deleted id was returned")
@@ -1831,9 +1933,11 @@ def run_bf16_row_major(db_np, q_np, dead, self_row, q_pad):
     times["matmul_bf16"] = _matmul_ms(data, q_pad[:B])
     times["exact_knn_fused_bf16_masked"] = _time_ms(lambda: fused_knn.exact_knn_fused(
         q_pad, data, st.valid, st.sq_norms, k=16, metric="l2", live_prefix=None, n_live=B))
+    mark = _row_major_mark(qp, "sift")
     wall = _engine_wall(qp, q_np)
     times["engine_wall_bf16_masked_median"] = statistics.median(wall)
     split = _engine_split(qp, q_np)
+    proof = {"phase 11": _row_major_tier0(qp, "sift", mark, "phase 11 (ROADMAP C20)")}
     flop = 2.0 * N * B * D
     for name, ms in times.items():
         extra = (f", {flop / ms / 1e9:.1f} TFLOP/s on the {B} live queries"
@@ -1844,7 +1948,8 @@ def run_bf16_row_major(db_np, q_np, dead, self_row, q_pad):
     print(f"  query columns of the timed live launches: {cols}")
     if any(c != B for c in cols.values()):
         raise AssertionError(f"a timed B4/B5 launch computed other than {B} columns: {cols}")
-    return counts, times, bounds, cols
+    proof["near_duplicates_bf16"] = check_near_duplicates(qp, db_np, dead, "bf16 rows")
+    return counts, times, bounds, cols, proof
 
 
 def check_c3(db_np):
@@ -2585,12 +2690,14 @@ def run_hybrid(gpu):
     fm = fused_knn._window_mins_masked
     before = (fm.launches, fm.cols)
     half = torch.from_numpy(_glove_allowed(N_ROW_FILTER, "half")).to(dev)
+    mark = _row_major_mark(qpr, "glove_rows")
     for metric in ("l2", "cosine"):
         res = qpr.find_similar_batch([VectorDTO(v) for v in qg], K, "glove_rows", metric,
                                      filter=spec)
         want = _filtered_oracle(rows[:N_ROW_FILTER], q_dev, half, metric, K)[0]
         _check_filtered(res, want, idr, spec, f"row-major {metric} 50% filter")
     b5 = (fm.launches - before[0], fm.cols - before[1])
+    _row_major_tier0(qpr, "glove_rows", mark, "phase 15 B5 over a filter (ROADMAP C20)")
     print(f"  row-major (B5) at {N_ROW_FILTER:,} rows, 50% filter, l2 and cosine B={B}: "
           f"set-exact, none outside the filter; B5 launches {b5[0]}, query columns {b5[1]}")
     if b5 != (2, 2 * B):
@@ -3226,6 +3333,18 @@ def _mesh_checks(res, xfer, launched, s, r_live, rowmajor, label):
 MESH_DIR = DURABLE_DIR.parent / "mesh"
 
 
+def _oracle_scores(res, oracle, metric, nq, dead, k, label):
+    """Each query's scores are the float64 oracle's k nearest distances (cosine: 1 - the
+    distance), within 1e-5."""
+    dead = set() if dead is None else set(np.asarray(dead).tolist())
+    rows, dist = oracle.nearest(metric, nq)
+    for r, d, got in zip(rows.tolist(), dist.tolist(), res):
+        want = np.array([x for i, x in zip(r, d) if i not in dead][:k])
+        score = np.sort([1.0 - h["score"] if metric == "cosine" else h["score"] for h in got])
+        if len(score) != len(want) or not np.allclose(score, want, rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"{label}: scores are not the oracle's distances")
+
+
 def _merge_span(qp, q_np, namespace, metric, k):
     """The cross-shard merge of one engine search, read from the search's own
     ``knn_sharded.merge`` span: (the host's ms in the span from RECORDER, the device ms of
@@ -3260,38 +3379,38 @@ def run_mesh(gpu, deep, sift):
     counts of the two cells' counted runs, {time name: ms}, {bound name: bound},
     {kernel: max |kernel - plain|})."""
     rec, times, bounds, worst = {"card": gpu}, {}, {}, {}
-    # ---- (a) DEEP on a (1, 4) mesh
+    # ---- (a) DEEP on a (1, 4) mesh: the first half of phase 12's rows (its depth cut to
+    # keep the run inside its time limit; the sharded ingest is the longest step)
+    n_a = N_DEEP // 2
+    dead_a = np.asarray([i for i in deep["dead"] if i < n_a])
+    oracle_a = DeviceOracle(deep["oracle"].rows[:n_a], deep["qd"])
     devs = mesh_devices(4, "cuda")
     qpd = make_distributed_processor(1, 4, DEEP, devices=devs)
     sm = qpd.sharding_manager
     print(f"  (a) DEEP sharded: make_distributed_processor(1, 4), shard s on "
           f"{[str(d) for d in sm.mesh.devices[0]]} ({torch.cuda.device_count()} visible)")
     t0 = time.perf_counter()
-    ids = qpd.bulk_load(deep["db"], "deep", ids=deep["ids"])
+    ids = qpd.bulk_load(deep["db"][:n_a], "deep", ids=deep["ids"][:n_a])
     torch.cuda.synchronize()
     nsd = qpd.storage.namespace("deep")
     st = nsd.device_state()
     per_cell = [cell.data.numel() * cell.data.element_size() for cell in st.shards[0]]
-    rec["deep"] = {"ingest_s": time.perf_counter() - t0, "rows": N_DEEP,
+    rec["deep"] = {"ingest_s": time.perf_counter() - t0, "rows": n_a,
                    "shard_capacity": nsd.shard_capacity, "capacity": nsd.capacity,
                    "device_bytes": nsd.nbytes, "row_bytes_per_shard": per_cell,
                    "placement": [str(d) for d in sm.mesh.devices[0]]}
-    print(f"  bulk_load: {N_DEEP:,} rows in {rec['deep']['ingest_s']:.2f} s; shard capacity "
-          f"{nsd.shard_capacity:,}, capacity {nsd.capacity:,} rows ({nsd.capacity / N_DEEP:.1f}x "
+    print(f"  bulk_load: {n_a:,} rows in {rec['deep']['ingest_s']:.2f} s; shard capacity "
+          f"{nsd.shard_capacity:,}, capacity {nsd.capacity:,} rows ({nsd.capacity / n_a:.1f}x "
           f"the rows: each shard sized for a whole batch hashing to it), device bytes "
           f"{nsd.nbytes:,} (phase 12's unsharded store {deep['qp'].storage.namespace('deep').nbytes:,})")
     if any(st_.mirror is None or st_.mirror.data_ptr() != st_.data.data_ptr()
            for st_ in st.shards[0]):
         raise AssertionError("a DEEP shard does not sweep its own bf16 rows")
     searches = (("cosine", B, K), ("cosine", B, K100), ("l2", B, K))
-    # the unsharded processor's answers on the same rows (phase 12's, after its deletes),
-    # taken before the counted run
-    want = {(m, k): deep["qp"].find_similar_batch([VectorDTO(v) for v in deep["qd"][:nq]], k,
-                                                  "deep", m) for m, nq, k in searches}
     outer = _mesh_counts()
     _set_mesh_counts([0] * len(outer))
     served, certified = {}, 0
-    for when, dead_rows in (("before delete", None), ("after delete", deep["dead"])):
+    for when, dead_rows in (("before delete", None), ("after delete", dead_a)):
         if dead_rows is not None:
             qpd.delete([ids[i] for i in dead_rows], "deep")
         for metric, nq, k in searches:
@@ -3299,15 +3418,14 @@ def run_mesh(gpu, deep, sift):
             res, xfer, launched = _mesh_search(qpd, "deep", deep["qd"], metric, nq, k)
             certified += _mesh_checks(res, xfer, launched, 4, 1, False, label)
             served[f"{metric} k={k} {when}"] = {"transfers": xfer, "launches": launched}
-            _check_recall(res, deep["oracle"].sets(metric, nq, dead_rows, k=k), ids,
+            _check_recall(res, oracle_a.sets(metric, nq, dead_rows, k=k), ids,
                           label + " (bf16-row oracle)", k=k)
-            if dead_rows is not None:
-                _same_as(res, want[(metric, k)], label)
+            _oracle_scores(res, oracle_a, metric, nq, dead_rows, k, label)
     counts_a = dict(zip(_MESH_NAMES, _mesh_counts()))
     if not certified or counts_a["sweep"] != 4 * 2 * len(searches) or counts_a["gather"] < 4:
         raise AssertionError(f"sharded DEEP: launches {counts_a}, {certified} certified")
     print(f"  DEEP sharded per batch: {served}; {certified} of {2 * len(searches)} certified "
-          f"with transfers (1, 1); launches {counts_a}; recall 1.0 and phase 12's answers")
+          f"with transfers (1, 1); launches {counts_a}; recall 1.0 and the oracle's scores")
     rec["deep"]["searches"] = served
     rec["deep"]["launches"] = counts_a
 
@@ -3358,8 +3476,9 @@ def run_mesh(gpu, deep, sift):
           f"host {times['merge_host']:.4f} ms; max |kernel - plain| B1 {worst['sweep']}, B2 "
           f"{worst['gather']}")
     print(f"  engine wall (ms, host clock), B={B} cosine k={K}, tombstoned: sharded {wall} "
-          f"(median {times['engine_wall_sharded_median']:.3f}), phase 12's unsharded {wall12} "
-          f"(median {times['engine_wall_unsharded_median']:.3f}), on {gpu}")
+          f"({n_a:,} rows, median {times['engine_wall_sharded_median']:.3f}), phase 12's "
+          f"unsharded {wall12} ({N_DEEP:,} rows, median "
+          f"{times['engine_wall_unsharded_median']:.3f}), on {gpu}")
     del qpd, nsd, st, a, kw, ga, gkw
     torch.cuda.empty_cache()
 
@@ -3386,20 +3505,37 @@ def run_mesh(gpu, deep, sift):
         outer_b = _mesh_counts()
         _set_mesh_counts([0] * len(outer_b))
         served = {}
+        proofs = []
+        real_proven = fused_knn._Proof.proven
+
+        def counted(self, kth, thresh):
+            proofs.append(kth.shape[0])
+            return real_proven(self, kth, thresh)
+
         for when, dead_rows in (("before delete", None), ("after delete", dead)):
             if dead_rows is not None:
                 qpr.delete([base_ids[i] for i in dead_rows], "sift")
             for nq in (B, 3 * B):
                 tag = f"(2, 2) {label} l2 B={nq} k={K} {when}"
-                res, xfer, launched = _mesh_search(qpr, "sift", q_np, "l2", nq, K)
+                n_proofs = len(proofs)
+                fused_knn._Proof.proven = counted
+                try:
+                    res, xfer, launched = _mesh_search(qpr, "sift", q_np, "l2", nq, K)
+                finally:
+                    fused_knn._Proof.proven = real_proven
                 _mesh_checks(res, xfer, launched, 2, _live_replicas(nq, 2), rowmajor, tag)
+                # row-major: every shard's B5 search proved its queries once, and (1, 1)
+                # copies (``_mesh_checks``) mean no shard escalated: tier 0 (ROADMAP C20)
+                if rowmajor and len(proofs) - n_proofs != launched["masked"]:
+                    raise AssertionError(f"{tag}: {len(proofs) - n_proofs} proofs for "
+                                         f"{launched['masked']} B5 searches")
                 served[f"B={nq} {when}"] = {"transfers": xfer, "launches": launched}
                 _check_recall(res, (oracle.sets("l2", B, dead_rows) * 3)[:nq], base_ids, tag)
                 if dead_rows is not None:
                     _same_as(res, want[nq], tag)
         counts_b[label] = dict(zip(_MESH_NAMES, _mesh_counts()))
         _set_mesh_counts([o + c for o, c in zip(outer_b, counts_b[label].values())])
-        r_rec.update({"searches": served, "launches": counts_b[label]})
+        r_rec.update({"searches": served, "launches": counts_b[label], "proofs": len(proofs)})
         print(f"  (b) {label} on (2, 2): shard capacity {ns.shard_capacity:,}, device bytes "
               f"{ns.nbytes:,} (both replicas); per batch {served}; recall 1.0 and the "
               f"unsharded answers")
@@ -4254,6 +4390,7 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"  bulk_load: {len(ids)} rows in {time.perf_counter() - t0:.2f} s, capacity "
           f"{qp.storage.namespace('sift').capacity}")
+    mark3 = _row_major_mark(qp, "sift")
     x0 = _xfer_mark(qp)
     res = qp.find_similar_batch([VectorDTO(v) for v in q_np], K, "sift", "l2")
     xfer = _xfer(qp, x0)
@@ -4289,6 +4426,7 @@ def main() -> int:
     print(f"  self query (row {self_row}): score {self_hit[0]['score']}")
     if self_hit[0]["id"] != ids[self_row] or not self_hit[0]["score"] < 1e-3:
         raise AssertionError(f"stored row {self_row} queried as itself returned {self_hit[:1]}")
+    row_proof = {"phase 3": _row_major_tier0(qp, "sift", mark3, "phase 3 (ROADMAP C20)")}
 
     launches = {"fast": fused_knn._window_mins_fast.launches,
                 "masked": fused_knn._window_mins_masked.launches}
@@ -4306,6 +4444,7 @@ def main() -> int:
     if row_cols != want_cols:
         raise AssertionError(f"the row-major path computed {row_cols} query columns, not the "
                              f"live {want_cols}")
+    row_proof["near_duplicates_f32"] = check_near_duplicates(qp, db_np, dead, "f32 rows")
 
     # ---- 4. sweep kernels against their plain versions ---------------------------------
     _c18_phase("phase 4")
@@ -4365,8 +4504,10 @@ def main() -> int:
     times["exact_knn_fused_fast"] = _time_ms(lambda: fused_knn.exact_knn_fused(
         q_pad, data, state.valid, state.sq_norms, k=16, metric="l2", live_prefix=N,
         n_live=B))
+    mark6 = _row_major_mark(qp, "sift")
     wall_masked = _engine_wall(qp, q_np)
     split_masked = _engine_split(qp, q_np)
+    row_proof["phase 6"] = _row_major_tier0(qp, "sift", mark6, "phase 6 (ROADMAP C20)")
     times["engine_wall_fast_median"] = statistics.median(wall_fast)
     times["engine_wall_masked_median"] = statistics.median(wall_masked)
 
@@ -4566,7 +4707,8 @@ def main() -> int:
         worst[name + "_bf16"] = err
         b4_ratio[name + "_bf16"] = ratios[name]
     check_window_min_nan(db_np, torch.bfloat16)
-    c11, t11, b11, k11 = run_bf16_row_major(db_np, q_np, dead, self_row, q_pad)
+    c11, t11, b11, k11, proof11 = run_bf16_row_major(db_np, q_np, dead, self_row, q_pad)
+    row_proof.update(proof11)
     times.update(t11)
     b4_cols.update(k11)
     c3 = check_c3(db_np)
@@ -4984,6 +5126,7 @@ def main() -> int:
     # the IVF and server phases run no hand-written kernel of their own: their record
     print(json.dumps({"ivf": ivf_rec, "server": server_rec}, default=str))
     print(json.dumps({"c18": {"paths": c18, "settle_counts": c18_counts}}, default=str))
+    print(json.dumps({"c20": row_proof}, default=str))
     print(json.dumps({"mesh": mesh_rec}, default=str))
     print(json.dumps({"bf16_mirrors": rec20}, default=str))
     print(json.dumps({"wide": rec21}, default=str))

@@ -53,6 +53,7 @@ from ..filters import filter_cache_key
 from ..interfaces.vector import VectorDTO
 from ..ops.backend import knn_backend
 from ..ops.distances import MASKED
+from ..ops.fused_knn import DB_TILE
 from ..ops.fused_knn_t import SWEEP_TILE, SweepResult, fetch
 from ..store.storage import StorageEngine
 from ..store.vector import Vector
@@ -507,15 +508,13 @@ class QueryProcessor:
         if not filter and state.live_count == state.high_water:
             live_prefix = state.high_water
         backend = knn_backend(self.config)
-        # request the certificate tier on certified configs: it rides in the SAME copy
-        want_tier = bool(self.config.certify_exact) and state.mirror is not None
         masked = live_prefix is None
         use_light = self._use_light(namespace, state, metric, masked=masked)
         with trace_span("knn_kernel", namespace=namespace, k=kb, batch=Bb):
             out = backend(
                 q_dev, state.data, valid, state.sq_norms,
                 k=kb, metric=metric, db_tile=self.config.db_tile, live_prefix=live_prefix,
-                report_tier=want_tier, mirror=state.mirror, sweep_err=state.sweep_err,
+                mirror=state.mirror, sweep_err=state.sweep_err,
                 sweep_resid=state.sweep_resid, sweep_rscale=state.sweep_rscale,
                 sweep_err1=state.sweep_err1, sweep_rscale2=state.sweep_rscale2,
                 sweep_light=use_light,
@@ -528,11 +527,14 @@ class QueryProcessor:
             host = fetch(*parts)
         dist, idx = host[0], host[1]
         if isinstance(out, SweepResult):
+            # the sweep records every batch's tier, the row-major path each batch it
+            # proved (ROADMAP C20: the JAX package's proves none and records none)
+            record = state.mirror is not None or out.okq is not None
             # a failed proof escalates, a flagged query is settled wider (ROADMAP C18):
             # their own copies are counted through fetch
             dist, idx, tier = out.finish(host, self._counted_fetch, self._settle_fetch)
-        if isinstance(out, SweepResult) and state.mirror is not None:
-            self._record_cert_tier(namespace, tier, light=use_light)
+            if record:
+                self._record_cert_tier(namespace, tier, light=use_light)
             if use_light and tier == 2:
                 # the light band is too wide for this corpus: switch this (namespace,
                 # metric, variant) to the heavy program.  Eager torch compiles nothing,
@@ -834,7 +836,12 @@ class QueryProcessor:
         kb = min(self.config.bucket_k(min(top_k, max(live, 1))), max(cap, 1))
         fused_active = (self.config.use_pallas and self.config.sweep_dtype is not None
                         and cap >= 2 * SWEEP_TILE)
-        margin_mode = fused_active and not self.config.certify_exact
+        # the row-major path engages at two of its tiles too; it proves each query under
+        # certify_exact and returns its selection unproven without (ROADMAP C20: the JAX
+        # package's explain calls that "exact by construction")
+        row_major = (self.config.use_pallas and self.config.sweep_dtype is None
+                     and cap >= 2 * DB_TILE)
+        margin_mode = (fused_active or row_major) and not self.config.certify_exact
         if self.config.certify_exact:
             contract = (
                 "certified: per-query on-device proof that no pruned window can "

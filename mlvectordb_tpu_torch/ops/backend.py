@@ -12,11 +12,12 @@ torch versions on CPU tensors, so the selection and rescan code runs on both.
 kernel that cannot build or launch raises.
 
 ``report_tier`` adds the certificate tier that served the batch (-1: no certificate ran).
-``sweep_defer`` returns the device-side ``fused_knn_t.SweepResult`` of either fused path,
-so the caller can bring the tier-1 result, its proof and the float64 settle's flags
-(ROADMAP C18) down in one copy.  ``n_live`` is the
-caller's batch before its zero padding: phase 1 computes the live query columns alone on
-both fused paths, and the row-major one returns the live rows alone.
+Both fused paths prove each query under ``certify_exact`` (the row-major one since
+ROADMAP C20) and neither under ``certify_exact=False``.  ``sweep_defer`` returns the
+device-side ``fused_knn_t.SweepResult`` of either fused path, so the caller can bring the
+tier-1 result, its proof and the float64 settle's flags (ROADMAP C18) down in one copy.
+``n_live`` is the caller's batch before its zero padding: phase 1 computes the live query
+columns alone on both fused paths, and the row-major one returns the live rows alone.
 """
 
 from __future__ import annotations
@@ -50,16 +51,12 @@ def _make_fused_backend(certify: bool):
                 report_tier=report_tier, light=sweep_light, prep_cache=sweep_prep,
                 defer=sweep_defer, n_live=n_live,
             )
-        out = exact_knn_fused(
+        # the row-major path: its own per-query proof (ROADMAP C20) where ``certify``
+        return exact_knn_fused(
             q, data, valid, sq_norms, k=k, metric=metric, db_tile=db_tile,
-            live_prefix=live_prefix, n_live=n_live, defer=sweep_defer,
+            live_prefix=live_prefix, n_live=n_live, certify=certify, prep_cache=sweep_prep,
+            report_tier=report_tier, defer=sweep_defer,
         )
-        if sweep_defer:
-            return out  # a SweepResult: its flags ride in the caller's one copy
-        d, i = out
-        if report_tier:
-            return d, i, -1  # row-major margin kernel: no certificate
-        return d, i
 
     # the name explain_query reports (the JAX package names its fused backend
     # "exact_knn_pallas")

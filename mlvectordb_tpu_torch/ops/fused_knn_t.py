@@ -69,7 +69,7 @@ import torch
 
 from . import _kernels
 from .distances import MASKED, require_f32_matmul
-from .settle import Settled, widen_host
+from .settle import U, Settled, widen_host
 from .topk import exact_knn
 
 SWEEP_TILE = 4096           # rows per tile of the tile-major window-min output
@@ -1151,6 +1151,95 @@ class SweepResult:
         return torch.from_numpy(d).to(dev), torch.from_numpy(i).to(dev), tier
 
 
+def _rank_terms(metric: str, kth, kth_rank, qn, ql, maxd, dp: int):
+    """ROADMAP C19: the f32 terms of ``_certify``'s inequality beyond phase 1's sums and
+    the mirror's, in rank units, per query: ``kth`` [B] the settled k-th (fl32 of its
+    float64 distance: u |kth| from it), ``kth_rank`` its rank as the check computes it in
+    f32 (one rounding of the subtraction, and for cosine of the product), ``qn`` [B] the
+    f32 |q|^2 (within g of it: l2 adds it, cosine's ``ql`` = sqrt(qn) scales by it),
+    ``maxd`` the largest live row norm (the bias row's f32 |x|^2 within g m^2 at l2,
+    cosine's scale row rsqrt(|x|^2) within g + 2^-21 of 1/|x|) and the kernel's epilogue
+    adds, 2^-21 of their terms' magnitude (l2 m^2 + 2 |q| m, ip |q| maxd, cosine |q|).
+    At l2 m is the smaller of maxd and |q| + sqrt(d_k): a row of larger norm has
+    |x|^2 - 2 q.x > d_k - |q|^2, so it cannot beat the k-th whatever its rounding.
+    g = (Dp + 4) u / (1 - (Dp + 4) u), u = 2^-24, as ``settle.f32_band``'s: the same
+    derivation as the row-major proof's (``fused_knn`` module docstring).  For a zero
+    query at ip and cosine every product is 0 and every value exact: no term (the
+    engine's padded rows are zero queries, and their proofs count, as JAX's do)."""
+    g = (dp + 4) * U / (1 - (dp + 4) * U)
+    e = 2.0 ** -21
+    if metric == "l2":
+        # a row of norm above |q| + sqrt(d_k) ranks above the k-th whatever its rounding:
+        # the bias row's and the adds' terms take the smaller of that and maxd
+        m = torch.minimum(maxd * (1 + g), ql * (1 + g) + torch.sqrt(kth.clamp_min(0) * (1 + U)))
+        return (U * kth.abs() + g * qn + 2 * U * kth_rank.abs() + (g + e) * m * m
+                + 2 * e * ql * m)
+    if metric == "ip":   # a zero query's ranks and k-th are exact (0 and 1): no term
+        return (ql > 0) * (U * kth.abs() + 2 * U * kth_rank.abs() + e * ql * maxd)
+    return ql * (U * kth.abs() + (g + 4 * U) * (kth - 1.0).abs() + g + 2 * e)
+
+
+def _certify(kth, thresh, err, qn, ql, maxd, metric: str, dp: int):
+    """The per-query proof of the certified sweep (pallas_knn_t.py's ``check_exact``, with
+    ROADMAP C19's terms): every window not rescanned ranks at least ``thresh - err``, at
+    or above the rank of the settled k-th ``kth`` [B] (l2 kth - qn, ip kth - 1, cosine
+    (kth - 1) |q|, in f32 as JAX computes it).  ``err`` [B]: phase 1's sums and the
+    mirror's terms; ``_rank_terms`` adds the rest, the sum widened by 2^-20 for its own
+    f32 arithmetic, and the comparison runs in float64.  A k-th that is a masked slot is
+    proven only where every window was rescanned (thresh +inf)."""
+    if metric == "l2":
+        kth_rank = kth - qn
+    elif metric == "ip":
+        kth_rank = kth - 1.0
+    else:
+        kth_rank = (kth - 1.0) * ql
+    e = (err + _rank_terms(metric, kth, kth_rank, qn, ql, maxd, dp)) * (1 + 2.0 ** -20)
+    return torch.where(kth < float(MASKED) / 2,
+                       thresh.double() - e.double() >= kth_rank.double(), torch.isinf(thresh))
+
+
+def _ladder(st1, okq, select_wide, prove, exact_fallback, *, tier2_exists, contain):
+    """The escalation after a failed per-query proof, the certified sweep's and the
+    row-major path's (ROADMAP C20): ``escalate(okq_host, need_host, fetch_, keys)`` for a
+    ``SweepResult`` whose tier-1 ``Settled`` is ``st1`` and device proof ``okq``.  Without
+    a tier 2 (``tier2_exists`` False), the exact scan ``exact_fallback(fetch_, keys)``.
+    Where ``contain`` and at most FQ_CONTAIN queries failed, those (stable order, padded
+    with passing ones, as ``lax.top_k`` pads) are selected again at the tier-2 width,
+    ``select_wide(rows)``, and proven again together, ``prove(dist, thresh, rows)``; the
+    rest keep tier 1.  Else the whole batch is, ``select_wide(None)``.  A failed re-proof
+    goes to the scan.  Returns host ``(dist, idx, tier, key or None)``: each copy through
+    ``fetch_``, the serving tier's flagged queries settled wider."""
+    d1, i1 = st1.dist, st1.idx
+
+    def escalate(okq_host, _need_host, fetch_, keys):
+        if not tier2_exists:
+            return exact_fallback(fetch_, keys)
+        n = okq_host.shape[0]
+        extra = lambda key: (key,) if keys else ()        # noqa: E731
+        if contain and int((~okq_host).sum()) <= FQ_CONTAIN:
+            fidx = torch.sort((~okq).to(torch.float32), descending=True,
+                              stable=True).indices[:FQ_CONTAIN]
+            st_f, th_f = select_wide(fidx)
+            ok_f = prove(st_f.dist, th_f, fidx).all()
+            host = fetch_(d1.index_copy(0, fidx, st_f.dist), i1.index_copy(0, fidx, st_f.idx),
+                          ok_f, st1.need.index_copy(0, fidx, st_f.need),
+                          *extra(st1.key.index_copy(0, fidx, st_f.key)))
+            fx = fidx.cpu().numpy()
+            kept = np.setdiff1d(np.arange(n), fx)
+            groups = [(st1, kept, kept), (st_f, fx, np.arange(len(fx)))]
+        else:
+            st2, th2 = select_wide(None)
+            host = fetch_(st2.dist, st2.idx, prove(st2.dist, th2, None).all(), st2.need,
+                          *extra(st2.key))
+            groups = [(st2, np.arange(n), np.arange(n))]
+        if not bool(host[2]):
+            return exact_fallback(fetch_, keys)
+        out = widen_host([host[0], host[1]] + host[4:], host[3], groups, fetch_)
+        return out[0], out[1], 1, (out[2] if keys else None)
+
+    return escalate
+
+
 def _fold_query(q32, metric, light, mirror_dtype=torch.bfloat16, mixed=True):
     """The kernel's query operands (pallas_knn_t.py:1066-1087): the metric factor folded
     in (l2 ranks by -2q.x, ip and cosine by -q.x), rounded to bf16 as ``qh`` against a
@@ -1235,24 +1324,11 @@ def _fused_t(q, mirror, rescan, valid, sq_norms, hw, resid, prep, *, k, metric, 
 
     def check_exact(best_d, thresh, sel=None):
         """Per query: every window not rescanned ranks at least ``thresh - err``, above
-        the k-th's rank.  ``best_d[:, k-1]`` is fl32 of the largest float64 distance of
-        the settled k (ROADMAP C18).  ``err`` covers phase 1's sums and the mirror's
-        terms, not the rescan's own f32 band: that band no longer enters, since the
-        k-th is float64's, but its half-ulp rounding and the subtraction below do, and
-        the slack falls below one rounding of the rank where |q| < maxd / (8 Dp) at l2
-        (ROADMAP C19, open: JAX's margin is the same)."""
-        qn = qn_row if sel is None else qn_row[sel]
-        ql = q_l2 if sel is None else q_l2[sel]
-        e = err if sel is None else err[sel]
-        kth = best_d[:, k - 1]
-        if metric == "l2":
-            kth_rank = kth - qn
-        elif metric == "ip":
-            kth_rank = kth - 1.0
-        else:
-            kth_rank = (kth - 1.0) * ql
-        kth_real = kth < float(MASKED) / 2
-        return torch.where(kth_real, thresh - e >= kth_rank, torch.isinf(thresh))
+        the k-th's rank (``_certify``; ``err``: phase 1's sums and the mirror's terms)."""
+        if sel is None:
+            return _certify(best_d[:, k - 1], thresh, err, qn_row, q_l2, maxd, metric, Dp)
+        return _certify(best_d[:, k - 1], thresh, err[sel], qn_row[sel], q_l2[sel], maxd,
+                        metric, Dp)
 
     wmin_t, bm, topm = _window_mins_t(
         qh, qres, mirror, resid if use_resid else None, prep["rscale_row"],
@@ -1298,35 +1374,13 @@ def _fused_t(q, mirror, rescan, valid, sq_norms, hw, resid, prep, *, k, metric, 
         d, i = fetch_(d, i)
         return d, i, 2, None
 
-    def escalate(okq_host, _need_host, fetch_, keys):
-        if not tier2_exists:                              # skip_wm lands here too
-            return exact_fallback(fetch_, keys)
-        nfail = int((~okq_host).sum())
-        contain = tuning.contain and B > FQ_CONTAIN and not skip_wm
-        extra = lambda key: (key,) if keys else ()        # noqa: E731
-        if contain and nfail <= FQ_CONTAIN:
-            # contained: re-prove the failing queries (stable order, padded with passing
-            # ones, as lax.top_k pads) at tier-2 width; the rest keep tier 1
-            fidx = torch.sort((~okq).to(torch.float32), descending=True,
-                              stable=True).indices[:FQ_CONTAIN]
-            st_f, th_f = select(s2_w, sub=fidx)
-            ok_f = check_exact(st_f.dist, th_f, sel=fidx).all()
-            host = fetch_(d1.index_copy(0, fidx, st_f.dist), i1.index_copy(0, fidx, st_f.idx),
-                          ok_f, st1.need.index_copy(0, fidx, st_f.need),
-                          *extra(st1.key.index_copy(0, fidx, st_f.key)))
-            fx = fidx.cpu().numpy()
-            kept = np.setdiff1d(np.arange(B), fx)
-            groups = [(st1, kept, kept), (st_f, fx, np.arange(len(fx)))]
-        else:
-            st2, th2 = select(s2_w, live=n_live)
-            host = fetch_(st2.dist, st2.idx, check_exact(st2.dist, th2).all(), st2.need,
-                          *extra(st2.key))
-            groups = [(st2, np.arange(B), np.arange(B))]
-        if not bool(host[2]):
-            return exact_fallback(fetch_, keys)
-        out = widen_host([host[0], host[1]] + host[4:], host[3], groups, fetch_)
-        return out[0], out[1], 1, (out[2] if keys else None)
+    def select_wide(sub):   # tier 2's width: the whole batch (sub None) or the rows sub
+        return select(s2_w, live=n_live) if sub is None else select(s2_w, sub=sub)
 
+    # (skip_wm keeps no window mins for a tier 2: its failed proof goes to the scan)
+    escalate = _ladder(st1, okq, select_wide, check_exact, exact_fallback,
+                       tier2_exists=tier2_exists,
+                       contain=tuning.contain and B > FQ_CONTAIN and not skip_wm)
     return SweepResult(d1, i1, okq, 0, escalate, settled=st1)
 
 

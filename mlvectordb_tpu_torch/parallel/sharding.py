@@ -8,12 +8,12 @@ of ``mlvectordb_tpu/parallel/sharding.py``.
     package's NamedShardings express.
   * Search: every shard runs the port's exact kNN on its own rows (``sharded_knn``):
     the certified sweep (kernels B1/B3 and B2) over a sweep mirror, else the masked
-    row-major kernel B5, since liveness is shard-local.  Local slots become global ones
-    by adding ``shard * shard_rows``, and the shards' ``[B, k]`` lists fold with
-    ``merge_topk`` in shard order 0..S-1 on the replica's first device, as the JAX
-    package's ``lax.scan`` over the all-gathered candidates does (span
-    ``knn_sharded.merge``), ordered by each shard's float64 keys where JAX orders by f32
-    (ROADMAP C18).
+    row-major kernel B5, since liveness is shard-local, each with its per-query proof.
+    Local slots become global ones by adding ``shard * shard_rows``, and the shards'
+    ``[B, k]`` lists fold with ``merge_topk`` in shard order 0..S-1 on the replica's
+    first device, as the JAX package's ``lax.scan`` over the all-gathered candidates does
+    (span ``knn_sharded.merge``), ordered by each shard's float64 keys where JAX orders by
+    f32 (ROADMAP C18).
 
 ``shard_for_vector``, ``all_shards`` and ``place_database`` are the JAX package's
 surface that its tests drive; the engine's write and search paths do not call them.
@@ -139,9 +139,9 @@ class ShardingManager:
     @staticmethod
     def _local(q, st: DeviceState, valid, prep, *, k, metric, n_live, db_tile):
         """One shard's search, issued without a host sync: the certified sweep over a
-        mirror, else the masked row-major kernel, each deferred (its proof and its
-        settle's flags stay on the device).  JAX's arguments: certify, the heavy program,
-        no residual stream."""
+        mirror, else the masked row-major kernel with its own proof (ROADMAP C20), each
+        deferred (its proof and its settle's flags stay on the device).  JAX's
+        arguments: certify, the heavy program, no residual stream."""
         if st.mirror is not None:
             return exact_knn_t(q, st.mirror, st.data, valid, st.sq_norms, k=k,
                                metric=metric, live_prefix=None, sweep_err=st.sweep_err,
@@ -149,7 +149,7 @@ class ShardingManager:
                                n_live=n_live)
         return exact_knn_fused(q, st.data, valid, st.sq_norms, k=k, metric=metric,
                                db_tile=min(db_tile, st.data.shape[0]), live_prefix=None,
-                               n_live=n_live, defer=True)
+                               n_live=n_live, prep_cache=prep, defer=True)
 
     def sharded_knn(self, q: torch.Tensor, shards, *, k: int, metric: str,
                     n_live: Optional[int] = None, valid=None, prep=None,

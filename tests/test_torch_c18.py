@@ -16,7 +16,8 @@ mode), with inputs made from a seed with numpy:
   * the flag: more than ``spare`` candidates within the band of the k-th, settled again
     wider, give the float64 oracle's set and order at the JAX package's tier, in one more
     counted copy; the scan settles such a query over every row within the band;
-  * ROADMAP C19: the certificate's margin carries no term for the rescan's own rounding.
+  * ROADMAP C19: the certificate's margin covers every f32 term of its inequality,
+    which the JAX package's slack alone does not at l2 for a query small beside the rows.
 """
 
 import jax.numpy as jnp
@@ -376,14 +377,101 @@ def test_c18_scan_flag_settles_over_the_band(monkeypatch, crowd):
 # ------------------------------------------------------------------ ROADMAP C19
 
 
-def test_c19_margin_lacks_the_rescan_band():
-    """The certificate's margin ``err`` (``_fused_t``: the slack Dp 2^-22 |qh| maxd plus
-    the mirror's terms) carries no term for the rescan's own f32 band.  For a query whose
-    norm is small beside the rows', the slack is below the band, and below even one f32
-    rounding of the k-th rank, which the float64 settle still leaves (ROADMAP C19)."""
-    dp, maxd = 128, 20 * np.sqrt(128)
-    for qnorm in (0.01, 0.1):
-        slack = dp * 2.0 ** -22 * (2 * qnorm) * maxd          # l2: qh = 2 |q|
-        band = float(S.f32_band("l2", torch.tensor(qnorm ** 2), torch.tensor(maxd ** 2), dp))
-        assert slack < band
-        assert slack < S.U * maxd ** 2                          # one rounding of sqn - 2q.x
+@pytest.mark.parametrize("qnorm", [0.01, 0.1, 10.0])
+@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
+def test_c19_margin_bounds_every_f32_term(metric, qnorm):
+    """The certificate's margin (``_certify``: ``_fused_t``'s err, the slack Dp 2^-22 |qh|
+    maxd, plus ``_rank_terms``) covers every f32 term of its inequality, here over an f32
+    mirror, whose err has no mirror term and so is the smallest, at a query norm small
+    beside the rows' (|x| ~ 20 sqrt(128)) and one not: for every row y as the k-th and
+    every row x that could beat it (at l2 those within y's ball, |x| <= |q| + sqrt(d_y)),
+    err >= (x's f32 rank above its exact one) + (y's exact rank above the f32 rank the
+    check computes from the settled k-th, fl32 of its float64 distance).
+    So thresh - err >= kth_rank gives d(x) >= d(y).  At l2 the slack alone falls short
+    of that at the small norms (the bias row's f32 |x|^2 and the kernel's add round at
+    u maxd^2), which was ROADMAP C19; JAX's margin is the slack."""
+    dp, n = 128, 2048
+    rng = np.random.default_rng(19)
+    x = torch.from_numpy(rng.normal(0, 20, (n, dp)).astype(np.float32))
+    q = rng.standard_normal(dp)
+    q = torch.from_numpy((q / np.linalg.norm(q) * qnorm).astype(np.float32))[None]
+    sqn = (x * x).sum(-1)                                       # the store's f32 norms
+    prep = T.search_prep(x, torch.ones(n, dtype=torch.bool), sqn, metric=metric,
+                         live_prefix=n, rescan_dtype=torch.float32)
+    qn = (q * q).sum(-1)
+    ql = torch.sqrt(qn)
+    maxd = prep["maxd"]
+    slack = dp * 2.0 ** -22 * ql * (2 if metric == "l2" else 1) * (1 if metric == "cosine"
+                                                                   else maxd)
+    qh = T._fold_query(q, metric, False, torch.float32, False)[0]
+    rank = (x @ qh.T)[:, 0]                                     # the plain B3 rank, f32
+    if prep["scale_row"] is not None:
+        rank = rank * prep["scale_row"]
+    rank = rank + prep["bias_row"]
+    x64, q64 = x.double(), q[0].double()
+    dot = x64 @ q64
+    norm = torch.sqrt((x64 * x64).sum(-1))
+    exact = {"l2": (x64 * x64).sum(-1) - 2 * dot, "ip": -dot, "cosine": -dot / norm}[metric]
+    d64 = S.value64(q64[None, None], x64[None], (q64 @ q64)[None, None], metric)[0]
+    kth = d64.float()                                           # every row as the k-th
+    target = {"l2": d64 - q64 @ q64, "ip": d64 - 1,
+              "cosine": (d64 - 1) * torch.sqrt(q64 @ q64)}[metric]
+    kth_rank = {"l2": kth - qn, "ip": kth - 1.0, "cosine": (kth - 1.0) * ql}[metric]
+    # x's rounding counts where x could beat y at all: at l2 within y's ball,
+    # |x| <= |q| + sqrt(d_y) (``_rank_terms``); the rows here all lie near one norm
+    over = rank.double() - exact
+    if metric == "l2":
+        ball = norm[None, :] <= torch.sqrt(q64 @ q64) + torch.sqrt(d64)[:, None]
+        over = torch.where(ball, over[None, :], -float("inf")).amax(1)
+    else:
+        over = over.max()
+    need = over + (target - kth_rank.double())
+    err = (slack + T._rank_terms(metric, kth, kth_rank, qn, ql, maxd, dp)) * (1 + 2.0 ** -20)
+    assert (err.double() >= need).all()
+    if metric == "l2" and qnorm < 1:
+        assert (slack.double() < need).any()
+
+
+def test_c19_jax_margin_certifies_a_wrong_set():
+    """A wrong set that the JAX package's margin certifies, over an f32 mirror: rows of
+    |x|^2 ~ 40,000 (an f32 ulp of 2^-8) orthogonal to a query of norm 0.01, so each row's
+    rank is its f32 norm alone, whose rounding reorders rows 4e-7 apart in float64.  Row
+    x is the nearest, y the next and z the third, but their f32 norms rank y, z, x: the
+    k = 1 selection of two windows takes y's and z's, and JAX's check (thresh = z's rank,
+    the slack 1.2e-4 below it, above y's f32 rank) proves y at tier 0.  The port's margin
+    carries the bias row's f32 norm (g maxd^2, ROADMAP C19), fails the proof, and returns
+    x from tier 1."""
+    dp, a, m = 128, 40000.0, 20000
+    rng = np.random.default_rng(19)
+    g = rng.standard_normal((m, dp - 1))
+    g *= np.sqrt(a) / np.linalg.norm(g, axis=1, keepdims=True)
+    v = np.zeros((m, dp), np.float32)
+    v[:, 1:] = g
+    e = (v.astype(np.float64) ** 2).sum(1)
+    f = (_t(v) ** 2).sum(-1).numpy().astype(np.float64)     # the store's f32 norms
+    ulp = float(np.spacing(np.float32(a)))
+    low = np.argsort(e)[:m // 10]
+    x = low[np.argmax(f[low] - e[low])]
+    ys = np.flatnonzero((e > e[x]) & (f <= f[x] - 2 * ulp))
+    y = ys[np.argmin(e[ys])]
+    zs = np.flatnonzero((e > e[y]) & (f > f[y]) & (f < f[x]))
+    z = zs[np.argmin(e[zs])]
+    n = 2 * T.SWEEP_TILE
+    far = rng.standard_normal((n, dp - 1))
+    db = np.zeros((n, dp), np.float32)
+    db[:, 1:] = far * (np.sqrt(a + 1000) / np.linalg.norm(far, axis=1, keepdims=True))
+    db[0], db[32], db[64] = v[y], v[z], v[x]                   # windows 0, 1 and 2
+    sq = (_t(db) ** 2).sum(-1).numpy()
+    q = np.zeros((1, dp), np.float32)
+    q[0, 0] = 0.01
+    valid = np.ones(n, bool)
+    d64 = ((db.astype(np.float64) - q) ** 2).sum(1)
+    assert np.argmin(d64) == 64 and d64[64] < d64[0] < d64[32]
+    _, ji, jt = J.exact_knn_pallas_t(
+        jnp.asarray(q), J.to_sweep_layout(jnp.asarray(db), dtype=jnp.float32),
+        jnp.asarray(db), jnp.asarray(valid), jnp.asarray(sq), k=1, metric="l2",
+        live_prefix=n, report_tier=True)
+    _, ti, tt = T.exact_knn_t(_t(q), _t(db), _t(db), _t(valid), _t(sq), k=1, metric="l2",
+                              live_prefix=n, report_tier=True)
+    assert (np.asarray(ji).tolist(), int(jt)) == ([[0]], 0)     # JAX: y, proven
+    assert (ti.tolist(), tt) == ([[64]], 1)                     # the port: x, tier 1

@@ -177,7 +177,8 @@ def test_every_option_is_served():
         bq.bulk_load(rows, "ns", ids=[uuid.UUID(int=i + 1) for i in range(len(rows))])
         hit = bq.find_similar(VectorDTO(rows[7]), top_k=3, namespace="ns", metric="l2")
         assert hit[0]["id"] == uuid.UUID(int=8)
-        assert bq.cert_tier_counts("ns") == ({} if sweep is None else {"fast": 1})
+        # (the row-major path proves its batch too since ROADMAP C20)
+        assert bq.cert_tier_counts("ns") == {"fast": 1}
     tqp = QueryProcessor(EngineConfig(), device="cpu")
     q = [VectorDTO(np.ones(4, np.float32))]
     # filter= is served (tests/test_torch_filters.py): a missing namespace answers []
@@ -227,8 +228,9 @@ def test_scan_backend_config_matches_fused(corpus):
 
 @pytest.mark.parametrize("use_fused", [True, False])
 def test_backend_return_contract(use_fused):
-    # (dist, idx), or (dist, idx, -1) when the caller asks for the certificate tier:
-    # no certificate runs on the row-major path
+    # (dist, idx), or (dist, idx, tier) when the caller asks for the certificate tier:
+    # the row-major path proves the batch at tier 0 (ROADMAP C20), the scan runs no
+    # certificate (-1)
     rng = np.random.default_rng(3)
     n = 8192  # two 4096-row tiles: the fused path, not its scan fallback
     data = torch.from_numpy(rng.standard_normal((n, D), dtype=np.float32))
@@ -239,7 +241,7 @@ def test_backend_return_contract(use_fused):
     kw = dict(k=5, metric="l2", db_tile=8192, live_prefix=n)
     d, i = backend(q, data, valid, sq, **kw)
     d3, i3, tier = backend(q, data, valid, sq, report_tier=True, **kw)
-    assert tier == -1 and torch.equal(i, i3) and torch.equal(d, d3)
+    assert tier == (0 if use_fused else -1) and torch.equal(i, i3) and torch.equal(d, d3)
     assert d.shape == i.shape == (8, 5) and i.dtype == torch.int32
 
 

@@ -350,8 +350,8 @@ def test_c4_row_major_rescan_settles_ties_in_float64(metric):
     """C4 on the row-major path (``exact_knn_fused``, the masked kernel B5's plain version
     and its rescan): each query's pair are its two nearest rows; where the f32 rescan
     gives them the same distance and float64 does not, the row nearer in float64 comes
-    first, so k = 1 returns it (rows tied in float64 too keep their candidate order, the
-    order of their windows' phase-1 minima)."""
+    first, so k = 1 returns it (rows tied in float64 too go by row, as the rescan hands
+    its candidates to the settle in row order, ROADMAP C20)."""
     db, q, pairs, d64 = _c4_pairs(metric, cap=32768)
     valid = np.ones(len(db), bool)
     valid[-5:] = False                                        # the masked kernel

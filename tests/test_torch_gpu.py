@@ -1014,8 +1014,9 @@ def test_same_dtype_sweep_kernel_matches_plain(cuda, metric, r1, b):
 @pytest.mark.parametrize("sweep", [None, "bfloat16"])
 @pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
 def test_bf16_engine_on_cuda_matches_cpu(cuda, sweep, metric):
-    """A bf16 store row-major (B4/B5 over bf16 rows) and with the same-dtype sweep (B1
-    one pass, B2 over bf16 rows): the same ids and tiers on the card as on the CPU."""
+    """A bf16 store row-major (B4/B5 over bf16 rows, each batch proven) and with the
+    same-dtype sweep (B1 one pass, B2 over bf16 rows): the same ids and tiers on the card
+    as on the CPU."""
     rng = np.random.default_rng(37)
     x = rng.standard_normal((20000, 128), dtype=np.float32)
     q = [VectorDTO(v) for v in rng.standard_normal((16, 128), dtype=np.float32)]
@@ -1039,7 +1040,8 @@ def test_bf16_engine_on_cuda_matches_cpu(cuda, sweep, metric):
         out.append((ids, res, res2, launched, qp.cert_tier_counts("ns")))
     (_, c1, c2, _, ccpu), (_, g1, g2, launched, cgpu) = out
     assert launched == ([1, 1, 0, 0, 0] if sweep is None else [0, 0, 2, 0, 2])
-    assert ccpu == cgpu == ({} if sweep is None else {"fast": 2})
+    # the row-major path records the tier it proved too (ROADMAP C20)
+    assert ccpu == cgpu == {"fast": 2}
     for a, b in ((c1, g1), (c2, g2)):
         for ra, rb in zip(a, b):
             assert {r["id"] for r in ra} == {r["id"] for r in rb}
@@ -1632,3 +1634,65 @@ def test_c18_sharded_merge_on_cuda_orders_by_float64(cuda, metric, sweep):
         assert i[b].tolist() == list(pair if d64[b, 0] < d64[b, 1] else pair[::-1]), b
         assert d[b, 0] <= d[b, 1], b
     np.testing.assert_array_equal(i, out["cpu"][1])
+
+
+# ------------------------------------------------------------------ ROADMAP C20
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_c20_near_duplicates_on_cuda_match_cpu(cuda, dtype):
+    """The row-major path's proof on the card (tests/test_torch_c20.py's construction:
+    16,384 x 128 rows N(0, 0.1^2), 64 near duplicates of one c ~ N(0, 10^2), 8 queries
+    c + N(0, 1)): through B4, then B5 after deletes, l2 / ip / cosine, the float64
+    oracle's ids in order on the card as on the CPU, at the same tiers; gaussian queries
+    on the same rows proven at tier 0 in one copy each way."""
+    rng = np.random.default_rng(0)
+    n, d = 16384, 128
+    x = rng.normal(0, 0.1, (n, d)).astype(np.float32)
+    dup = rng.choice(n, 64, replace=False)
+    c = rng.normal(0, 10, d)
+    x[dup] = (c + rng.normal(0, 1e-4, (64, d))).astype(np.float32)
+    q = (c + rng.normal(0, 1, (8, d))).astype(np.float32)
+    ids = [uuid.UUID(int=i + 1) for i in range(n)]
+    rows = torch.from_numpy(x).to(getattr(torch, dtype)).double().numpy()
+    gone = [i for i in range(0, n, 7) if i not in set(dup.tolist())]
+    out = []
+    for device in ("cpu", cuda):
+        qp = QueryProcessor(EngineConfig(dtype=dtype), device=device)
+        qp.bulk_load(x, "ns", ids=ids)
+        before = (fused_knn._window_mins_fast.launches, fused_knn._window_mins_masked.launches)
+        got = []
+        for when in ("fast", "masked"):
+            if when == "masked":
+                qp.delete([ids[i] for i in gone], "ns")
+            for metric in ("l2", "ip", "cosine"):
+                res = qp.find_similar_batch([VectorDTO(v) for v in q], 10, "ns", metric)
+                got.append(np.array([[r["id"].int - 1 for r in rs] for rs in res]))
+        launched = (fused_knn._window_mins_fast.launches - before[0],
+                    fused_knn._window_mins_masked.launches - before[1])
+        out.append((got, qp.cert_tier_counts("ns"), launched))
+    (cgot, ctiers, _), (ggot, gtiers, launched) = out
+    assert ctiers == gtiers and launched == (3, 3)
+    live = np.ones(n, bool)
+    q64 = q.astype(np.float64)
+    for j, (a, b) in enumerate(zip(cgot, ggot)):
+        metric = ("l2", "ip", "cosine")[j % 3]
+        if j == 3:
+            live[gone] = False
+        if metric == "l2":
+            dist = ((q64[:, None] - rows[None]) ** 2).sum(-1)
+        elif metric == "ip":
+            dist = 1.0 - q64 @ rows.T
+        else:
+            dist = 1.0 - (q64 @ rows.T) / np.sqrt(
+                (q64 ** 2).sum(1)[:, None] * (rows ** 2).sum(1)[None])
+        dist[:, ~live] = np.inf
+        want = np.argsort(dist, axis=1, kind="stable")[:, :10]
+        assert (a == want).all() and (b == want).all(), j
+    g = QueryProcessor(EngineConfig(dtype=dtype), device=cuda)
+    g.bulk_load(x, "g", ids=ids)
+    xfer = dict(g.transfer_counts)
+    g.find_similar_batch([VectorDTO(v) for v in rng.normal(0, 0.1, (8, d)).astype(np.float32)],
+                         10, "g", "l2")
+    assert g.cert_tier_counts("g") == {"fast": 1}
+    assert g.transfer_counts["d2h"] - xfer["d2h"] - g.settle_copies == 1

@@ -98,6 +98,47 @@ def test_explain_fused_active_divergence_on_the_cpu(name, key, jax_cpu, port_val
     assert (want[key], got[key]) == (jax_cpu, port_value)
 
 
+MARGIN = ("margin: fast selection tier returned unconditionally; exactness rests on the "
+          "empirical selection margin + benchmark recall gates (certify_exact=False)")
+BY_CONSTRUCTION = "exact by construction (full scan / fused kernel disengaged)"
+
+
+@pytest.mark.parametrize("key, jax_value, port_value", [
+    ("exactness_contract", BY_CONSTRUCTION, MARGIN),
+    ("exact", True, False),
+    ("expected_recall", 1.0, None),
+    ("certificate_dispatch", "exact-scan", "margin"),
+])
+def test_explain_row_major_margin_mode_c20(key, jax_value, port_value):
+    """ROADMAP C20: a mirror-less engine with certify_exact=False serves the row-major
+    kernels' selection unproven.  JAX's explain (told it runs on a TPU, so not C6) calls
+    that "exact by construction"; the port's says it is the margin mode."""
+    jqp, tqp, queries = _pair(dict(initial_capacity=8192, certify_exact=False), n=3000)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax, "default_backend", lambda: "tpu")
+        want = jqp.explain_query(JaxDTO(queries[0]), 10, "ns")
+    got = tqp.explain_query(VectorDTO(queries[0]), 10, "ns")
+    assert (want[key], got[key]) == (jax_value, port_value)
+
+
+def test_explain_row_major_certified_is_proven_c20():
+    """ROADMAP C20: the default engine's explain says "certified" in both packages; the
+    port's row-major search now proves each batch and records its tier, where JAX's
+    proves none and records none."""
+    jqp, tqp, queries = _pair(dict(initial_capacity=8192), n=9000)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax, "default_backend", lambda: "tpu")
+        want = jqp.explain_query(JaxDTO(queries[0]), 10, "ns")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_backend, "jax", types.SimpleNamespace(default_backend=lambda: "tpu"))
+        jqp.find_similar_batch([JaxDTO(q) for q in queries], 10, "ns")
+    got = tqp.explain_query(VectorDTO(queries[0]), 10, "ns")
+    tqp.find_similar_batch([VectorDTO(q) for q in queries], 10, "ns")
+    assert got["exactness_contract"] == want["exactness_contract"]
+    assert got["exactness_contract"].startswith("certified: per-query on-device proof")
+    assert (jqp.cert_tier_counts("ns"), tqp.cert_tier_counts("ns")) == ({}, {"fast": 1})
+
+
 def test_explain_reports_the_served_tiers_and_the_flip():
     _, tqp, queries = _pair(EXPLAIN["bf16_sweep"], n=6000)
     tqp.find_similar_batch([VectorDTO(q) for q in queries], 10, "ns")
