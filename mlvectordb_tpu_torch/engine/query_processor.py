@@ -57,7 +57,7 @@ from ..ops.fused_knn import DB_TILE
 from ..ops.fused_knn_t import SWEEP_TILE, SweepResult, fetch
 from ..store.storage import StorageEngine
 from ..store.vector import Vector
-from ..utils.tracing import trace_span
+from ..utils.tracing import request, trace_span
 from .filters import FilterMaskCache
 
 logger = logging.getLogger(__name__)
@@ -386,13 +386,15 @@ class QueryProcessor:
         deduplication of spill copies in hydration.  Only the live queries are computed
         (nothing on this path reads padded rows); one copy each way."""
         k_fetch = min(min(k, ns.live_count) * ivf.spill, ivf.C * ivf.L)
-        q = np.zeros((q_np.shape[0], ns.dpad), np.float32)
-        q[:, : ns.dim] = q_np
-        with trace_span("knn_ivf", namespace=namespace, k=k_fetch, nprobe=nprobe):
+        with trace_span("knn_upload", namespace=namespace, batch=q_np.shape[0]):
+            q = np.zeros((q_np.shape[0], ns.dpad), np.float32)
+            q[:, : ns.dim] = q_np
             self.transfer_counts["h2d"] += 1
+            q_dev = torch.from_numpy(q).to(self.device)
+        with trace_span("knn_ivf", namespace=namespace, k=k_fetch, nprobe=nprobe):
             # the resolver is bound to the generation that produced the slots
-            dist, idx, resolve = ivf.search_resolved(
-                torch.from_numpy(q).to(self.device), k_fetch, metric, nprobe)
+            dist, idx, resolve = ivf.search_resolved(q_dev, k_fetch, metric, nprobe)
+        with trace_span("knn_fetch", namespace=namespace):
             self.transfer_counts["d2h"] += 1
             dist, idx = fetch(dist, idx)
         return dist, idx, resolve
@@ -492,11 +494,11 @@ class QueryProcessor:
             return empty, empty.astype(np.int32), ns, state.host_tables
         kb = min(self.config.bucket_k(k_eff), state.capacity)
         Bb = self.config.bucket_batch(B)
-        q_pad = np.zeros((Bb, ns.dpad), np.float32)
-        q_pad[:B, : ns.dim] = q_np
-
-        self.transfer_counts["h2d"] += 1
-        q_dev = torch.from_numpy(q_pad).to(self.device)
+        with trace_span("knn_upload", namespace=namespace, batch=Bb):
+            q_pad = np.zeros((Bb, ns.dpad), np.float32)
+            q_pad[:B, : ns.dim] = q_np
+            self.transfer_counts["h2d"] += 1
+            q_dev = torch.from_numpy(q_pad).to(self.device)
         if sharded:
             return self._search_sharded(q_dev, ns, state, namespace, B, Bb, kb, k_eff,
                                         metric, valid if filter else None,
@@ -523,6 +525,7 @@ class QueryProcessor:
             # ONE device->host transfer: the int32 ids travel bit-cast beside the f32
             # distances, and the per-query proof and the settle's flags beside them
             parts = out.parts() if isinstance(out, SweepResult) else out[:2]
+        with trace_span("knn_fetch", namespace=namespace):
             self.transfer_counts["d2h"] += 1
             host = fetch(*parts)
         dist, idx = host[0], host[1]
@@ -530,11 +533,12 @@ class QueryProcessor:
             # the sweep records every batch's tier, the row-major path each batch it
             # proved (ROADMAP C20: the JAX package's proves none and records none)
             record = state.mirror is not None or out.okq is not None
-            # a failed proof escalates, a flagged query is settled wider (ROADMAP C18):
-            # their own copies are counted through fetch
-            dist, idx, tier = out.finish(host, self._counted_fetch, self._settle_fetch)
-            if record:
-                self._record_cert_tier(namespace, tier, light=use_light)
+            with trace_span("knn_finish", namespace=namespace):
+                # a failed proof escalates, a flagged query is settled wider (ROADMAP
+                # C18): their own copies are counted through fetch
+                dist, idx, tier = out.finish(host, self._counted_fetch, self._settle_fetch)
+                if record:
+                    self._record_cert_tier(namespace, tier, light=use_light)
             if use_light and tier == 2:
                 # the light band is too wide for this corpus: switch this (namespace,
                 # metric, variant) to the heavy program.  Eager torch compiles nothing,
@@ -556,9 +560,12 @@ class QueryProcessor:
         with trace_span("knn_sharded", namespace=namespace, k=kb, batch=Bb):
             out = ns.sharded_search(q_dev, kb, metric, valid_override=valid, state=state,
                                     prep=prep, n_live=B, defer=True)
+            parts = out.parts()
+        with trace_span("knn_fetch", namespace=namespace):
             self.transfer_counts["d2h"] += 1
-            host = fetch(*out.parts())
-        dist, idx, _tier = out.finish(host, self._counted_fetch, self._settle_fetch)
+            host = fetch(*parts)
+        with trace_span("knn_finish", namespace=namespace):
+            dist, idx, _tier = out.finish(host, self._counted_fetch, self._settle_fetch)
         return dist[:B, :k_eff], idx[:B, :k_eff], ns, state.host_tables
 
     def _counted_fetch(self, *tensors):
@@ -622,6 +629,7 @@ class QueryProcessor:
     ) -> List[Dict[str, Any]]:
         return self.find_similar_batch([query], top_k, namespace, metric, filter, nprobe)[0]
 
+    @request
     def find_similar_batch(
         self,
         queries: Sequence[VectorDTO],
@@ -635,23 +643,29 @@ class QueryProcessor:
         spec (filters.py); only matching live rows are ranked, and a query gets fewer
         than ``top_k`` results when fewer rows match.  ``nprobe``: serve from the
         namespace's IVF index (build_ivf first), probing that many clusters; without an
-        index, or with a filter, the exact path serves."""
+        index, or with a filter, the exact path serves.  The call's spans follow one
+        another under one ``req``: ``query.prepare``, the search's (``_raw_search``),
+        ``hydrate``, ``query.cache_store``; a hit ends with ``query.prepare``."""
         t0 = time.perf_counter()
-        m = canonical_metric(metric or self.config.default_metric)
-        q_np = np.stack([np.asarray(q.values, np.float32).reshape(-1) for q in queries])
+        with trace_span("query.prepare", namespace=namespace, batch=len(queries)):
+            m = canonical_metric(metric or self.config.default_metric)
+            q_np = np.stack([np.asarray(q.values, np.float32).reshape(-1) for q in queries])
 
-        cache_key = self._result_cache_key(q_np, top_k, namespace, m, filter, nprobe)
-        if cache_key is not None:
-            with self._result_cache_lock:
-                hit = self._result_cache.get(cache_key)
+            cache_key = self._result_cache_key(q_np, top_k, namespace, m, filter, nprobe)
+            hit = None
+            if cache_key is not None:
+                with self._result_cache_lock:
+                    hit = self._result_cache.get(cache_key)
+                    if hit is not None:
+                        self._result_cache.move_to_end(cache_key)  # LRU touch
+                        self._result_cache_hits += 1
                 if hit is not None:
-                    self._result_cache.move_to_end(cache_key)  # LRU touch
-                    self._result_cache_hits += 1
-            if hit is not None:
-                self.stats.record("cache_hit", (time.perf_counter() - t0) * 1e3)
-                # shallow-copy the result dicts so a caller mutating a hit can't
-                # poison later cache reads
-                return [[dict(r) for r in rs] for rs in hit]
+                    self.stats.record("cache_hit", (time.perf_counter() - t0) * 1e3)
+                    # shallow-copy the result dicts so a caller mutating a hit can't
+                    # poison later cache reads
+                    hit = [[dict(r) for r in rs] for rs in hit]
+        if hit is not None:
+            return hit
 
         t_dev = time.perf_counter()
         ns = self.storage.namespace(namespace)
@@ -682,10 +696,11 @@ class QueryProcessor:
         self.stats.record(kind, (time.perf_counter() - t0) * 1e3)
         if cache_key is not None:
             # store a private copy: the caller owns the returned dicts
-            with self._result_cache_lock:
-                while len(self._result_cache) >= self.config.result_cache_size:
-                    self._result_cache.popitem(last=False)  # evict least-recently-used
-                self._result_cache[cache_key] = [[dict(r) for r in rs] for rs in results]
+            with trace_span("query.cache_store", namespace=namespace, batch=len(queries)):
+                with self._result_cache_lock:
+                    while len(self._result_cache) >= self.config.result_cache_size:
+                        self._result_cache.popitem(last=False)  # evict least-recently-used
+                    self._result_cache[cache_key] = [[dict(r) for r in rs] for rs in results]
         return results
 
     def _hydrate_batch(self, user, dist, slots, tables) -> List[List[Dict[str, Any]]]:
@@ -761,6 +776,7 @@ class QueryProcessor:
                 break
         return out
 
+    @request
     def range_search(
         self,
         query: VectorDTO,

@@ -1,5 +1,7 @@
 """Prometheus-format metrics: the port's copy of ``mlvectordb_tpu/utils/metrics.py``
-(framework-free), with the same metric names.
+(framework-free), with the same metric names, and one of the port's own:
+``vectordb_span_cpu_avg_ms``, each phase's mean thread CPU time (``SpanRecorder``'s
+``<name>.cpu`` aggregates, which are not phases).
 
 Scrape-ready counters/gauges assembled from the engine's existing telemetry: query
 counters + latencies (QueryStats), span aggregates (SpanRecorder), storage gauges, and
@@ -10,6 +12,8 @@ needed.
 from __future__ import annotations
 
 from typing import List
+
+from .tracing import CPU_SUFFIX
 
 
 def _esc(s: str) -> str:
@@ -59,6 +63,9 @@ def render_metrics(query_processor, recorder=None) -> str:
 
     if recorder is not None:
         summary = recorder.summary()
+        # a phase's thread CPU time is its own gauge, never a phase of its own
+        cpu = {n[: -len(CPU_SUFFIX)]: a for n, a in summary.items() if n.endswith(CPU_SUFFIX)}
+        summary = {n: a for n, a in summary.items() if not n.endswith(CPU_SUFFIX)}
         metric(
             "vectordb_span_total", "counter", "Engine phase executions",
             [({"phase": n}, a["count"]) for n, a in summary.items()] or [({}, 0)],
@@ -67,5 +74,11 @@ def render_metrics(query_processor, recorder=None) -> str:
             "vectordb_span_avg_ms", "gauge", "Engine phase average duration (ms)",
             [({"phase": n}, round(a["avg_ms"], 4)) for n, a in summary.items()] or [({}, 0)],
         )
+        if cpu:
+            metric(
+                "vectordb_span_cpu_avg_ms", "gauge",
+                "Engine phase average thread CPU time (ms)",
+                [({"phase": n}, round(a["avg_ms"], 4)) for n, a in cpu.items()],
+            )
 
     return "\n".join(lines) + "\n"
