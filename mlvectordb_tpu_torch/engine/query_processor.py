@@ -43,6 +43,7 @@ import threading
 import time
 import uuid as uuid_mod
 from collections import OrderedDict
+from operator import itemgetter
 from typing import Any, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
@@ -83,6 +84,37 @@ def _upload_mask(mask: np.ndarray, device) -> torch.Tensor:
 def _same_device(a: torch.device, b: torch.device) -> bool:
     """One device: the same type, and the same index where both name one."""
     return a.type == b.type and (a.index is None or b.index is None or a.index == b.index)
+
+
+def _pack_results(results: List[List[Dict[str, Any]]]) -> tuple:
+    """A result-cache entry: each query's row count (int32 ``[B]``) and the rows' fields
+    as flat arrays, ``id``/``values``/``metadata`` holding the returned objects by
+    reference and ``score`` as float64 (a Python float round-trips exactly).  numpy
+    arrays are not tracked by the garbage collector, so an entry adds a few untracked
+    objects where nested lists of row dicts add one tracked container per row, which
+    every full collection would walk for as long as the entry lives."""
+    counts = np.fromiter(map(len, results), np.int32, count=len(results))
+    rows = [r for rs in results for r in rs]
+    n = len(rows)
+    ids, values, metas = (np.fromiter(map(itemgetter(key), rows), object, count=n)
+                          for key in ("id", "values", "metadata"))
+    scores = np.fromiter(map(itemgetter("score"), rows), np.float64, count=n)
+    return counts, ids, values, metas, scores
+
+
+def _unpack_results(entry: tuple) -> List[List[Dict[str, Any]]]:
+    """New per-query lists of new row dicts from a ``_pack_results`` entry: the keys in
+    hydration's order and the stored objects, so a caller mutating a hit's rows or lists
+    changes no later hit."""
+    counts, ids, values, metas, scores = entry
+    rows = [{"id": i, "values": v, "metadata": m, "score": sc}
+            for i, v, m, sc in zip(ids.tolist(), values.tolist(), metas.tolist(),
+                                   scores.tolist())]
+    out, pos = [], 0
+    for c in counts.tolist():
+        out.append(rows[pos : pos + c])
+        pos += c
+    return out
 
 
 class QueryStats:
@@ -147,9 +179,11 @@ class QueryProcessor:
         self.stats = QueryStats()
         self._write_lock = threading.RLock()  # single-writer discipline
         # query-result cache, keyed by namespace VERSION (any mutation invalidates
-        # implicitly); stores the final hydrated result lists, LRU-evicted
-        self._result_cache: "OrderedDict[Any, List[List[Dict[str, Any]]]]" = OrderedDict()
+        # implicitly); stores the final hydrated results as ``_pack_results`` entries,
+        # LRU-evicted
+        self._result_cache: "OrderedDict[Any, tuple]" = OrderedDict()
         self._result_cache_hits = 0
+        self._result_cache_stores = 0
         self._result_cache_lock = threading.Lock()
         # host<->device transfer audit counters: the serving path does exactly ONE
         # host->device (the query batch) and ONE device->host ((dist, idx) fetched
@@ -661,9 +695,7 @@ class QueryProcessor:
                         self._result_cache_hits += 1
                 if hit is not None:
                     self.stats.record("cache_hit", (time.perf_counter() - t0) * 1e3)
-                    # shallow-copy the result dicts so a caller mutating a hit can't
-                    # poison later cache reads
-                    hit = [[dict(r) for r in rs] for rs in hit]
+                    hit = _unpack_results(hit)
         if hit is not None:
             return hit
 
@@ -695,12 +727,14 @@ class QueryProcessor:
         kind = "hybrid" if filter else ("ivf" if nprobe is not None else "knn")
         self.stats.record(kind, (time.perf_counter() - t0) * 1e3)
         if cache_key is not None:
-            # store a private copy: the caller owns the returned dicts
+            # the entry holds the rows' objects, not the caller's dicts and lists
             with trace_span("query.cache_store", namespace=namespace, batch=len(queries)):
+                entry = _pack_results(results)
                 with self._result_cache_lock:
                     while len(self._result_cache) >= self.config.result_cache_size:
                         self._result_cache.popitem(last=False)  # evict least-recently-used
-                    self._result_cache[cache_key] = [[dict(r) for r in rs] for rs in results]
+                    self._result_cache[cache_key] = entry
+                    self._result_cache_stores += 1
         return results
 
     def _hydrate_batch(self, user, dist, slots, tables) -> List[List[Dict[str, Any]]]:
@@ -907,6 +941,10 @@ class QueryProcessor:
                 out["exactness"]["tiers_by_namespace"] = {
                     ns: dict(d) for ns, d in self._cert_tiers.items()
                 }
+        with self._result_cache_lock:
+            out["result_cache"] = {"entries": len(self._result_cache),
+                                   "stores": self._result_cache_stores,
+                                   "hits": self._result_cache_hits}
         return out
 
     def warmup(

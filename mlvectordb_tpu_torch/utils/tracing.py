@@ -12,7 +12,7 @@ that follow one another: ``query.prepare`` (stacking, the result-cache key and l
 ``knn_ivf`` (host issuing of the search, up to the tensors ready for the copy back),
 ``knn_fetch`` (the one copy back: waiting for the device, the copy, retaking the
 interpreter lock), ``knn_finish`` (escalation and the wider settle) and
-``query.cache_store`` (the result cache's copy).  Beside ``name``, ``start`` (wall
+``query.cache_store`` (packing the result-cache entry).  Beside ``name``, ``start`` (wall
 seconds) and ``elapsed_ms``, each recorded span carries ``req`` (the id of the
 ``request`` call it ran in, or None), ``parent`` (the innermost span open around it on
 its thread, or None), ``tid`` (the thread's native id, as a profiler's Chrome trace

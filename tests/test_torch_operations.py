@@ -8,6 +8,7 @@ device (the kernels' plain versions on the CPU), so its ``fused_active`` is the 
 and the capacity alone, and it names its fused backend ``exact_knn_fused`` where JAX's
 is ``exact_knn_pallas``.  With the JAX package told it runs on a TPU every other key is
 equal; without that, the keys that follow ``fused_active`` differ as recorded.
+``get_statistics`` also carries the port's ``result_cache`` counters, which JAX lacks.
 """
 
 import inspect
@@ -167,7 +168,9 @@ def test_statistics_match_jax():
     _calls(jqp, JaxDTO, queries)
     _calls(tqp, VectorDTO, queries)
     want, got = jqp.get_statistics(), tqp.get_statistics()
-    assert got.keys() == want.keys()
+    # the port adds its result cache's counters; every other key is JAX's
+    assert got.keys() == want.keys() | {"result_cache"}
+    assert got["result_cache"] == {"entries": 2, "stores": 2, "hits": 1}
     assert got["queries_by_type"] == want["queries_by_type"] == {
         "knn": 2, "cache_hit": 1, "hybrid": 1, "range": 2, "metadata": 1}
     assert got["total_queries"] == want["total_queries"] == 7
