@@ -55,7 +55,7 @@ from ..interfaces.vector import VectorDTO
 from ..ops.backend import knn_backend
 from ..ops.distances import MASKED
 from ..ops.fused_knn import DB_TILE
-from ..ops.fused_knn_t import SWEEP_TILE, SweepResult, fetch
+from ..ops.fused_knn_t import SWEEP_TILE, SweepResult, fetch, kernel_counts
 from ..store.storage import StorageEngine
 from ..store.vector import Vector
 from ..utils.tracing import request, trace_span
@@ -626,6 +626,14 @@ class QueryProcessor:
         with self._cert_lock:
             return dict(self._cert_tiers.get(namespace, {}))
 
+    def kernel_counts(self) -> Dict[str, Dict[str, int]]:
+        """CUDA launches of the certified sweep's kernels, B1/B3 (``sweep_min``: light
+        and heavy, zero-query fills, query columns) and B2 (``gather_score``: candidate
+        rows scored), beside ``transfer_counts``.  The counters are the process's, so they
+        count every processor's searches; CPU tensors run the plain versions, which count
+        nothing (``ops.fused_knn_t.kernel_counts``)."""
+        return kernel_counts()
+
     def _use_light(self, namespace: str, state, metric: str = "l2",
                    masked: bool = False) -> bool:
         """Adaptive certified dispatch (config.adaptive_certify): serve a namespace with
@@ -945,6 +953,7 @@ class QueryProcessor:
             out["result_cache"] = {"entries": len(self._result_cache),
                                    "stores": self._result_cache_stores,
                                    "hits": self._result_cache_hits}
+        out["kernels"] = self.kernel_counts()
         return out
 
     def warmup(

@@ -33,6 +33,8 @@ same-dtype sweep's norm gap (ROADMAP C2).  A search runs:
              the per-query certificate ``okq``.
   escalate — only after a proof failed: the contained or widened selection (tier 1), then
              the exact scan (tier 2).
+Phase 1, phase 2 and the proof run under the spans ``sweep.phase1``, ``sweep.rescan`` and
+``sweep.proof`` (``utils/tracing``); the kernels' launches are counted (``kernel_counts``).
 
 Layout.  The mirror is ROW-major ``[cap, Dp]``: window f is rows ``[f*r1, (f+1)*r1)``,
 the same window set as the JAX package's window-major ``[Dp, cap]`` layout, which exists
@@ -62,7 +64,8 @@ program.
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple
+import threading
+from typing import Callable, Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -71,6 +74,7 @@ from . import _kernels
 from .distances import MASKED, require_f32_matmul
 from .settle import U, Settled, widen_host
 from .topk import exact_knn
+from ..utils.tracing import trace_span
 
 SWEEP_TILE = 4096           # rows per tile of the tile-major window-min output
 R1MAX = 32                  # widest window
@@ -463,7 +467,7 @@ def _zero_query_outputs(qh, qres, mirror, resid, rscale, scale, bias, *, qe, eb_
         outs = _window_mins_t_ref(*args, **kw)
     else:
         outs = _sweep_launch(*args, **kw, n_c=LIVE_STEP)
-        _window_mins_t.launches_zero += 1
+        _count(_window_mins_t, _B1_LOCK, launches_zero=1)
     axes = _query_axes(opts["transposed"])
     hit = tuple(None if o is None else o.narrow(ax, 0, 1).clone() for o, ax in zip(outs, axes))
     if zero_cache is not None:
@@ -557,14 +561,10 @@ def _window_mins_t_kernel(qh, qres, mirror, resid, rscale, scale, bias, *, r1,
     B = qh.shape[0]
     outs = _sweep_launch(qh, qres, mirror, resid, rscale, scale, bias, qe=qe,
                          eb_rows=eb_rows, n_c=n_c, **opts)
-    fn = _window_mins_t
-    fn.launches += 1
-    fn.cols += n_c
-    fn.launches_bp += int(not transposed)
-    fn.launches_heavy += int(qres is not None or resid is not None)
-    fn.launches_topm += int(bool(emit_topm))
-    fn.launches_int8 += int(mirror.dtype == torch.int8)
-    fn.launches_f32 += int(mirror.dtype == torch.float32)
+    _count(_window_mins_t, _B1_LOCK, launches=1, cols=n_c, launches_bp=int(not transposed),
+           launches_heavy=int(qres is not None or resid is not None),
+           launches_topm=int(bool(emit_topm)), launches_int8=int(mirror.dtype == torch.int8),
+           launches_f32=int(mirror.dtype == torch.float32))
     if zero is not None:
         for o, z, ax in zip(outs, zero, _query_axes(transposed)):
             if o is not None:
@@ -573,10 +573,20 @@ def _window_mins_t_kernel(qh, qres, mirror, resid, rscale, scale, bias, *, r1,
     return outs
 
 
+def _count(fn, lock, **adds) -> None:
+    """Add ``adds`` to the counters kept as ``fn``'s attributes, under ``lock``: clients
+    on several threads launch at once, and ``+=`` on an attribute is a read and a write
+    that another thread's update can fall between."""
+    with lock:
+        for name, n in adds.items():
+            setattr(fn, name, getattr(fn, name) + n)
+
+
 # kernel launches so far: all variants (not the zero-query fills), the heavy ones, those
 # that emitted the top-m pool, those over an int8 or an f32 mirror, those that wrote the
 # [B, P] form; the query columns those launches computed; and the launches that filled a
-# zero-query cache (a run resets and reads these)
+# zero-query cache (a run resets and reads these; updated under _B1_LOCK)
+_B1_LOCK = threading.Lock()
 _window_mins_t.launches = 0
 _window_mins_t.cols = 0
 _window_mins_t.launches_bp = 0
@@ -655,14 +665,38 @@ def _gather_score(q32, data, f, *, r1, n_live=None):
         )
     if rc != 0:
         raise RuntimeError(f"gather_score launch failed: cudaError {rc}")
-    _gather_score.launches += 1
-    _gather_score.launches_bf16 += int(data.dtype == torch.bfloat16)
-    _gather_score.rows += n_c * s1 * r1
+    _count(_gather_score, _B2_LOCK, launches=1, launches_bf16=int(data.dtype == torch.bfloat16),
+           rows=n_c * s1 * r1)
     return out[0], out[1]
 
 
 # launches so far, those over bf16 rows, and the candidate rows the launches computed
+# (updated under _B2_LOCK)
+_B2_LOCK = threading.Lock()
 _gather_score.launches = _gather_score.launches_bf16 = _gather_score.rows = 0
+
+# kernel_counts()'s names for the counters: B1/B3's, then B2's
+_B1_COUNTS = {"launches": "launches", "heavy": "launches_heavy", "topm": "launches_topm",
+              "int8": "launches_int8", "f32": "launches_f32", "bp": "launches_bp",
+              "cols": "cols", "zero_query": "launches_zero"}
+_B2_COUNTS = {"launches": "launches", "bf16": "launches_bf16", "rows": "rows"}
+
+
+def kernel_counts() -> Dict[str, Dict[str, int]]:
+    """The process's counts of CUDA launches of kernels B1/B3 (``sweep_min``) and B2
+    (``gather_score``), each kernel's read at one moment under its lock.  ``sweep_min``:
+    ``launches`` (every variant, not the zero-query fills), ``light`` (one pass) and
+    ``heavy`` (with the query's residual or the residual codes), ``topm`` (emitted the
+    top-m pool), ``int8`` / ``f32`` (over such a mirror), ``bp`` (wrote the ``[B, P]``
+    form), ``cols`` (query columns computed), ``zero_query`` (fills of a zero-query
+    cache).  ``gather_score``: ``launches``, ``bf16`` (over bf16 rows), ``rows``
+    (candidate rows scored).  The plain versions, which CPU tensors run, count nothing."""
+    with _B1_LOCK:
+        b1 = {k: int(getattr(_window_mins_t, a)) for k, a in _B1_COUNTS.items()}
+    with _B2_LOCK:
+        b2 = {k: int(getattr(_gather_score, a)) for k, a in _B2_COUNTS.items()}
+    b1["light"] = b1["launches"] - b1["heavy"]
+    return {"sweep_min": b1, "gather_score": b2}
 
 
 # ------------------------------------------------------------------ phase 2 selection
@@ -1269,119 +1303,125 @@ def _fused_t(q, mirror, rescan, valid, sq_norms, hw, resid, prep, *, k, metric, 
     cap, Dp = mirror.shape
     B = q.shape[0]
     g = R1MAX // r1
-    q32 = q.float()
-    qn_row = (q32 * q32).sum(-1)
-    # compensated query: qh + qres represents the folded query to ~2^-18; light skips it
-    qh, qres, qres_f32 = _fold_query(q32, metric, light, mirror.dtype,
-                                     _mixed(mirror.dtype, rescan.dtype))
+    # each phase is a span under the caller's ``knn_kernel``; escalation runs later,
+    # under ``knn_finish``
+    with trace_span("sweep.phase1"):
+        q32 = q.float()
+        qn_row = (q32 * q32).sum(-1)
+        # compensated query: qh + qres represents the folded query to ~2^-18; light skips it
+        qh, qres, qres_f32 = _fold_query(q32, metric, light, mirror.dtype,
+                                         _mixed(mirror.dtype, rescan.dtype))
 
-    P_all = cap // r1
-    if not certify:
-        s1_w = min(2 * k, k + 16)
-    elif any(isinstance(t, tuple) for t in err_tags):
-        s1_w = max(64, 2 * k + 48)
-    else:
-        s1_w = min(2 * k, k + 16 + k // 8)
-    s1_w = min(s1_w, P_all)
-
-    # the per-tile top-m pool (pallas_knn_t.py:1112-1165): m covers 4x the tier-1 width
-    # per tile; k <= 32 at r1 = 32 keeps the block-min selection (JAX's MLVDB_TOPM_BM=0)
-    m_base = 8 if k <= 128 else 16
-    nt_all = cap // SWEEP_TILE
-    m_need = -(-4 * s1_w // max(nt_all, 1))
-    m_top = max(m_base, -(-m_need // 2) * 2)
-    out_w_all = g * WLANE
-    bm_eligible = k <= 32 and r1 == R1MAX and P_all % WLANE == 0 and P_all // WLANE > 1
-    use_topm = (certify and tuning.topm_enable and not bm_eligible
-                and P_all % WLANE == 0 and nt_all > 1 and m_top * g <= 32
-                and nt_all * m_top >= 4 * s1_w and out_w_all * out_w_all <= (1 << 24))
-    # the JAX package's layout choice; the port always writes tile-major, which the
-    # selection indexes as JAX's [B, P] form, so it decides only the gates below (probe
-    # B6 timed both forms of the kernel: PERF.md)
-    transposed = (k <= 128 or use_topm) and P_all % WLANE == 0 and P_all // WLANE > 1
-    use_topm = use_topm and transposed
-    r2 = WLANE if (transposed and k <= 32) else R2
-    emit_bm = transposed and r2 == WLANE and g == 1 and not use_topm
-    s2_w = min(8 * s1_w, P_all)
-    tier2_exists = s2_w > s1_w and B * s2_w * r1 <= cap
-    # the pool serves tier 1 and no tier 2 would read the window mins: pool only
-    skip_wm = use_topm and not tier2_exists
-
-    q_l2 = torch.sqrt(qn_row)
-    qh_l2 = q_l2 * (2.0 if metric == "l2" else 1.0)
-    maxd = prep["maxd"]
-    slack = (Dp * 2.0 ** -22) * qh_l2 * (1.0 if metric == "cosine" else maxd)
-    qres_l2 = torch.sqrt((qres_f32 * qres_f32).sum(-1))
-    q_scales = {"qh": qh_l2, "qres": qres_l2, "one": torch.ones_like(qh_l2)}
-    eb_rows = tuple(prep["eb_rows"])
-    qe = torch.stack([q_scales[t] for t in q_tags], dim=1).contiguous() if eb_rows else None
-    err = slack
-    for t in err_tags:
-        if t == "qres":
-            err = err + qres_l2
+        P_all = cap // r1
+        if not certify:
+            s1_w = min(2 * k, k + 16)
+        elif any(isinstance(t, tuple) for t in err_tags):
+            s1_w = max(64, 2 * k + 48)
         else:
-            err = err + t[1] * qh_l2 * (1.0 if metric == "cosine" else maxd)
+            s1_w = min(2 * k, k + 16 + k // 8)
+        s1_w = min(s1_w, P_all)
 
-    def check_exact(best_d, thresh, sel=None):
-        """Per query: every window not rescanned ranks at least ``thresh - err``, above
-        the k-th's rank (``_certify``; ``err``: phase 1's sums and the mirror's terms)."""
-        if sel is None:
-            return _certify(best_d[:, k - 1], thresh, err, qn_row, q_l2, maxd, metric, Dp)
-        return _certify(best_d[:, k - 1], thresh, err[sel], qn_row[sel], q_l2[sel], maxd,
-                        metric, Dp)
+        # the per-tile top-m pool (pallas_knn_t.py:1112-1165): m covers 4x the tier-1 width
+        # per tile; k <= 32 at r1 = 32 keeps the block-min selection (JAX's MLVDB_TOPM_BM=0)
+        m_base = 8 if k <= 128 else 16
+        nt_all = cap // SWEEP_TILE
+        m_need = -(-4 * s1_w // max(nt_all, 1))
+        m_top = max(m_base, -(-m_need // 2) * 2)
+        out_w_all = g * WLANE
+        bm_eligible = k <= 32 and r1 == R1MAX and P_all % WLANE == 0 and P_all // WLANE > 1
+        use_topm = (certify and tuning.topm_enable and not bm_eligible
+                    and P_all % WLANE == 0 and nt_all > 1 and m_top * g <= 32
+                    and nt_all * m_top >= 4 * s1_w and out_w_all * out_w_all <= (1 << 24))
+        # the JAX package's layout choice; the port always writes tile-major, which the
+        # selection indexes as JAX's [B, P] form, so it decides only the gates below (probe
+        # B6 timed both forms of the kernel: PERF.md)
+        transposed = (k <= 128 or use_topm) and P_all % WLANE == 0 and P_all // WLANE > 1
+        use_topm = use_topm and transposed
+        r2 = WLANE if (transposed and k <= 32) else R2
+        emit_bm = transposed and r2 == WLANE and g == 1 and not use_topm
+        s2_w = min(8 * s1_w, P_all)
+        tier2_exists = s2_w > s1_w and B * s2_w * r1 <= cap
+        # the pool serves tier 1 and no tier 2 would read the window mins: pool only
+        skip_wm = use_topm and not tier2_exists
 
-    wmin_t, bm, topm = _window_mins_t(
-        qh, qres, mirror, resid if use_resid else None, prep["rscale_row"],
-        prep["scale_row"], prep["bias_row"], r1=r1, emit_block_mins=emit_bm,
-        emit_topm=m_top if use_topm else 0, skip_wm=skip_wm, qe=qe, eb_rows=eb_rows,
-        n_live=n_live, zero_cache=None if n_live is None else prep.setdefault("zero_query", {}),
-    )
-    wmin2_pre = None if bm is None else bm.T.contiguous()    # [B, nt] block mins
-    maskadd = torch.where(valid, 0.0, float(MASKED)).to(torch.float32) if masked else None
-    qn_col = qn_row[:, None]
+        q_l2 = torch.sqrt(qn_row)
+        qh_l2 = q_l2 * (2.0 if metric == "l2" else 1.0)
+        maxd = prep["maxd"]
+        slack = (Dp * 2.0 ** -22) * qh_l2 * (1.0 if metric == "cosine" else maxd)
+        qres_l2 = torch.sqrt((qres_f32 * qres_f32).sum(-1))
+        q_scales = {"qh": qh_l2, "qres": qres_l2, "one": torch.ones_like(qh_l2)}
+        eb_rows = tuple(prep["eb_rows"])
+        qe = torch.stack([q_scales[t] for t in q_tags], dim=1).contiguous() if eb_rows else None
+        err = slack
+        for t in err_tags:
+            if t == "qres":
+                err = err + qres_l2
+            else:
+                err = err + t[1] * qh_l2 * (1.0 if metric == "cosine" else maxd)
 
-    def select(s_sel, sub=slice(None), live=None):
-        """Selection and rescan at width s_sel for the queries ``sub`` (``live``: the
-        rescan's live count, for the whole batch only): ``(Settled, thresh)``."""
-        return _select_and_rescan(
-            q32[sub], qn_col[sub], rescan, maskadd, hw, wmin_t[:, sub, :], k=k,
-            metric=metric, r1=r1, masked=masked, s_sel=s_sel, r2=r2, spec_l2=certify,
-            wmin2=None if wmin2_pre is None else wmin2_pre[sub], tuning=tuning,
-            n_live=live)
+        def check_exact(best_d, thresh, sel=None):
+            """Per query: every window not rescanned ranks at least ``thresh - err``, above
+            the k-th's rank (``_certify``; ``err``: phase 1's sums and the mirror's terms)."""
+            if sel is None:
+                return _certify(best_d[:, k - 1], thresh, err, qn_row, q_l2, maxd, metric, Dp)
+            return _certify(best_d[:, k - 1], thresh, err[sel], qn_row[sel], q_l2[sel], maxd,
+                            metric, Dp)
 
-    if use_topm:
-        # tier 1 from the pool: a tile hiding more than m candidates lowers thresh
-        st1, th1 = _select_topm_and_rescan(
-            q32, qn_col, rescan, maskadd, hw, topm, k=k, metric=metric, r1=r1,
-            masked=masked, s_sel=s1_w, m=m_top, tuning=tuning, n_live=n_live)
-    else:
-        st1, th1 = select(s1_w, live=n_live)
-    d1, i1 = st1.dist, st1.idx
-    if not certify:
-        return SweepResult(d1, i1, None, 0, settled=st1)
-    okq = check_exact(d1, th1)                            # [B] per-query proof
+        wmin_t, bm, topm = _window_mins_t(
+            qh, qres, mirror, resid if use_resid else None, prep["rscale_row"],
+            prep["scale_row"], prep["bias_row"], r1=r1, emit_block_mins=emit_bm,
+            emit_topm=m_top if use_topm else 0, skip_wm=skip_wm, qe=qe, eb_rows=eb_rows,
+            n_live=n_live,
+            zero_cache=None if n_live is None else prep.setdefault("zero_query", {}),
+        )
+    with trace_span("sweep.rescan"):
+        wmin2_pre = None if bm is None else bm.T.contiguous()    # [B, nt] block mins
+        maskadd = torch.where(valid, 0.0, float(MASKED)).to(torch.float32) if masked else None
+        qn_col = qn_row[:, None]
 
-    def exact_fallback(fetch_, keys):
-        # the scan scores the stored rows as the rescan does, with the f32 query (over a
-        # bf16 store ROADMAP C15: the JAX package ranks bf16(q) there); it settles its
-        # own flags
-        d, i, key = exact_knn(q32, rescan, valid, sq_norms.float(), k=k, metric=metric,
-                              db_tile=8 * SWEEP_TILE, round_query=False, with_key=True,
-                              n_live=n_live)
-        if keys:
-            d, i, key = fetch_(d, i, key)
-            return d, i, 2, key
-        d, i = fetch_(d, i)
-        return d, i, 2, None
+        def select(s_sel, sub=slice(None), live=None):
+            """Selection and rescan at width s_sel for the queries ``sub`` (``live``: the
+            rescan's live count, for the whole batch only): ``(Settled, thresh)``."""
+            return _select_and_rescan(
+                q32[sub], qn_col[sub], rescan, maskadd, hw, wmin_t[:, sub, :], k=k,
+                metric=metric, r1=r1, masked=masked, s_sel=s_sel, r2=r2, spec_l2=certify,
+                wmin2=None if wmin2_pre is None else wmin2_pre[sub], tuning=tuning,
+                n_live=live)
 
-    def select_wide(sub):   # tier 2's width: the whole batch (sub None) or the rows sub
-        return select(s2_w, live=n_live) if sub is None else select(s2_w, sub=sub)
+        if use_topm:
+            # tier 1 from the pool: a tile hiding more than m candidates lowers thresh
+            st1, th1 = _select_topm_and_rescan(
+                q32, qn_col, rescan, maskadd, hw, topm, k=k, metric=metric, r1=r1,
+                masked=masked, s_sel=s1_w, m=m_top, tuning=tuning, n_live=n_live)
+        else:
+            st1, th1 = select(s1_w, live=n_live)
+        d1, i1 = st1.dist, st1.idx
+    with trace_span("sweep.proof"):
+        if not certify:
+            return SweepResult(d1, i1, None, 0, settled=st1)
+        okq = check_exact(d1, th1)                            # [B] per-query proof
 
-    # (skip_wm keeps no window mins for a tier 2: its failed proof goes to the scan)
-    escalate = _ladder(st1, okq, select_wide, check_exact, exact_fallback,
-                       tier2_exists=tier2_exists,
-                       contain=tuning.contain and B > FQ_CONTAIN and not skip_wm)
-    return SweepResult(d1, i1, okq, 0, escalate, settled=st1)
+        def exact_fallback(fetch_, keys):
+            # the scan scores the stored rows as the rescan does, with the f32 query (over a
+            # bf16 store ROADMAP C15: the JAX package ranks bf16(q) there); it settles its
+            # own flags
+            d, i, key = exact_knn(q32, rescan, valid, sq_norms.float(), k=k, metric=metric,
+                                  db_tile=8 * SWEEP_TILE, round_query=False, with_key=True,
+                                  n_live=n_live)
+            if keys:
+                d, i, key = fetch_(d, i, key)
+                return d, i, 2, key
+            d, i = fetch_(d, i)
+            return d, i, 2, None
+
+        def select_wide(sub):   # tier 2's width: the whole batch (sub None) or the rows sub
+            return select(s2_w, live=n_live) if sub is None else select(s2_w, sub=sub)
+
+        # (skip_wm keeps no window mins for a tier 2: its failed proof goes to the scan)
+        escalate = _ladder(st1, okq, select_wide, check_exact, exact_fallback,
+                           tier2_exists=tier2_exists,
+                           contain=tuning.contain and B > FQ_CONTAIN and not skip_wm)
+        return SweepResult(d1, i1, okq, 0, escalate, settled=st1)
 
 
 def exact_knn_t(q, mirror, rescan_data, valid, sq_norms, *, k, metric, live_prefix=None,

@@ -12,12 +12,15 @@ that follow one another: ``query.prepare`` (stacking, the result-cache key and l
 ``knn_ivf`` (host issuing of the search, up to the tensors ready for the copy back),
 ``knn_fetch`` (the one copy back: waiting for the device, the copy, retaking the
 interpreter lock), ``knn_finish`` (escalation and the wider settle) and
-``query.cache_store`` (packing the result-cache entry).  Beside ``name``, ``start`` (wall
-seconds) and ``elapsed_ms``, each recorded span carries ``req`` (the id of the
-``request`` call it ran in, or None), ``parent`` (the innermost span open around it on
-its thread, or None), ``tid`` (the thread's native id, as a profiler's Chrome trace
-names threads) and ``cpu_ms`` (the thread's CPU time over the span).  ``summary()`` adds
-``<name>.cpu``, the summed CPU time of each span name, to the per-name wall aggregates.
+``query.cache_store`` (packing the result-cache entry).  The certified sweep cuts its
+``knn_kernel`` into ``sweep.phase1`` (the folded query, its error terms, kernel B1's
+launch), ``sweep.rescan`` (the selection, kernel B2, the settle) and ``sweep.proof``.
+Beside ``name``, ``start`` (wall seconds) and ``elapsed_ms``, each recorded span carries
+``req`` (the id of the ``request`` call it ran in, or None), ``parent`` (the innermost
+span open around it on its thread, or None), ``tid`` (the thread's native id, as a
+profiler's Chrome trace names threads) and ``cpu_ms`` (the thread's CPU time over the
+span).  ``summary()`` adds ``<name>.cpu``, the summed CPU time of each span name, to the
+per-name wall aggregates.
 """
 
 from __future__ import annotations

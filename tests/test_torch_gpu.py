@@ -259,6 +259,35 @@ def test_sweep_engine_on_cuda_matches_cpu(cuda, metric):
                                        sorted(r["score"] for r in rb), rtol=1e-4, atol=1e-4)
 
 
+def test_kernel_counts_of_one_512_query_batch(cuda):
+    """``kernel_counts()`` over one 512-query k=10 batch on a bf16 sweep store at tier 0:
+    one light B1 launch, and one B2 launch over 512 x 32 x 32 rows (the engine searches
+    k's bucket, 16: s1_w = min(2 * 16, 16 + 16 + 16 // 8) = 32 windows of r1 = 32 rows).
+    With the namespace switched to the heavy program, the batch's B1 launch is heavy."""
+    rng = np.random.default_rng(23)
+    qp = QueryProcessor(EngineConfig(sweep_dtype="bfloat16"), device=cuda)
+    qp.bulk_load(rng.standard_normal((131072, 128), dtype=np.float32), "ns")
+
+    def batch():
+        qs = rng.standard_normal((512, 128), dtype=np.float32)
+        before = qp.kernel_counts()
+        qp.find_similar_batch([VectorDTO(v) for v in qs], 10, "ns", "l2")
+        torch.cuda.synchronize()
+        after = qp.kernel_counts()
+        return {kern: {k: v - before[kern][k] for k, v in c.items()} for kern, c in after.items()}
+
+    for program, want_tiers in (("light", {"light_fast": 1}),
+                                ("heavy", {"light_fast": 1, "fast": 1})):
+        if program == "heavy":
+            qp._cert_mode[("ns", "l2", False)] = "heavy"
+        got = batch()
+        assert qp.cert_tier_counts("ns") == want_tiers
+        b1 = got["sweep_min"]
+        assert (b1["launches"], b1[program], b1["zero_query"], b1["cols"]) == (1, 1, 0, 512)
+        assert got["gather_score"] == {"launches": 1, "bf16": 0, "rows": 512 * 32 * 32}
+    assert qp.get_statistics()["kernels"] == qp.kernel_counts()
+
+
 @pytest.mark.parametrize("light", [True, False])
 def test_sweep_tiers_on_cuda_match_cpu(cuda, light):
     """The same certified search on the CPU (plain versions) and on the card (kernels):

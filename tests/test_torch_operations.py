@@ -8,7 +8,8 @@ device (the kernels' plain versions on the CPU), so its ``fused_active`` is the 
 and the capacity alone, and it names its fused backend ``exact_knn_fused`` where JAX's
 is ``exact_knn_pallas``.  With the JAX package told it runs on a TPU every other key is
 equal; without that, the keys that follow ``fused_active`` differ as recorded.
-``get_statistics`` also carries the port's ``result_cache`` counters, which JAX lacks.
+``get_statistics`` also carries the port's ``result_cache`` and ``kernels`` counters, which
+JAX lacks.
 """
 
 import inspect
@@ -168,9 +169,11 @@ def test_statistics_match_jax():
     _calls(jqp, JaxDTO, queries)
     _calls(tqp, VectorDTO, queries)
     want, got = jqp.get_statistics(), tqp.get_statistics()
-    # the port adds its result cache's counters; every other key is JAX's
-    assert got.keys() == want.keys() | {"result_cache"}
+    # the port adds its result cache's counters and its kernels' launch counters (the
+    # plain versions on the CPU count none); every other key is JAX's
+    assert got.keys() == want.keys() | {"result_cache", "kernels"}
     assert got["result_cache"] == {"entries": 2, "stores": 2, "hits": 1}
+    assert got["kernels"] == tqp.kernel_counts()
     assert got["queries_by_type"] == want["queries_by_type"] == {
         "knn": 2, "cache_hit": 1, "hybrid": 1, "range": 2, "metadata": 1}
     assert got["total_queries"] == want["total_queries"] == 7
